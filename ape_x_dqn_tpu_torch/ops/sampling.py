@@ -1,0 +1,145 @@
+"""Stratified inverse-CDF sampling over priorities: CUDA kernel + plain version.
+
+Port of ``ape_x_dqn_tpu/ops/pallas/sampling.py``: the Pallas TPU kernel
+(``_kernel`` / ``_pallas_sample``, ``pallas_call`` at :118) and its XLA
+spellings ``_two_level_sample`` (the JAX default) and ``_xla_sample`` all
+compute one function: for each target mass t_b, the first index i whose
+inclusive prefix sum exceeds t_b (searchsorted ``side="right"``), clamped
+to C−1.
+
+* ``sample_indices_reference`` — the plain PyTorch version
+  (``cumsum`` + ``searchsorted(right=True)`` + clamp, as ``_xla_sample``).
+  The tests and CPU runs use it.
+* ``sample_indices`` — the dispatch.  On a CUDA tensor it launches the
+  hand-written kernel in ``csrc/sampling.cu`` and nothing else: a failed
+  build or launch raises.  On a CPU tensor it runs the plain version.
+
+The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (``build/kernels/`` at the repository
+root, named by a hash of the source) and loaded with ``ctypes``.
+``sample_indices.launches`` counts kernel launches, so a run can show that
+its samples went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+CHUNK = 1024  # priorities per chunk of the two-level search (kernel's kChunk)
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "sampling.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def sample_indices_reference(priorities: torch.Tensor,
+                             targets: torch.Tensor) -> torch.Tensor:
+    """Plain version: full cumsum + searchsorted (side="right", so a target
+    exactly on a boundary selects the next nonzero-mass leaf), clamped to
+    C−1.  int32 [B]."""
+    cdf = torch.cumsum(priorities.to(torch.float32), dim=0)
+    idx = torch.searchsorted(cdf, targets.to(torch.float32), right=True)
+    return torch.clamp(idx, 0, priorities.shape[0] - 1).to(torch.int32)
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile ``csrc/sampling.cu`` unless this source's library exists.
+    Returns the library path and the compiler's output ("" when cached).
+    Raises if ``nvcc`` fails."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    src = _SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libapex_sampling_{tag}.so"
+    if lib.exists():
+        return lib, ""
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
+                           f"{_SOURCE.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
+           "-o", str(tmp), str(_SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}) building {_SOURCE.name}:\n"
+            f"{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
+    return lib, res.stdout + res.stderr
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.apex_sample_indices
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(priorities: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    if priorities.dtype != torch.float32 or targets.dtype != torch.float32:
+        raise TypeError(
+            f"sampling kernel takes float32 priorities and targets, got "
+            f"{priorities.dtype} and {targets.dtype}"
+        )
+    if priorities.dim() != 1 or targets.dim() != 1:
+        raise ValueError(
+            f"sampling kernel takes 1-D priorities and targets, got shapes "
+            f"{tuple(priorities.shape)} and {tuple(targets.shape)}"
+        )
+    if not (priorities.is_contiguous() and targets.is_contiguous()):
+        raise ValueError("sampling kernel takes contiguous tensors")
+    if targets.device != priorities.device:
+        raise ValueError(
+            f"priorities on {priorities.device}, targets on {targets.device}"
+        )
+    C, B = priorities.shape[0], targets.shape[0]
+    if not 0 < C < 2**31 - CHUNK:
+        raise ValueError(f"priority count {C} outside the kernel's int32 range")
+    R = -(-C // CHUNK)
+    scratch = torch.empty(2 * R, dtype=torch.float32, device=priorities.device)
+    out = torch.empty(B, dtype=torch.int32, device=priorities.device)
+    lib = _library()
+    with torch.cuda.device(priorities.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_sample_indices(
+            priorities.data_ptr(), C, targets.data_ptr(), B,
+            scratch.data_ptr(), scratch[R:].data_ptr(), out.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sampling kernel launch failed: cudaError_t {err}")
+    sample_indices.launches += 1
+    return out
+
+
+def sample_indices(priorities: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Stratified inverse-CDF lookup: int32 indices [B] for target masses [B].
+
+    CUDA tensors go to the kernel (which raises on a failed build or
+    launch — there is no fallback); CPU tensors to the plain version."""
+    if priorities.device.type == "cpu":
+        return sample_indices_reference(priorities, targets)
+    if priorities.device.type != "cuda":
+        raise ValueError(f"no sampler for device {priorities.device}")
+    return _launch(priorities, targets)
+
+
+sample_indices.launches = 0
