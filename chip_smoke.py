@@ -12,9 +12,15 @@ Phases, each printing one JSON line:
                 C = 100 000 and 2 000 000, B = 32 and 4096: identical
                 indices on integer-valued priorities (exact in float32),
                 every index inside its inverse-CDF bracket (float64, within
-                1e-5·total) on real-valued ones, zero-mass chunks and a C
-                that is not a multiple of 1024; CUDA-event times of the
-                kernel and the plain version over 200 warm launches;
+                1e-5·total) on real-valued ones, zero-mass blocks and a C
+                that is not a multiple of 4; identical indices from two
+                calls on the same real-valued priorities (determinism);
+                exactly one device kernel and no memset per call (profiler);
+                a call captured in a CUDA graph, replayed after the
+                priorities changed in place.  Device times of the kernel and
+                the plain version (``bench_sampler``: warm = CUDA-graph
+                replay, cold = profiler spans after an L2 flush) and the
+                host time of one wrapper call;
   4. parity   — one small fused learner run twice, on the card and on the
                 CPU, with the same weights, chunks and uniforms (float32
                 compute, TF32 off): the parameter updates must agree;
@@ -42,39 +48,11 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SEED = 0
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def stratified_targets(p, B: int, rng):
-    """Targets as the device replay draws them: (b + u)·total/B, clamped."""
-    import torch
-
-    total = torch.sum(p)
-    u = torch.as_tensor(rng.random(B, dtype=np.float32), device=p.device)
-    t = (torch.arange(B, device=p.device, dtype=torch.float32) + u) * (total / B)
-    return torch.minimum(t, total * (1.0 - 1e-7)).contiguous()
 
 
 def check_brackets(p, t, idx) -> float:
@@ -98,8 +76,12 @@ def check_brackets(p, t, idx) -> float:
 def phase_kernel(sampling):
     import torch
 
+    from ape_x_dqn_tpu_torch import bench_sampler as bench
+
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush = torch.empty(bench.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
     for C in (100_000, 2_000_000):
         # Integer priorities whose total stays below 2^24: every prefix sum
@@ -108,7 +90,7 @@ def phase_kernel(sampling):
         p_int = torch.as_tensor(rng.integers(0, hi, C).astype(np.float32), device=dev)
         p_real = torch.as_tensor(rng.random(C, dtype=np.float32), device=dev)
         for B in (32, 4096):
-            t_int = stratified_targets(p_int, B, rng)
+            t_int = bench.stratified_targets(p_int, B, rng)
             k = sampling.sample_indices(p_int, t_int)
             ref = sampling.sample_indices_reference(p_int, t_int)
             torch.cuda.synchronize()
@@ -116,22 +98,42 @@ def phase_kernel(sampling):
                 bad = int((k != ref).sum())
                 raise AssertionError(f"C={C} B={B}: {bad} indices differ on "
                                      "integer priorities")
-            t_real = stratified_targets(p_real, B, rng)
+            t_real = bench.stratified_targets(p_real, B, rng)
             k_real = sampling.sample_indices(p_real, t_real)
             ref_real = sampling.sample_indices_reference(p_real, t_real)
             worst = check_brackets(p_real, t_real, k_real)
-            ms = cuda_ms(lambda: sampling.sample_indices(p_real, t_real))
-            plain_ms = cuda_ms(lambda: sampling.sample_indices_reference(p_real, t_real))
+            if not torch.equal(k_real, sampling.sample_indices(p_real, t_real)):
+                raise AssertionError(f"C={C} B={B}: two calls on the same "
+                                     "priorities gave different indices")
+            calls = bench.device_calls(
+                lambda: sampling.sample_indices(p_real, t_real), 3, flush)
+            if any(len(c) != 1 for c in calls):
+                raise AssertionError(f"C={C} B={B}: device activities per call "
+                                     f"{[[a[0] for a in c] for c in calls]}, "
+                                     "want one kernel")
+
+            def kernel():
+                return sampling.sample_indices(p_real, t_real)
+
+            def plain():
+                return sampling.sample_indices_reference(p_real, t_real)
+
+            timed = bench.measure(kernel, C, B, 50, flush)
+            plain_t = bench.measure(plain, C, B, 50, flush)
             rows.append({
-                "C": C, "B": B, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": (4 * C + 8 * B) / HBM_BYTES_PER_S * 1e3,
+                "C": C, "B": B, "grid": list(sampling.plan(C, num_sms)),
+                "ms": timed["cold_ms"], **timed,
+                "plain_ms": plain_t["cold_ms"], "plain_warm_ms": plain_t["warm_ms"],
+                "plain_host_us": plain_t["host_us"],
+                "bound_ms": bench.bound_ms(C, B),
                 "max_abs_err": int((k - ref).abs().max()),
                 "bracket_violation_of_total": worst,
                 "real_idx_max_abs_diff_vs_plain":
                     int((k_real.long() - ref_real.long()).abs().max()),
+                "kernel_activity": calls[0][0][0],
             })
             emit({"phase": "kernel", **rows[-1]})
-    # Zero-mass chunks, a C that is not a multiple of 1024, targets at and
+    # Zero-mass blocks, a C that is not a multiple of 4, targets at and
     # past the total.
     C = 100_003
     p = np.zeros(C, np.float32)
@@ -149,7 +151,25 @@ def phase_kernel(sampling):
         raise AssertionError("zero-mass / ragged case differs from the plain version")
     if int(k[-1]) != C - 1:
         raise AssertionError("a target past the total must resolve to the last leaf")
-    emit({"phase": "kernel", "case": "zero-mass chunks, C=100003", "identical": True})
+    emit({"phase": "kernel", "case": "zero-mass blocks, C=100003", "identical": True})
+    # A call captured in a CUDA graph, replayed after p changed in place.
+    C, B = 2_000_000, 4096
+    p = torch.as_tensor(rng.integers(0, 8, C).astype(np.float32), device=dev)
+    t = bench.stratified_targets(p, B, rng)
+    sampling.sample_indices(p, t)  # set-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sampling.sample_indices(p, t)
+    p.copy_(torch.as_tensor(rng.integers(0, 8, C).astype(np.float32), device=dev))
+    t.copy_(bench.stratified_targets(p, B, rng))
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, sampling.sample_indices_reference(p, t)):
+        raise AssertionError("graph replay after an in-place change of p differs "
+                             "from the plain version")
+    emit({"phase": "kernel", "case": "CUDA graph replay, p changed in place",
+          "identical": True})
     return rows
 
 
@@ -300,11 +320,15 @@ def main() -> int:
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
         "launches": trained["sampler_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
+        "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "cold_ms": main_row["cold_ms"],
+        "warm_ms": main_row["warm_ms"],
+        "roofline_share": main_row["roofline_share"],
+        "grid": main_row["grid"],
         "at": {"C": 100_000, "B": 32},
         "shapes": rows,
     }]})

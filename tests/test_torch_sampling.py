@@ -7,8 +7,15 @@ the Pallas kernel in interpret mode, in the cases of
 priorities make every float32 prefix sum exact in any order, so indices
 must be identical (tolerance: none).
 
+CPU, without a card: the wrapper's argument checks and ``plan``, the grid
+and slices the kernel is launched with.
+
 GPU (marked ``gpu``, skipped without a card): the CUDA kernel against the
-plain version on the card.  Run it where a card is:
+plain version on the card, tolerance 0 on integer priorities: main-path
+shapes, unsorted targets, targets on block boundaries, zero-mass blocks,
+C below one slice and C ≢ 0 (mod 4) at unaligned addresses, B = 1, targets
+below 0 and past the total, back-to-back calls, the tiled branch, and a
+call replayed from a CUDA graph.  Run it where a card is:
 ``python -m pytest --noconftest -m gpu tests/test_torch_sampling.py``
 (``--noconftest``: the test conftest pins JAX, which that machine lacks;
 the JAX references here are imported only by the tests that use them).
@@ -110,6 +117,43 @@ def test_other_devices_raise():
         sampling.sample_indices(p, torch.empty(2, device="meta"))
 
 
+@pytest.mark.parametrize("C", [1, 3, 1023, 1025, 4099, 100_000, 100_003,
+                               2_000_000, 7_100_000, 2**31 - 1])
+@pytest.mark.parametrize("num_sms", [1, 7, 132])
+def test_plan_covers_every_priority_once(C, num_sms):
+    grid, slice_, tile = sampling.plan(C, num_sms)
+    assert 1 <= grid <= min(num_sms, sampling.MAX_GRID)
+    assert slice_ % 4 == 0 and tile % 4 == 0  # 16-byte bulk copies
+    assert (grid - 1) * slice_ < C <= grid * slice_  # the last block is not empty
+    assert tile == min(slice_, sampling.MAX_TILE)
+
+
+def test_plan_at_main_path_shapes():
+    # One block per SM of an H100 SXM at most; the whole of p fits in the
+    # SMs' shared memory, so no call on the main path takes the tiled branch.
+    assert sampling.plan(100_000, 132) == (98, 1024, 1024)
+    assert sampling.plan(2_000_000, 132) == (132, 15152, 15152)
+    assert sampling.plan(8_000_000, 132) == (132, 60608, sampling.MAX_TILE)
+
+
+@pytest.mark.parametrize("C", [0, -1, 2**31])
+def test_plan_rejects_counts_outside_int32(C):
+    with pytest.raises(ValueError, match="int32"):
+        sampling.plan(C, 132)
+
+
+@pytest.mark.parametrize("p,t,err", [
+    (torch.ones(8, dtype=torch.float64), torch.ones(2), TypeError),
+    (torch.ones(8), torch.ones(2, dtype=torch.float16), TypeError),
+    (torch.ones(2, 4), torch.ones(2), ValueError),
+    (torch.ones(16)[::2], torch.ones(2), ValueError),
+    (torch.ones(8), torch.ones(2, device="meta"), ValueError),
+])
+def test_kernel_wrapper_rejects_before_launch(p, t, err):
+    with pytest.raises(err):
+        sampling._launch(p, t)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -117,19 +161,123 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("C,B", [(100_000, 32), (100_003, 4096), (2_000_000, 4096)])
-def test_kernel_matches_plain_on_card(cuda_device, C, B):
-    r = np.random.default_rng(C + B)
+def _int_priorities(r, C):
     hi = max(2, 2**24 // C)  # total < 2^24: float32 prefix sums exact
-    pri = r.integers(0, hi, C).astype(np.float32)
-    pri[: 3 * sampling.CHUNK] = 0.0  # whole zero-mass chunks
-    p = torch.from_numpy(pri).to(cuda_device)
-    t = torch.from_numpy(
-        (np.sort(r.random(B)) * pri.sum()).astype(np.float32)).to(cuda_device)
+    return r.integers(0, hi, C).astype(np.float32)
+
+
+def _on_card(pri, targets, device, offset=0):
+    """The kernel's indices against the plain version's, tolerance 0.
+    ``offset`` places p that many floats past a 16-byte boundary."""
+    buf = torch.zeros(offset + len(pri), dtype=torch.float32, device=device)
+    p = buf[offset:]
+    p.copy_(torch.from_numpy(pri))
+    t = torch.from_numpy(np.asarray(targets, np.float32)).to(device)
     before = sampling.sample_indices.launches
-    got = sampling.sample_indices(p, t)
+    got = sampling._launch(p, t)
     torch.cuda.synchronize()
     assert sampling.sample_indices.launches == before + 1
     torch.testing.assert_close(got, sampling.sample_indices_reference(p, t),
                                rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,B", [(100_000, 32), (100_003, 4096), (2_000_000, 4096),
+                                 (8_000_000, 4096)])
+def test_kernel_matches_plain_on_card(cuda_device, C, B):
+    r = np.random.default_rng(C + B)
+    pri = _int_priorities(r, C)
+    pri[: 3 * sampling.MIN_SLICE] = 0.0  # whole zero-mass blocks
+    targets = r.permutation(np.sort(r.random(B)) * pri.sum())
+    _on_card(pri, targets, cuda_device)  # 8 000 000: the tiled branch
+
+
+def _slices(C):
+    grid, slice_, _ = sampling.plan(C, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+    return grid, slice_
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unsorted", "block_boundaries", "zero_blocks",
+                                  "below_one_slice", "b1", "out_of_range"])
+def test_kernel_edge_cases_on_card(cuda_device, case):
+    r = np.random.default_rng(7)
+    C = 100_000
+    pri = _int_priorities(r, C)
+    if case == "unsorted":  # K rows, each sorted, flattened (sample_ahead)
+        targets = np.sort(r.random((128, 32)), axis=1).ravel() * pri.sum()
+    elif case == "block_boundaries":  # exactly the prefix at each block's end
+        grid, slice_ = _slices(C)
+        cdf = np.cumsum(pri.astype(np.float64))
+        targets = np.concatenate([cdf[np.arange(1, grid) * slice_ - 1],
+                                  cdf[np.arange(1, grid) * slice_]])
+    elif case == "zero_blocks":  # first, a middle and the last block empty
+        grid, slice_ = _slices(C)
+        for g in (0, grid // 2, grid - 1):
+            pri[g * slice_:(g + 1) * slice_] = 0.0
+        cdf = np.cumsum(pri.astype(np.float64))
+        targets = np.concatenate([np.sort(r.random(512)) * cdf[-1],
+                                  cdf[np.arange(1, grid) * slice_ - 1], [cdf[-1]]])
+    elif case == "below_one_slice":
+        pri = pri[:700]
+        targets = np.sort(r.random(64)) * pri.sum()
+    elif case == "b1":
+        targets = [0.5 * pri.sum()]
+    else:
+        targets = [-5.0, -0.0, 0.0, pri.sum(), pri.sum() + 1.0, 1e30]
+    got = _on_card(pri, targets, cuda_device)
+    if case == "out_of_range":
+        assert got[0] == 0 and got[-1] == len(pri) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4097, 4098, 4099, 5, 6, 7])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_kernel_ragged_and_unaligned_on_card(cuda_device, C, offset):
+    r = np.random.default_rng(C * 4 + offset)
+    pri = _int_priorities(r, C)
+    pri[-1] = 1.0  # mass in the ragged tail
+    targets = np.concatenate([np.sort(r.random(33)) * pri.sum(),
+                              [pri.sum() - 0.5, pri.sum()]])
+    _on_card(pri, targets, cuda_device, offset=offset)
+
+
+@pytest.mark.gpu
+def test_kernel_back_to_back_calls_see_new_priorities(cuda_device):
+    r = np.random.default_rng(11)
+    C, B = 2_000_000, 4096
+    pri = _int_priorities(r, C)
+    p = torch.from_numpy(pri).to(cuda_device)
+    t = torch.from_numpy((np.sort(r.random(B)) * pri.sum() * 0.5)
+                         .astype(np.float32)).to(cuda_device)
+    first = sampling.sample_indices(p, t)
+    want_first = sampling.sample_indices_reference(p, t)
+    p[: C // 2] = 0.0  # the mass moves to the upper half
+    second = sampling.sample_indices(p, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, want_first, rtol=0, atol=0)
+    torch.testing.assert_close(second, sampling.sample_indices_reference(p, t),
+                               rtol=0, atol=0)
+    assert int(second.min()) >= C // 2
+
+
+@pytest.mark.gpu
+def test_kernel_replays_from_cuda_graph(cuda_device):
+    r = np.random.default_rng(12)
+    C, B = 100_000, 4096
+    p = torch.from_numpy(_int_priorities(r, C)).to(cuda_device)
+    t = torch.from_numpy((np.sort(r.random(B)) * float(p.sum()))
+                         .astype(np.float32)).to(cuda_device)
+    sampling.sample_indices(p, t)  # set-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sampling.sample_indices(p, t)
+    for _ in range(2):
+        p.copy_(torch.from_numpy(_int_priorities(r, C)))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, sampling.sample_indices_reference(p, t),
+                                   rtol=0, atol=0)
