@@ -6,12 +6,19 @@ a counterpart of the same path under ``ape_x_dqn_tpu/``.  It imports
 package: what it needs of the JAX package's jax-free host code (config,
 envs) it carries as its own copy.
 
-The port so far covers the device-replay learner
-(``learner.device_replay=true``): an actor-fleet thread feeds a fused
-learner that runs K × [prioritized sample → double-Q train → priority
-restamp] per call, with the stratified inverse-CDF sampler as a CUDA kernel
-written for Hopper (``ops/csrc/sampling.cu``).  Entry point:
-``python -m ape_x_dqn_tpu_torch.train --set learner.device_replay=true``.
+The port so far covers both forms of the learner:
+  * the host-replay golden path (``learner.device_replay=false``, the
+    default): a numpy prioritized replay over a float64 sum-tree (C++ core
+    built with g++ at first use), a prefetch thread that copies sampled
+    batches to the device, one train step per batch with deferred priority
+    write-back — async (``AsyncPipeline``) or single-process
+    (``SingleProcessDriver``, ``--mode sync``);
+  * the device-replay learner (``learner.device_replay=true``): an
+    actor-fleet thread feeds a fused learner that runs K × [prioritized
+    sample → double-Q train → priority restamp] per call, with the
+    stratified inverse-CDF sampler as a CUDA kernel written for Hopper
+    (``ops/csrc/sampling.cu``).
+Entry point: ``python -m ape_x_dqn_tpu_torch.train [--mode async|sync]``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; a missing card or a kernel that fails to build raises.

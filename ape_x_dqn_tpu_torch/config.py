@@ -50,10 +50,15 @@ class LearnerConfig:
     loss: str = "huber"                   # "huber" | "squared" (parity)
     max_grad_norm: Optional[float] = 40.0
     publish_every: int = 10               # param-store publish period (steps)
-    # The replay ring lives in device memory and each fused call runs
-    # steps_per_call sample/train/restamp steps.  The port runs only this
-    # path so far; False (the host-replay path) is rejected at build time.
+    # True: the replay ring lives in device memory and each fused call runs
+    # steps_per_call sample/train/restamp steps.  False (the default): the
+    # host replay + one train step per sample (the golden path).
     device_replay: bool = False
+    # Host-replay path: the deferred priority write-back is batched over
+    # this many steps (1 = step t's priorities land after step t+1 is
+    # dispatched).  The JAX package's overlapped fused pipeline (> 1 with
+    # device_replay) is not part of the port yet.
+    pipeline_depth: int = 1
     steps_per_call: int = 128             # K steps per fused call
     ingest_block: int = 256               # rows per device ring add
     # True samples all K batches of a call in one sampler launch from
@@ -67,6 +72,8 @@ class ReplayConfig:
     capacity: int = 100_000               # parameters.json:28 soft_capacity
     priority_exponent: float = 0.6        # parameters.json:29
     is_exponent: float = 0.4              # parameters.json:30
+    # zlib-compress stored frames in the host replay (a memory/CPU trade).
+    frame_compression: bool = False
 
 
 @dataclasses.dataclass
@@ -110,6 +117,13 @@ class ApexConfig:
             (l.ingest_block >= 1, "learner.ingest_block must be >= 1"),
             (not l.sample_ahead or l.device_replay,
              "learner.sample_ahead=True requires device_replay=True"),
+            (l.pipeline_depth >= 1, "learner.pipeline_depth must be >= 1"),
+            (l.pipeline_depth == 1 or not l.device_replay,
+             "learner.pipeline_depth > 1 with device_replay=True (the "
+             "overlapped fused pipeline) is not part of the port yet"),
+            (not (r.frame_compression and l.device_replay),
+             "replay.frame_compression applies to the host replay only "
+             "(learner.device_replay=false)"),
         ]
         for ok, msg in checks:
             if not ok:

@@ -1,1 +1,8 @@
-"""Replay (port of ``ape_x_dqn_tpu/replay``): the device-resident ring."""
+"""Replay (port of ``ape_x_dqn_tpu/replay``): the host prioritized replay
+over its sum-tree (``buffer.py``, ``sum_tree.py``, ``native.py``) and the
+device-resident ring (``device.py``)."""
+
+from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
+from ape_x_dqn_tpu_torch.replay.sum_tree import SumTree
+
+__all__ = ["PrioritizedReplay", "SumTree"]

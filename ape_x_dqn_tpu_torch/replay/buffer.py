@@ -1,0 +1,387 @@
+"""Host prioritized replay — array-backed ring buffer + sum-tree.
+
+Port of ``ape_x_dqn_tpu/replay/buffer.py``: ``RawFrameStore``,
+``CompressedFrameStore`` and ``PrioritizedReplay``.  It stays numpy, not
+torch: masses are float64 p^α, targets come from a numpy generator, and the
+tree is either twin of ``sum_tree.py`` (numpy) / ``native.py`` (C++), so the
+same adds and the same seed draw the same slots as the JAX package's replay.
+A batch moves to the device only after it is sampled (``runtime/infeed.py``).
+
+Storage is preallocated numpy: frames stay uint8 end to end, scalars in
+flat arrays.  Identity is the slot index — what the learner echoes back
+with new priorities.  One mutex guards mutation and sampling, taken once
+per batch (an actor chunk or a learner batch), not per transition.
+
+Not ported yet, and refused by name (``NotPortedError``): the tiered frame
+store (``hot_frame_budget_bytes``, ROADMAP A7) and the incremental
+checkpoint protocol (``delta_state_dict`` / ``apply_delta_state_dict``, A9).
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
+
+
+class NotPortedError(NotImplementedError):
+    """A feature of the JAX package's replay that the port does not carry yet."""
+
+
+class RawFrameStore:
+    """Preallocated ndarray frame storage — the default.
+
+    The encode/put_encoded split exists so ``PrioritizedReplay.add`` can do
+    any per-frame work (a no-op here; deflate for the compressed store)
+    OUTSIDE the replay lock.
+    """
+
+    compressed = False
+
+    def __init__(self, capacity: int, frame_shape):
+        self._arr = np.zeros((capacity, *frame_shape), dtype=np.uint8)
+        self.shape = tuple(frame_shape)
+
+    def encode(self, frames: np.ndarray):
+        return frames
+
+    def put_encoded(self, idx: np.ndarray, encoded) -> None:
+        self._arr[idx] = encoded
+
+    def put(self, idx: np.ndarray, frames: np.ndarray) -> None:
+        self.put_encoded(idx, self.encode(frames))
+
+    def get(self, idx: np.ndarray) -> np.ndarray:
+        # Advanced indexing already allocates a fresh array — no copy.
+        return self._arr[idx]
+
+    def nbytes(self) -> int:
+        return self._arr.nbytes
+
+
+class CompressedFrameStore:
+    """Per-slot zlib-compressed frame storage: a memory/CPU trade for big
+    host buffers.  One deflate per stored frame (off the replay lock, via
+    ``encode``) and one inflate per sampled row.  Level 1 keeps most of the
+    ratio at a fraction of level 6's CPU."""
+
+    compressed = True
+    level = 1
+
+    def __init__(self, capacity: int, frame_shape):
+        self._slots: list = [None] * capacity
+        self.shape = tuple(frame_shape)
+
+    def encode(self, frames: np.ndarray) -> list:
+        frames = np.asarray(frames, np.uint8)
+        return [zlib.compress(frames[i].tobytes(), self.level)
+                for i in range(frames.shape[0])]
+
+    def put_encoded(self, idx: np.ndarray, encoded: list) -> None:
+        for i, k in enumerate(idx):
+            self._slots[int(k)] = encoded[i]
+
+    def put(self, idx: np.ndarray, frames: np.ndarray) -> None:
+        self.put_encoded(idx, self.encode(frames))
+
+    def get(self, idx: np.ndarray) -> np.ndarray:
+        out = np.empty((len(idx), *self.shape), np.uint8)
+        for i, k in enumerate(idx):
+            out[i] = np.frombuffer(
+                zlib.decompress(self._slots[int(k)]), np.uint8
+            ).reshape(self.shape)
+        return out
+
+    def export_blobs(self, size: int) -> tuple:
+        """(blob uint8 [sum lens], lens int64 [size]) — the deflated slots
+        verbatim, so a snapshot never materializes the dense buffer."""
+        blobs = self._slots[:size]
+        lens = np.array([len(b) for b in blobs], np.int64)
+        return np.frombuffer(b"".join(blobs), np.uint8).copy(), lens
+
+    def import_blobs(self, blob: np.ndarray, lens: np.ndarray) -> None:
+        raw = blob.tobytes()
+        off = 0
+        for i, n in enumerate(lens):
+            self._slots[i] = raw[off:off + int(n)]
+            off += int(n)
+
+    def nbytes(self) -> int:
+        return sum(len(s) for s in self._slots if s is not None)
+
+
+class PrioritizedReplay:
+    """Prioritized n-step transition store.
+
+    Args:
+      capacity: max transitions held (FIFO ring: the oldest slots are
+        overwritten when full).
+      obs_shape: per-frame uint8 observation shape, e.g. (84, 84, 1).
+      priority_exponent: α in p^α.
+      sum_tree_cls: injectable tree implementation; the default is the
+        native C++ tree, which raises if it cannot be built.
+      frame_compression: zlib-compress stored frames (``CompressedFrameStore``).
+      hot_frame_budget_bytes: the tiered frame store's DRAM cap; any
+        positive value raises ``NotPortedError``.
+    """
+
+    def __init__(
+        self,
+        capacity: int,
+        obs_shape,
+        priority_exponent: float = 0.6,
+        sum_tree_cls=None,
+        frame_compression: bool = False,
+        hot_frame_budget_bytes: int = 0,
+    ):
+        if hot_frame_budget_bytes > 0:
+            raise NotPortedError(
+                "the tiered frame store (hot_frame_budget_bytes) is not part "
+                "of the port yet"
+            )
+        if sum_tree_cls is None:
+            from ape_x_dqn_tpu_torch.replay.native import default_sum_tree_cls
+
+            sum_tree_cls = default_sum_tree_cls()
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.capacity = int(capacity)
+        self.alpha = float(priority_exponent)
+        store_cls = CompressedFrameStore if frame_compression else RawFrameStore
+        self._obs = store_cls(capacity, obs_shape)
+        self._next_obs = store_cls(capacity, obs_shape)
+        self._action = np.zeros((capacity,), dtype=np.int32)
+        self._reward = np.zeros((capacity,), dtype=np.float32)
+        self._discount = np.zeros((capacity,), dtype=np.float32)
+        self._tree = sum_tree_cls(capacity)
+        self._cursor = 0
+        self._count = 0  # total transitions ever added
+        self._lock = threading.Lock()
+
+    # -- write path (actors) ---------------------------------------------
+
+    def add(self, priorities: np.ndarray, batch: NStepTransition) -> np.ndarray:
+        """Insert a batch with actor-computed initial priorities.
+
+        Overwrites the oldest slots when full (FIFO).  Returns the slot
+        indices written.
+        """
+        priorities = np.asarray(priorities, dtype=np.float64)
+        n = priorities.shape[0]
+        if n == 0:
+            return np.zeros((0,), np.int64)
+        if n > self.capacity:
+            raise ValueError(f"batch of {n} exceeds capacity {self.capacity}")
+        # Per-frame encode work (deflate, for the compressed store) happens
+        # OFF the lock, so an actor flush never stalls the learner's sample.
+        enc_obs = self._obs.encode(batch.obs)
+        enc_next_obs = self._next_obs.encode(batch.next_obs)
+        with self._lock:
+            idx = (self._cursor + np.arange(n)) % self.capacity
+            self._obs.put_encoded(idx, enc_obs)
+            self._next_obs.put_encoded(idx, enc_next_obs)
+            self._action[idx] = batch.action
+            self._reward[idx] = batch.reward
+            self._discount[idx] = batch.discount
+            self._tree.set(idx, np.power(np.maximum(priorities, 1e-12), self.alpha))
+            self._cursor = int((self._cursor + n) % self.capacity)
+            self._count += n
+            return idx
+
+    # -- read path (learner) ---------------------------------------------
+
+    def _sample_locked(self, batch_size: int, rng: np.random.Generator) -> tuple:
+        size = min(self._count, self.capacity)
+        if size == 0:
+            raise ValueError("cannot sample from an empty replay")
+        idx = self._tree.sample_stratified(batch_size, rng)
+        transition = NStepTransition(
+            obs=self._obs.get(idx),
+            action=self._action[idx].copy(),
+            reward=self._reward[idx].copy(),
+            discount=self._discount[idx].copy(),
+            next_obs=self._next_obs.get(idx),
+        )
+        return transition, idx, self._tree.get(idx), self._tree.total, size
+
+    def sample(
+        self,
+        batch_size: int,
+        beta: float = 0.4,
+        rng: Optional[np.random.Generator] = None,
+    ) -> PrioritizedBatch:
+        """Stratified proportional sample with IS weights, all numpy.
+
+        P(i) = p_i^α / Σ p^α;  w_i = (N · P(i))^−β, normalized by max w,
+        cast to float32; indices int32.
+        """
+        rng = rng or np.random.default_rng()
+        with self._lock:
+            transition, idx, mass, total, size = self._sample_locked(batch_size, rng)
+        probs = mass / total
+        weights = np.power(size * np.maximum(probs, 1e-12), -beta)
+        weights = (weights / weights.max()).astype(np.float32)
+        return PrioritizedBatch(
+            transition=transition,
+            indices=idx.astype(np.int32),
+            is_weights=weights,
+        )
+
+    def sample_with_mass(
+        self,
+        batch_size: int,
+        rng: Optional[np.random.Generator] = None,
+    ) -> tuple:
+        """(transition, indices, mass, total_mass, size) — the raw
+        proportional sample without the IS-weight arithmetic, for callers
+        that normalize over several replays."""
+        rng = rng or np.random.default_rng()
+        with self._lock:
+            transition, idx, mass, total, size = self._sample_locked(batch_size, rng)
+        return transition, idx.astype(np.int64), mass, float(total), size
+
+    def update_priorities(self, indices: np.ndarray, priorities: np.ndarray) -> None:
+        """Learner priority feedback, per transition, O(B log N).  Duplicate
+        indices: the last write wins.
+
+        If a sampled slot was recycled between sample and update, the fresh
+        transition briefly carries the old transition's updated priority —
+        a benign race that the next restamp of that slot corrects.
+        """
+        indices = np.asarray(indices, dtype=np.int64)
+        priorities = np.asarray(priorities, dtype=np.float64)
+        if indices.size == 0:
+            return
+        with self._lock:
+            self._tree.set(
+                indices, np.power(np.maximum(priorities, 1e-12), self.alpha)
+            )
+
+    # -- misc ------------------------------------------------------------
+
+    def size(self) -> int:
+        """Current number of stored transitions."""
+        with self._lock:
+            return min(self._count, self.capacity)
+
+    @property
+    def total_added(self) -> int:
+        return self._count
+
+    def frames_nbytes(self) -> int:
+        """Bytes held by frame storage (compressed stores report the
+        deflated size)."""
+        with self._lock:
+            return self._obs.nbytes() + self._next_obs.nbytes()
+
+    def max_priority(self) -> float:
+        with self._lock:
+            m = self._tree.max_priority()
+        return float(m ** (1.0 / self.alpha)) if m > 0 else 1.0
+
+    def digest(self, with_crc: bool = True) -> dict:
+        """Content fingerprint: counters, total p^α mass and — with
+        ``with_crc`` — a crc32 over every live column, the frames included.
+        Two replays with equal digests hold bit-identical sampleable state;
+        the crc is the same function as the JAX replay's, so a digest
+        compares across the two packages."""
+        with self._lock:
+            size = min(self._count, self.capacity)
+            out = {
+                "count": int(self._count),
+                "cursor": int(self._cursor),
+                "size": int(size),
+                "total_mass": float(self._tree.total),
+                "crc": 0,
+            }
+            if not with_crc:
+                return out
+            idx = np.arange(size)
+            c = zlib.crc32(struct.pack("<qq", self._count, self._cursor))
+            for arr in (
+                self._action[:size], self._reward[:size],
+                self._discount[:size], self._tree.get(idx),
+                self._obs.get(idx), self._next_obs.get(idx),
+            ):
+                c = zlib.crc32(np.ascontiguousarray(arr).tobytes(), c)
+            out["crc"] = int(c)
+            return out
+
+    # -- snapshot ----------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Snapshot in the JAX replay's layout, so either package loads the
+        other's."""
+        with self._lock:
+            size = min(self._count, self.capacity)
+            idx = np.arange(size)
+            out = {
+                "action": self._action[:size].copy(),
+                "reward": self._reward[:size].copy(),
+                "discount": self._discount[:size].copy(),
+                "tree_priorities": self._tree.get(idx),
+                "cursor": self._cursor,
+                "count": self._count,
+            }
+            if self._obs.compressed:
+                # The deflated slots verbatim: a compressed buffer never
+                # materializes its dense form to snapshot.
+                out["obs_blob"], out["obs_lens"] = self._obs.export_blobs(size)
+                out["next_obs_blob"], out["next_obs_lens"] = (
+                    self._next_obs.export_blobs(size)
+                )
+            else:
+                out["obs"] = self._obs.get(idx)
+                out["next_obs"] = self._next_obs.get(idx)
+            return out
+
+    def load_state_dict(self, state: dict) -> None:
+        compressed_snap = "obs_blob" in state
+        with self._lock:
+            size = (
+                state["obs_lens"].shape[0] if compressed_snap
+                else state["obs"].shape[0]
+            )
+            if size > self.capacity:
+                raise ValueError("snapshot larger than capacity")
+            # Clear everything first so a restore into a warm buffer cannot
+            # leave stale transitions sampleable past the snapshot region.
+            self._tree.set(
+                np.arange(self.capacity), np.zeros(self.capacity, np.float64)
+            )
+            rng = np.arange(size)
+            if compressed_snap and self._obs.compressed:
+                self._obs.import_blobs(state["obs_blob"], state["obs_lens"])
+                self._next_obs.import_blobs(
+                    state["next_obs_blob"], state["next_obs_lens"]
+                )
+            elif compressed_snap:
+                # Compressed snapshot into a raw store: inflate through a
+                # scratch compressed view.
+                tmp = CompressedFrameStore(size, self._obs.shape)
+                tmp.import_blobs(state["obs_blob"], state["obs_lens"])
+                self._obs.put(rng, tmp.get(rng))
+                tmp.import_blobs(state["next_obs_blob"], state["next_obs_lens"])
+                self._next_obs.put(rng, tmp.get(rng))
+            else:
+                self._obs.put(rng, state["obs"])
+                self._next_obs.put(rng, state["next_obs"])
+            self._action[:size] = state["action"]
+            self._reward[:size] = state["reward"]
+            self._discount[:size] = state["discount"]
+            self._tree.set(np.arange(size), state["tree_priorities"])
+            self._cursor = int(state["cursor"]) % self.capacity
+            self._count = int(state["count"])
+
+    def delta_state_dict(self, force_base: bool = False) -> dict:
+        raise NotPortedError("incremental replay checkpoints are not part of "
+                             "the port yet")
+
+    def apply_delta_state_dict(self, delta: dict) -> None:
+        raise NotPortedError("incremental replay checkpoints are not part of "
+                             "the port yet")

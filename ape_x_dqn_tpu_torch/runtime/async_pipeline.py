@@ -1,24 +1,36 @@
-"""The async Ape-X pipeline, device-replay form: actor thread ∥ fused learner.
+"""The async Ape-X pipeline: actor thread ∥ replay ∥ learner on one host.
 
-Port of the thread-actor ``_ActorWorker`` (``ape_x_dqn_tpu/runtime/
-async_pipeline.py:178-324``) and the strict fused path ``_run_fused``
-(:1536-1631) with ``_emit_fused``:
+Port of ``ape_x_dqn_tpu/runtime/async_pipeline.py``: the thread-actor
+``_ActorWorker`` (:178-324), ``_AsyncPublisher`` (:50-118) and the two
+single-device learner loops of ``AsyncPipeline``:
 
-  actor thread ──numpy chunks──▶ FusedDeviceLearner staging
-        ▲                                   │ ingest (learner thread)
-        └──── ParamStore (host copies) ◀── K-step fused calls on the device
+* **host replay** (``learner.device_replay=false``, the default; ``run``
+  at :1279-1380):
 
-* **Actor stage**: one supervised thread runs the fleet; a crash respawns
-  it (actors are stateless modulo ε/seed) up to ``MAX_ACTOR_RESTARTS``.
-* **Learner stage**: runs on the caller's thread — ingest staged chunks,
-  one fused call of K steps, at most ``FUSED_INFLIGHT`` calls in flight
-  before the oldest call's loss is read back, publish params at the capped
-  rate, emit JSONL at ``log_every`` steps.
+      actor thread ──chunks──▶ PrioritizedReplay ◀──sample── prefetch thread
+            ▲                                                  │ copy stream
+            └── ParamStore ◀── publisher thread ◀── learner ◀──┘
 
-The overlapped pipeline, process actors, central inference, observability
-and checkpoints of the JAX runtime are not part of the port yet.  A publish
-copies the params to the host on the learner thread, which waits for the
-device: with K steps per call it happens at most once per call.
+  The prefetch thread samples on the host and copies each batch to the
+  device behind the running step (``runtime/infeed.py``).  The learner
+  dispatches one train step per batch and defers the priority write-back:
+  the (host indices, device priorities) of each step wait in ``pending``
+  and are flushed in one batched ``update_priorities`` when
+  ``len(pending) >= learner.pipeline_depth``, before the new step is
+  appended — so at depth 1 step t's priorities land after step t+1 is
+  dispatched, and their device→host read only waits for a step that
+  already has a successor queued.  Every ``publish_every`` steps the
+  learner clones the params on the device and a publisher thread copies
+  them to the host store, latest wins.  ``stage_us`` in the JSONL gives
+  µs per call of ``sample+place``, ``step_dispatch``,
+  ``priority_writeback`` and ``publish``.
+* **device replay** (``true``; the strict ``_run_fused`` path at
+  :1536-1631): the actor thread stages numpy chunks, the learner ingests
+  them into the device ring and runs fused K-step calls, at most
+  ``FUSED_INFLIGHT`` in flight before the oldest call's loss is read back.
+
+Process actors, central inference, observability, checkpoints and the
+overlapped fused pipeline of the JAX runtime are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -28,20 +40,98 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ape_x_dqn_tpu_torch.actors.pool import EpisodeStat
 from ape_x_dqn_tpu_torch.config import ApexConfig
 from ape_x_dqn_tpu_torch.runtime.components import build_components
+from ape_x_dqn_tpu_torch.runtime.infeed import DevicePlacer, PrefetchQueue
 from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
 from ape_x_dqn_tpu_torch.runtime.single_process import beta_schedule
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger, RateCounter
+from ape_x_dqn_tpu_torch.utils.profiling import StageTimer
 
 MAX_ACTOR_RESTARTS = 3
 # At most this many fused calls in flight: reading call i-1's loss before
 # dispatching i+1 keeps the actors' policy forwards from queueing behind a
 # long backlog of learner work on the device.
 FUSED_INFLIGHT = 2
+# Host replay: batches staged on the device ahead of the learner (double
+# buffering; deeper only adds priority staleness).
+PREFETCH_DEPTH = 2
 WARMUP_TIMEOUT_S = 600.0
+
+
+class _AsyncPublisher:
+    """Publish param snapshots off the learner thread.
+
+    The learner only clones the params on the device (no host sync) and
+    records an event after the clone; this thread waits for the event,
+    copies the clone to the host and publishes it.  A 1-slot latest-wins
+    mailbox: if publishing lags, intermediate versions are skipped, which
+    the versioned store's readers never notice (actors want the newest).
+    """
+
+    def __init__(self, store: ParamStore):
+        self._store = store
+        self._pending = None
+        self._busy = False
+        self._cv = threading.Condition()
+        self._stop = False
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._loop, name="param-publisher", daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, params: dict) -> None:
+        """Hand over the learner's params: cloned here, on the learner's
+        stream, so later in-place updates do not reach the snapshot."""
+        snapshot = {k: v.detach().clone() for k, v in params.items()}
+        ready = None
+        device = next(iter(snapshot.values())).device
+        if device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        with self._cv:
+            self._pending = (snapshot, ready)  # latest wins
+            self._cv.notify()
+
+    def flush(self, timeout: float = 120.0) -> bool:
+        """Block until the newest submitted snapshot has been published.
+        Returns False if work is still outstanding at the timeout."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while (self._pending is not None or self._busy) \
+                    and time.monotonic() < deadline:
+                self._cv.wait(timeout=0.1)
+            return self._pending is None and not self._busy
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._thread.join(timeout=30.0)
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._pending is None and not self._stop:
+                    self._cv.wait()
+                if self._pending is None and self._stop:
+                    return
+                (params, ready), self._pending = self._pending, None
+                self._busy = True
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                self._store.publish(params)
+            except BaseException as e:  # noqa: BLE001 — surfaced by runtime
+                self.error = e
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
 
 
 class _ActorWorker:
@@ -118,8 +208,7 @@ class _ActorWorker:
 
 
 class AsyncPipeline:
-    """One-host device-replay runtime.  ``run()`` blocks the caller as the
-    learner."""
+    """One-host async runtime.  ``run()`` blocks the caller as the learner."""
 
     def __init__(
         self,
@@ -127,6 +216,8 @@ class AsyncPipeline:
         logger: Optional[MetricLogger] = None,
         log_every: int = 500,
         device: str = "cuda",
+        eval_every: int = 0,
+        eval_episodes: int = 10,
     ):
         self.comps = build_components(cfg, device=device)
         self.cfg = self.comps.cfg
@@ -135,14 +226,166 @@ class AsyncPipeline:
         self.stop_event = threading.Event()
         self._fps = RateCounter(window_s=30.0)
         self._steps_rate = RateCounter(window_s=30.0)
-        self.fused = self.comps.make_fused_learner()
+        # Per-stage host wall clock, exported as stage_us in every emit.
+        self.timers = StageTimer()
         self.store = ParamStore(self.comps.state.params)
+        self._learner_step = 0
+        self.train_seconds = 0.0  # wall time of the learner loop, after warmup
+        self.fused = None
+        self._publisher = None
+        if self.cfg.learner.device_replay:
+            self.fused = self.comps.make_fused_learner()
+            sink = self.fused.add_chunk
+        else:
+            sink = self.comps.replay.add
+            self.train_step = self.comps.make_train_step()
+            self._sample = self.comps.make_sampler(lambda: self._learner_step)
+            self._place = DevicePlacer(self.comps.device)
+            self._pipeline_depth = self.cfg.learner.pipeline_depth
+            self._publisher = _AsyncPublisher(self.store)
         self.worker = _ActorWorker(
             self.comps, self.store, self.stop_event, self.logger, self._fps,
-            sink=self.fused.add_chunk,
+            sink=sink,
         )
-        self._learner_step = 0
-        self.train_seconds = 0.0  # wall time of the fused loop, after warmup
+        # Periodic greedy evaluation on the learner thread; 0 disables.
+        self._eval_every = int(eval_every)
+        self._eval_episodes = int(eval_episodes)
+        self._next_eval = self._eval_every
+        self._evaluator = None
+        self.eval_scores: List[float] = []
+
+    @property
+    def learner_step(self) -> int:
+        return self._learner_step
+
+    def _replay_size(self) -> int:
+        return self.fused.size if self.fused is not None else self.comps.replay.size()
+
+    def _wait_for_warmup(self, timeout: float) -> None:
+        """Block until the replay holds min_replay_mem_size transitions; in
+        device-replay mode each poll ingests staged chunks."""
+        fused, need = self.fused, self.cfg.learner.min_replay_mem_size
+        deadline = time.monotonic() + timeout
+        while True:
+            if fused is not None:
+                fused.ingest_staged(drain=self.worker.finished)
+            size = self._replay_size()
+            if size >= need:
+                return
+            if self.stop_event.is_set():
+                raise RuntimeError("actors stopped during warmup") from self.worker.error
+            staged = fused.staged_rows if fused is not None else 0
+            if self.worker.finished and staged == 0:
+                raise RuntimeError(
+                    f"actors exhausted actor.T={self.cfg.actor.T} env steps "
+                    f"with replay at {size} / {need} — raise actor.T "
+                    "or lower learner.min_replay_mem_size"
+                )
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"replay warmup stalled at {size} / {need}")
+            time.sleep(0.05)
+
+    def run(self, learner_steps: Optional[int] = None) -> dict:
+        """Train until ``learner_steps`` (default: config total_steps)."""
+        target = learner_steps if learner_steps is not None else self.cfg.learner.total_steps
+        if self.fused is not None:
+            return self._run_fused(target)
+        return self._run_host(target)
+
+    # -- host replay -------------------------------------------------------
+
+    def _run_host(self, target: int) -> dict:
+        cfg = self.cfg
+        self.worker.start()
+        metrics = None
+        try:
+            self._wait_for_warmup(WARMUP_TIMEOUT_S)
+            t0 = time.monotonic()
+            with PrefetchQueue(self._sample, place_fn=self._place,
+                               depth=PREFETCH_DEPTH) as queue:
+                # (host indices, device priorities) of steps whose
+                # write-back is still deferred.
+                pending: list = []
+                state = self.comps.state
+                while self._learner_step < target and not self.stop_event.is_set():
+                    with self.timers.stage("sample+place"):
+                        placed = queue.get()
+                        batch = placed.wait()
+                    with self.timers.stage("step_dispatch"):
+                        state, metrics = self.train_step(state, batch)
+                    self.comps.state = state
+                    self._learner_step += 1
+                    self._steps_rate.add(1)
+                    if len(pending) >= self._pipeline_depth:
+                        self._flush_priority_writeback(pending)
+                    pending.append((placed.indices, metrics.priorities))
+                    if self._learner_step % cfg.learner.publish_every == 0:
+                        with self.timers.stage("publish"):
+                            self._publish(state.params)
+                    self._maybe_eval()
+                    if self._learner_step % self.log_every == 0:
+                        self._emit(metrics)
+                if pending:
+                    self._flush_priority_writeback(pending)
+            self._finish_publishes()
+            self.train_seconds = time.monotonic() - t0
+        finally:
+            self.stop_event.set()
+            self.worker.join()
+            self._publisher.close()
+        if self.worker.error is not None:
+            raise RuntimeError("actor worker died") from self.worker.error
+        # The final emit carries the last step's metrics (one host read), so
+        # the returned record always has learner/loss.
+        return self._emit(metrics, final=True)
+
+    def _flush_priority_writeback(self, pending: list) -> None:
+        """Commit the deferred (indices, priorities) in one batched update,
+        in step order, so the sum-tree's last-write-wins resolves duplicate
+        slots exactly as sequential per-step updates would.  Clears
+        ``pending`` in place."""
+        with self.timers.stage("priority_writeback"):
+            idx = np.concatenate([i for i, _ in pending])
+            prio = torch.cat([p for _, p in pending]).cpu().numpy()
+            self.comps.replay.update_priorities(idx, prio)
+        pending.clear()
+
+    def _publish(self, params) -> None:
+        # A publisher failure surfaces at the next publish, not at the end
+        # of the run (actors would act on stale params the whole time).
+        if self._publisher.error is not None:
+            raise RuntimeError("param publisher failed") from self._publisher.error
+        self._publisher.submit(params)
+
+    def _finish_publishes(self) -> None:
+        flushed = self._publisher.flush()
+        if self._publisher.error is not None:
+            raise RuntimeError("param publisher failed") from self._publisher.error
+        if not flushed:
+            raise RuntimeError("param publisher could not drain within its "
+                               "timeout — the final snapshot was never published")
+
+    def _maybe_eval(self) -> None:
+        if not self._eval_every or self._learner_step < self._next_eval:
+            return
+        while self._next_eval <= self._learner_step:
+            self._next_eval += self._eval_every
+        from ape_x_dqn_tpu_torch.evaluation import log_result, make_evaluator
+
+        if self._evaluator is None:
+            self._evaluator = make_evaluator(
+                self.comps.env_fns, self.comps.network,
+                env_name=self.cfg.env.name, seed=self.cfg.seed,
+                device=self.comps.device,
+            )
+        params = (self.fused.params_for_publish() if self.fused is not None
+                  else self.comps.state.params)
+        with self.timers.stage("eval"):
+            res = self._evaluator.evaluate(params, episodes=self._eval_episodes)
+        self.eval_scores.append(res.mean_score)
+        log_result(self.logger, res)
+
+    # -- device replay -----------------------------------------------------
 
     def _force_fused(self, metrics) -> None:
         """Wait for one fused call (a tiny host read of its last loss) and
@@ -150,32 +393,10 @@ class AsyncPipeline:
         float(metrics.loss[-1])
         self._steps_rate.add(self.fused.steps_per_call)
 
-    def _wait_for_warmup(self, timeout: float) -> None:
-        """Ingest staged chunks until the ring holds min_replay_mem_size."""
-        fused, need = self.fused, self.cfg.learner.min_replay_mem_size
-        deadline = time.monotonic() + timeout
-        while True:
-            fused.ingest_staged(drain=self.worker.finished)
-            if fused.size >= need:
-                return
-            if self.stop_event.is_set():
-                raise RuntimeError("actors stopped during warmup") from self.worker.error
-            if self.worker.finished and fused.staged_rows == 0:
-                raise RuntimeError(
-                    f"actors exhausted actor.T={self.cfg.actor.T} env steps "
-                    f"with replay at {fused.size} / {need} — raise actor.T "
-                    "or lower learner.min_replay_mem_size"
-                )
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"replay warmup stalled at {fused.size} / {need}")
-            time.sleep(0.05)
-
-    def run(self, learner_steps: Optional[int] = None) -> dict:
-        """Device-replay mode: ingest staged actor chunks, then fused K-step
-        calls until ``learner_steps`` (default: config total_steps)."""
+    def _run_fused(self, target: int) -> dict:
+        """Ingest staged actor chunks, then fused K-step calls."""
         cfg = self.cfg
         fused = self.fused
-        target = learner_steps if learner_steps is not None else cfg.learner.total_steps
         self.worker.start()
         last_metrics = None
         inflight: list = []  # metrics of dispatched calls not yet read back
@@ -197,8 +418,9 @@ class AsyncPipeline:
                     cfg.learner.publish_every, fused.steps_per_call
                 ) < fused.steps_per_call:
                     self.store.publish(fused.params_for_publish())
+                self._maybe_eval()
                 if self._learner_step >= next_log:
-                    self._emit_fused(last_metrics)
+                    self._emit(last_metrics)
                     next_log += self.log_every
             while inflight:
                 self._force_fused(inflight.pop(0))
@@ -212,26 +434,33 @@ class AsyncPipeline:
             loss = last_metrics.loss.cpu().numpy()
             if not np.all(np.isfinite(loss)):
                 raise FloatingPointError("non-finite loss in fused learner")
-        return self._emit_fused(last_metrics, final=True)
+        return self._emit(last_metrics, final=True)
 
-    def _emit_fused(self, metrics, final: bool = False) -> dict:
+    # -- metrics -----------------------------------------------------------
+
+    def _emit(self, metrics, final: bool = False) -> dict:
         for e in self.worker.drain_episodes():
             self.logger.log("episode/return", e.episode_return)
             self.logger.log("episode/length", e.episode_length)
         if metrics is not None:
-            # One host read per log period, not per call.
-            self.logger.log("learner/loss", float(metrics.loss[-1]))
-            self.logger.log("learner/mean_q", float(metrics.mean_q[-1]))
+            # One host read per log period; a fused call's metrics are
+            # stacked over its K steps, the last one is logged.
+            self.logger.log("learner/loss", float(metrics.loss.reshape(-1)[-1]))
+            self.logger.log("learner/mean_q", float(metrics.mean_q.reshape(-1)[-1]))
+        if self.fused is not None:
+            path = {"staged_rows": self.fused.staged_rows}
+        else:
+            path = {"stage_us": self.timers.us_per_call()}
         return self.logger.emit(
             step=self._learner_step,
             actor_steps=self.worker.actor_steps,
-            replay_size=self.fused.size,
-            staged_rows=self.fused.staged_rows,
+            replay_size=self._replay_size(),
             steps_per_sec=round(self._steps_rate.rate(), 1),
             actor_fps=round(self._fps.rate(), 1),
             param_version=self.store.version,
             actor_restarts=self.worker.restarts,
             actor_heartbeat_age=round(time.monotonic() - self.worker.heartbeat, 3),
             train_s=round(self.train_seconds, 3),
+            **path,
             final=final,
         )

@@ -1,15 +1,20 @@
-"""Shared component construction: config → (network, state, learner, fleet).
+"""Shared component construction: config → (network, state, replay, fleet).
 
-Port of the ``learner.device_replay=true`` subset of
-``ape_x_dqn_tpu/runtime/components.build_components``.  Every component
-lives on ``device`` ("cuda" unless the caller asks for the CPU).
+Port of ``ape_x_dqn_tpu/runtime/components.build_components``: both
+runtimes — the single-process driver and the async pipeline — wire the same
+objects here.  With ``learner.device_replay=false`` (the default) the
+replay is the host ``PrioritizedReplay`` (numpy, native sum-tree); with
+``true`` it is ``None`` and the fused learner owns a device ring.  The
+network, train state and actors live on ``device`` ("cuda" unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
@@ -17,10 +22,13 @@ from ape_x_dqn_tpu_torch.config import ApexConfig
 from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.learner.train_step import (
     Optimizer,
+    build_train_step,
     init_train_state,
     make_optimizer,
 )
 from ape_x_dqn_tpu_torch.models.dueling import build_network
+from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
+from ape_x_dqn_tpu_torch.runtime.single_process import beta_schedule
 from ape_x_dqn_tpu_torch.types import TrainState
 
 
@@ -32,8 +40,38 @@ class Components:
     network: torch.nn.Module
     optimizer: Optimizer
     state: TrainState
+    replay: Optional[PrioritizedReplay]   # None in device-replay mode
     env_fns: List[Callable]
     device: torch.device
+
+    def make_train_step(self):
+        """The host path's learner step.  It syncs the target inside the step
+        at ``q_target_sync_freq`` as given (the fused path rounds it down to
+        a multiple of K instead)."""
+        return build_train_step(
+            self.network,
+            self.optimizer,
+            loss_kind=self.cfg.learner.loss,
+            target_sync_freq=self.cfg.learner.q_target_sync_freq,
+        )
+
+    def make_sampler(self, learner_step_fn: Callable[[], int]):
+        """Host replay sampler with the β-annealed IS schedule, β read at
+        sample time from ``learner_step_fn()``.  The numpy generator is
+        seeded as the JAX package's on one host (seed + 7; its multi-host
+        salt is 0 there), so the same seed draws the same slots in both
+        packages."""
+        rng = np.random.default_rng(self.cfg.seed + 7)
+        cfg = self.cfg
+        size = cfg.learner.replay_sample_size
+
+        def sample():
+            beta = beta_schedule(
+                learner_step_fn(), cfg.learner.total_steps, cfg.replay.is_exponent
+            )
+            return self.replay.sample(size, beta=beta, rng=rng)
+
+        return sample
 
     def make_fused_learner(self):
         """The device-resident fused learner (device ring + K-step loop)."""
@@ -79,11 +117,6 @@ class Components:
 
 def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Components:
     cfg.validate()
-    if not cfg.learner.device_replay:
-        raise ValueError(
-            "the port runs the device-replay learner only so far; the "
-            "host-replay path is not ported yet — set learner.device_replay=true"
-        )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -111,12 +144,22 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
         max_grad_norm=cfg.learner.max_grad_norm,
     )
     state = init_train_state(network, optimizer, seed=cfg.seed, device=device)
+    if cfg.learner.device_replay:
+        # The fused learner keeps the ring on the device; a host replay here
+        # would be ~capacity × 2 frames of dead host memory.
+        replay = None
+    else:
+        replay = PrioritizedReplay(
+            cfg.replay.capacity, obs_shape,
+            priority_exponent=cfg.replay.priority_exponent,
+            frame_compression=cfg.replay.frame_compression,
+        )
     env_fns = [
         (lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i))
         for i in range(cfg.actor.num_actors)
     ]
     return Components(
         cfg=cfg, obs_shape=obs_shape, num_actions=num_actions,
-        network=network, optimizer=optimizer, state=state,
+        network=network, optimizer=optimizer, state=state, replay=replay,
         env_fns=env_fns, device=device,
     )

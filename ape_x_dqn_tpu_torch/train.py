@@ -1,14 +1,20 @@
 """CLI entry point: ``python -m ape_x_dqn_tpu_torch.train``.
 
-Port of ``ape_x_dqn_tpu/train.py`` for the device-replay learner:
+Port of ``ape_x_dqn_tpu/train.py``:
 
-    python -m ape_x_dqn_tpu_torch.train --set learner.device_replay=true \\
-        [--params-file F] [--set section.field=value ...] [--steps N] \\
+    python -m ape_x_dqn_tpu_torch.train [--params-file F] \\
+        [--set section.field=value ...] [--mode async|sync] [--steps N] \\
+        [--metrics-file F] [--eval-every N] [--eval-episodes N] \\
         [--log-every N] [--device cuda|cpu]
 
-JSONL metrics go to stdout; the resolved config
-goes to stderr.  ``--device`` defaults to ``cuda`` and a missing card
-raises; pass ``--device cpu`` to run on the CPU.
+``--mode async`` (the default) runs the actor ∥ replay ∥ learner pipeline:
+the host-replay learner by default, the fused device-replay learner with
+``--set learner.device_replay=true``.  ``--mode sync`` runs the
+deterministic single-process round-robin over the host replay (the golden
+path).  JSONL metrics go to stdout and, with ``--metrics-file``, are
+appended to that file too; the resolved config goes to stderr.
+``--device`` defaults to ``cuda`` and a missing card raises; pass
+``--device cpu`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -23,15 +29,23 @@ from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ape_x_dqn_tpu_torch.train",
-        description="Ape-X DQN trainer, PyTorch/CUDA port (device-replay learner)",
+        description="Ape-X DQN trainer, PyTorch/CUDA port",
     )
     p.add_argument("--params-file", default=None,
                    help="JSON config (native or reference parameters.json format)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="PATH=VALUE",
                    help="config override, e.g. --set actor.num_actors=64")
+    p.add_argument("--mode", choices=("async", "sync"), default="async")
     p.add_argument("--steps", type=int, default=None,
                    help="learner steps (default: config)")
+    p.add_argument("--metrics-file", default=None, help="also write JSONL here")
+    p.add_argument("--eval-every", type=int, default=0, metavar="STEPS",
+                   help="greedy-evaluate (ε≈0.001, no emission) every N learner "
+                   "steps, logging eval/score and, for Atari games, eval/hns; "
+                   "0 disables")
+    p.add_argument("--eval-episodes", type=int, default=10,
+                   help="episodes per evaluation pass")
     p.add_argument("--log-every", type=int, default=500)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
@@ -41,13 +55,69 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     cfg = load_config(args.params_file, overrides=args.overrides)
     print("config:", to_dict(cfg), file=sys.stderr)
+    logger = MetricLogger(stream=sys.stdout, path=args.metrics_file)
+    try:
+        if args.mode == "async":
+            _run_async(args, cfg, logger)
+        else:
+            _run_sync(args, cfg, logger)
+    finally:
+        logger.close()
+    return 0
+
+
+def _run_async(args, cfg, logger) -> None:
     from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
 
-    pipe = AsyncPipeline(cfg, logger=MetricLogger(stream=sys.stdout),
-                         log_every=args.log_every, device=args.device)
+    pipe = AsyncPipeline(cfg, logger=logger, log_every=args.log_every,
+                         device=args.device, eval_every=args.eval_every,
+                         eval_episodes=args.eval_episodes)
     final = pipe.run(learner_steps=args.steps)
     print("final:", final, file=sys.stderr)
-    return 0
+
+
+def _run_sync(args, cfg, logger) -> None:
+    from ape_x_dqn_tpu_torch.evaluation import log_result, make_evaluator
+    from ape_x_dqn_tpu_torch.runtime.single_process import SingleProcessDriver
+
+    driver = SingleProcessDriver(cfg, device=args.device)
+    evaluator = None
+    next_eval = args.eval_every
+    target = args.steps if args.steps is not None else cfg.learner.total_steps
+    while driver.learner_step < target:
+        res = driver.run_iteration()
+        for e in res.episodes:
+            logger.log("episode/return", e.episode_return)
+            logger.log("episode/length", e.episode_length)
+        if res.loss == res.loss:  # not NaN
+            logger.log("learner/loss", res.loss)
+            logger.log("learner/mean_q", res.mean_q)
+        if args.eval_every and driver.learner_step >= next_eval:
+            while next_eval <= driver.learner_step:
+                next_eval += args.eval_every
+            if evaluator is None:
+                evaluator = make_evaluator(
+                    driver.comps.env_fns, driver.network,
+                    env_name=cfg.env.name, seed=cfg.seed, device=driver.device,
+                )
+            log_result(logger, evaluator.evaluate(
+                driver.state.params, episodes=args.eval_episodes
+            ))
+        if driver.learner_step and driver.learner_step % args.log_every == 0:
+            logger.emit(
+                step=driver.learner_step,
+                actor_steps=res.actor_steps,
+                replay_size=res.replay_size,
+            )
+        if driver.fleet.step_count >= cfg.actor.T:
+            break
+    final = logger.emit(
+        step=driver.learner_step,
+        actor_steps=driver.total_actor_steps,
+        replay_size=driver.replay.size(),
+        final=True,
+    )
+    print("final:", final, file=sys.stderr)
 
 
 if __name__ == "__main__":

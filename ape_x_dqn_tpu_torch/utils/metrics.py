@@ -3,7 +3,8 @@
 Port of the JSONL subset of ``ape_x_dqn_tpu/utils/metrics.py``:
 ``RateCounter`` and ``MetricLogger`` (``log`` accumulates scalars, ``emit``
 writes one record of their mean/min/max/count plus extra fields, stamped
-with a per-process ``seq`` and the ``pid``).
+with a per-process ``seq`` and the ``pid``, to a stream and optionally to a
+file, one JSONL record per emit, appended).
 """
 
 from __future__ import annotations
@@ -53,8 +54,13 @@ class MetricLogger:
     """Aggregate scalars between emits; write one JSONL record per emit.
     Thread-safe; writers share one logger."""
 
-    def __init__(self, stream: Optional[IO] = None):
-        self._stream = stream if stream is not None else sys.stdout
+    def __init__(self, stream: Optional[IO] = None, path: Optional[str] = None):
+        self._streams: list[IO] = [stream] if stream is not None else []
+        self._file = open(path, "a") if path else None
+        if self._file:
+            self._streams.append(self._file)
+        if not self._streams:
+            self._streams.append(sys.stdout)
         self._acc: Dict[str, list] = defaultdict(list)
         self._lock = threading.Lock()
         self._seq = itertools.count(1)
@@ -81,6 +87,13 @@ class MetricLogger:
             record.update(extra)
             record.setdefault("seq", next(self._seq))
             record.setdefault("pid", os.getpid())
-            self._stream.write(json.dumps(record) + "\n")
-            self._stream.flush()
+            line = json.dumps(record) + "\n"
+            for out in self._streams:
+                out.write(line)
+                out.flush()
         return record
+
+    def close(self) -> None:
+        """Close the file sink (the stream belongs to the caller)."""
+        if self._file:
+            self._file.close()

@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
   1. device   — the card's name and count, and nvidia-smi's name and
                 power limit;
   2. build    — compile the sampling kernel (``ops/csrc/sampling.cu``) from
-                the checkout with nvcc, timed;
+                the checkout with nvcc, and the host replay's native
+                sum-tree (``_native/sum_tree.cc``) with g++, timed;
   3. kernel   — hold the kernel against its plain PyTorch version at
                 C = 100 000 and 2 000 000, B = 32 and 4096: identical
                 indices on integer-valued priorities (exact in float32),
@@ -30,8 +31,24 @@ Phases, each printing one JSON line:
                 frames, device replay of 100 000 slots, B = 32, K = 128,
                 8 actors: the loss must be finite, the steps reached, and
                 every sample drawn by the kernel (launch count == steps);
-  6. kernels  — one JSON object per ported kernel with its launches on the
-                main path, error, times and bound.
+  6. host_parity — the host replay path's placement and step: a port
+                ``PrioritizedReplay`` filled from a seed, batches sampled
+                and placed on the card through the prefetch queue's
+                ``DevicePlacer`` (pinned staging, copy stream, event), each
+                batch on the card equal to its host batch byte for byte;
+                then one full-width train step on the card and one on the
+                CPU from the same batch and params (float32, TF32 off): the
+                parameter updates must agree within 1e-3 of the largest;
+  7. host_train — the default host-replay path through ``train.main``
+                (async mode) at the width of phase 5, 100 000 host slots,
+                512 learner steps: finite loss, steps reached, train state
+                on the card, ``stage_us``, rates, peak device memory, the
+                replay's frame bytes, and the sampler kernel's launches on
+                this path (0: the host path samples on the CPU's sum-tree);
+  8. host_sync — ``train.main --mode sync`` for 64 learner steps on the
+                card, finite loss;
+  9. kernels  — one JSON object per ported kernel with its launches on the
+                main path (and on each path), error, times and bound.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -285,6 +302,201 @@ def phase_train(sampling, card: str, steps: int = 512):
     return result
 
 
+FULL_WIDTH = [
+    "--set", "network=conv",
+    "--set", "env.name=catch:84",
+    "--set", "replay.capacity=100000",
+    "--set", "learner.replay_sample_size=32",
+    "--set", "learner.min_replay_mem_size=2048",
+    "--set", "actor.num_actors=8",
+    "--set", f"seed={SEED}",
+]
+
+
+def phase_host_parity():
+    """Host replay → prefetch placement on the card, byte for byte; then one
+    full-width step on the card against the CPU from the same batch."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.learner.train_step import (
+        build_train_step,
+        init_train_state,
+        make_optimizer,
+    )
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
+    from ape_x_dqn_tpu_torch.runtime.infeed import (
+        DevicePlacer,
+        PrefetchQueue,
+        batch_to_device,
+    )
+    from ape_x_dqn_tpu_torch.types import NStepTransition
+
+    rng = np.random.default_rng(SEED)
+    obs_shape, A, B, M = (84, 84, 1), 3, 32, 1024
+    replay = PrioritizedReplay(100_000, obs_shape)
+    for _ in range(8):
+        replay.add((rng.random(M) + 0.05).astype(np.float32), NStepTransition(
+            obs=rng.integers(0, 256, (M, *obs_shape), dtype=np.uint8),
+            action=rng.integers(0, A, M).astype(np.int32),
+            reward=rng.normal(size=M).astype(np.float32),
+            discount=np.full(M, 0.97, np.float32),
+            next_obs=rng.integers(0, 256, (M, *obs_shape), dtype=np.uint8),
+        ))
+    sample_rng = np.random.default_rng(SEED + 7)
+    host = []
+
+    def sample():
+        batch = replay.sample(B, beta=0.4, rng=sample_rng)
+        host.append(batch)
+        return batch
+
+    def fields(batch):
+        t = batch.transition
+        return [t.obs, t.action, t.reward, t.discount, t.next_obs,
+                batch.indices, batch.is_weights]
+
+    n_batches = 64
+    scratch = torch.empty(1 << 26, device="cuda")
+    with PrefetchQueue(sample, place_fn=DevicePlacer("cuda"), depth=2) as queue:
+        for i in range(n_batches):
+            placed = queue.get()
+            dev = placed.wait()
+            scratch.mul_(0.5)  # learner-stream work while the next copies run
+            for d, h in zip(fields(dev), fields(host[i])):
+                got = d.cpu().numpy()
+                if got.dtype != h.dtype or got.tobytes() != np.ascontiguousarray(h).tobytes():
+                    raise AssertionError(f"batch {i}: a field on the card differs "
+                                         "from the host batch")
+            if not np.array_equal(placed.indices, host[i].indices):
+                raise AssertionError(f"batch {i}: host indices differ")
+    del scratch
+    torch.manual_seed(SEED)
+    net = build_network("conv", A, obs_shape, compute_dtype=torch.float32)
+    opt = make_optimizer("rmsprop")
+    step = build_train_step(net, opt, loss_kind="huber", target_sync_freq=2500)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev_name, batch in (("cpu", batch_to_device(host[n_batches - 1], "cpu")),
+                                ("cuda", dev)):
+            state = init_train_state(net, opt, seed=SEED, device=dev_name)
+            state, m = step(state, batch)
+            out[dev_name] = ({k: v.cpu() for k, v in state.params.items()},
+                             m.priorities.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    init = {k: v.cpu() for k, v in net.state_dict().items()}
+    worst = 0.0
+    for k in init:
+        d_cpu = out["cpu"][0][k] - init[k]
+        d_gpu = out["cuda"][0][k] - init[k]
+        worst = max(worst, float((d_cpu - d_gpu).abs().max())
+                    / (float(d_cpu.abs().max()) + 1e-12))
+    p_cpu, p_gpu = out["cpu"][1], out["cuda"][1]
+    prio_err = float((p_cpu - p_gpu).abs().max()) / float(p_cpu.abs().max())
+    # The same tolerance as phase_parity, for the same reason (conv and
+    # matmul sums in other orders; RMSProp's normalised update).
+    if worst > 1e-3 or prio_err > 1e-3:
+        raise AssertionError(f"card vs CPU host step: update error {worst:.3g} of "
+                             f"the largest update, priority error {prio_err:.3g}")
+    emit({"phase": "host_parity", "batches_byte_equal": n_batches,
+          "param_update_err_rel": worst, "priority_err_rel": prio_err,
+          "tolerance": {"param_update_err_rel": 1e-3, "priority_err_rel": 1e-3}})
+
+
+@contextlib.contextmanager
+def capture_pipelines():
+    """Observe the ``AsyncPipeline`` that ``train.main`` builds, so the phase
+    can read its train state and replay after the run."""
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+
+    seen, run = [], AsyncPipeline.run
+
+    def observed(self, *args, **kwargs):
+        seen.append(self)
+        return run(self, *args, **kwargs)
+
+    AsyncPipeline.run = observed
+    try:
+        yield seen
+    finally:
+        AsyncPipeline.run = run
+
+
+def run_train(argv):
+    from ape_x_dqn_tpu_torch import train
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    wall = time.monotonic() - t0
+    records = [json.loads(line) for line in out.getvalue().splitlines()
+               if line.startswith("{")]
+    final = records[-1] if records else {}
+    if rc != 0 or not final.get("final"):
+        raise AssertionError(f"train.main returned {rc} without a final record")
+    loss = final.get("learner/loss")
+    if loss is None or not np.isfinite(loss):
+        raise AssertionError(f"loss not finite: {loss}")
+    return final, wall
+
+
+def phase_host_train(sampling, card: str, steps: int = 512):
+    import torch
+
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "128",
+            *FULL_WIDTH]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    pipe = seen[0]
+    if final["step"] < steps:
+        raise AssertionError(f"reached {final['step']} of {steps} learner steps")
+    state = pipe.comps.state
+    tensors = [*state.params.values(), *state.target_params.values(),
+               *state.opt_state["nu"].values()]
+    if pipe.fused is not None or not all(t.is_cuda for t in tensors):
+        raise AssertionError("host-replay train state is not on the card")
+    if launches != 0:
+        raise AssertionError(f"{launches} sampler kernel launches on the host path, "
+                             "which samples on the CPU")
+    result = {
+        "phase": "host_train", "card": card, "learner_steps": final["step"],
+        "loss": final["learner/loss"], "train_state_on": str(tensors[0].device),
+        "sampler_launches": launches,
+        "learner_steps_per_s": final["step"] / final["train_s"],
+        "actor_fps": final["actor_fps"], "steps_per_sec_30s": final["steps_per_sec"],
+        "stage_us": final["stage_us"], "train_s": final["train_s"], "wall_s": wall,
+        "actor_steps": final["actor_steps"], "replay_size": final["replay_size"],
+        "replay_frames_nbytes": pipe.comps.replay.frames_nbytes(),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit(result)
+    return result
+
+
+def phase_host_sync(sampling, steps: int = 64):
+    sampling.sample_indices.launches = 0
+    final, wall = run_train(["--mode", "sync", "--device", "cuda", "--steps", str(steps),
+                             "--log-every", "100000", *FULL_WIDTH])
+    launches = sampling.sample_indices.launches
+    if final["step"] < steps:
+        raise AssertionError(f"reached {final['step']} of {steps} learner steps")
+    if launches != 0:
+        raise AssertionError(f"{launches} sampler kernel launches in --mode sync")
+    result = {"phase": "host_sync", "learner_steps": final["step"],
+              "loss": final["learner/loss"], "sampler_launches": launches,
+              "actor_steps": final["actor_steps"], "wall_s": wall}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -302,15 +514,24 @@ def main() -> int:
     emit({"phase": "device", "kind": name, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from ape_x_dqn_tpu_torch.replay import native
+
     t0 = time.monotonic()
     lib, log = sampling.build_library()
     emit({"phase": "build", "library": lib.name, "seconds": time.monotonic() - t0,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
+    t0 = time.monotonic()
+    tree_lib, tree_log = native.build_library()
+    emit({"phase": "build", "library": tree_lib.name, "compiler": native.CXX,
+          "seconds": time.monotonic() - t0, "log": tree_log.strip()})
 
     rows = phase_kernel(sampling)
     phase_parity()
     trained = phase_train(sampling, card=smi)
+    phase_host_parity()
+    host = phase_host_train(sampling, card=smi)
+    host_sync = phase_host_sync(sampling)
 
     main_row = next(r for r in rows if r["C"] == 100_000 and r["B"] == 32)
     emit({"kernels": [{
@@ -319,6 +540,9 @@ def main() -> int:
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
         "launches": trained["sampler_launches"],
+        "launches_by_path": {"device_replay": trained["sampler_launches"],
+                             "host_replay": host["sampler_launches"],
+                             "host_sync": host_sync["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],

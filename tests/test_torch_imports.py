@@ -25,7 +25,11 @@ def _port_modules():
 def test_port_modules_are_found():
     mods = _port_modules()
     for want in ("ape_x_dqn_tpu_torch.ops.sampling", "ape_x_dqn_tpu_torch.train",
-                 "ape_x_dqn_tpu_torch.runtime.async_pipeline"):
+                 "ape_x_dqn_tpu_torch.runtime.async_pipeline",
+                 "ape_x_dqn_tpu_torch.replay.buffer", "ape_x_dqn_tpu_torch.replay.native",
+                 "ape_x_dqn_tpu_torch.runtime.infeed",
+                 "ape_x_dqn_tpu_torch.runtime.single_process",
+                 "ape_x_dqn_tpu_torch.evaluation", "ape_x_dqn_tpu_torch.utils.profiling"):
         assert want in mods
 
 

@@ -9,7 +9,9 @@
   rtol 1e-4, parameter updates rtol 1e-4 with atol 1e-4 of the largest.
 * ``ActorFleet`` with ε = 0 and carried weights emits the same chunks:
   transitions exact, priorities rtol 1e-5.
-* ``python -m ape_x_dqn_tpu_torch.train --device cpu`` runs end to end.
+* ``python -m ape_x_dqn_tpu_torch.train --device cpu`` runs end to end, on
+  the device-replay learner and on the default host-replay path (async and
+  ``--mode sync``); without ``--device`` it asks for the card.
 """
 
 from __future__ import annotations
@@ -213,9 +215,28 @@ def test_cli_runs_end_to_end_on_cpu():
     assert np.isfinite(final["learner/loss"]) and final["replay_size"] >= 128
 
 
-def test_cli_defaults_to_cuda_and_rejects_host_replay():
+def test_cli_defaults_to_cuda():
     from ape_x_dqn_tpu_torch import train
 
     assert train.build_argparser().parse_args([]).device == "cuda"
-    with pytest.raises(ValueError, match="device_replay"):
-        train.main(["--device", "cpu", "--set", "env.name=chain:5"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--set", "env.name=chain:5", "--steps", "1"])
+
+
+@pytest.mark.parametrize("mode", ["async", "sync"])
+def test_cli_runs_host_path_on_cpu(mode):
+    """The default learner.device_replay=false: host replay, host sum-tree."""
+    cmd = [
+        sys.executable, "-m", "ape_x_dqn_tpu_torch.train", "--device", "cpu",
+        "--mode", mode, "--steps", "50",
+        "--set", "env.name=chain:6", "--set", "network=mlp",
+        "--set", "learner.min_replay_mem_size=200", "--set", "replay.capacity=5000",
+    ]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    records = [json.loads(line) for line in res.stdout.splitlines()
+               if line.startswith("{")]
+    final = records[-1]
+    assert final["final"] and final["step"] == 50
+    assert np.isfinite(final["learner/loss"]) and final["replay_size"] >= 200
