@@ -89,6 +89,8 @@ class ActorFleet:
         seed: int = 0,
         emission: str = "overlapping",
         device: str | torch.device = "cuda",
+        epsilon_index_offset: int = 0,
+        epsilon_total: int | None = None,
     ):
         self.envs = SyncVectorEnv(env_fns)
         self.network = network
@@ -106,7 +108,14 @@ class ActorFleet:
                 "window shorter than the stride can contain no aligned start)"
             )
         N = self.envs.num_envs
-        self._epsilons = epsilon_ladder(epsilon, epsilon_alpha, N).to(self.device)
+        # A fleet that is one slice of a larger actor set (a process-actor
+        # worker) takes rows [offset, offset + N) of the GLOBAL ladder, so
+        # exploration does not depend on how actors are placed.
+        total = epsilon_total if epsilon_total is not None else N
+        off = int(epsilon_index_offset)
+        if off < 0 or off + N > total:
+            raise ValueError(f"epsilon ladder slice [{off}, {off + N}) exceeds total {total}")
+        self._epsilons = epsilon_ladder(epsilon, epsilon_alpha, total)[off:off + N].to(self.device)
         self._policy_step = build_policy_step(network, seed=seed, device=self.device)
         self._obs = self.envs.reset(seed=seed)
         # History ring: H = flush_every + n rows; global step s lives at

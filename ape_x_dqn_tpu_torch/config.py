@@ -4,10 +4,10 @@ The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
 sections, reference-format ``parameters.json`` files, ``--set
 section.field=value`` overrides), cut down to the fields the port runs.
 A key the port does not run raises rather than loading as a dead setting,
-so a config written for the JAX package's other paths (process actors,
-serving, checkpoints, data parallel) fails loudly here instead of running
-something else.  The port owns this copy; it never imports the JAX
-package's module.
+so a config written for the JAX package's other paths (central inference,
+the tcp transport, serving, checkpoints, data parallel) fails loudly here
+instead of running something else.  The port owns this copy; it never
+imports the JAX package's module.
 """
 
 from __future__ import annotations
@@ -37,6 +37,29 @@ class ActorConfig:
     # "overlapping" = every step starts a window (stride 1); "strided" =
     # only n-aligned starts (stride n, the reference's emission).
     emission: str = "overlapping"
+    # Actor placement: "thread" = one fleet thread in the learner process;
+    # "process" = num_workers CPU-only worker processes, each running its
+    # slice of the actor set, params over a shared-memory seqlock buffer and
+    # experience over one shared-memory ring per worker
+    # (runtime/process_actors.py).
+    mode: str = "thread"
+    num_workers: int = 2                  # worker processes (mode="process")
+    # Unix niceness applied inside each worker, so the learner's dispatch
+    # thread is scheduled first where workers share its cores.  0 = default.
+    worker_nice: int = 0
+    # Experience transport (mode="process"): "shm" only in the port.
+    transport: str = "shm"
+    # Bytes of each worker's experience ring: at least one chunk (about
+    # flush_every × actors-per-worker × 2 × frame bytes) plus slack for the
+    # learner's drain cadence.
+    xp_ring_bytes: int = 8 << 20
+    # Per-poll byte budget of the learner's sweep over the rings.
+    xp_drain_budget_bytes: int = 64 << 20
+    spawn_stagger_s: float = 0.0          # seconds between worker spawns
+    # Floor between a worker's death and its respawn, with or without a
+    # supervisor policy: a worker that crashes at start-up must not spin
+    # the pool at spawn speed.
+    respawn_min_interval_s: float = 0.25
 
 
 @dataclasses.dataclass
@@ -77,17 +100,57 @@ class ReplayConfig:
 
 
 @dataclasses.dataclass
+class SupervisorConfig:
+    """Worker respawn policy of process actors (runtime/supervisor.py): an
+    exponential backoff (base doubling per death in the crash-loop window,
+    capped) with multiplicative jitter; more than crash_loop_budget deaths
+    inside the window quarantine the worker.  Disabled, a worker respawns
+    at once until the pool's restart budget runs out, and the next death is
+    fatal."""
+
+    enabled: bool = True
+    respawn_backoff_base_s: float = 0.5
+    respawn_backoff_max_s: float = 30.0
+    respawn_jitter: float = 0.25          # +/- fraction of the backoff
+    crash_loop_window_s: float = 120.0
+    crash_loop_budget: int = 5
+
+
+@dataclasses.dataclass
 class ApexConfig:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     actor: ActorConfig = dataclasses.field(default_factory=ActorConfig)
     learner: LearnerConfig = dataclasses.field(default_factory=LearnerConfig)
     replay: ReplayConfig = dataclasses.field(default_factory=ReplayConfig)
+    supervisor: SupervisorConfig = dataclasses.field(default_factory=SupervisorConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
 
     def validate(self) -> "ApexConfig":
-        a, l, r = self.actor, self.learner, self.replay
+        a, l, r, s = self.actor, self.learner, self.replay, self.supervisor
         checks = [
+            (a.mode in ("thread", "process"), f"unknown actor.mode: {a.mode}"),
+            (a.num_workers >= 1, "actor.num_workers must be >= 1"),
+            (a.mode != "process" or a.num_actors >= a.num_workers,
+             "actor.num_actors must be >= actor.num_workers in process mode"),
+            (a.transport == "shm",
+             f"actor.transport={a.transport}: only the shm transport is part of "
+             "the port (runtime/net.py, the tcp transport, is not ported yet)"),
+            (0 <= a.worker_nice <= 19, "actor.worker_nice must be in [0, 19]"),
+            (a.xp_ring_bytes >= 1 << 16,
+             "actor.xp_ring_bytes must be >= 64 KiB (one chunk + record header)"),
+            (a.xp_drain_budget_bytes >= 1 << 16,
+             "actor.xp_drain_budget_bytes must be >= 64 KiB"),
+            (a.spawn_stagger_s >= 0.0, "actor.spawn_stagger_s must be >= 0"),
+            (a.respawn_min_interval_s >= 0.0,
+             "actor.respawn_min_interval_s must be >= 0"),
+            (s.respawn_backoff_base_s >= 0.0,
+             "supervisor.respawn_backoff_base_s must be >= 0"),
+            (s.respawn_backoff_max_s >= s.respawn_backoff_base_s,
+             "supervisor.respawn_backoff_max_s must be >= base"),
+            (0.0 <= s.respawn_jitter <= 1.0, "supervisor.respawn_jitter must be in [0, 1]"),
+            (s.crash_loop_window_s > 0.0, "supervisor.crash_loop_window_s must be > 0"),
+            (s.crash_loop_budget >= 1, "supervisor.crash_loop_budget must be >= 1"),
             (a.num_actors >= 1, "actor.num_actors must be >= 1"),
             (a.num_steps >= 1, "actor.num_steps must be >= 1"),
             (0.0 <= a.epsilon <= 1.0, "actor.epsilon must be in [0, 1]"),
@@ -209,6 +272,21 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
     return raw
 
 
+# Keys of the JAX package's config whose feature the port does not run yet,
+# refused by name (any other unknown key is refused as unknown).
+_NOT_PORTED = {
+    "actor.inference": "central inference (serving/central.py, ROADMAP A8)",
+    "actor.max_workers": "elastic grow/retire of process actors (ROADMAP A6)",
+    "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP A6)",
+}
+
+
+def _unknown_key(path: str) -> ValueError:
+    if path in _NOT_PORTED:
+        return ValueError(f"{path}: {_NOT_PORTED[path]} is not part of the port yet")
+    return ValueError(f"unknown config field: {path}")
+
+
 def apply_overrides(cfg: ApexConfig, overrides: Sequence[str]) -> ApexConfig:
     """Apply CLI ``section.field=value`` overrides (e.g.
     ``actor.num_actors=64``, ``network=mlp``)."""
@@ -224,7 +302,7 @@ def apply_overrides(cfg: ApexConfig, overrides: Sequence[str]) -> ApexConfig:
             obj = getattr(obj, p)
         field = parts[-1]
         if not hasattr(obj, field):
-            raise ValueError(f"unknown config field: {path}")
+            raise _unknown_key(path)
         setattr(obj, field, _coerce(getattr(obj, field), raw, field))
     return cfg.validate()
 
@@ -246,6 +324,7 @@ def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Ap
 _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
+    "supervisor": SupervisorConfig,
 }
 
 
@@ -255,6 +334,9 @@ def _from_native_json(data: dict) -> ApexConfig:
         if key in _SECTIONS:
             known = {f.name for f in dataclasses.fields(_SECTIONS[key])}
             unknown = set(value) - known
+            for field in sorted(unknown):
+                if f"{key}.{field}" in _NOT_PORTED:
+                    raise _unknown_key(f"{key}.{field}")
             if unknown:
                 raise ValueError(
                     f"config keys in {key} the port does not run: "

@@ -30,7 +30,7 @@ from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
 
 
 class NotPortedError(NotImplementedError):
-    """A feature of the JAX package's replay that the port does not carry yet."""
+    """A feature of the JAX package that the port does not carry yet."""
 
 
 class RawFrameStore:

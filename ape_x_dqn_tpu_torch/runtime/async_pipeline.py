@@ -28,9 +28,17 @@ single-device learner loops of ``AsyncPipeline``:
   :1536-1631): the actor thread stages numpy chunks, the learner ingests
   them into the device ring and runs fused K-step calls, at most
   ``FUSED_INFLIGHT`` in flight before the oldest call's loss is read back.
+  It publishes through the same ``_AsyncPublisher`` (JAX :1168-1177).
 
-Process actors, central inference, observability, checkpoints and the
-overlapped fused pipeline of the JAX runtime are not part of the port yet.
+Actors run as one thread in this process (``actor.mode=thread``) or as
+``actor.num_workers`` CPU-only worker processes (``actor.mode=process``,
+JAX :583-648; ``runtime/process_actors.py``): the pool's shared-memory
+store takes the ``ParamStore``'s place, a pump thread drains the workers'
+rings into the same sink, and the fused loop lets 8 calls queue and reads
+them all back at once, since no actor touches the device (JAX :353-375).
+
+Central inference, observability, checkpoints and the overlapped fused
+pipeline of the JAX runtime are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -161,7 +169,8 @@ class _ActorWorker:
         self._thread.start()
 
     def join(self, timeout: float = 30.0):
-        self._thread.join(timeout)
+        if self._thread.is_alive():
+            self._thread.join(timeout)
 
     def drain_episodes(self) -> List[EpisodeStat]:
         with self._ep_lock:
@@ -228,11 +237,15 @@ class AsyncPipeline:
         self._steps_rate = RateCounter(window_s=30.0)
         # Per-stage host wall clock, exported as stage_us in every emit.
         self.timers = StageTimer()
-        self.store = ParamStore(self.comps.state.params)
         self._learner_step = 0
         self.train_seconds = 0.0  # wall time of the learner loop, after warmup
         self.fused = None
-        self._publisher = None
+        process = self.cfg.actor.mode == "process"
+        # Fused-call drain: with thread actors, read back the oldest call
+        # once FUSED_INFLIGHT are queued, so the actors' forwards interleave
+        # with the learner's calls.  Process actors never touch the device:
+        # let 8 calls queue and read them all back in one burst.
+        self._fused_inflight = 8 if process else FUSED_INFLIGHT
         if self.cfg.learner.device_replay:
             self.fused = self.comps.make_fused_learner()
             sink = self.fused.add_chunk
@@ -242,17 +255,53 @@ class AsyncPipeline:
             self._sample = self.comps.make_sampler(lambda: self._learner_step)
             self._place = DevicePlacer(self.comps.device)
             self._pipeline_depth = self.cfg.learner.pipeline_depth
-            self._publisher = _AsyncPublisher(self.store)
-        self.worker = _ActorWorker(
-            self.comps, self.store, self.stop_event, self.logger, self._fps,
-            sink=sink,
-        )
+        if process:
+            self._init_process_actors(sink)
+        else:
+            self.store = ParamStore(self.comps.state.params)
+            self.worker = _ActorWorker(
+                self.comps, self.store, self.stop_event, self.logger, self._fps,
+                sink=sink,
+            )
+        self._publisher = _AsyncPublisher(self.store)
         # Periodic greedy evaluation on the learner thread; 0 disables.
         self._eval_every = int(eval_every)
         self._eval_episodes = int(eval_episodes)
         self._next_eval = self._eval_every
         self._evaluator = None
         self.eval_scores: List[float] = []
+
+    def _init_process_actors(self, sink) -> None:
+        """Actors in CPU-only worker processes (``runtime/process_actors``):
+        the pool's shared-memory store replaces the ``ParamStore`` and gets
+        the initial params before any worker starts."""
+        from ape_x_dqn_tpu_torch.runtime.process_actors import (
+            ProcessActorPool,
+            ProcessActorWorker,
+        )
+        from ape_x_dqn_tpu_torch.runtime.supervisor import RespawnPolicy
+
+        pool = ProcessActorPool(self.cfg, num_workers=self.cfg.actor.num_workers)
+        if self.cfg.supervisor.enabled:
+            pool.respawn_policy = RespawnPolicy.from_config(self.cfg.supervisor,
+                                                            seed=self.cfg.seed)
+        self.store = pool.store
+        try:
+            self.store.publish(self.comps.state.params)
+        except BaseException:
+            pool.stop()
+            raise
+        if self.fused is not None:
+            fused = self.fused
+
+            def process_sink(prio, trans):
+                # The pool hands over read-only views of one ring record;
+                # the staging list keeps rows past the next poll, so copy.
+                fused.add_chunk(prio.copy(), trans.map(np.copy))
+        else:
+            process_sink = sink  # replay.add copies into its own arrays
+        self.worker = ProcessActorWorker(pool, process_sink, logger=self.logger,
+                                         fps=self._fps, stop_event=self.stop_event)
 
     @property
     def learner_step(self) -> int:
@@ -296,9 +345,9 @@ class AsyncPipeline:
 
     def _run_host(self, target: int) -> dict:
         cfg = self.cfg
-        self.worker.start()
         metrics = None
         try:
+            self.worker.start()
             self._wait_for_warmup(WARMUP_TIMEOUT_S)
             t0 = time.monotonic()
             with PrefetchQueue(self._sample, place_fn=self._place,
@@ -397,10 +446,11 @@ class AsyncPipeline:
         """Ingest staged actor chunks, then fused K-step calls."""
         cfg = self.cfg
         fused = self.fused
-        self.worker.start()
+        drain_all = cfg.actor.mode == "process"
         last_metrics = None
         inflight: list = []  # metrics of dispatched calls not yet read back
         try:
+            self.worker.start()
             self._wait_for_warmup(WARMUP_TIMEOUT_S)
             t0 = time.monotonic()
             next_log = self._learner_step + self.log_every
@@ -410,24 +460,29 @@ class AsyncPipeline:
                                      cfg.replay.is_exponent)
                 last_metrics = fused.train(beta)
                 inflight.append(last_metrics)
-                if len(inflight) >= FUSED_INFLIGHT:
+                if len(inflight) >= self._fused_inflight:
                     self._force_fused(inflight.pop(0))
+                    while drain_all and inflight:
+                        self._force_fused(inflight.pop(0))
                 self._learner_step += fused.steps_per_call
                 # Publish at most once per fused call.
                 if self._learner_step % max(
                     cfg.learner.publish_every, fused.steps_per_call
                 ) < fused.steps_per_call:
-                    self.store.publish(fused.params_for_publish())
+                    with self.timers.stage("publish"):
+                        self._publish(fused.params_for_publish())
                 self._maybe_eval()
                 if self._learner_step >= next_log:
                     self._emit(last_metrics)
                     next_log += self.log_every
             while inflight:
                 self._force_fused(inflight.pop(0))
+            self._finish_publishes()
             self.train_seconds = time.monotonic() - t0
         finally:
             self.stop_event.set()
             self.worker.join()
+            self._publisher.close()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
         if last_metrics is not None:
@@ -447,10 +502,9 @@ class AsyncPipeline:
             # stacked over its K steps, the last one is logged.
             self.logger.log("learner/loss", float(metrics.loss.reshape(-1)[-1]))
             self.logger.log("learner/mean_q", float(metrics.mean_q.reshape(-1)[-1]))
+        path = {"stage_us": self.timers.us_per_call()}
         if self.fused is not None:
-            path = {"staged_rows": self.fused.staged_rows}
-        else:
-            path = {"stage_us": self.timers.us_per_call()}
+            path["staged_rows"] = self.fused.staged_rows
         return self.logger.emit(
             step=self._learner_step,
             actor_steps=self.worker.actor_steps,

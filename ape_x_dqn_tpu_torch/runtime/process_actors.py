@@ -1,0 +1,778 @@
+"""Process-parallel actors: N CPU-only worker processes feeding one learner.
+
+Port of ``ape_x_dqn_tpu/runtime/process_actors.py`` (``actor.mode=process``)
+on the same transport stack, so the segments and records are the JAX
+package's:
+
+  * **Param broadcast** — ``SharedParamBuffer``, a single-writer
+    shared-memory seqlock holding one APXT snapshot
+    (``utils/serialization``).  The learner writes at its publish rate;
+    workers poll the version and deserialize only on change; a reader never
+    blocks the writer and checks a crc32 of what it copied.
+  * **Experience** — one SIGKILL-safe single-producer/single-consumer ring
+    per worker incarnation (``runtime/shm_ring.ShmRing``): a worker gathers
+    each chunk into its ring once, the learner drains every ring in one
+    round-robin sweep per poll and hands whole chunks to the replay as
+    read-only views over the record it copied out.  A worker killed
+    mid-record leaves a detectably torn tail, not a held lock.  An
+    ``mp.Queue`` per incarnation carries only control messages (episodes,
+    done, errors, the worker's final report).
+  * **Workers run on the CPU by design.**  Exactly one process, the
+    learner, holds a context on the card.  A worker hides the card before
+    it imports torch, builds its fleet with ``device="cpu"``, sets its
+    intra-op threads to the usable cores divided by the worker count, and
+    reports ``torch.cuda.is_initialized()`` when it finishes.  Workers are
+    started with the ``spawn`` method, never ``fork``: the learner holds a
+    CUDA context and threads before the pool starts.
+  * Each worker runs an ``ActorFleet`` over its slice of the global actor
+    set (``worker_slice``), with the ε-ladder indexed globally, so
+    exploration matches the thread layout.  A respawned worker gets only
+    its remaining ``actor.T`` budget.
+
+Not ported yet (the config refuses them by name): the tcp transport and
+its param path (``runtime/net.py``), central inference, grow/retire and
+remote workers, chaos ``SlowEnv``, lineage trace sampling, the per-worker
+stats blocks, the flight recorder and post-mortem files.  A frame-dedup
+(``DXP``) record raises ``NotPortedError``.
+
+This module imports only the standard library and numpy at module scope:
+a spawned child imports it before the worker target runs, and pays for
+whatever it imports.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import queue as queue_mod
+import struct
+import threading
+import time
+import zlib
+from multiprocessing import shared_memory
+from typing import List, Optional
+
+import numpy as np
+
+from ape_x_dqn_tpu_torch.runtime.shm_ring import (
+    DXP,
+    XP,
+    create_shared_memory,
+    decode_chunk,
+    encode_chunk_parts,
+    owner_finalizer,
+)
+from ape_x_dqn_tpu_torch.runtime.transport import connect_channel, make_transport
+from ape_x_dqn_tpu_torch.utils.metrics import TransportStats
+from ape_x_dqn_tpu_torch.utils.serialization import restore_like, tree_to_bytes
+
+_HEADER = struct.Struct("<qqI")  # (seqlock version, payload length, crc32)
+_CONTROL_QUEUE_SIZE = 64          # control messages in flight per worker
+
+
+class SharedParamBuffer:
+    """Single-writer seqlock over one shared-memory snapshot slot.
+
+    Write: bump the version to odd, copy the payload, commit crc32 + even
+    version.  Read: accept a payload only if an even version reads the same
+    before and after the copy AND the copy's crc32 matches the committed
+    header.  The version recheck alone is only sound on TSO (x86) hosts;
+    the crc closes the hole on weakly ordered ones.
+    """
+
+    def __init__(self, capacity: int, name: Optional[str] = None,
+                 create: bool = True):
+        self.capacity = int(capacity)
+        size = _HEADER.size + self.capacity
+        self._finalizer = None
+        if create:
+            self._shm = create_shared_memory("params", size)
+            self._finalizer = owner_finalizer(self, self._shm)
+            _HEADER.pack_into(self._shm.buf, 0, 0, 0, 0)
+        else:
+            self._shm = shared_memory.SharedMemory(name=name)
+
+    @property
+    def name(self) -> str:
+        return self._shm.name
+
+    def write(self, payload: bytes) -> int:
+        if len(payload) > self.capacity:
+            raise ValueError(
+                f"snapshot of {len(payload)} bytes exceeds shared buffer "
+                f"capacity {self.capacity}"
+            )
+        v, _, _ = _HEADER.unpack_from(self._shm.buf, 0)
+        _HEADER.pack_into(self._shm.buf, 0, v + 1, len(payload), 0)  # odd: in flight
+        self._shm.buf[_HEADER.size:_HEADER.size + len(payload)] = payload
+        _HEADER.pack_into(self._shm.buf, 0, v + 2, len(payload),     # even: committed
+                          zlib.crc32(payload))
+        return (v + 2) // 2
+
+    def read(self, have_version: int = -1,
+             timeout: float = 1.0) -> Optional[tuple]:
+        """(payload bytes, version) if newer than ``have_version``, else
+        None.  Bounded: a write left in flight past ``timeout`` (a writer
+        that died mid-write) returns None instead of hanging."""
+        deadline = time.monotonic() + timeout
+        while True:
+            v1, length, _ = _HEADER.unpack_from(self._shm.buf, 0)
+            if v1 % 2 == 0:
+                if v1 // 2 <= have_version or length == 0:
+                    return None
+                payload = bytes(self._shm.buf[_HEADER.size:_HEADER.size + length])
+                v2, _, crc = _HEADER.unpack_from(self._shm.buf, 0)
+                if v1 == v2 and zlib.crc32(payload) == crc:
+                    return payload, v1 // 2
+                # torn read: a write landed mid-copy — retry
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.0005)
+
+    def close(self) -> None:
+        """Detach; the owner also unlinks the segment."""
+        if self._finalizer is not None:
+            self._finalizer()
+        else:
+            self._shm.close()
+
+
+class SharedMemoryParamStore:
+    """The learner's param store over the seqlock buffer: the surface of
+    ``runtime/param_store.ParamStore`` (``publish`` / ``get`` /
+    ``version``), so the async pipeline drives thread and process actors
+    through one code path.  ``get`` serves in-process readers from the host
+    copy, without a deserialize."""
+
+    def __init__(self, buffer: SharedParamBuffer):
+        self._buf = buffer
+        self._lock = threading.Lock()
+        self._params = None
+        # The single writer's own count IS the buffer version, and it
+        # survives the buffer being closed at shutdown.
+        self._version = 0
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def publish(self, params: dict) -> int:
+        """Copy ``params`` (tensors on any device) to the host, serialize
+        once, and write the snapshot to the shared buffer."""
+        from ape_x_dqn_tpu_torch.actors.pool import host_params
+
+        host = host_params(params)
+        payload = tree_to_bytes(host)
+        with self._lock:
+            self._params = host
+            self._version = self._buf.write(payload)
+            return self._version
+
+    def get(self, have_version: int = -1):
+        with self._lock:
+            if self._params is None or self._version <= have_version:
+                return None
+            return self._params, self._version
+
+
+class SharedBufferParamSource:
+    """Worker-side param source (``ActorFleet.sync_params``'s contract:
+    ``get(have_version) -> (params, version) | None``): poll the seqlock
+    buffer and deserialize into the worker's template on a new version."""
+
+    def __init__(self, buffer: SharedParamBuffer, template: dict):
+        self._buf = buffer
+        self._template = template
+
+    def get(self, have_version: int = -1):
+        got = self._buf.read(have_version)
+        if got is None:
+            return None
+        payload, version = got
+        return restore_like(self._template, payload), version
+
+
+def worker_slice(worker_id: int, num_actors: int, num_workers: int) -> tuple:
+    """[lo, hi) of the global actor set owned by ``worker_id`` — the one
+    partition rule, used by the worker (its fleet) and the pool (its
+    restart-budget accounting)."""
+    lo = worker_id * num_actors // num_workers
+    hi = (worker_id + 1) * num_actors // num_workers
+    return lo, hi
+
+
+def worker_threads(num_workers: int) -> int:
+    """Intra-op threads of one worker: the cores this process may run on,
+    shared evenly among the workers (at least 1), so W workers do not
+    oversubscribe the host and starve the learner's dispatch thread."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # no sched_getaffinity on this platform
+        cores = os.cpu_count() or 1
+    return max(1, cores // max(1, int(num_workers)))
+
+
+def _cfg_from_dict(cfg_dict: dict):
+    from ape_x_dqn_tpu_torch.config import (
+        ActorConfig,
+        ApexConfig,
+        EnvConfig,
+        LearnerConfig,
+        ReplayConfig,
+        SupervisorConfig,
+    )
+
+    return ApexConfig(
+        env=EnvConfig(**cfg_dict["env"]),
+        actor=ActorConfig(**cfg_dict["actor"]),
+        learner=LearnerConfig(**cfg_dict["learner"]),
+        replay=ReplayConfig(**cfg_dict["replay"]),
+        supervisor=SupervisorConfig(**cfg_dict["supervisor"]),
+        network=cfg_dict["network"],
+        seed=cfg_dict["seed"],
+    )
+
+
+def network_and_template(cfg):
+    """(obs_shape, network, template params) on the CPU, without replay or
+    optimizer: what a worker (and the pool's buffer sizing) needs.  The
+    param names, shapes and dtypes match the learner's, which come from the
+    same ``build_network``; the template's values are never used."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.envs import make_env
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+
+    probe = make_env(cfg.env.name, seed=cfg.seed)
+    obs_shape = tuple(probe.observation_shape)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        network = build_network(cfg.network, probe.num_actions, obs_shape)
+    template = {k: v.detach().clone() for k, v in network.state_dict().items()}
+    return obs_shape, network, template
+
+
+def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
+                 param_spec: dict, xp_spec: dict, ctl_queue, stop_evt,
+                 steps_budget: int, quantum: int, attempt: int = 0, nice: int = 0):
+    """Worker process entry: one CPU ``ActorFleet`` over this worker's
+    slice, chunks into this incarnation's ring, control messages (episode
+    stats, the final report, done, errors) on the queue."""
+    if nice:
+        # Where workers share cores with the learner, a positive niceness
+        # keeps the learner's dispatch thread scheduled first.
+        try:
+            os.nice(int(nice))
+        except OSError:
+            pass
+    # The card belongs to the learner: hide it before torch can see it.
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    buf = None
+    ring = None
+    try:
+        import torch
+
+        from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
+        from ape_x_dqn_tpu_torch.envs import make_env
+        from ape_x_dqn_tpu_torch.utils.memory import trim_malloc
+
+        threads = worker_threads(num_workers)
+        torch.set_num_threads(threads)
+        cfg = _cfg_from_dict(cfg_dict)
+        N = cfg.actor.num_actors
+        lo, hi = worker_slice(worker_id, N, num_workers)
+        if hi == lo:
+            ctl_queue.put(("done", worker_id, 0))
+            return
+        _, network, template = network_and_template(cfg)
+        fleet = ActorFleet(
+            [(lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i))
+             for i in range(lo, hi)],
+            network,
+            n_step=cfg.actor.num_steps,
+            gamma=cfg.actor.gamma,
+            epsilon=cfg.actor.epsilon,
+            epsilon_alpha=cfg.actor.alpha,
+            flush_every=cfg.actor.flush_every,
+            sync_every=cfg.actor.sync_every,
+            # A respawned incarnation explores a fresh stream.
+            seed=cfg.seed + 9000 + worker_id + 100_000 * attempt,
+            emission=cfg.actor.emission,
+            device="cpu",
+            epsilon_index_offset=lo,
+            epsilon_total=N,
+        )
+        ring = connect_channel(xp_spec)
+        buf = SharedParamBuffer(param_spec["capacity"], name=param_spec["name"],
+                                create=False)
+        source = SharedBufferParamSource(buf, template)
+        # Wait for the learner's first publication.
+        deadline = time.monotonic() + 60.0
+        while not fleet.sync_params(source):
+            if stop_evt.is_set() or time.monotonic() > deadline:
+                ctl_queue.put(("done", worker_id, 0))
+                return
+            time.sleep(0.01)
+        collect_s = 0.0
+        while not stop_evt.is_set() and fleet.step_count < steps_budget:
+            # The budget bounds TOTAL fleet steps across incarnations, so the
+            # last quantum is clamped to land on it exactly.
+            t0 = time.monotonic()
+            chunks, ep_stats = fleet.collect(
+                min(quantum, steps_budget - fleet.step_count), param_source=source
+            )
+            collect_s += time.monotonic() - t0
+            for c in chunks:
+                t = c.transitions
+                parts = encode_chunk_parts(
+                    XP, fleet.param_version, c.actor_steps,
+                    {"prio": np.asarray(c.priorities), "obs": t.obs,
+                     "action": t.action, "reward": t.reward,
+                     "discount": t.discount, "next_obs": t.next_obs},
+                )
+                # Backpressure: block on a full ring, abort promptly on stop
+                # (a stopping learner no longer drains).
+                if not ring.write(parts, should_stop=stop_evt.is_set):
+                    break
+            if ep_stats:
+                ctl_queue.put((
+                    "episodes", worker_id,
+                    [(s.actor_id + lo, s.episode_return, s.episode_length)
+                     for s in ep_stats],
+                ))
+            trim_malloc()  # the obs-batch stream otherwise grows the RSS
+        ctl_queue.put(("report", worker_id, {
+            "cuda_initialized": bool(torch.cuda.is_initialized()),
+            "threads": torch.get_num_threads(),
+            "pid": os.getpid(),
+            "env_steps": fleet.step_count * (hi - lo),
+            "collect_s": collect_s,
+        }))
+        ctl_queue.put(("done", worker_id, fleet.step_count))
+    except Exception as e:  # noqa: BLE001 — reported on the control queue; the pool decides
+        try:
+            ctl_queue.put(("error", worker_id, f"{type(e).__name__}: {e}"))
+        except Exception:  # noqa: BLE001 — last-breath report; the queue may be closed
+            pass
+    finally:
+        if buf is not None:
+            buf.close()
+        if ring is not None:
+            ring.close()
+
+
+class ProcessActorPool:
+    """Owner of the worker processes, the shared param buffer and one
+    experience ring (and control queue) per worker incarnation.
+
+    Lifecycle: ``publish(params)`` once, ``start()``, then the learner side
+    interleaves ``publish`` with ``supervise`` + ``poll``, then ``stop()``.
+    ``poll`` drains every ring in one round-robin sweep (bounded by
+    ``max_items`` and a byte budget) into (priorities, transitions) pairs.
+    """
+
+    def __init__(self, cfg, num_workers: int = 2, quantum: Optional[int] = None,
+                 max_restarts: int = 3):
+        from ape_x_dqn_tpu_torch.config import to_dict
+
+        self.cfg = cfg
+        self.num_workers = int(num_workers)
+        self._ring_bytes = int(cfg.actor.xp_ring_bytes)
+        self._drain_budget = int(cfg.actor.xp_drain_budget_bytes)
+        self._transport = make_transport(cfg)
+        # The serialized template's size, with headroom.
+        _, _, template = network_and_template(cfg)
+        capacity = len(tree_to_bytes(template))
+        self.buffer = SharedParamBuffer(capacity + capacity // 4 + 4096)
+        self.store = SharedMemoryParamStore(self.buffer)
+        # spawn, never fork: the learner holds a CUDA context and threads.
+        self._ctx = mp.get_context("spawn")
+        self._queues: dict = {}   # wid -> control queue of the live incarnation
+        self._rings: dict = {}    # wid -> ShmRing of the live incarnation
+        self.transport = TransportStats()
+        self._full_waits_base = 0  # full_waits of retired incarnations
+        self.stop_event = self._ctx.Event()
+        self._cfg_dict = to_dict(cfg)
+        self._quantum = quantum or cfg.actor.flush_every
+        self._procs: List = []
+        self.actor_steps = 0
+        self.episodes: List[tuple] = []
+        self.last_versions: dict = {}   # wid -> param version of its latest chunk
+        self.chunks_by_worker: dict = {}
+        self.finished_workers: set = set()
+        self.final_steps: dict = {}     # wid -> fleet steps at clean "done"
+        self.worker_reports: dict = {}  # wid -> the incarnation's final report
+        self.worker_errors: dict = {}   # FATAL errors (restart budget exhausted)
+        self.max_restarts = int(max_restarts)
+        self.restarts = 0
+        self._steps_by_worker: dict = {}  # cumulative, across restarts
+        self._reported_errors: dict = {}  # wid -> last error message
+        self._attempt: dict = {}          # wid -> spawn attempt count
+        self._dead_since: dict = {}       # wid -> first-seen-dead time
+        self._salvaged: list = []         # chunks drained before a respawn
+        self._silent_death_grace_s = 10.0
+        # With a policy attached (runtime/supervisor.RespawnPolicy) respawn
+        # timing and the crash-loop budget are its; without one, workers
+        # respawn at once until max_restarts, and the next death is fatal.
+        # The respawn_min_interval_s floor holds either way.
+        self.respawn_policy = None
+        self.quarantined: set = set()
+        self._death_pending: dict = {}    # wid -> error, awaiting respawn
+        self._last_spawn: dict = {}       # wid -> spawn time
+        self._min_respawn_interval = float(cfg.actor.respawn_min_interval_s)
+
+    def _spawn(self, wid: int, budget: int):
+        attempt = self._attempt.get(wid, 0)
+        self._attempt[wid] = attempt + 1
+        self._last_spawn[wid] = time.monotonic()
+        if wid in self._queues:
+            self._salvage_incarnation(wid)
+        self._queues[wid] = self._ctx.Queue(maxsize=_CONTROL_QUEUE_SIZE)
+        self._rings[wid] = self._transport.make_channel(wid, attempt)
+        xp_spec = self._transport.endpoint(self._rings[wid], wid, attempt)
+        param_spec = {"name": self.buffer.name, "capacity": self.buffer.capacity}
+        p = self._ctx.Process(
+            target=_worker_main,
+            args=(wid, self._cfg_dict, self.num_workers, param_spec, xp_spec,
+                  self._queues[wid], self.stop_event, budget, self._quantum,
+                  attempt, self.cfg.actor.worker_nice),
+            daemon=True,
+        )
+        p.start()
+        return p
+
+    def _salvage_incarnation(self, wid: int) -> None:
+        """Drain every fully committed record out of a dead incarnation's
+        ring (a kill mid-record leaves a torn tail the commit word detects:
+        counted, never delivered) and its control queue, then release both.
+        A respawn gets a fresh ring, so its stream restarts seq-clean."""
+        self._drain_control(self._queues[wid])
+        ring = self._rings.pop(wid, None)
+        if ring is not None:
+            salvaged = 0
+            while True:
+                rec = ring.read_next()
+                if rec is None:
+                    break
+                self._salvaged.append(self._decode_record(wid, rec))
+                salvaged += 1
+            self.transport.count_salvage(salvaged, torn=ring.torn_tail())
+            self._full_waits_base += ring.full_waits
+            ring.close()
+            ring.unlink()
+        old = self._queues.pop(wid, None)
+        if old is not None:
+            old.close()  # release the pipe fds now, not at collection
+
+    def _drain_control(self, q, limit: int = 4096) -> None:
+        for _ in range(limit):
+            try:
+                self._dispatch(q.get_nowait())
+            except queue_mod.Empty:
+                return
+            except Exception:  # noqa: BLE001 — a torn pickle from a writer killed mid-put is unrecoverable by design
+                return
+
+    def start(self, stagger_s: Optional[float] = None):
+        """Spawn every worker, ``stagger_s`` seconds apart."""
+        stagger = stagger_s if stagger_s is not None else self.cfg.actor.spawn_stagger_s
+        self._gate_shm_budget()
+        for w in range(self.num_workers):
+            self._procs.append(self._spawn(w, self.cfg.actor.T))
+            if stagger and w + 1 < self.num_workers:
+                time.sleep(stagger)
+
+    def _gate_shm_budget(self) -> None:
+        """Fail before spawning workers whose rings cannot fit /dev/shm."""
+        need = self.num_workers * self._ring_bytes
+        try:
+            st = os.statvfs("/dev/shm")
+        except OSError:
+            return
+        free = st.f_bavail * st.f_frsize
+        if need > free:
+            raise RuntimeError(
+                f"experience rings need {need} bytes of /dev/shm, {free} free — "
+                "lower actor.xp_ring_bytes or actor.num_workers"
+            )
+
+    def supervise(self) -> None:
+        """Respawn dead workers with their REMAINING step budget.  A worker
+        that exited without a clean "done" — a reported exception or a
+        silent death (crash, OOM kill, SIGKILL) — is respawned when the
+        interval floor and the policy's backoff (if any) have passed; with
+        no policy, the death after ``max_restarts`` respawns is fatal."""
+        if self.stop_event.is_set():
+            return
+        now = time.monotonic()
+        for wid, p in enumerate(self._procs):
+            if wid in self.finished_workers or wid in self.worker_errors \
+                    or wid in self.quarantined:
+                continue
+            if wid not in self._death_pending:
+                if p.is_alive():
+                    continue
+                # A zero-exit death is normally a clean "done" (or a reported
+                # error) whose message is still queued; only a grace-period
+                # timeout turns it into a silent death.
+                if p.exitcode == 0 and wid not in self._reported_errors:
+                    first = self._dead_since.setdefault(wid, now)
+                    if now - first < self._silent_death_grace_s:
+                        continue
+                self._dead_since.pop(wid, None)
+                err = self._reported_errors.pop(
+                    wid, f"worker exited silently (exitcode {p.exitcode})"
+                )
+                if self._remaining_budget(wid) == 0:
+                    # Budget exhausted: a clean finish whatever the exit shape.
+                    self.finished_workers.add(wid)
+                    continue
+                if self.respawn_policy is not None:
+                    if self.respawn_policy.on_death(wid) == "quarantine":
+                        self._quarantine(wid)
+                        continue
+                elif self.restarts >= self.max_restarts:
+                    self.worker_errors[wid] = err
+                    continue
+                self._death_pending[wid] = err
+            if now - self._last_spawn.get(wid, 0.0) < self._min_respawn_interval:
+                continue
+            if self.respawn_policy is not None:
+                verdict = self.respawn_policy.decide(wid)
+                if verdict == "wait":
+                    continue
+                if verdict == "quarantine":
+                    self._quarantine(wid)
+                    continue
+            self._death_pending.pop(wid, None)
+            self.restarts += 1
+            self._procs[wid] = self._spawn(wid, self._remaining_budget(wid))
+
+    def _remaining_budget(self, wid: int) -> int:
+        return max(0, self.cfg.actor.T - self._steps_by_worker.get(wid, 0))
+
+    def _quarantine(self, wid: int) -> None:
+        """Write a crash-looping worker off: salvage its last incarnation
+        and run on without it."""
+        self._death_pending.pop(wid, None)
+        self.quarantined.add(wid)
+        if wid in self._queues:
+            self._salvage_incarnation(wid)
+
+    def publish(self, params) -> int:
+        return self.store.publish(params)
+
+    @property
+    def finished(self) -> bool:
+        """Every worker has settled: done, fatal or quarantined."""
+        if not self._procs:
+            return False
+        settled = self.finished_workers | set(self.worker_errors) | self.quarantined
+        return all(w in settled for w in range(self.num_workers))
+
+    def poll(self, max_items: int = 64, timeout: float = 0.0,
+             max_bytes: Optional[int] = None) -> List[tuple]:
+        """One batched sweep over the control queues and every live ring
+        (a few records per ring per pass, so one hot worker cannot starve
+        the sweep), bounded by ``max_items`` chunks and the byte budget;
+        returns [(priorities, transitions), ...].  The arrays are read-only
+        views over each record's own copy: a sink that keeps rows copies
+        them."""
+        out = list(self._salvaged)
+        self._salvaged.clear()
+        budget = max_bytes if max_bytes is not None else self._drain_budget
+        deadline = time.monotonic() + timeout if timeout else None
+        while len(out) < max_items and budget > 0:
+            got = False
+            for q in list(self._queues.values()):
+                try:
+                    self._dispatch(q.get_nowait())
+                    got = True
+                except queue_mod.Empty:
+                    continue
+                except Exception:  # noqa: BLE001 — a torn pickle from a writer killed mid-put is unrecoverable by design
+                    continue
+            for wid, ring in list(self._rings.items()):
+                for _ in range(4):
+                    if len(out) >= max_items or budget <= 0:
+                        break
+                    rec = ring.read_next()
+                    if rec is None:
+                        break
+                    got = True
+                    budget -= len(rec)
+                    out.append(self._decode_record(wid, rec))
+            if not got:
+                if not out and deadline and time.monotonic() < deadline:
+                    time.sleep(min(0.01, timeout))
+                    continue
+                break
+        return out
+
+    def _decode_record(self, wid: int, payload: bytes) -> tuple:
+        """One ring record → (priorities, transitions) + pool accounting."""
+        from ape_x_dqn_tpu_torch.types import NStepTransition
+
+        kind, version, sent_t, steps, *_, arrays = decode_chunk(payload)
+        if kind == DXP:
+            from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
+
+            raise NotPortedError("frame-dedup (DXP) experience records are not "
+                                 "part of the port yet (ROADMAP A7)")
+        self.last_versions[wid] = version
+        self.chunks_by_worker[wid] = self.chunks_by_worker.get(wid, 0) + 1
+        self.actor_steps += steps
+        # Fleet steps = chunk rows / actors in the worker: a respawn gets
+        # only the worker's REMAINING actor.T budget.
+        lo, hi = worker_slice(wid, self.cfg.actor.num_actors, self.num_workers)
+        self._steps_by_worker[wid] = (
+            self._steps_by_worker.get(wid, 0) + steps // max(hi - lo, 1)
+        )
+        self.transport.record_chunk(len(payload), time.monotonic() - sent_t, steps)
+        prio = arrays.pop("prio")
+        return prio, NStepTransition(**arrays)
+
+    def transport_stats(self) -> dict:
+        """Transport counters: chunks, bytes, latency, ring-full waits
+        (live rings and retired incarnations), salvage and torn counts."""
+        s = self.transport.summary()
+        s["ring_full_waits"] = self._full_waits_base + sum(
+            r.full_waits for r in self._rings.values()
+        )
+        s["rings"] = len(self._rings)
+        s["ring_bytes"] = self._ring_bytes
+        return s
+
+    def _dispatch(self, msg) -> None:
+        """Apply one control message to pool state."""
+        kind, wid = msg[0], msg[1]
+        if kind == "episodes":
+            self.episodes.extend(msg[2])
+        elif kind == "report":
+            self.worker_reports[wid] = msg[2]
+        elif kind == "done":
+            self.finished_workers.add(wid)
+            # Each "done" reports its own incarnation's fleet steps.
+            self.final_steps[wid] = self.final_steps.get(wid, 0) + msg[2]
+        elif kind == "error":
+            # Respawnable until the restart budget runs out (supervise).
+            self._reported_errors[wid] = msg[2]
+
+    def stop(self, join_timeout: float = 15.0) -> None:
+        """Stop every worker, drain what they committed, and release every
+        ring, control queue and the param buffer — on every exit path.  A
+        ring left with a torn tail counts on the transport's torn counter."""
+        self.stop_event.set()
+        try:
+            deadline = time.monotonic() + join_timeout
+            for p in self._procs:
+                while p.is_alive() and time.monotonic() < deadline:
+                    self.poll(max_items=256)
+                    p.join(timeout=0.1)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=5.0)
+            self.poll(max_items=256)  # last committed records + "done" messages
+        finally:
+            for wid in list(self._rings):
+                ring = self._rings.pop(wid)
+                self._full_waits_base += ring.full_waits
+                if ring.torn_tail():
+                    self.transport.count_salvage(0, torn=True)
+                ring.close()
+                ring.unlink()
+            for wid in list(self._queues):
+                self._queues.pop(wid).close()
+            self.buffer.close()
+
+
+class ProcessActorWorker:
+    """The thread-actor worker's interface (start / join / drain_episodes /
+    finished / error / heartbeat / actor_steps / restarts) over a
+    ``ProcessActorPool``, so ``AsyncPipeline`` drives both actor modes
+    through one code path.  A pump thread supervises the pool and drains
+    its rings into the runtime's sink (host replay or the fused learner's
+    staging)."""
+
+    def __init__(self, pool: ProcessActorPool, sink, logger=None, fps=None,
+                 stop_event: Optional[threading.Event] = None):
+        from ape_x_dqn_tpu_torch.actors.pool import EpisodeStat
+
+        self._EpisodeStat = EpisodeStat
+        self.pool = pool
+        self._sink = sink
+        self._logger = logger
+        self._fps = fps
+        self._stop = threading.Event()
+        # The runtime's stop event: set on a fatal worker death so the
+        # learner loop (and the warm-up wait) exits promptly.
+        self._external_stop = stop_event
+        self.error: Optional[BaseException] = None
+        self.heartbeat = time.monotonic()
+        self._ep_lock = threading.Lock()
+        self.episodes: List = []
+        self._thread = threading.Thread(target=self._pump, name="process-actor-pump",
+                                        daemon=True)
+
+    @property
+    def finished(self) -> bool:
+        return self.pool.finished and not self.pool.worker_errors
+
+    @property
+    def actor_steps(self) -> int:
+        return self.pool.actor_steps
+
+    @property
+    def restarts(self) -> int:
+        return self.pool.restarts
+
+    def start(self):
+        self.pool.start()
+        self._thread.start()
+
+    def join(self, timeout: float = 30.0):
+        """Stop the pump, then the pool (which releases every segment);
+        safe before ``start`` and after a failed one."""
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+        self.pool.stop()
+
+    def drain_episodes(self) -> List:
+        with self._ep_lock:
+            out, self.episodes = self.episodes, []
+        return out
+
+    def _pump(self):
+        try:
+            while not self._stop.is_set():
+                self.pool.supervise()
+                items = self.pool.poll(max_items=64, timeout=0.05)
+                for prio, trans in items:
+                    self._sink(prio, trans)
+                    if self._fps is not None:
+                        self._fps.add(len(prio))
+                if items:
+                    self.heartbeat = time.monotonic()
+                if self.pool.episodes:
+                    with self._ep_lock:
+                        self.episodes.extend(self._EpisodeStat(a, r, l)
+                                             for (a, r, l) in self.pool.episodes)
+                    self.pool.episodes.clear()
+                if self.pool.worker_errors and self.error is None:
+                    self._fail(RuntimeError(
+                        f"actor worker(s) died: {self.pool.worker_errors}"))
+                    # Keep draining: surviving workers blocked on a full ring
+                    # see the stop event only once their write returns.
+                if self.pool.finished:
+                    return
+        except Exception as e:  # noqa: BLE001 — a sink or decode failure stops the run, never silently
+            self._fail(e)
+
+    def _fail(self, error: BaseException) -> None:
+        self.error = error
+        if self._logger is not None:
+            self._logger.log("actor/worker_errors", len(self.pool.worker_errors))
+        if self._external_stop is not None:
+            self._external_stop.set()
+        self.pool.stop_event.set()

@@ -9,7 +9,9 @@ Port of ``ape_x_dqn_tpu/train.py``:
 
 ``--mode async`` (the default) runs the actor ∥ replay ∥ learner pipeline:
 the host-replay learner by default, the fused device-replay learner with
-``--set learner.device_replay=true``.  ``--mode sync`` runs the
+``--set learner.device_replay=true``; its actors run as a thread, or as
+CPU-only worker processes with ``--set actor.mode=process --set
+actor.num_workers=W``.  ``--mode sync`` runs the
 deterministic single-process round-robin over the host replay (the golden
 path).  JSONL metrics go to stdout and, with ``--metrics-file``, are
 appended to that file too; the resolved config goes to stderr.
@@ -80,6 +82,9 @@ def _run_sync(args, cfg, logger) -> None:
     from ape_x_dqn_tpu_torch.evaluation import log_result, make_evaluator
     from ape_x_dqn_tpu_torch.runtime.single_process import SingleProcessDriver
 
+    if cfg.actor.mode == "process":
+        raise ValueError("--mode sync steps its actors in the learner's process; "
+                         "actor.mode=process applies to --mode async")
     driver = SingleProcessDriver(cfg, device=args.device)
     evaluator = None
     next_eval = args.eval_every

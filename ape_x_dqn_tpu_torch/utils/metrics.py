@@ -1,10 +1,11 @@
 """Structured metrics: rate counters and a JSONL stream.
 
 Port of the JSONL subset of ``ape_x_dqn_tpu/utils/metrics.py``:
-``RateCounter`` and ``MetricLogger`` (``log`` accumulates scalars, ``emit``
-writes one record of their mean/min/max/count plus extra fields, stamped
-with a per-process ``seq`` and the ``pid``, to a stream and optionally to a
-file, one JSONL record per emit, appended).
+``RateCounter``, ``TransportStats`` (the process-actor pool's counters)
+and ``MetricLogger`` (``log`` accumulates scalars, ``emit`` writes one
+record of their mean/min/max/count plus extra fields, stamped with a
+per-process ``seq`` and the ``pid``, to a stream and optionally to a file,
+one JSONL record per emit, appended).
 """
 
 from __future__ import annotations
@@ -48,6 +49,55 @@ class RateCounter:
             # arrivals must not read as an inflated rate.
             span = max(min(self._window, now - self._born), 1e-3)
             return sum(n for _, n in self._events) / span
+
+
+class TransportStats:
+    """Experience-transport counters of the process-actor pool: chunks,
+    bytes and transitions drained, send→drain latency, and the salvage
+    counts of dead incarnations (committed records recovered; torn tails
+    detected).  The subset of the JAX package's ``TransportStats``
+    (``utils/metrics.py:271``) that the pool feeds; latency percentiles come
+    from the most recent ``latency_window`` chunks.  Written by the one
+    drain thread."""
+
+    def __init__(self, latency_window: int = 4096):
+        self._latency: deque[float] = deque(maxlen=latency_window)
+        self.latency_max_s = 0.0
+        self.chunks = 0
+        self.bytes = 0
+        self.transitions = 0
+        self.salvaged_records = 0
+        self.torn_records = 0
+
+    def record_chunk(self, nbytes: int, latency_s: float, transitions: int) -> None:
+        self.chunks += 1
+        self.bytes += int(nbytes)
+        self.transitions += int(transitions)
+        lat = max(0.0, latency_s)  # a negative delta can only be clock skew
+        self._latency.append(lat)
+        self.latency_max_s = max(self.latency_max_s, lat)
+
+    def count_salvage(self, records: int, torn: bool) -> None:
+        self.salvaged_records += int(records)
+        if torn:
+            self.torn_records += 1
+
+    def summary(self) -> dict:
+        lat = sorted(self._latency)
+
+        def pct(p):
+            return round(lat[min(len(lat) - 1, int(p / 100 * len(lat)))] * 1e3, 3)
+
+        return {
+            "chunks": self.chunks,
+            "bytes": self.bytes,
+            "transitions": self.transitions,
+            "chunk_latency_ms": ({"p50_ms": pct(50), "p99_ms": pct(99),
+                                  "max_ms": round(self.latency_max_s * 1e3, 3)}
+                                 if lat else {}),
+            "salvaged_records": self.salvaged_records,
+            "torn_records": self.torn_records,
+        }
 
 
 class MetricLogger:

@@ -47,7 +47,20 @@ Phases, each printing one JSON line:
                 this path (0: the host path samples on the CPU's sum-tree);
   8. host_sync — ``train.main --mode sync`` for 64 learner steps on the
                 card, finite loss;
-  9. kernels  — one JSON object per ported kernel with its launches on the
+  9. proc_train — phase 5 with ``--set actor.mode=process --set
+                actor.num_workers=2``: the 8 actors run in two CPU-only
+                worker processes.  Finite loss, steps reached, sampler
+                launches == steps, chunks from both workers past param
+                version 1, 0 restarts, both workers reporting no CUDA
+                initialisation, at most one pid (the learner's) in
+                nvidia-smi's compute apps while it runs, and no /dev/shm
+                segment of the run left after it; prints rates, peak device
+                memory, transport counts and each worker's threads and
+                env steps/s;
+ 10. proc_host_train — the same on the host-replay path (phase 7's), with
+                ``stage_us``, the replay's frame bytes and 0 sampler
+                launches;
+ 11. kernels  — one JSON object per ported kernel with its launches on the
                 main path (and on each path), error, times and bound.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -59,8 +72,10 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -497,6 +512,109 @@ def phase_host_sync(sampling, steps: int = 64):
     return result
 
 
+@contextlib.contextmanager
+def compute_apps(period_s: float = 0.5):
+    """Sample the pids nvidia-smi lists as holding a context on the card,
+    every ``period_s`` while the block runs (a list of sets)."""
+    seen: list = []
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            res = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60,
+            )
+            if res.returncode == 0:
+                seen.append({int(w) for w in res.stdout.split() if w.isdigit()})
+            stop.wait(period_s)
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join(120)
+
+
+def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
+    """``train.main --set actor.mode=process --set actor.num_workers=2`` at
+    the width of phase 5, on the device-replay path (``proc_train``) or the
+    host-replay path (``proc_host_train``)."""
+    import torch
+
+    phase = "proc_train" if device_replay else "proc_host_train"
+    # Workers poll the param buffer every 100 fleet steps (500 by default),
+    # so chunks past the first publish arrive inside a 512-step run.
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "128",
+            "--set", "actor.mode=process", "--set", "actor.num_workers=2",
+            "--set", "actor.sync_every=100", *FULL_WIDTH]
+    if device_replay:
+        argv += ["--set", "learner.device_replay=true",
+                 "--set", "learner.steps_per_call=128",
+                 "--set", "learner.ingest_block=256"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, compute_apps() as apps:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    pipe = seen[0]
+    pool = pipe.worker.pool
+    if final["step"] < steps:
+        raise AssertionError(f"{phase}: reached {final['step']} of {steps} learner steps")
+    want = final["step"] if device_replay else 0
+    if launches != want:
+        raise AssertionError(f"{phase}: {launches} sampler kernel launches, want {want}")
+    if set(pool.last_versions) != {0, 1} or min(pool.last_versions.values()) <= 1:
+        raise AssertionError(f"{phase}: latest chunk versions by worker "
+                             f"{pool.last_versions}, want both workers past version 1")
+    if pool.restarts or pool.worker_errors:
+        raise AssertionError(f"{phase}: {pool.restarts} worker restarts, "
+                             f"errors {pool.worker_errors}")
+    reports = pool.worker_reports
+    if set(reports) != {0, 1} or any(r["cuda_initialized"] for r in reports.values()):
+        raise AssertionError(f"{phase}: worker reports {reports}, want both workers "
+                             "reporting no CUDA initialisation")
+    # Exactly one process (this one, the learner) may hold a context.  A
+    # container's pid namespace can hide the list; the reports above hold
+    # either way.
+    pids = set().union(*apps) if apps else set()
+    if max((len(s) for s in apps), default=0) > 1 or len(pids) > 1:
+        raise AssertionError(f"{phase}: nvidia-smi listed compute pids {sorted(pids)}, "
+                             "want only the learner's")
+    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
+    if leftover:
+        raise AssertionError(f"{phase}: segments left in /dev/shm: {leftover}")
+    transport = pool.transport_stats()
+    result = {
+        "phase": phase, "card": card, "learner_steps": final["step"],
+        "loss": final["learner/loss"], "sampler_launches": launches,
+        "learner_steps_per_s": final["step"] / final["train_s"],
+        "actor_fps": final["actor_fps"], "steps_per_sec_30s": final["steps_per_sec"],
+        "stage_us": final["stage_us"], "train_s": final["train_s"], "wall_s": wall,
+        "actor_steps": final["actor_steps"], "replay_size": final["replay_size"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "param_version": final["param_version"], "last_versions": pool.last_versions,
+        "chunks_by_worker": pool.chunks_by_worker,
+        "transport": {k: transport[k] for k in ("chunks", "bytes", "transitions",
+                                                "chunk_latency_ms", "ring_full_waits",
+                                                "salvaged_records", "torn_records")},
+        "workers": {w: {"threads": r["threads"], "env_steps": r["env_steps"],
+                        "collect_s": r["collect_s"],
+                        "env_steps_per_s": r["env_steps"] / max(r["collect_s"], 1e-9)}
+                    for w, r in sorted(reports.items())},
+        "smi_compute_pids": sorted(pids), "smi_samples": len(apps),
+        "learner_pid": os.getpid(), "cpu_count": os.cpu_count(),
+        "usable_cpus": len(os.sched_getaffinity(0)),
+    }
+    if not device_replay:
+        result["replay_frames_nbytes"] = pipe.comps.replay.frames_nbytes()
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -532,6 +650,8 @@ def main() -> int:
     phase_host_parity()
     host = phase_host_train(sampling, card=smi)
     host_sync = phase_host_sync(sampling)
+    proc = phase_process(sampling, card=smi, device_replay=True)
+    proc_host = phase_process(sampling, card=smi, device_replay=False)
 
     main_row = next(r for r in rows if r["C"] == 100_000 and r["B"] == 32)
     emit({"kernels": [{
@@ -542,7 +662,9 @@ def main() -> int:
         "launches": trained["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
-                             "host_sync": host_sync["sampler_launches"]},
+                             "host_sync": host_sync["sampler_launches"],
+                             "process_device_replay": proc["sampler_launches"],
+                             "process_host_replay": proc_host["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -29,8 +29,30 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.replay.buffer", "ape_x_dqn_tpu_torch.replay.native",
                  "ape_x_dqn_tpu_torch.runtime.infeed",
                  "ape_x_dqn_tpu_torch.runtime.single_process",
-                 "ape_x_dqn_tpu_torch.evaluation", "ape_x_dqn_tpu_torch.utils.profiling"):
+                 "ape_x_dqn_tpu_torch.evaluation", "ape_x_dqn_tpu_torch.utils.profiling",
+                 "ape_x_dqn_tpu_torch.runtime.process_actors",
+                 "ape_x_dqn_tpu_torch.runtime.shm_ring",
+                 "ape_x_dqn_tpu_torch.runtime.transport",
+                 "ape_x_dqn_tpu_torch.runtime.supervisor",
+                 "ape_x_dqn_tpu_torch.utils.serialization",
+                 "ape_x_dqn_tpu_torch.utils.memory"):
         assert want in mods
+
+
+def test_process_actor_modules_load_no_torch():
+    """A spawned worker imports ``runtime.process_actors`` before its target
+    runs and pays for everything it pulls in: stdlib + numpy only."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.runtime.process_actors\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
 def test_importing_the_port_loads_no_jax():
