@@ -17,7 +17,9 @@ The port so far covers both forms of the learner:
     actor-fleet thread feeds a fused learner that runs K × [prioritized
     sample → double-Q train → priority restamp] per call, with the
     stratified inverse-CDF sampler as a CUDA kernel written for Hopper
-    (``ops/csrc/sampling.cu``).
+    (``ops/csrc/sampling.cu``); with ``replay.dedup=true`` the ring stores
+    each frame once (``replay/device_dedup.py``, ``runtime/fused_dedup.py``).
+Actors run as a thread or as CPU-only worker processes (``actor.mode``).
 Entry point: ``python -m ape_x_dqn_tpu_torch.train [--mode async|sync]``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

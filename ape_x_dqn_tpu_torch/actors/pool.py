@@ -1,8 +1,7 @@
 """The actor fleet: batched rollouts, ε-ladder, n-step emission, priorities.
 
-Port of ``ape_x_dqn_tpu/actors/pool.py`` (dense emission, overlapping and
-strided; the frame-dedup wire format and central inference are not part of
-the port yet):
+Port of ``ape_x_dqn_tpu/actors/pool.py`` (dense and frame-dedup emission,
+overlapping and strided; central inference is not part of the port yet):
   * N actor envs step in lockstep (``SyncVectorEnv``); action selection for
     the whole fleet is one batched forward + ε-greedy on the device.
   * Actor i uses ε^(1+α·i/(N−1)) (reference actor.py:111-114).
@@ -13,6 +12,10 @@ the port yet):
   * Terminal masking folds into the per-step discount γ·(1−done); a window
     that meets a truncation re-targets ``next_obs`` to the episode's final
     observation with discount γ^(k+1), so the learner bootstraps there.
+  * ``emit_dedup`` ships ``types.DedupChunk``s instead: each frame once,
+    transitions as refs, windows overlapping the previous flush as carry
+    refs into it; ``emit_dedup_groups`` splits the fleet into that many
+    independent dedup streams (one source id each).
 
 Parameter sync polls a ``ParamSource`` (``get(version) -> (params,
 version) | None``) every ``sync_every`` fleet steps.  Published params are
@@ -22,6 +25,7 @@ them to its device once per adopted version.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, NamedTuple, Sequence
 
 import numpy as np
@@ -30,14 +34,14 @@ import torch
 from ape_x_dqn_tpu_torch.envs.vector import SyncVectorEnv
 from ape_x_dqn_tpu_torch.ops.exploration import epsilon_greedy, epsilon_ladder
 from ape_x_dqn_tpu_torch.ops.nstep import nstep_returns_np
-from ape_x_dqn_tpu_torch.types import NStepTransition
+from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
 
 
 class Chunk(NamedTuple):
     """One flush: transitions + actor-computed initial priorities."""
 
     priorities: np.ndarray        # float32 [M]
-    transitions: NStepTransition  # numpy, batch M
+    transitions: NStepTransition | DedupChunk  # numpy, batch M
     actor_steps: int              # fleet env steps this chunk covers
 
 
@@ -91,6 +95,8 @@ class ActorFleet:
         device: str | torch.device = "cuda",
         epsilon_index_offset: int = 0,
         epsilon_total: int | None = None,
+        emit_dedup: bool = False,
+        emit_dedup_groups: int = 1,
     ):
         self.envs = SyncVectorEnv(env_fns)
         self.network = network
@@ -106,6 +112,11 @@ class ActorFleet:
             raise ValueError(
                 "strided emission needs flush_every >= num_steps (a flush "
                 "window shorter than the stride can contain no aligned start)"
+            )
+        if emit_dedup and self.flush_every < self.n_step:
+            raise ValueError(
+                "dedup emission needs flush_every >= num_steps — carry refs "
+                "reach at most one chunk back (types.DedupChunk contract)"
             )
         N = self.envs.num_envs
         # A fleet that is one slice of a larger actor set (a process-actor
@@ -136,6 +147,24 @@ class ActorFleet:
         self._step_count = 0    # total fleet steps
         self.params = None
         self.param_version = -1
+        # Dedup emission: fresh random 63-bit source ids per fleet INSTANCE,
+        # so a respawned worker's first chunk never resolves carry refs
+        # across the incarnation gap.  Group b owns actor columns
+        # [bounds[b], bounds[b+1]) and is one independent dedup stream.
+        self.emit_dedup = bool(emit_dedup)
+        g = int(emit_dedup_groups)
+        if g < 1:
+            raise ValueError("emit_dedup_groups must be >= 1")
+        if g > 1 and not emit_dedup:
+            raise ValueError("emit_dedup_groups requires emit_dedup=True")
+        if g > N:
+            raise ValueError(f"emit_dedup_groups {g} exceeds the fleet's {N} actors")
+        self._groups = g
+        self._group_bounds = [round(b * N / g) for b in range(g + 1)]
+        self._source = [int.from_bytes(os.urandom(8), "little") >> 1 for _ in range(g)]
+        self._chunk_seq = [0] * g
+        self._last_U = [0] * g   # previous chunk's total frame count
+        self._last_bw = [0] * g  # previous chunk's first new window row
 
     @property
     def num_actors(self) -> int:
@@ -171,10 +200,11 @@ class ActorFleet:
             self._hist_trunc_obs[slot][trunc] = final_obs[trunc]
         self._rows = min(self._rows + 1, self._H)
 
-    def _flush(self) -> Chunk:
+    def _flush(self) -> List[Chunk]:
         """Emit n-step transitions per actor from the full history ring:
         window starts 0..F-1 of the flush frame (overlapping) or its
-        globally n-aligned subset (strided).  The oldest row (global step
+        globally n-aligned subset (strided).  One dense chunk, or one
+        ``DedupChunk`` per dedup group.  The oldest row (global step
         ``_step_count − H``) lives at slot ``_step_count % H``."""
         n, F, N = self.n_step, self.flush_every, self.num_actors
         order = (np.arange(self._H) + self._step_count) % self._H
@@ -209,6 +239,13 @@ class ActorFleet:
                 alive &= discounts[starts + k] != 0.0
         td = returns + boot * boot_qmax - qtaken
         priorities = np.abs(td).astype(np.float32)          # [S, N]
+        action = self._hist_action[order[starts]]           # [S, N]
+        reward = returns.astype(np.float32)
+        discount = boot.astype(np.float32)
+        if self.emit_dedup:
+            return [self._build_dedup(g, order, starts, trunc_k, priorities, action,
+                                      reward, discount)
+                    for g in range(self._groups)]
         obs = self._hist_obs[order[starts]]                 # [S, N, *obs]
         next_obs = self._hist_obs[next_idx]                 # [S, N, *obs]
         for k in range(n):
@@ -217,12 +254,64 @@ class ActorFleet:
                 next_obs[m] = self._hist_trunc_obs[order[starts + k]][m]
         transitions = NStepTransition(
             obs=obs.reshape(S * N, *obs.shape[2:]),
-            action=self._hist_action[order[starts]].reshape(-1),
-            reward=returns.astype(np.float32).reshape(-1),
-            discount=boot.astype(np.float32).reshape(-1),
+            action=action.reshape(-1),
+            reward=reward.reshape(-1),
+            discount=discount.reshape(-1),
             next_obs=next_obs.reshape(S * N, *next_obs.shape[2:]),
         )
-        return Chunk(priorities.reshape(-1), transitions, F * N)
+        return [Chunk(priorities.reshape(-1), transitions, F * N)]
+
+    def _build_dedup(self, g, order, starts, trunc_k, priorities, action,
+                     reward, discount) -> Chunk:
+        """Group ``g``'s ``DedupChunk``: only the F NEW step rows of its actor
+        columns (all H on its first flush) plus truncation extras; windows
+        overlapping the previous flush carry negative refs into its tail."""
+        n, F, H = self.n_step, self.flush_every, self._H
+        a0, a1 = self._group_bounds[g], self._group_bounds[g + 1]
+        Ng = a1 - a0
+        bw = 0 if self._chunk_seq[g] == 0 else n  # first NEW window row
+        step_frames = self._hist_obs[order[bw:H]][:, a0:a1]  # [H-bw, Ng, *obs]
+        obs_shape = step_frames.shape[2:]
+        S = len(starts)
+        a_grid = np.broadcast_to(np.arange(Ng), (S, Ng))
+        s_grid = np.broadcast_to(starts[:, None], (S, Ng))
+        obs_ref = np.where(
+            s_grid >= bw,
+            (s_grid - bw) * Ng + a_grid,
+            # Carry: window row σ (< bw = n) was the previous chunk's window
+            # row σ + F, at step index (σ + F − prev_bw)·Ng + a; negative
+            # refs count back from the previous chunk's END.
+            (s_grid + F - self._last_bw[g]) * Ng + a_grid - self._last_U[g],
+        ).astype(np.int64)
+        next_ref = ((s_grid + n - bw) * Ng + a_grid).astype(np.int64)
+        tk = trunc_k[:, a0:a1]
+        extras: list = []
+        extra_index: dict = {}
+        for j, a in zip(*np.nonzero(tk >= 0)):
+            t_row = int(starts[j] + tk[j, a])     # window row of the truncation
+            key = (t_row, int(a))
+            if key not in extra_index:
+                extra_index[key] = len(extras)
+                extras.append(self._hist_trunc_obs[order[t_row]][a0 + a])
+            next_ref[j, a] = (H - bw) * Ng + extra_index[key]
+        frames = step_frames.reshape((H - bw) * Ng, *obs_shape)
+        if extras:
+            frames = np.concatenate([frames, np.stack(extras)], axis=0)
+        chunk = DedupChunk(
+            frames=frames,
+            obs_ref=obs_ref.reshape(-1).astype(np.int32),
+            next_ref=next_ref.reshape(-1).astype(np.int32),
+            action=action[:, a0:a1].reshape(-1),
+            reward=reward[:, a0:a1].reshape(-1),
+            discount=discount[:, a0:a1].reshape(-1),
+            source=self._source[g],
+            chunk_seq=self._chunk_seq[g],
+            prev_frames=self._last_U[g],
+        )
+        self._chunk_seq[g] += 1
+        self._last_U[g] = frames.shape[0]
+        self._last_bw[g] = bw
+        return Chunk(priorities[:, a0:a1].reshape(-1), chunk, F * Ng)
 
     def collect(self, num_steps: int, param_source=None):
         """Run ``num_steps`` fleet steps; return (chunks, episode stats)."""
@@ -260,7 +349,7 @@ class ActorFleet:
                 self._rows == self._H
                 and (self._step_count - self._H) % self.flush_every == 0
             ):
-                chunks.append(self._flush())
+                chunks.extend(self._flush())
             if param_source is not None and self._step_count % self.sync_every == 0:
                 self.sync_params(param_source)
         return chunks, stats

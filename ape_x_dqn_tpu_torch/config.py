@@ -5,8 +5,10 @@ sections, reference-format ``parameters.json`` files, ``--set
 section.field=value`` overrides), cut down to the fields the port runs.
 A key the port does not run raises rather than loading as a dead setting,
 so a config written for the JAX package's other paths (central inference,
-the tcp transport, serving, checkpoints, data parallel) fails loudly here
-instead of running something else.  The port owns this copy; it never
+the tcp transport, serving, checkpoints, data parallel, the host dedup
+replay and the tiered store) fails loudly here instead of running
+something else; the keys of those paths that the JAX configs use are
+refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
 """
 
@@ -88,6 +90,15 @@ class LearnerConfig:
     # call-entry priorities and restamps once after the K steps; False is
     # strict sequential PER (one sampler launch per step).
     sample_ahead: bool = False
+    # Data-parallel learner over several cards: only 1 is part of the port
+    # (the multi-GPU learner is ROADMAP A10).
+    data_parallel: int = 1
+    # Low-precision storage ("bfloat16" | "float32" | None): RMSProp's
+    # second moment, the target net, and the network params (bfloat16
+    # params step through a float32 master copy in the optimizer state).
+    second_moment_dtype: Optional[str] = None
+    target_dtype: Optional[str] = None
+    param_dtype: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -97,6 +108,13 @@ class ReplayConfig:
     is_exponent: float = 0.4              # parameters.json:30
     # zlib-compress stored frames in the host replay (a memory/CPU trade).
     frame_compression: bool = False
+    # Frame-dedup storage (types.DedupChunk): actors ship each frame once and
+    # the device ring stores one frame ring + per-transition refs.
+    # frame_ratio sizes the frame ring per transition slot; it must cover the
+    # emission's arrival ratio (≈ (flush_every + n) / flush_every plus
+    # truncation extras) or the oldest transitions become unsampleable early.
+    dedup: bool = False
+    frame_ratio: float = 1.25
 
 
 @dataclasses.dataclass
@@ -187,6 +205,27 @@ class ApexConfig:
             (not (r.frame_compression and l.device_replay),
              "replay.frame_compression applies to the host replay only "
              "(learner.device_replay=false)"),
+            (l.data_parallel == 1,
+             f"learner.data_parallel={l.data_parallel}: the multi-GPU learner "
+             "(parallel/dp.py, replay/device_dp.py, replay/device_dedup_dp.py) "
+             "is not part of the port yet (ROADMAP A10)"),
+            (not r.dedup or l.device_replay,
+             "replay.dedup with learner.device_replay=false: the host "
+             "DedupReplay (replay/dedup.py, native_dedup.py) is not part of "
+             "the port yet (ROADMAP A7); the device dedup ring is "
+             "(learner.device_replay=true)"),
+            (not r.dedup or a.flush_every >= a.num_steps,
+             "replay.dedup requires actor.flush_every >= actor.num_steps "
+             "(carry refs reach at most one chunk back)"),
+            (r.frame_ratio > 0, "replay.frame_ratio must be positive"),
+            (l.second_moment_dtype in (None, "bfloat16", "float32"),
+             f"unknown second_moment_dtype: {l.second_moment_dtype}"),
+            (l.target_dtype in (None, "bfloat16", "float32"),
+             f"unknown target_dtype: {l.target_dtype}"),
+            (l.param_dtype in (None, "bfloat16", "float32"),
+             f"unknown param_dtype: {l.param_dtype}"),
+            (not (l.second_moment_dtype is not None and l.optimizer == "adam"),
+             "second_moment_dtype is only supported for rmsprop"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -245,7 +284,8 @@ def from_reference_json(data: dict) -> ApexConfig:
 
 
 # Optional-typed fields where a CLI "none" legitimately means None.
-_OPTIONAL_FIELDS = {"state_shape", "action_dim", "max_grad_norm"}
+_OPTIONAL_FIELDS = {"state_shape", "action_dim", "max_grad_norm",
+                    "second_moment_dtype", "target_dtype", "param_dtype"}
 
 
 def _coerce(current: Any, raw: str, field: str = "") -> Any:
@@ -274,10 +314,18 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 
 # Keys of the JAX package's config whose feature the port does not run yet,
 # refused by name (any other unknown key is refused as unknown).
+_TIERED = "the tiered frame store (replay/tiered.py, ROADMAP A7)"
 _NOT_PORTED = {
     "actor.inference": "central inference (serving/central.py, ROADMAP A8)",
     "actor.max_workers": "elastic grow/retire of process actors (ROADMAP A6)",
     "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP A6)",
+    "replay.hot_frame_budget_bytes": _TIERED,
+    "replay.spill_dir": _TIERED,
+    "replay.spill_span_frames": _TIERED,
+    "replay.spill_watermark_high": _TIERED,
+    "replay.spill_watermark_low": _TIERED,
+    "replay.service_dedup": "the replay service and its frame dedup "
+                            "(replay/service.py, ROADMAP A7)",
 }
 
 

@@ -14,8 +14,16 @@ The optimizer is written by hand to match optax, not taken from
   * Adam as ``optax.adam`` (bias-corrected, ε outside the square root).
 Parameters, optimizer state and the target net update in place.
 
-The bf16 master-weight and bf16 second-moment options of the JAX package
-are not part of the port yet.
+The JAX package's low-precision knobs (``train_step.py:52-134,174-210``):
+  * ``second_moment_dtype`` (RMSProp only) stores ν in that dtype: ν is
+    upcast, blended in float32 and stored back down, and the update uses
+    the float32 ν before rounding.
+  * ``float32_master`` (``with_float32_master``, for bfloat16 params) keeps
+    a float32 copy of the params in the optimizer state; the optimizer
+    steps the master, and the update added to the params is
+    ``cast(master) − params``.
+  * ``init_train_state(target_dtype=...)`` stores the target net in that
+    dtype, always as a real copy; target syncs cast online → target dtype.
 """
 
 from __future__ import annotations
@@ -52,16 +60,35 @@ class Optimizer:
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     max_grad_norm: Optional[float] = 40.0
+    second_moment_dtype: Optional[torch.dtype] = None  # RMSProp's ν storage
+    float32_master: bool = False
 
     def init(self, params: Params) -> dict:
-        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}  # noqa: E731
+        if self.float32_master:
+            master = {k: v.detach().to(torch.float32, copy=True) for k, v in params.items()}
+            return {"master": master, **self._init(master)}
+        return self._init(params)
+
+    def _init(self, params: Params) -> dict:
+        def zeros(dtype=None):
+            return {k: torch.zeros_like(v, dtype=dtype) for k, v in params.items()}
+
         if self.kind == "rmsprop":
-            return {"nu": zeros()}
+            return {"nu": zeros(self.second_moment_dtype)}
         return {"mu": zeros(), "nu": zeros(), "count": 0}
 
     @torch.no_grad()
     def update_(self, params: Params, grads: Params, state: dict) -> None:
         """One step: clip, transform, and add the update to ``params``."""
+        if not self.float32_master:
+            self._update(params, grads, state)
+            return
+        master = state["master"]
+        self._update(master, {k: g.to(torch.float32) for k, g in grads.items()}, state)
+        for k, p in params.items():
+            p.add_(master[k].to(p.dtype) - p)
+
+    def _update(self, params: Params, grads: Params, state: dict) -> None:
         if self.max_grad_norm is not None:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
             keep = g_norm < self.max_grad_norm
@@ -74,8 +101,17 @@ class Optimizer:
             rho = self.rmsprop_decay
             for k, g in grads.items():
                 nu = state["nu"][k]
-                nu.copy_((1.0 - rho) * (g * g) + rho * nu)
-                params[k].add_(-lr * (g * torch.rsqrt(nu + self.rmsprop_eps)))
+                if self.second_moment_dtype is None:
+                    nu.copy_((1.0 - rho) * (g * g) + rho * nu)
+                    params[k].add_(-lr * (g * torch.rsqrt(nu + self.rmsprop_eps)))
+                    continue
+                # Blend in float32 and step with the float32 ν; only the
+                # stored copy is rounded (JAX train_step.py:72-89).
+                g32 = g.to(torch.float32)
+                nu32 = rho * nu.to(torch.float32) + (1.0 - rho) * (g32 * g32)
+                scaled = (g32 * torch.rsqrt(nu32 + self.rmsprop_eps)).to(g.dtype)
+                nu.copy_(nu32)
+                params[k].add_(-lr * scaled)
             return
         b1, b2 = self.adam_b1, self.adam_b2
         state["count"] += 1
@@ -93,28 +129,38 @@ def make_optimizer(
     kind: str = "rmsprop",
     learning_rate: float = 0.00025 / 4,
     max_grad_norm: float | None = 40.0,
+    second_moment_dtype: Optional[torch.dtype] = None,
+    float32_master: bool = False,
 ) -> Optimizer:
     """Reference-parity RMSProp (lr 0.00025/4, decay 0.95, eps 1.5e-7) or
     Adam (optax's defaults), with the global-norm clip at ``max_grad_norm``
-    (None drops it)."""
+    (None drops it).  ``second_moment_dtype`` (RMSProp only) stores ν in
+    that dtype; ``float32_master`` wraps the optimizer around a float32
+    master copy of the params (for bfloat16 params)."""
     if kind not in ("rmsprop", "adam"):
         raise ValueError(f"unknown optimizer kind: {kind}")
-    return Optimizer(kind, learning_rate, max_grad_norm=max_grad_norm)
+    if second_moment_dtype is not None and kind != "rmsprop":
+        raise ValueError("second_moment_dtype is only supported for rmsprop")
+    return Optimizer(kind, learning_rate, max_grad_norm=max_grad_norm,
+                     second_moment_dtype=second_moment_dtype,
+                     float32_master=float32_master)
 
 
 def init_train_state(network, optimizer: Optimizer, seed: int = 0,
-                     device: str | torch.device = "cuda") -> TrainState:
-    """Params from the network's own init, a target that is a real copy,
-    and fresh optimizer state, all on ``device``."""
+                     device: str | torch.device = "cuda",
+                     target_dtype: Optional[torch.dtype] = None) -> TrainState:
+    """Params from the network's own init, a target that is a real copy
+    (in ``target_dtype`` when given), and fresh optimizer state, all on
+    ``device``."""
     params = {k: v.detach().to(device, copy=True)
               for k, v in network.state_dict().items()}
-    target = {k: v.clone() for k, v in params.items()}
+    target = {k: v.to(target_dtype or v.dtype, copy=True) for k, v in params.items()}
     return TrainState(params=params, target_params=target,
                       opt_state=optimizer.init(params), step=0, seed=seed)
 
 
 def sync_target_(state: TrainState) -> None:
-    """Copy online → target params in place."""
+    """Copy online → target params in place, cast to the target's dtype."""
     with torch.no_grad():
         for k, v in state.params.items():
             state.target_params[k].copy_(v)

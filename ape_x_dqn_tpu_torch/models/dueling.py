@@ -10,7 +10,11 @@ Port of ``ape_x_dqn_tpu/models/dueling.py``:
     by 1/255 in the compute dtype, then permuted to NCHW inside; an input
     that looks NCHW raises, as the JAX model does (:72-79).
   * Compute dtype bfloat16 by default with float32 heads (:63, :91-104);
-    params stay float32 and are cast per use.
+    params are cast to the compute dtype per use (the heads to float32).
+  * ``param_dtype`` is the parameters' storage dtype (float32 by default,
+    :54-64): bfloat16 halves the parameter bytes each forward reads, and
+    is paired with the optimizer's float32 master copy.  Parameters are
+    drawn in float32 and stored cast.
   * Init follows flax: lecun-normal (truncated normal, variance 1/fan_in)
     kernels and zero biases.
 
@@ -73,7 +77,8 @@ class DuelingDQN(nn.Module):
 
     def __init__(self, num_actions: int, obs_shape: Sequence[int],
                  channels: Sequence[int] = (64, 64, 64), hidden: int = 512,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(channels) != len(_KERNELS):
             raise ValueError(
@@ -98,6 +103,7 @@ class DuelingDQN(nn.Module):
         self.adv_hidden = _linear(flat, hidden)
         self.value = _linear(hidden, 1)
         self.advantage = _linear(hidden, num_actions)
+        self.to(param_dtype)
 
     def forward(self, x: torch.Tensor) -> DuelingOutput:
         return self.apply_params(dict(self.named_parameters()), x)
@@ -128,7 +134,8 @@ class DuelingMLP(nn.Module):
 
     def __init__(self, num_actions: int, obs_shape: Sequence[int],
                  hidden_sizes: Sequence[int] = (256, 256),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_actions = num_actions
         self.compute_dtype = compute_dtype
@@ -140,6 +147,7 @@ class DuelingMLP(nn.Module):
         self.hidden = nn.ModuleList(layers)
         self.value = _linear(fan_in, 1)
         self.advantage = _linear(fan_in, num_actions)
+        self.to(param_dtype)
 
     def forward(self, x: torch.Tensor) -> DuelingOutput:
         return self.apply_params(dict(self.named_parameters()), x)

@@ -93,6 +93,36 @@ def device_replay_add(
     return state
 
 
+def sample_slots(
+    mass: torch.Tensor,
+    count: int,
+    num_batches: int,
+    batch_size: int,
+    beta: float,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """The sampling law every device layout shares: K stratified batches of
+    slots from ``mass`` in one sampler launch, and their β-annealed IS
+    weights normalised by each batch's max.  Returns (slots int64 [K*B],
+    weights float32 [K, B])."""
+    K, B = num_batches, batch_size
+    dev = mass.device
+    total = torch.sum(mass)
+    bounds = total / B
+    if u is None:
+        u = torch.rand((K, B), generator=generator, device=dev)
+    u = u.to(device=dev, dtype=torch.float32)
+    targets = (torch.arange(B, dtype=torch.float32, device=dev)[None, :] + u) * bounds
+    targets = torch.minimum(targets, total * (1.0 - 1e-7))
+    idx = sample_indices(mass, targets.reshape(-1).contiguous())   # [K*B]
+    size = max(min(count, mass.shape[0]), 1)
+    idx = torch.clamp(idx, max=size - 1).long()  # zero-mass guard
+    probs = mass[idx] / torch.clamp(total, min=1e-12)
+    weights = torch.pow(torch.clamp(size * probs, min=1e-12), -beta).reshape(K, B)
+    return idx, weights / weights.max(dim=1, keepdim=True).values
+
+
 def device_replay_sample_many(
     state: DeviceReplayState,
     num_batches: int,
@@ -103,22 +133,9 @@ def device_replay_sample_many(
 ) -> PrioritizedBatch:
     """K stratified batches from the current priorities in one sampler
     launch plus one row gather; leaves get leading [K, B]."""
-    K, B = num_batches, batch_size
-    dev = state.mass.device
-    total = torch.sum(state.mass)
-    bounds = total / B
-    if u is None:
-        u = torch.rand((K, B), generator=generator, device=dev)
-    u = u.to(device=dev, dtype=torch.float32)
-    targets = (torch.arange(B, dtype=torch.float32, device=dev)[None, :] + u) * bounds
-    targets = torch.minimum(targets, total * (1.0 - 1e-7))
-    idx = sample_indices(state.mass, targets.reshape(-1).contiguous())   # [K*B]
-    size = max(min(state.count, state.capacity), 1)
-    idx = torch.clamp(idx, max=size - 1).long()  # zero-mass guard
-    probs = state.mass[idx] / torch.clamp(total, min=1e-12)
-    weights = torch.pow(torch.clamp(size * probs, min=1e-12), -beta).reshape(K, B)
-    weights = weights / weights.max(dim=1, keepdim=True).values
-    idx2 = idx.reshape(K, B)
+    idx, weights = sample_slots(state.mass, state.count, num_batches, batch_size,
+                                beta, u, generator)
+    idx2 = idx.reshape(num_batches, batch_size)
     return PrioritizedBatch(
         transition=NStepTransition(
             obs=state.obs[idx2],
@@ -209,6 +226,7 @@ def fused_scan_body(
     sample_ahead: bool,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    sample_many_fn: Optional[Callable] = None,
 ):
     """K × [sample → train → restamp] + the hoisted target sync.
 
@@ -216,17 +234,25 @@ def fused_scan_body(
     row of uniforms); ``sample_ahead`` samples all K batches in one launch
     from call-entry priorities and restamps once, last-wins, after the loop.
     Target sync (``target_sync_freq`` not None): copy online → target iff
-    the K steps crossed a multiple of the frequency.  Returns
-    ``(train_state, replay_state, metrics)`` with metrics stacked [K, ...].
-    The loop never reads the device.
+    the K steps crossed a multiple of the frequency (``copy_`` casts to the
+    target's dtype).  Returns ``(train_state, replay_state, metrics)`` with
+    metrics stacked [K, ...].  The loop never reads the device.
+
+    ``sample_many_fn(state, K, B, beta, u=...)`` is the layout's sampler
+    (default: this module's ``device_replay_sample_many``); the frame-dedup
+    ring (``device_dedup.py``) passes its own, so both layouts share this
+    one loop and one IS-weight law.  Restamps touch only ``.mass``, which
+    every layout carries.
     """
     K, B = steps_per_call, batch_size
     step_before = train_state.step
+    if sample_many_fn is None:
+        sample_many_fn = device_replay_sample_many
     if u is None:
         u = torch.rand((K, B), generator=generator, device=replay_state.mass.device)
     per_step = []
     if sample_ahead:
-        batches = device_replay_sample_many(replay_state, K, B, beta, u=u)
+        batches = sample_many_fn(replay_state, K, B, beta, u=u)
         for k in range(K):
             train_state, m = train_step_fn(train_state, _row(batches, k))
             per_step.append(m)
@@ -236,7 +262,7 @@ def fused_scan_body(
         )
     else:
         for k in range(K):
-            batch = device_replay_sample(replay_state, B, beta, u=u[k:k + 1])
+            batch = _row(sample_many_fn(replay_state, 1, B, beta, u=u[k:k + 1]), 0)
             train_state, m = train_step_fn(train_state, batch)
             device_replay_update_priorities(
                 replay_state, batch.indices, m.priorities, priority_exponent

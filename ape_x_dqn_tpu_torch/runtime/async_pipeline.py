@@ -28,7 +28,9 @@ single-device learner loops of ``AsyncPipeline``:
   :1536-1631): the actor thread stages numpy chunks, the learner ingests
   them into the device ring and runs fused K-step calls, at most
   ``FUSED_INFLIGHT`` in flight before the oldest call's loss is read back.
-  It publishes through the same ``_AsyncPublisher`` (JAX :1168-1177).
+  It publishes through the same ``_AsyncPublisher`` (JAX :1168-1177).  The
+  loop drives the double-store ``FusedDeviceLearner`` and the frame-dedup
+  ``FusedDedupLearner`` (``replay.dedup``) through one interface.
 
 Actors run as one thread in this process (``actor.mode=thread``) or as
 ``actor.num_workers`` CPU-only worker processes (``actor.mode=process``,
@@ -56,6 +58,7 @@ from ape_x_dqn_tpu_torch.runtime.components import build_components
 from ape_x_dqn_tpu_torch.runtime.infeed import DevicePlacer, PrefetchQueue
 from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
 from ape_x_dqn_tpu_torch.runtime.single_process import beta_schedule
+from ape_x_dqn_tpu_torch.types import DedupChunk
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger, RateCounter
 from ape_x_dqn_tpu_torch.utils.profiling import StageTimer
 
@@ -297,7 +300,8 @@ class AsyncPipeline:
             def process_sink(prio, trans):
                 # The pool hands over read-only views of one ring record;
                 # the staging list keeps rows past the next poll, so copy.
-                fused.add_chunk(prio.copy(), trans.map(np.copy))
+                fused.add_chunk(prio.copy(), trans.copy() if isinstance(trans, DedupChunk)
+                                else trans.map(np.copy))
         else:
             process_sink = sink  # replay.add copies into its own arrays
         self.worker = ProcessActorWorker(pool, process_sink, logger=self.logger,

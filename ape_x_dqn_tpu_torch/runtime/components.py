@@ -4,9 +4,13 @@ Port of ``ape_x_dqn_tpu/runtime/components.build_components``: both
 runtimes — the single-process driver and the async pipeline — wire the same
 objects here.  With ``learner.device_replay=false`` (the default) the
 replay is the host ``PrioritizedReplay`` (numpy, native sum-tree); with
-``true`` it is ``None`` and the fused learner owns a device ring.  The
-network, train state and actors live on ``device`` ("cuda" unless the
-caller asks for the CPU).
+``true`` it is ``None`` and the fused learner owns a device ring, the
+frame-dedup ring with ``replay.dedup=true`` (``FusedDedupLearner``, fed by
+fleets that emit ``DedupChunk``s).  The network, train state and actors
+live on ``device`` ("cuda" unless the caller asks for the CPU).  The
+low-precision knobs (``learner.param_dtype``, ``second_moment_dtype``,
+``target_dtype``) are wired here as the JAX package wires them
+(``components.py:233-253``).
 """
 
 from __future__ import annotations
@@ -74,9 +78,8 @@ class Components:
         return sample
 
     def make_fused_learner(self):
-        """The device-resident fused learner (device ring + K-step loop)."""
-        from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner
-
+        """The device-resident fused learner (device ring + K-step loop):
+        the frame-dedup ring with ``replay.dedup``, else the double-store."""
         cfg = self.cfg
         # The fused loop syncs targets at call boundaries, exact only when
         # freq % K == 0 — round the freq down to a multiple of K (never
@@ -84,8 +87,7 @@ class Components:
         K = cfg.learner.steps_per_call
         freq = cfg.learner.q_target_sync_freq
         freq = max(K, freq - freq % K)
-        return FusedDeviceLearner(
-            self.network, self.optimizer, self.state, self.obs_shape,
+        kwargs = dict(
             capacity=cfg.replay.capacity,
             batch_size=cfg.learner.replay_sample_size,
             steps_per_call=K,
@@ -96,6 +98,16 @@ class Components:
             sample_ahead=cfg.learner.sample_ahead,
             device=self.device,
         )
+        if cfg.replay.dedup:
+            from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+            return FusedDedupLearner(self.network, self.optimizer, self.state,
+                                     self.obs_shape, frame_ratio=cfg.replay.frame_ratio,
+                                     **kwargs)
+        from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner
+
+        return FusedDeviceLearner(self.network, self.optimizer, self.state,
+                                  self.obs_shape, **kwargs)
 
     def make_fleet(self, seed_offset: int = 0) -> ActorFleet:
         """A fresh actor fleet (a respawn after a crash calls this again)."""
@@ -112,7 +124,34 @@ class Components:
             seed=cfg.seed + seed_offset,
             emission=cfg.actor.emission,
             device=self.device,
+            emit_dedup=cfg.replay.dedup,
+            emit_dedup_groups=dedup_groups(cfg),
         )
+
+
+def dedup_groups(cfg: ApexConfig) -> int:
+    """Independent dedup streams per fleet (JAX ``components.py:183-189``):
+    one per ring shard.  The port's ring has one shard (data_parallel is
+    1), so one stream per fleet."""
+    if cfg.replay.dedup and cfg.learner.device_replay:
+        return max(1, cfg.learner.data_parallel)
+    return 1
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
+
+
+def seeded_network(cfg: ApexConfig, num_actions: int, obs_shape) -> torch.nn.Module:
+    """The config's network, initialised from ``cfg.seed`` without touching
+    the process-wide generator, its params stored in
+    ``learner.param_dtype``.  The learner and every actor worker build it
+    here, so their param names, shapes and dtypes agree."""
+    kwargs = {}
+    if cfg.learner.param_dtype is not None:
+        kwargs["param_dtype"] = _DTYPES[cfg.learner.param_dtype]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        return build_network(cfg.network, num_actions, obs_shape, **kwargs)
 
 
 def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Components:
@@ -134,16 +173,17 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
         raise ValueError(
             f"config env.action_dim {cfg.env.action_dim} != actual {num_actions}"
         )
-    # Seeded init without touching the process-wide generator.
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        network = build_network(cfg.network, num_actions, obs_shape)
+    network = seeded_network(cfg, num_actions, obs_shape)
     optimizer = make_optimizer(
         cfg.learner.optimizer,
         learning_rate=cfg.learner.learning_rate,
         max_grad_norm=cfg.learner.max_grad_norm,
+        second_moment_dtype=_DTYPES[cfg.learner.second_moment_dtype],
+        # bfloat16 params need float32 update accumulation.
+        float32_master=cfg.learner.param_dtype == "bfloat16",
     )
-    state = init_train_state(network, optimizer, seed=cfg.seed, device=device)
+    state = init_train_state(network, optimizer, seed=cfg.seed, device=device,
+                             target_dtype=_DTYPES[cfg.learner.target_dtype])
     if cfg.learner.device_replay:
         # The fused learner keeps the ring on the device; a host replay here
         # would be ~capacity × 2 frames of dead host memory.

@@ -28,12 +28,17 @@ package's:
     set (``worker_slice``), with the ε-ladder indexed globally, so
     exploration matches the thread layout.  A respawned worker gets only
     its remaining ``actor.T`` budget.
+  * With ``replay.dedup`` a worker's fleet emits ``DedupChunk``s, which
+    travel as ``DXP`` records: the arrays in the APXT body, ``source``,
+    ``chunk_seq`` and ``prev_frames`` in the record's prefix (JAX
+    :537-548), and the pool decodes them back to ``DedupChunk``s (JAX
+    :1404-1411).  A respawned worker's fresh fleet has a fresh source, so
+    the consumer drops only the rows that carried into the dead one.
 
 Not ported yet (the config refuses them by name): the tcp transport and
 its param path (``runtime/net.py``), central inference, grow/retire and
 remote workers, chaos ``SlowEnv``, lineage trace sampling, the per-worker
-stats blocks, the flight recorder and post-mortem files.  A frame-dedup
-(``DXP``) record raises ``NotPortedError``.
+stats blocks, the flight recorder and post-mortem files.
 
 This module imports only the standard library and numpy at module scope:
 a spawned child imports it before the worker target runs, and pays for
@@ -237,19 +242,37 @@ def network_and_template(cfg):
     """(obs_shape, network, template params) on the CPU, without replay or
     optimizer: what a worker (and the pool's buffer sizing) needs.  The
     param names, shapes and dtypes match the learner's, which come from the
-    same ``build_network``; the template's values are never used."""
-    import torch
-
+    same ``seeded_network``; the template's values are never used."""
     from ape_x_dqn_tpu_torch.envs import make_env
-    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.runtime.components import seeded_network
 
     probe = make_env(cfg.env.name, seed=cfg.seed)
     obs_shape = tuple(probe.observation_shape)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        network = build_network(cfg.network, probe.num_actions, obs_shape)
+    network = seeded_network(cfg, probe.num_actions, obs_shape)
     template = {k: v.detach().clone() for k, v in network.state_dict().items()}
     return obs_shape, network, template
+
+
+def encode_record(chunk, param_version: int) -> list:
+    """Ring-ready parts of one fleet chunk: an ``XP`` record for a dense
+    ``NStepTransition``, a ``DXP`` record for a ``DedupChunk`` (its int
+    identity fields ride the record's prefix)."""
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    t = chunk.transitions
+    if isinstance(t, DedupChunk):
+        return encode_chunk_parts(
+            DXP, param_version, chunk.actor_steps,
+            {"prio": np.asarray(chunk.priorities),
+             **{k: np.asarray(getattr(t, k)) for k in (
+                 "frames", "obs_ref", "next_ref", "action", "reward", "discount")}},
+            source=t.source, chunk_seq=t.chunk_seq, prev_frames=t.prev_frames,
+        )
+    return encode_chunk_parts(
+        XP, param_version, chunk.actor_steps,
+        {"prio": np.asarray(chunk.priorities), "obs": t.obs, "action": t.action,
+         "reward": t.reward, "discount": t.discount, "next_obs": t.next_obs},
+    )
 
 
 def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
@@ -274,6 +297,7 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
 
         from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
         from ape_x_dqn_tpu_torch.envs import make_env
+        from ape_x_dqn_tpu_torch.runtime.components import dedup_groups
         from ape_x_dqn_tpu_torch.utils.memory import trim_malloc
 
         threads = worker_threads(num_workers)
@@ -301,6 +325,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             device="cpu",
             epsilon_index_offset=lo,
             epsilon_total=N,
+            emit_dedup=cfg.replay.dedup,
+            emit_dedup_groups=dedup_groups(cfg),
         )
         ring = connect_channel(xp_spec)
         buf = SharedParamBuffer(param_spec["capacity"], name=param_spec["name"],
@@ -323,13 +349,7 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             )
             collect_s += time.monotonic() - t0
             for c in chunks:
-                t = c.transitions
-                parts = encode_chunk_parts(
-                    XP, fleet.param_version, c.actor_steps,
-                    {"prio": np.asarray(c.priorities), "obs": t.obs,
-                     "action": t.action, "reward": t.reward,
-                     "discount": t.discount, "next_obs": t.next_obs},
-                )
+                parts = encode_record(c, fleet.param_version)
                 # Backpressure: block on a full ring, abort promptly on stop
                 # (a stopping learner no longer drains).
                 if not ring.write(parts, should_stop=stop_evt.is_set):
@@ -610,15 +630,12 @@ class ProcessActorPool:
         return out
 
     def _decode_record(self, wid: int, payload: bytes) -> tuple:
-        """One ring record → (priorities, transitions) + pool accounting."""
-        from ape_x_dqn_tpu_torch.types import NStepTransition
+        """One ring record → (priorities, transitions) + pool accounting;
+        the transitions are a ``DedupChunk`` for a ``DXP`` record."""
+        from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
 
-        kind, version, sent_t, steps, *_, arrays = decode_chunk(payload)
-        if kind == DXP:
-            from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
-
-            raise NotPortedError("frame-dedup (DXP) experience records are not "
-                                 "part of the port yet (ROADMAP A7)")
+        (kind, version, sent_t, steps, source, chunk_seq, prev_frames,
+         _, arrays) = decode_chunk(payload)
         self.last_versions[wid] = version
         self.chunks_by_worker[wid] = self.chunks_by_worker.get(wid, 0) + 1
         self.actor_steps += steps
@@ -630,6 +647,9 @@ class ProcessActorPool:
         )
         self.transport.record_chunk(len(payload), time.monotonic() - sent_t, steps)
         prio = arrays.pop("prio")
+        if kind == DXP:
+            return prio, DedupChunk(source=source, chunk_seq=chunk_seq,
+                                    prev_frames=prev_frames, **arrays)
         return prio, NStepTransition(**arrays)
 
     def transport_stats(self) -> dict:

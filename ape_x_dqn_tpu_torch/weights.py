@@ -1,10 +1,13 @@
 """Carry network weights between the JAX package's flax params and the port.
 
 ``params_from_jax(network, flax_params)`` returns a ``state_dict``-layout
-dict of float32 tensors for the port's ``network``;
-``params_to_jax(network, params)`` is its inverse and returns a flax
-``{"params": ...}`` tree of numpy arrays.  Both work on numpy arrays on
-the flax side, so this module imports no JAX.  Conversions:
+dict of tensors for the port's ``network``, each leaf in its own dtype
+(float32, or bfloat16 for the JAX package's ``param_dtype`` /
+``target_dtype`` / ``second_moment_dtype`` knobs: any tree shaped like the
+params, a target net or an optimizer's ν or master copy, carries the
+same way); ``params_to_jax(network, params)`` is its inverse and returns a
+flax ``{"params": ...}`` tree of float32 numpy arrays.  Both work on numpy
+arrays on the flax side, so this module imports no JAX.  Conversions:
   * conv kernels HWIO ↔ OIHW;
   * Dense kernels (in, out) ↔ Linear weights (out, in);
   * the first Dense after the conv torso's flatten also has its input rows
@@ -42,13 +45,23 @@ def _layer_map(network) -> List[Tuple[str, str, str]]:
     raise TypeError(f"no weight layout for {type(network).__name__}")
 
 
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype.  numpy has no bfloat16 of
+    its own (JAX's comes from ``ml_dtypes``): its bits travel as int16."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def params_from_jax(network, flax_params) -> Dict[str, torch.Tensor]:
-    """flax ``{"params": {...}}`` (numpy or jax arrays) → port state_dict."""
+    """flax ``{"params": {...}}`` (numpy or jax arrays) → port state_dict,
+    every leaf in its own dtype."""
     tree = flax_params["params"] if "params" in flax_params else flax_params
     out: Dict[str, torch.Tensor] = {}
     for fname, prefix, kind in _layer_map(network):
-        kernel = np.asarray(tree[fname]["kernel"], np.float32)
-        bias = np.asarray(tree[fname]["bias"], np.float32)
+        kernel = np.asarray(tree[fname]["kernel"])
+        bias = np.asarray(tree[fname]["bias"])
         if kind == "conv":
             w = kernel.transpose(3, 2, 0, 1)                  # HWIO → OIHW
         elif kind == "flat":
@@ -57,8 +70,8 @@ def params_from_jax(network, flax_params) -> Dict[str, torch.Tensor]:
                  .reshape(c * h * wd, -1).T)                  # rows (h,w,c) → (c,h,w)
         else:
             w = kernel.T                                      # (in, out) → (out, in)
-        out[f"{prefix}.weight"] = torch.from_numpy(np.array(w, np.float32, order="C"))
-        out[f"{prefix}.bias"] = torch.from_numpy(bias.copy())
+        out[f"{prefix}.weight"] = _to_torch(w)
+        out[f"{prefix}.bias"] = _to_torch(bias)
     return out
 
 

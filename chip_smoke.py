@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
                 the checkout with nvcc, and the host replay's native
                 sum-tree (``_native/sum_tree.cc``) with g++, timed;
   3. kernel   — hold the kernel against its plain PyTorch version at
-                C = 100 000 and 2 000 000, B = 32 and 4096: identical
+                C = 100 000 and 2 000 000, B = 32 and 4096, and at the dedup
+                path's C = 2 000 000, B = 65 536 (plain, and with 20 % of
+                the slots zeroed at random positions): identical
                 indices on integer-valued priorities (exact in float32),
                 every index inside its inverse-CDF bracket (float64, within
                 1e-5·total) on real-valued ones, zero-mass blocks and a C
@@ -60,8 +62,25 @@ Phases, each printing one JSON line:
  10. proc_host_train — the same on the host-replay path (phase 7's), with
                 ``stage_us``, the replay's frame bytes and 0 sampler
                 launches;
- 11. kernels  — one JSON object per ported kernel with its launches on the
-                main path (and on each path), error, times and bound.
+ 11. dedup_parity — the frame-dedup ring (C = 4 096, Cf = 5 120, catch:84
+                frames from a seeded fleet, > 3 frame-ring wraps) on the card
+                against the same ring on the CPU: mass, refs and counters
+                identical after every ingest; on integer priorities the
+                sampled indices identical and the gathered frames byte-equal;
+                one full-width fused dedup call within phase 4's tolerance;
+                2 sampler launches;
+ 12. dedup_train — ``train.main`` with config3's learner on one card: the
+                dedup ring at 2 000 000 slots (frame_ratio 1.25), sample-ahead
+                K = 2048, ingest blocks of 2048, bf16 second moment and
+                target, target sync 2500 (→ 2048), publish 2500, process
+                actors (cuts listed in its output).  Sampler launches ==
+                fused calls (2), peak device memory below the double-store's
+                frame bytes, learner steps/s over the second call, ring
+                bytes, dropped carries, frame/transition ratio, dead slots,
+                workers without CUDA, /dev/shm clean;
+ 13. kernels  — one JSON object per ported kernel with its launches on this
+                slice's main path (dedup_train) and on each path, error,
+                times and bound at that path's shape (C = 2M, T = 65 536).
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -115,56 +134,65 @@ def phase_kernel(sampling):
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(bench.FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
-    for C in (100_000, 2_000_000):
+    # (C, B, share of slots zeroed at random positions): the earlier slices'
+    # shapes, then the dedup path's sample-ahead launch (K = 2048 × B = 32
+    # targets over a 2M ring), plain and with scattered dead slots as the
+    # liveness sweep leaves them.
+    cases = [(100_000, 32, 0.0), (100_000, 4096, 0.0), (2_000_000, 32, 0.0),
+             (2_000_000, 4096, 0.0), (2_000_000, 65_536, 0.0), (2_000_000, 65_536, 0.2)]
+    for C, B, dead in cases:
         # Integer priorities whose total stays below 2^24: every prefix sum
         # is exact in float32, in any order, so indices must be identical.
         hi = max(2, 2**24 // C)
-        p_int = torch.as_tensor(rng.integers(0, hi, C).astype(np.float32), device=dev)
-        p_real = torch.as_tensor(rng.random(C, dtype=np.float32), device=dev)
-        for B in (32, 4096):
-            t_int = bench.stratified_targets(p_int, B, rng)
-            k = sampling.sample_indices(p_int, t_int)
-            ref = sampling.sample_indices_reference(p_int, t_int)
-            torch.cuda.synchronize()
-            if not torch.equal(k, ref):
-                bad = int((k != ref).sum())
-                raise AssertionError(f"C={C} B={B}: {bad} indices differ on "
-                                     "integer priorities")
-            t_real = bench.stratified_targets(p_real, B, rng)
-            k_real = sampling.sample_indices(p_real, t_real)
-            ref_real = sampling.sample_indices_reference(p_real, t_real)
-            worst = check_brackets(p_real, t_real, k_real)
-            if not torch.equal(k_real, sampling.sample_indices(p_real, t_real)):
-                raise AssertionError(f"C={C} B={B}: two calls on the same "
-                                     "priorities gave different indices")
-            calls = bench.device_calls(
-                lambda: sampling.sample_indices(p_real, t_real), 3, flush)
-            if any(len(c) != 1 for c in calls):
-                raise AssertionError(f"C={C} B={B}: device activities per call "
-                                     f"{[[a[0] for a in c] for c in calls]}, "
-                                     "want one kernel")
+        zero = rng.random(C) < dead if dead else np.zeros(C, bool)
+        p_int = torch.as_tensor(np.where(zero, 0, rng.integers(0, hi, C)).astype(np.float32),
+                                device=dev)
+        p_real = torch.as_tensor(np.where(zero, 0, rng.random(C, dtype=np.float32))
+                                 .astype(np.float32), device=dev)
+        t_int = bench.stratified_targets(p_int, B, rng)
+        k = sampling.sample_indices(p_int, t_int)
+        ref = sampling.sample_indices_reference(p_int, t_int)
+        torch.cuda.synchronize()
+        if not torch.equal(k, ref):
+            bad = int((k != ref).sum())
+            raise AssertionError(f"C={C} B={B}: {bad} indices differ on "
+                                 "integer priorities")
+        t_real = bench.stratified_targets(p_real, B, rng)
+        k_real = sampling.sample_indices(p_real, t_real)
+        ref_real = sampling.sample_indices_reference(p_real, t_real)
+        worst = check_brackets(p_real, t_real, k_real)
+        if not torch.equal(k_real, sampling.sample_indices(p_real, t_real)):
+            raise AssertionError(f"C={C} B={B}: two calls on the same "
+                                 "priorities gave different indices")
+        calls = bench.device_calls(
+            lambda: sampling.sample_indices(p_real, t_real), 3, flush)
+        if any(len(c) != 1 for c in calls):
+            raise AssertionError(f"C={C} B={B}: device activities per call "
+                                 f"{[[a[0] for a in c] for c in calls]}, "
+                                 "want one kernel")
 
-            def kernel():
-                return sampling.sample_indices(p_real, t_real)
+        def kernel():
+            return sampling.sample_indices(p_real, t_real)
 
-            def plain():
-                return sampling.sample_indices_reference(p_real, t_real)
+        def plain():
+            return sampling.sample_indices_reference(p_real, t_real)
 
-            timed = bench.measure(kernel, C, B, 50, flush)
-            plain_t = bench.measure(plain, C, B, 50, flush)
-            rows.append({
-                "C": C, "B": B, "grid": list(sampling.plan(C, num_sms)),
-                "ms": timed["cold_ms"], **timed,
-                "plain_ms": plain_t["cold_ms"], "plain_warm_ms": plain_t["warm_ms"],
-                "plain_host_us": plain_t["host_us"],
-                "bound_ms": bench.bound_ms(C, B),
-                "max_abs_err": int((k - ref).abs().max()),
-                "bracket_violation_of_total": worst,
-                "real_idx_max_abs_diff_vs_plain":
-                    int((k_real.long() - ref_real.long()).abs().max()),
-                "kernel_activity": calls[0][0][0],
-            })
-            emit({"phase": "kernel", **rows[-1]})
+        timed = bench.measure(kernel, C, B, 50, flush)
+        plain_t = bench.measure(plain, C, B, 50, flush)
+        rows.append({
+            "C": C, "B": B, "dead_share": float(zero.mean()),
+            "grid": list(sampling.plan(C, num_sms)),
+            "ms": timed["cold_ms"], **timed,
+            "plain_ms": plain_t["cold_ms"], "plain_warm_ms": plain_t["warm_ms"],
+            "plain_host_us": plain_t["host_us"],
+            "bound_ms": bench.bound_ms(C, B),
+            "max_abs_err": int((k - ref).abs().max()),
+            "bracket_violation_of_total": worst,
+            "real_idx_max_abs_diff_vs_plain":
+                int((k_real.long() - ref_real.long()).abs().max()),
+            "kernel_activity": calls[0][0][0],
+        })
+        emit({"phase": "kernel", **rows[-1]})
     # Zero-mass blocks, a C that is not a multiple of 4, targets at and
     # past the total.
     C = 100_003
@@ -538,6 +566,30 @@ def compute_apps(period_s: float = 0.5):
         thread.join(120)
 
 
+def check_workers(phase: str, pool, apps) -> tuple:
+    """After a process-actor run: no restarts or worker errors, both workers
+    reporting no CUDA initialisation, at most one compute pid on the card
+    (this one, the learner's) and no /dev/shm segment of the run left.
+    Returns (the workers' reports, the pids nvidia-smi listed)."""
+    if pool.restarts or pool.worker_errors:
+        raise AssertionError(f"{phase}: {pool.restarts} worker restarts, "
+                             f"errors {pool.worker_errors}")
+    reports = pool.worker_reports
+    if set(reports) != {0, 1} or any(r["cuda_initialized"] for r in reports.values()):
+        raise AssertionError(f"{phase}: worker reports {reports}, want both workers "
+                             "reporting no CUDA initialisation")
+    # A container's pid namespace can hide the list; the reports above hold
+    # either way.
+    pids = set().union(*apps) if apps else set()
+    if max((len(s) for s in apps), default=0) > 1 or len(pids) > 1:
+        raise AssertionError(f"{phase}: nvidia-smi listed compute pids {sorted(pids)}, "
+                             "want only the learner's")
+    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
+    if leftover:
+        raise AssertionError(f"{phase}: segments left in /dev/shm: {leftover}")
+    return reports, pids
+
+
 def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     """``train.main --set actor.mode=process --set actor.num_workers=2`` at
     the width of phase 5, on the device-replay path (``proc_train``) or the
@@ -570,23 +622,7 @@ def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     if set(pool.last_versions) != {0, 1} or min(pool.last_versions.values()) <= 1:
         raise AssertionError(f"{phase}: latest chunk versions by worker "
                              f"{pool.last_versions}, want both workers past version 1")
-    if pool.restarts or pool.worker_errors:
-        raise AssertionError(f"{phase}: {pool.restarts} worker restarts, "
-                             f"errors {pool.worker_errors}")
-    reports = pool.worker_reports
-    if set(reports) != {0, 1} or any(r["cuda_initialized"] for r in reports.values()):
-        raise AssertionError(f"{phase}: worker reports {reports}, want both workers "
-                             "reporting no CUDA initialisation")
-    # Exactly one process (this one, the learner) may hold a context.  A
-    # container's pid namespace can hide the list; the reports above hold
-    # either way.
-    pids = set().union(*apps) if apps else set()
-    if max((len(s) for s in apps), default=0) > 1 or len(pids) > 1:
-        raise AssertionError(f"{phase}: nvidia-smi listed compute pids {sorted(pids)}, "
-                             "want only the learner's")
-    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
-    if leftover:
-        raise AssertionError(f"{phase}: segments left in /dev/shm: {leftover}")
+    reports, pids = check_workers(phase, pool, apps)
     transport = pool.transport_stats()
     result = {
         "phase": phase, "card": card, "learner_steps": final["step"],
@@ -611,6 +647,238 @@ def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     }
     if not device_replay:
         result["replay_frames_nbytes"] = pipe.comps.replay.frames_nbytes()
+    emit(result)
+    return result
+
+
+def phase_dedup_parity(sampling):
+    """The frame-dedup ring on the card against the same ring on the CPU:
+    C = 4 096 slots, Cf = 5 120 frames, catch:84 frames from a seeded fleet
+    (a small random MLP picks the actions), more than three frame-ring
+    wraps.  Integer priorities (α = 1): masses exact, so sampled indices
+    must be identical.  Then one fused dedup call at full width."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.actors.pool import ActorFleet, LocalParamSource
+    from ape_x_dqn_tpu_torch.envs import make_env
+    from ape_x_dqn_tpu_torch.learner.train_step import init_train_state, make_optimizer
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.replay.device_dedup import dedup_sample_many
+    from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED)
+    C, obs_shape, A, K, B = 4096, (84, 84, 1), 3, 4, 32
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        actor_net = build_network("mlp", A, obs_shape, hidden_sizes=(16,))
+        net = build_network("conv", A, obs_shape, compute_dtype=torch.float32)
+    fleet = ActorFleet([lambda i=i: make_env("catch:84", seed=SEED + i) for i in range(8)],
+                       actor_net, seed=SEED, device="cpu", emit_dedup=True)
+    fleet.sync_params(LocalParamSource(dict(actor_net.state_dict())))
+    chunks, _ = fleet.collect(2300)   # ~18 400 frames: 3.6 wraps of Cf
+    learners = {}
+    for dev in ("cpu", "cuda"):
+        opt = make_optimizer("rmsprop")
+        learners[dev] = FusedDedupLearner(
+            net, opt, init_train_state(net, opt, seed=SEED, device=dev), obs_shape,
+            capacity=C, batch_size=B, steps_per_call=K, ingest_block=512,
+            priority_exponent=1.0, target_sync_freq=K, sample_ahead=True,
+            frame_ratio=1.25, device=dev)
+    cpu, gpu = learners["cpu"], learners["cuda"]
+    Cf = gpu.replay.frame_capacity
+
+    def compare(what):
+        for f in ("mass", "obs_ref", "next_ref"):
+            if not torch.equal(getattr(cpu.replay, f), getattr(gpu.replay, f).cpu()):
+                raise AssertionError(f"dedup ring on the card differs from the CPU "
+                                     f"ring in {f} after {what}")
+        if (cpu.replay.cursor, cpu.replay.count, cpu.replay.fcount) != (
+                gpu.replay.cursor, gpu.replay.count, gpu.replay.fcount):
+            raise AssertionError(f"dedup ring counters differ after {what}")
+
+    sampling.sample_indices.launches = 0
+    ingests = 0
+    for i, c in enumerate(chunks):
+        prio = rng.integers(1, 20, len(c.priorities)).astype(np.float32)
+        rows = []
+        for lrn in (cpu, gpu):
+            lrn.add_chunk(prio, c.transitions)
+            rows.append(lrn.ingest_staged(drain=i == len(chunks) - 1))
+        if rows[0] != rows[1]:
+            raise AssertionError(f"chunk {i}: {rows} rows ingested on CPU / card")
+        if rows[0]:
+            ingests += 1
+            compare(f"ingest {ingests}")
+    wraps = gpu.stager.shipped_f / Cf
+    if wraps < 3:
+        raise AssertionError(f"frame ring wrapped {wraps:.2f} times, want >= 3")
+    size = gpu.size
+    dead = int((gpu.replay.mass[:size] == 0).sum())
+    # Sampling on integer masses: identical indices, byte-equal frames.
+    u = torch.as_tensor(rng.random((64, B), dtype=np.float32))
+    got = {d: dedup_sample_many(lrn.replay, 64, B, 0.4, u=u) for d, lrn in learners.items()}
+    if not torch.equal(got["cpu"].indices, got["cuda"].indices.cpu()):
+        raise AssertionError("dedup sampler indices differ between card and CPU")
+    for f in ("obs", "next_obs", "action", "reward", "discount"):
+        a, b = getattr(got["cpu"].transition, f), getattr(got["cuda"].transition, f).cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"gathered {f} differs between card and CPU")
+    w_err = float((got["cpu"].is_weights - got["cuda"].is_weights.cpu()).abs().max())
+    # One fused dedup call at full width, float32 compute, TF32 off: the
+    # tolerance of phase_parity.
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        u = torch.as_tensor(rng.random((K, B), dtype=np.float32))
+        for lrn in (cpu, gpu):
+            lrn.train(0.4, u=u)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    init = {k: v.cpu() for k, v in net.state_dict().items()}
+    worst = 0.0
+    for k in init:
+        d_cpu = cpu.state.params[k] - init[k]
+        d_gpu = gpu.state.params[k].cpu() - init[k]
+        worst = max(worst, float((d_cpu - d_gpu).abs().max()) / (float(d_cpu.abs().max()) + 1e-12))
+    mass_err = float((cpu.replay.mass - gpu.replay.mass.cpu()).abs().max())
+    if worst > 1e-3 or mass_err > 1e-4 or w_err > 1e-6:
+        raise AssertionError(f"card vs CPU dedup: update error {worst:.3g} of the largest "
+                             f"update, mass error {mass_err:.3g}, IS weight error {w_err:.3g}")
+    launches = sampling.sample_indices.launches
+    if launches != 2:
+        raise AssertionError(f"{launches} sampler launches on the card, want 2 (one "
+                             "sample, one sample-ahead fused call)")
+    result = {"phase": "dedup_parity", "C": C, "Cf": Cf, "chunks": len(chunks),
+              "ingests_compared": ingests, "frame_ring_wraps": wraps,
+              "frames_shipped": gpu.stager.shipped_f, "transitions": gpu.stager.rows_in,
+              "dead_slots": dead, "size": size, "sampled": 64 * B,
+              "is_weight_max_abs_err": w_err, "param_update_err_rel": worst,
+              "mass_max_abs_err": mass_err, "sampler_launches": launches,
+              "tolerance": {"param_update_err_rel": 1e-3, "mass_max_abs_err": 1e-4,
+                            "is_weight_max_abs_err": 1e-6},
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
+@contextlib.contextmanager
+def timed_fused_calls():
+    """CUDA events around every ``FusedDedupLearner.train`` call: each
+    call's span on the learner's stream, from the end of the work queued
+    before it to the end of its own."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+    spans, train = [], FusedDedupLearner.train
+
+    def timed(self, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train(self, *args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    FusedDedupLearner.train = timed
+    try:
+        yield spans
+    finally:
+        FusedDedupLearner.train = train
+
+
+def phase_dedup_train(sampling, card: str, calls: int = 2):
+    """``train.main`` with config3's learner (``configs/config3_seaquest_
+    256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
+    slots, sample-ahead K = 2048, bf16 second moment and target, process
+    actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
+    workers × 8 actors for 8 × 32, warm-up 16 384 for 50 000, ``calls``
+    fused calls, data_parallel 1 for 4."""
+    import torch
+
+    K = 2048
+    steps = calls * K
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
+            "--set", "network=conv", "--set", "env.name=catch:84", "--set", f"seed={SEED}",
+            "--set", "replay.capacity=2000000", "--set", "replay.dedup=true",
+            "--set", "replay.frame_ratio=1.25", "--set", "replay.priority_exponent=0.6",
+            "--set", "replay.is_exponent=0.4",
+            "--set", "learner.device_replay=true", "--set", "learner.sample_ahead=true",
+            "--set", f"learner.steps_per_call={K}", "--set", "learner.ingest_block=2048",
+            "--set", "learner.second_moment_dtype=bfloat16",
+            "--set", "learner.target_dtype=bfloat16",
+            "--set", "learner.q_target_sync_freq=2500", "--set", "learner.publish_every=2500",
+            "--set", "learner.replay_sample_size=32", "--set", "learner.min_replay_mem_size=16384",
+            "--set", "actor.mode=process", "--set", "actor.num_workers=2",
+            "--set", "actor.num_actors=16", "--set", "actor.num_steps=3",
+            "--set", "actor.flush_every=16", "--set", "actor.sync_every=500",
+            "--set", "actor.worker_nice=5"]
+    t0 = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, compute_apps() as apps, timed_fused_calls() as spans:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    torch.cuda.synchronize()
+    pipe = seen[0]
+    fused, pool = pipe.fused, pipe.worker.pool
+    if type(fused).__name__ != "FusedDedupLearner":
+        raise AssertionError(f"dedup_train ran {type(fused).__name__}")
+    if final["step"] < steps or len(spans) != calls:
+        raise AssertionError(f"dedup_train: {final['step']} steps in {len(spans)} fused "
+                             f"calls, want {steps} in {calls}")
+    if launches != calls:
+        raise AssertionError(f"dedup_train: {launches} sampler launches in {calls} "
+                             "sample-ahead fused calls")
+    ring = fused.replay
+    if ring.capacity != 2_000_000:
+        raise AssertionError(f"dedup ring of {ring.capacity} slots, want 2 000 000")
+    peak = torch.cuda.max_memory_allocated()
+    obs_bytes = int(np.prod(ring.frames.shape[1:]))
+    double_store = {"frames": 2 * ring.capacity * obs_bytes, "columns": ring.capacity * 16}
+    if peak >= double_store["frames"]:
+        raise AssertionError(f"peak device memory {peak} is not below the double-store's "
+                             f"frame bytes {double_store['frames']}")
+    reports, pids = check_workers("dedup_train", pool, apps)
+    call_ms = [s.elapsed_time(e) for s, e in spans]
+    size = fused.size
+    stager = fused.stager
+    transport = pool.transport_stats()
+    result = {
+        "phase": "dedup_train", "card": card, "learner_steps": final["step"],
+        "fused_calls": len(spans), "steps_per_call": K, "loss": final["learner/loss"],
+        "sampler_launches": launches,
+        "learner_steps_per_s_second_call": K / (call_ms[-1] / 1e3),
+        "fused_call_ms": call_ms,
+        "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
+        "peak_mem_bytes": peak,
+        "ring_bytes": ring.nbytes(), "double_store_bytes": double_store,
+        "frame_capacity": ring.frame_capacity, "capacity": ring.capacity,
+        "replay_size": size, "dead_slots": int((ring.mass[:size] == 0).sum()),
+        "dropped_carry": stager.dropped_carry,
+        "frames_staged": stager.fseq, "transitions_staged": stager.rows_in,
+        "frame_per_transition": stager.fseq / max(stager.rows_in, 1),
+        "staged_rows_left": fused.staged_rows,
+        "target_dtype": str(next(iter(fused.state.target_params.values())).dtype),
+        "nu_dtype": str(next(iter(fused.state.opt_state["nu"].values())).dtype),
+        "actor_fps": final["actor_fps"], "actor_steps": final["actor_steps"],
+        "param_version": final["param_version"], "last_versions": pool.last_versions,
+        "transport": {k: transport[k] for k in ("chunks", "bytes", "transitions",
+                                                "chunk_latency_ms", "ring_full_waits",
+                                                "salvaged_records", "torn_records")},
+        "workers": {w: {"threads": r["threads"], "cuda_initialized": r["cuda_initialized"],
+                        "env_steps_per_s": r["env_steps"] / max(r["collect_s"], 1e-9)}
+                    for w, r in sorted(reports.items())},
+        "smi_compute_pids": sorted(pids),
+        "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine, A11)",
+                 "actors": "2 workers x 8 actors for 8 x 32",
+                 "min_replay_mem_size": "16384 for 50000",
+                 "steps": f"{calls} fused calls ({steps} steps) for 2000000",
+                 "data_parallel": "1 for 4"},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+    }
     emit(result)
     return result
 
@@ -652,19 +920,24 @@ def main() -> int:
     host_sync = phase_host_sync(sampling)
     proc = phase_process(sampling, card=smi, device_replay=True)
     proc_host = phase_process(sampling, card=smi, device_replay=False)
+    dedup_parity = phase_dedup_parity(sampling)
+    dedup = phase_dedup_train(sampling, card=smi)
 
-    main_row = next(r for r in rows if r["C"] == 100_000 and r["B"] == 32)
+    # This slice's main path: the dedup ring's sample-ahead launch.
+    main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": trained["sampler_launches"],
+        "launches": dedup["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
                              "process_device_replay": proc["sampler_launches"],
-                             "process_host_replay": proc_host["sampler_launches"]},
+                             "process_host_replay": proc_host["sampler_launches"],
+                             "dedup_parity": dedup_parity["sampler_launches"],
+                             "process_device_dedup": dedup["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -675,7 +948,7 @@ def main() -> int:
         "warm_ms": main_row["warm_ms"],
         "roofline_share": main_row["roofline_share"],
         "grid": main_row["grid"],
-        "at": {"C": 100_000, "B": 32},
+        "at": {"C": 2_000_000, "B": 65_536},
         "shapes": rows,
     }]})
     print(smi, flush=True)

@@ -35,7 +35,10 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.runtime.transport",
                  "ape_x_dqn_tpu_torch.runtime.supervisor",
                  "ape_x_dqn_tpu_torch.utils.serialization",
-                 "ape_x_dqn_tpu_torch.utils.memory"):
+                 "ape_x_dqn_tpu_torch.utils.memory",
+                 "ape_x_dqn_tpu_torch.replay.dedup",
+                 "ape_x_dqn_tpu_torch.replay.device_dedup",
+                 "ape_x_dqn_tpu_torch.runtime.fused_dedup"):
         assert want in mods
 
 

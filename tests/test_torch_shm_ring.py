@@ -496,20 +496,78 @@ def test_poll_round_robins_rings_with_budget():
         pool.stop(join_timeout=1.0)
 
 
-def test_pool_refuses_a_dedup_record():
-    from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
+def _jax_pool():
+    from ape_x_dqn_tpu.config import ApexConfig as JApexConfig
 
+    cfg = JApexConfig()
+    cfg.network = "mlp"
+    cfg.env.name = "chain:6"
+    cfg.actor.mode = "process"
+    cfg.actor.num_workers = 1
+    cfg.actor.num_actors = 2
+    cfg.actor.xp_ring_bytes = 1 << 16
+    return jpa.ProcessActorPool(cfg.validate(), num_workers=1)
+
+
+def _dedup_chunk(seed=4):
+    from ape_x_dqn_tpu_torch.actors.pool import Chunk
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    r = np.random.default_rng(seed)
+    return Chunk(r.random(5).astype(np.float32), DedupChunk(
+        frames=r.integers(0, 255, (7, 6), dtype=np.uint8),
+        obs_ref=np.array([-2, -1, 0, 1, 2], np.int32),
+        next_ref=np.array([3, 4, 5, 6, 6], np.int32),
+        action=r.integers(0, 3, 5).astype(np.int32),
+        reward=r.normal(size=5).astype(np.float32),
+        discount=np.full(5, 0.97, np.float32),
+        source=(1 << 62) + 12345, chunk_seq=7, prev_frames=9,
+    ), 10)
+
+
+def _assert_dedup_equal(got, want):
+    for f in ("frames", "obs_ref", "next_ref", "action", "reward", "discount"):
+        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(want, f)), err_msg=f)
+        assert getattr(got, f).dtype == np.asarray(getattr(want, f)).dtype, f
+    assert (got.source, got.chunk_seq, got.prev_frames) == (
+        want.source, want.chunk_seq, want.prev_frames)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_pool_decodes_a_dedup_record_as_the_jax_pool_does(writer):
+    """A ``DXP`` record, written by the JAX package's encoder or by the
+    port's worker encoder, decodes in the port's pool to the
+    ``DedupChunk`` the JAX pool decodes from the same bytes."""
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    chunk = _dedup_chunk()
+    t = chunk.transitions
+    if writer == "jax":
+        parts = jring.encode_chunk_parts(
+            jring.DXP, 3, chunk.actor_steps,
+            {"prio": chunk.priorities, **{k: getattr(t, k) for k in (
+                "frames", "obs_ref", "next_ref", "action", "reward", "discount")}},
+            source=t.source, chunk_seq=t.chunk_seq, prev_frames=t.prev_frames)
+    else:
+        parts = tpa.encode_record(chunk, 3)
+    jpool = _jax_pool()
+    try:
+        jprio, jchunk, _ = jpool._decode_record(0, _join(parts))
+    finally:
+        jpool.stop(join_timeout=1.0)
     pool = tpa.ProcessActorPool(_pool_cfg(), num_workers=1)
     try:
         w = _attach_fake_incarnation(pool, 0)
-        assert w.try_write(jring.encode_chunk_parts(
-            jring.DXP, 1, 2, {"prio": np.ones(2, np.float32),
-                              "frames": np.zeros((3, 3), np.uint8)}))
+        assert w.try_write(parts)
         w.close()
-        with pytest.raises(NotPortedError, match="DXP"):
-            pool.poll(max_items=4)
+        (prio, got), = pool.poll(max_items=4)
     finally:
         pool.stop(join_timeout=1.0)
+    assert isinstance(got, DedupChunk)
+    np.testing.assert_array_equal(prio, jprio)
+    _assert_dedup_equal(got, jchunk)
+    _assert_dedup_equal(got, t)
+    assert pool.last_versions[0] == 3 and pool.actor_steps == chunk.actor_steps
 
 
 def test_ring_knob_validation():
