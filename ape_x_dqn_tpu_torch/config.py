@@ -81,9 +81,14 @@ class LearnerConfig:
     device_replay: bool = False
     # Host-replay path: the deferred priority write-back is batched over
     # this many steps (1 = step t's priorities land after step t+1 is
-    # dispatched).  The JAX package's overlapped fused pipeline (> 1 with
-    # device_replay) is not part of the port yet.
+    # dispatched).  Device replay: > 1 runs the overlapped fused pipeline
+    # (runtime/infeed.DispatchPipeline): up to this many fused calls in
+    # flight, ingest blocks carved on a stager thread.
     pipeline_depth: int = 1
+    # Overlapped fused pipeline: a full drain of the calls in flight every
+    # this many learner steps (0 = none; > 0 also selects the overlapped
+    # pipeline at depth 1).  Device replay only.
+    sync_every: int = 0
     steps_per_call: int = 128             # K steps per fused call
     ingest_block: int = 256               # rows per device ring add
     # True samples all K batches of a call in one sampler launch from
@@ -199,9 +204,10 @@ class ApexConfig:
             (not l.sample_ahead or l.device_replay,
              "learner.sample_ahead=True requires device_replay=True"),
             (l.pipeline_depth >= 1, "learner.pipeline_depth must be >= 1"),
-            (l.pipeline_depth == 1 or not l.device_replay,
-             "learner.pipeline_depth > 1 with device_replay=True (the "
-             "overlapped fused pipeline) is not part of the port yet"),
+            (l.sync_every >= 0, "learner.sync_every must be >= 0"),
+            (not l.sync_every or l.device_replay,
+             "learner.sync_every requires device_replay=True (it paces "
+             "the overlapped fused-dispatch pipeline)"),
             (not (r.frame_compression and l.device_replay),
              "replay.frame_compression applies to the host replay only "
              "(learner.device_replay=false)"),

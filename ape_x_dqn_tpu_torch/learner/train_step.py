@@ -12,6 +12,9 @@ The optimizer is written by hand to match optax, not taken from
   * ``clip_by_global_norm`` as optax does it: g·max/‖g‖ only when
     ‖g‖ ≥ max, with no epsilon (``clip_grad_norm_`` adds 1e-6).
   * Adam as ``optax.adam`` (bias-corrected, ε outside the square root).
+    Its step ``count`` is an int32 tensor on the params' device and the
+    bias corrections 1 − b^count are computed from it in float32, as optax
+    does, so a step captured in a CUDA graph corrects right on every replay.
 Parameters, optimizer state and the target net update in place.
 
 The JAX package's low-precision knobs (``train_step.py:52-134,174-210``):
@@ -75,7 +78,9 @@ class Optimizer:
 
         if self.kind == "rmsprop":
             return {"nu": zeros(self.second_moment_dtype)}
-        return {"mu": zeros(), "nu": zeros(), "count": 0}
+        device = next(iter(params.values())).device
+        return {"mu": zeros(), "nu": zeros(),
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def update_(self, params: Params, grads: Params, state: dict) -> None:
@@ -114,9 +119,11 @@ class Optimizer:
                 params[k].add_(-lr * scaled)
             return
         b1, b2 = self.adam_b1, self.adam_b2
-        state["count"] += 1
-        c1 = 1.0 - b1 ** state["count"]
-        c2 = 1.0 - b2 ** state["count"]
+        count = state["count"]
+        count.add_(1)
+        t = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(b1, t)
+        c2 = 1.0 - torch.pow(b2, t)
         for k, g in grads.items():
             mu, nu = state["mu"][k], state["nu"][k]
             mu.copy_((1.0 - b1) * g + b1 * mu)
@@ -178,11 +185,17 @@ def build_train_step(
 
     ``sync_in_step=False`` leaves the target net alone, for callers that
     sync at their own cadence (the fused K-step loop syncs after the loop).
+
+    ``train_step.update(state, batch) -> metrics`` is the device work of
+    one step alone: it reads no host value that changes between steps and
+    leaves ``state.step`` and the target net to the caller, so a CUDA graph
+    can capture it (the fused call advances ``step`` by K after its
+    replays).
     """
     if loss_kind not in ("huber", "squared"):
         raise ValueError(f"unknown loss kind: {loss_kind}")
 
-    def train_step(state: TrainState, batch: PrioritizedBatch):
+    def update(state: TrainState, batch: PrioritizedBatch) -> StepMetrics:
         t = batch.transition
         B = t.action.shape[0]
         live = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
@@ -198,17 +211,21 @@ def build_train_step(
         loss = losses.td_loss(delta, batch.is_weights, kind=loss_kind)
         grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
         optimizer.update_(state.params, grads, state.opt_state)
-        state.step += 1
-        if sync_in_step and state.step % target_sync_freq == 0:
-            sync_target_(state)
         delta = delta.detach()
-        metrics = StepMetrics(
+        return StepMetrics(
             loss=loss.detach(),
             mean_abs_td=delta.abs().mean(),
             max_abs_td=delta.abs().max(),
             priorities=losses.priorities_from_td(delta),
             mean_q=q_values.detach().mean(),
         )
+
+    def train_step(state: TrainState, batch: PrioritizedBatch):
+        metrics = update(state, batch)
+        state.step += 1
+        if sync_in_step and state.step % target_sync_freq == 0:
+            sync_target_(state)
         return state, metrics
 
+    train_step.update = update
     return train_step

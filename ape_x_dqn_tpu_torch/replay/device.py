@@ -22,7 +22,7 @@ absent they draw it from ``generator``.  Tests inject JAX's draws this way
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -98,14 +98,20 @@ def sample_slots(
     count: int,
     num_batches: int,
     batch_size: int,
-    beta: float,
+    beta,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    size: Optional[torch.Tensor] = None,
 ):
     """The sampling law every device layout shares: K stratified batches of
     slots from ``mass`` in one sampler launch, and their β-annealed IS
     weights normalised by each batch's max.  Returns (slots int64 [K*B],
-    weights float32 [K, B])."""
+    weights float32 [K, B]).
+
+    ``beta`` is a float or a float32 device scalar.  ``size``, an int64
+    device scalar, stands in for the host's max(min(count, C), 1) when
+    given: a captured call reads both from buffers written before each
+    replay instead of baking them in."""
     K, B = num_batches, batch_size
     dev = mass.device
     total = torch.sum(mass)
@@ -116,8 +122,9 @@ def sample_slots(
     targets = (torch.arange(B, dtype=torch.float32, device=dev)[None, :] + u) * bounds
     targets = torch.minimum(targets, total * (1.0 - 1e-7))
     idx = sample_indices(mass, targets.reshape(-1).contiguous())   # [K*B]
-    size = max(min(count, mass.shape[0]), 1)
-    idx = torch.clamp(idx, max=size - 1).long()  # zero-mass guard
+    if size is None:
+        size = max(min(count, mass.shape[0]), 1)
+    idx = torch.clamp(idx.long(), max=size - 1)  # zero-mass guard
     probs = mass[idx] / torch.clamp(total, min=1e-12)
     weights = torch.pow(torch.clamp(size * probs, min=1e-12), -beta).reshape(K, B)
     return idx, weights / weights.max(dim=1, keepdim=True).values
@@ -127,14 +134,16 @@ def device_replay_sample_many(
     state: DeviceReplayState,
     num_batches: int,
     batch_size: int,
-    beta: float = 0.4,
+    beta=0.4,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    size: Optional[torch.Tensor] = None,
 ) -> PrioritizedBatch:
     """K stratified batches from the current priorities in one sampler
-    launch plus one row gather; leaves get leading [K, B]."""
+    launch plus one row gather; leaves get leading [K, B].  ``beta`` and
+    ``size`` as in ``sample_slots``."""
     idx, weights = sample_slots(state.mass, state.count, num_batches, batch_size,
-                                beta, u, generator)
+                                beta, u, generator, size)
     idx2 = idx.reshape(num_batches, batch_size)
     return PrioritizedBatch(
         transition=NStepTransition(
@@ -149,11 +158,20 @@ def device_replay_sample_many(
     )
 
 
-def _row(batch: PrioritizedBatch, k: int) -> PrioritizedBatch:
+def _row(batch: PrioritizedBatch, k) -> PrioritizedBatch:
+    """Row ``k`` of a [K, B] batch; ``k`` is an int or an int64 device
+    tensor [1] (a gather, so a captured step reads the row its replay is
+    at)."""
+    if isinstance(k, torch.Tensor):
+        def take(a):
+            return a.index_select(0, k)[0]
+    else:
+        def take(a):
+            return a[k]
     return PrioritizedBatch(
-        transition=batch.transition.map(lambda a: a[k]),
-        indices=batch.indices[k],
-        is_weights=batch.is_weights[k],
+        transition=batch.transition.map(take),
+        indices=take(batch.indices),
+        is_weights=take(batch.is_weights),
     )
 
 
@@ -206,11 +224,134 @@ def device_replay_update_priorities(
     return state
 
 
-def _stack_metrics(per_step: List[StepMetrics]) -> StepMetrics:
-    return StepMetrics(*(
-        torch.stack([getattr(m, f.name) for m in per_step])
-        for f in dataclasses.fields(StepMetrics)
-    ))
+# Columns of ``FusedBody.metrics`` before the B priorities.
+_SCALAR_METRICS = ("loss", "mean_abs_td", "max_abs_td", "mean_q")
+
+
+class FusedBody:
+    """One fused K-step call over a device ring, cut into the pieces that a
+    CUDA graph can capture: ``prologue`` (sample-ahead: sample and gather
+    all K batches), ``step`` (one [sample →] train → restamp step) and
+    ``epilogue`` (sample-ahead: the last-wins restamp).  The pieces read no
+    host value that changes between calls.  What does change lives in
+    static device buffers that ``load`` writes before each call: the
+    uniforms ``u`` [K, B], β, the sampling size max(min(count, C), 1) and
+    the step index ``k``, which each ``step`` advances on the device.  Each
+    step writes its metrics into row k of ``metrics`` [K, 4 + B] (loss,
+    mean |δ|, max |δ|, mean Q, then the B priorities) and, in strict mode,
+    its sampled slots into row k of ``indices`` [K, B] (sample-ahead keeps
+    them in ``batches.indices``).
+
+    ``run_eager`` runs the pieces in order; ``runtime/graphed_call.py``
+    replays them as CUDA graphs.  Both leave ``train_state.step`` and the
+    target sync to ``finish_call``, on the host.
+
+    ``sample_many_fn(state, K, B, beta, u=..., size=...)`` is the layout's
+    sampler (default: ``device_replay_sample_many``); the frame-dedup ring
+    passes its own, so both layouts share this one body and one IS-weight
+    law.  Restamps touch only ``.mass``, which every layout carries.
+    """
+
+    def __init__(self, update_fn, train_state, replay_state, *, steps_per_call: int,
+                 batch_size: int, priority_exponent: float, sample_ahead: bool,
+                 sample_many_fn: Optional[Callable] = None):
+        K, B = steps_per_call, batch_size
+        dev = replay_state.mass.device
+        self.update_fn = update_fn
+        self.train_state = train_state
+        self.replay = replay_state
+        self.steps_per_call = K
+        self.batch_size = B
+        self.priority_exponent = priority_exponent
+        self.sample_ahead = sample_ahead
+        self.sample_many_fn = sample_many_fn or device_replay_sample_many
+        self.device = dev
+        self.u = torch.zeros((K, B), dtype=torch.float32, device=dev)
+        self.beta = torch.zeros((), dtype=torch.float32, device=dev)
+        self.size = torch.ones((), dtype=torch.int64, device=dev)
+        self.k = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.metrics = torch.zeros((K, len(_SCALAR_METRICS) + B), dtype=torch.float32,
+                                   device=dev)
+        self.indices = torch.zeros((K, B), dtype=torch.int32, device=dev)
+        self.batches: Optional[PrioritizedBatch] = None   # sample-ahead's [K, B]
+
+    def load(self, beta: float, u: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> None:
+        """Write one call's inputs into the static buffers.  ``u`` absent:
+        one [K, B] draw from ``generator``."""
+        self.beta.fill_(beta)
+        self.size.fill_(max(min(self.replay.count, self.replay.capacity), 1))
+        self.k.zero_()
+        if u is None:
+            torch.rand(self.u.shape, generator=generator, device=self.device, out=self.u)
+        else:
+            self.u.copy_(u)
+
+    def prologue(self) -> None:
+        if self.sample_ahead:
+            self.batches = self.sample_many_fn(
+                self.replay, self.steps_per_call, self.batch_size, self.beta,
+                u=self.u, size=self.size)
+
+    def step(self) -> None:
+        k = self.k
+        if self.sample_ahead:
+            batch = _row(self.batches, k)
+        else:
+            batch = _row(self.sample_many_fn(self.replay, 1, self.batch_size, self.beta,
+                                             u=self.u.index_select(0, k), size=self.size), 0)
+        m = self.update_fn(self.train_state, batch)
+        if not self.sample_ahead:
+            device_replay_update_priorities(self.replay, batch.indices, m.priorities,
+                                            self.priority_exponent)
+            self.indices.index_copy_(0, k, batch.indices[None])
+        row = torch.cat([torch.stack([getattr(m, f) for f in _SCALAR_METRICS]),
+                         m.priorities])
+        self.metrics.index_copy_(0, k, row[None])
+        k.add_(1)
+
+    def epilogue(self) -> None:
+        if self.sample_ahead:
+            device_replay_restamp_last(self.replay, self.batches.indices,
+                                       self.metrics[:, len(_SCALAR_METRICS):],
+                                       self.priority_exponent)
+
+    def sampled_indices(self) -> torch.Tensor:
+        """The last call's sampled slots, int32 [K, B] in step order."""
+        return (self.batches.indices if self.sample_ahead else self.indices).clone()
+
+    def read_metrics(self) -> StepMetrics:
+        """The call's metrics [K, ...], copied out of the static buffer (a
+        later call overwrites it while these may still be unread)."""
+        m = self.metrics.clone()
+        n = len(_SCALAR_METRICS)
+        return StepMetrics(priorities=m[:, n:],
+                           **{f: m[:, i] for i, f in enumerate(_SCALAR_METRICS)})
+
+
+def run_eager(body: FusedBody, beta: float, u: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> StepMetrics:
+    """The body's pieces in order, step by step: the call on the CPU, and
+    the reference a graphed call is held against on the card."""
+    body.load(beta, u, generator)
+    body.prologue()
+    for _ in range(body.steps_per_call):
+        body.step()
+    body.epilogue()
+    return body.read_metrics()
+
+
+def finish_call(train_state, steps: int, target_sync_freq: Optional[int]) -> None:
+    """The host's part of a call, after its device work is queued: advance
+    ``step`` by the call's K and copy online → target iff the K steps
+    crossed a multiple of ``target_sync_freq`` (None: never; ``copy_``
+    casts to the target's dtype)."""
+    before = train_state.step
+    train_state.step += steps
+    if target_sync_freq is not None and (
+        train_state.step // target_sync_freq > before // target_sync_freq
+    ):
+        sync_target_(train_state)
 
 
 def fused_scan_body(
@@ -228,51 +369,26 @@ def fused_scan_body(
     generator: Optional[torch.Generator] = None,
     sample_many_fn: Optional[Callable] = None,
 ):
-    """K × [sample → train → restamp] + the hoisted target sync.
+    """K × [sample → train → restamp] + the hoisted target sync, eagerly.
 
     Strict mode samples each step from live priorities (``u[k]`` is step k's
     row of uniforms); ``sample_ahead`` samples all K batches in one launch
     from call-entry priorities and restamps once, last-wins, after the loop.
-    Target sync (``target_sync_freq`` not None): copy online → target iff
-    the K steps crossed a multiple of the frequency (``copy_`` casts to the
-    target's dtype).  Returns ``(train_state, replay_state, metrics)`` with
-    metrics stacked [K, ...].  The loop never reads the device.
+    Returns ``(train_state, replay_state, metrics)`` with metrics [K, ...].
+    The loop never reads the device.  ``train_step_fn`` is a
+    ``build_train_step`` step; its ``update`` is what runs K times.
 
-    ``sample_many_fn(state, K, B, beta, u=...)`` is the layout's sampler
-    (default: this module's ``device_replay_sample_many``); the frame-dedup
-    ring (``device_dedup.py``) passes its own, so both layouts share this
-    one loop and one IS-weight law.  Restamps touch only ``.mass``, which
-    every layout carries.
+    This is ``FusedBody`` run once by ``run_eager``: the CPU's call, and the
+    eager reference on a card.  The learners go through
+    ``runtime/graphed_call.GraphedCall``, which replays the same body as
+    CUDA graphs on a card.
     """
-    K, B = steps_per_call, batch_size
-    step_before = train_state.step
-    if sample_many_fn is None:
-        sample_many_fn = device_replay_sample_many
-    if u is None:
-        u = torch.rand((K, B), generator=generator, device=replay_state.mass.device)
-    per_step = []
-    if sample_ahead:
-        batches = sample_many_fn(replay_state, K, B, beta, u=u)
-        for k in range(K):
-            train_state, m = train_step_fn(train_state, _row(batches, k))
-            per_step.append(m)
-        metrics = _stack_metrics(per_step)
-        device_replay_restamp_last(
-            replay_state, batches.indices, metrics.priorities, priority_exponent
-        )
-    else:
-        for k in range(K):
-            batch = _row(sample_many_fn(replay_state, 1, B, beta, u=u[k:k + 1]), 0)
-            train_state, m = train_step_fn(train_state, batch)
-            device_replay_update_priorities(
-                replay_state, batch.indices, m.priorities, priority_exponent
-            )
-            per_step.append(m)
-        metrics = _stack_metrics(per_step)
-    if target_sync_freq is not None and (
-        train_state.step // target_sync_freq > step_before // target_sync_freq
-    ):
-        sync_target_(train_state)
+    body = FusedBody(train_step_fn.update, train_state, replay_state,
+                     steps_per_call=steps_per_call, batch_size=batch_size,
+                     priority_exponent=priority_exponent, sample_ahead=sample_ahead,
+                     sample_many_fn=sample_many_fn)
+    metrics = run_eager(body, beta, u, generator)
+    finish_call(train_state, steps_per_call, target_sync_freq)
     return train_state, replay_state, metrics
 
 
@@ -289,18 +405,18 @@ def build_fused_learn_step(
 
     Returns ``fn(train_state, replay_state, chunk, chunk_priorities, beta,
     u=None, generator=None) -> (train_state, replay_state, metrics)``, or
-    without the chunk arguments when ``include_ingest=False``.  Build
-    ``train_step_fn`` with ``sync_in_step=False`` when ``target_sync_freq``
-    is set here: the sync is hoisted to the end of the call.
+    without the chunk arguments when ``include_ingest=False``.  The call is
+    a ``GraphedCall``: eager on the CPU, CUDA-graph replays on a card.
+    Build ``train_step_fn`` with ``sync_in_step=False`` when
+    ``target_sync_freq`` is set here: the sync is hoisted to the end of the
+    call.
     """
-    knobs = dict(steps_per_call=steps_per_call, batch_size=batch_size,
-                 priority_exponent=priority_exponent,
-                 target_sync_freq=target_sync_freq, sample_ahead=sample_ahead)
+    from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 
-    def fused_no_ingest(train_state, replay_state, beta, u=None, generator=None):
-        return fused_scan_body(train_step_fn, train_state, replay_state, beta,
-                               u=u, generator=generator, **knobs)
-
+    fused_no_ingest = GraphedCall(
+        train_step_fn, steps_per_call=steps_per_call, batch_size=batch_size,
+        priority_exponent=priority_exponent, target_sync_freq=target_sync_freq,
+        sample_ahead=sample_ahead)
     if not include_ingest:
         return fused_no_ingest
 

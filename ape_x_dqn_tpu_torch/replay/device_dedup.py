@@ -22,7 +22,7 @@ across the packages:
 As in ``device.py``, these functions update the state in place and return
 it; ``cursor``, ``count`` and ``fcount`` are host ints (the host decides
 every ring position).  Sampling, IS weights, restamps and the K-step loop
-are ``device.py``'s: ``dedup_sample_many`` goes through
+are ``device.py``'s (``FusedBody``): ``dedup_sample_many`` goes through
 ``device.sample_slots`` (the CUDA sampler on a CUDA tensor, its plain
 version on a CPU tensor) and only the frame gather differs.  All modular
 arithmetic uses ``torch.remainder`` (floor-mod, as jnp ``%``).
@@ -35,7 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ape_x_dqn_tpu_torch.replay.device import _mass, fused_scan_body, sample_slots
+from ape_x_dqn_tpu_torch.replay.device import _mass, sample_slots
 from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
 
 COUNT_CAP = 1 << 30   # ``count`` saturates here, as the JAX ring's int32 does
@@ -157,14 +157,16 @@ def dedup_sample_many(
     state: DedupDeviceReplayState,
     num_batches: int,
     batch_size: int,
-    beta: float = 0.4,
+    beta=0.4,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    size: Optional[torch.Tensor] = None,
 ) -> PrioritizedBatch:
     """K stratified batches over the dedup layout: ``device.sample_slots``'s
-    law and IS weights; the frames are gathered through the refs."""
+    law and IS weights (``beta`` and ``size`` as there); the frames are
+    gathered through the refs."""
     K, B = num_batches, batch_size
-    idx, weights = sample_slots(state.mass, state.count, K, B, beta, u, generator)
+    idx, weights = sample_slots(state.mass, state.count, K, B, beta, u, generator, size)
     idx2 = idx.reshape(K, B)
     Cf = state.frame_capacity
     obs = state.frames[torch.remainder(state.obs_ref[idx2].long(), Cf)]
@@ -191,19 +193,16 @@ def build_dedup_fused_learn_step(
     sample_ahead: bool = False,
 ) -> Callable:
     """The dedup twin of ``device.build_fused_learn_step``: the same K-step
-    [sample → train → restamp] loop (``device.fused_scan_body`` with
-    ``dedup_sample_many``) and the same hoisted target sync.
+    [sample → train → restamp] body (``device.FusedBody`` with
+    ``dedup_sample_many``) and the same hoisted target sync, as one
+    ``GraphedCall`` (eager on the CPU, CUDA-graph replays on a card).
 
     Returns ``fn(train_state, replay_state, beta, u=None, generator=None)``
     → ``(train_state, replay_state, metrics)``.  Ingest stays outside the
     call (``FusedDedupLearner.supports_ingest_fold`` is False)."""
-    knobs = dict(steps_per_call=steps_per_call, batch_size=batch_size,
-                 priority_exponent=priority_exponent,
-                 target_sync_freq=target_sync_freq, sample_ahead=sample_ahead,
-                 sample_many_fn=dedup_sample_many)
+    from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 
-    def fused(train_state, replay_state, beta, u=None, generator=None):
-        return fused_scan_body(train_step_fn, train_state, replay_state, beta,
-                               u=u, generator=generator, **knobs)
-
-    return fused
+    return GraphedCall(train_step_fn, steps_per_call=steps_per_call,
+                       batch_size=batch_size, priority_exponent=priority_exponent,
+                       target_sync_freq=target_sync_freq, sample_ahead=sample_ahead,
+                       sample_many_fn=dedup_sample_many)

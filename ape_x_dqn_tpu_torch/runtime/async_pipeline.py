@@ -24,13 +24,22 @@ single-device learner loops of ``AsyncPipeline``:
   them to the host store, latest wins.  ``stage_us`` in the JSONL gives
   µs per call of ``sample+place``, ``step_dispatch``,
   ``priority_writeback`` and ``publish``.
-* **device replay** (``true``; the strict ``_run_fused`` path at
-  :1536-1631): the actor thread stages numpy chunks, the learner ingests
-  them into the device ring and runs fused K-step calls, at most
-  ``FUSED_INFLIGHT`` in flight before the oldest call's loss is read back.
-  It publishes through the same ``_AsyncPublisher`` (JAX :1168-1177).  The
-  loop drives the double-store ``FusedDeviceLearner`` and the frame-dedup
-  ``FusedDedupLearner`` (``replay.dedup``) through one interface.
+* **device replay** (``true``): the actor thread stages numpy chunks, the
+  learner ingests them into the device ring and runs fused K-step calls,
+  each a handful of CUDA-graph replays on a card
+  (``runtime/graphed_call.py``).  Two loops, as in the JAX runtime
+  (:376-386): the strict ``_run_fused`` (:1536-1631; ``pipeline_depth`` 1
+  and ``sync_every`` 0) ingests inline and keeps at most
+  ``FUSED_INFLIGHT`` calls in flight before the oldest call's loss is read
+  back; the overlapped ``_run_fused_overlapped`` (:1382-1534;
+  ``learner.pipeline_depth`` > 1 or ``learner.sync_every`` > 0) carves
+  ingest blocks on a stager thread (``_IngestStagerThread``, :120-175),
+  folds the last full block into the call where the learner can, chains
+  calls through ``runtime/infeed.DispatchPipeline`` and reports a
+  ``pipeline`` section in the JSONL.  Both publish through the same
+  ``_AsyncPublisher`` (JAX :1168-1177) and drive the double-store
+  ``FusedDeviceLearner`` and the frame-dedup ``FusedDedupLearner``
+  (``replay.dedup``) through one interface.
 
 Actors run as one thread in this process (``actor.mode=thread``) or as
 ``actor.num_workers`` CPU-only worker processes (``actor.mode=process``,
@@ -39,8 +48,9 @@ store takes the ``ParamStore``'s place, a pump thread drains the workers'
 rings into the same sink, and the fused loop lets 8 calls queue and reads
 them all back at once, since no actor touches the device (JAX :353-375).
 
-Central inference, observability, checkpoints and the overlapped fused
-pipeline of the JAX runtime are not part of the port yet.
+Central inference, observability (the overlapped loop keeps its host
+syncs and overlap gaps itself, without the obs registry), health checks,
+checkpoints and the chaos stall of the stager are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -55,7 +65,12 @@ import torch
 from ape_x_dqn_tpu_torch.actors.pool import EpisodeStat
 from ape_x_dqn_tpu_torch.config import ApexConfig
 from ape_x_dqn_tpu_torch.runtime.components import build_components
-from ape_x_dqn_tpu_torch.runtime.infeed import DevicePlacer, PrefetchQueue
+from ape_x_dqn_tpu_torch.runtime.infeed import (
+    DevicePlacer,
+    DispatchPipeline,
+    PrefetchQueue,
+    loss_probe,
+)
 from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
 from ape_x_dqn_tpu_torch.runtime.single_process import beta_schedule
 from ape_x_dqn_tpu_torch.types import DedupChunk
@@ -143,6 +158,68 @@ class _AsyncPublisher:
                 with self._cv:
                     self._busy = False
                     self._cv.notify_all()
+
+
+class _IngestStagerThread:
+    """Double-buffered ingest: carve the next call's ingest blocks while the
+    card runs the current one.
+
+    The fused learners split ingest into host-CPU assembly
+    (``prepare_staged``: drain the staged chunks, concatenate, carve fixed
+    ``ingest_block`` blocks) and the device half (``add_block`` /
+    ``train_with_ingest``, learner thread only).  This thread runs the
+    assembly half continuously, so the learner thread's ingest shrinks to
+    the device copies and scatters.
+    """
+
+    def __init__(self, fused, stop_event: threading.Event, drain_fn,
+                 period_s: float = 0.005):
+        self._fused = fused
+        self._stop = stop_event
+        self._drain_fn = drain_fn
+        self._period = float(period_s)
+        self.heartbeat = time.monotonic()
+        self.prepared_rows = 0
+        self.error: Optional[BaseException] = None
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="ingest-stager",
+                                        daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._done.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set() and not self._done.is_set():
+            try:
+                n = self._fused.prepare_staged(drain=bool(self._drain_fn()))
+                self.prepared_rows += n
+                self.heartbeat = time.monotonic()
+                if not n:
+                    # Nothing staged: idle briefly instead of spinning a
+                    # core the actors need.
+                    self._done.wait(self._period)
+            except BaseException as e:  # noqa: BLE001 — surfaced by runtime
+                self.error = e
+                return
+
+
+class _GapHistogram:
+    """The overlap gaps in ms, with percentiles (the JAX runtime keeps them
+    in its obs registry's ``learner/overlap_gap_ms``, not ported)."""
+
+    def __init__(self):
+        self._values: List[float] = []
+
+    def observe(self, value: float) -> None:
+        self._values.append(float(value))
+
+    def percentile(self, p: float) -> float:
+        return float(np.percentile(self._values, p)) if self._values else float("nan")
 
 
 class _ActorWorker:
@@ -242,6 +319,14 @@ class AsyncPipeline:
         self.timers = StageTimer()
         self._learner_step = 0
         self.train_seconds = 0.0  # wall time of the learner loop, after warmup
+        # Host path: write-back batching.  Device path: depth > 1 or a sync
+        # cadence selects the overlapped loop (JAX :376-386).
+        self._pipeline_depth = max(1, int(self.cfg.learner.pipeline_depth))
+        self._sync_every = max(0, int(self.cfg.learner.sync_every))
+        self._overlapped = self._pipeline_depth > 1 or self._sync_every > 0
+        self._dispatch_pipeline: Optional[DispatchPipeline] = None
+        self._overlap_gaps = _GapHistogram()
+        self._run_start_step = 0
         self.fused = None
         process = self.cfg.actor.mode == "process"
         # Fused-call drain: with thread actors, read back the oldest call
@@ -257,7 +342,6 @@ class AsyncPipeline:
             self.train_step = self.comps.make_train_step()
             self._sample = self.comps.make_sampler(lambda: self._learner_step)
             self._place = DevicePlacer(self.comps.device)
-            self._pipeline_depth = self.cfg.learner.pipeline_depth
         if process:
             self._init_process_actors(sink)
         else:
@@ -341,9 +425,11 @@ class AsyncPipeline:
     def run(self, learner_steps: Optional[int] = None) -> dict:
         """Train until ``learner_steps`` (default: config total_steps)."""
         target = learner_steps if learner_steps is not None else self.cfg.learner.total_steps
-        if self.fused is not None:
-            return self._run_fused(target)
-        return self._run_host(target)
+        if self.fused is None:
+            return self._run_host(target)
+        if self._overlapped:
+            return self._run_fused_overlapped(target)
+        return self._run_fused(target)
 
     # -- host replay -------------------------------------------------------
 
@@ -495,6 +581,116 @@ class AsyncPipeline:
                 raise FloatingPointError("non-finite loss in fused learner")
         return self._emit(last_metrics, final=True)
 
+    def _run_fused_overlapped(self, target: int) -> dict:
+        """The overlapped pipeline (``learner.pipeline_depth`` > 1 or
+        ``learner.sync_every`` > 0): chain fused calls with no host sync
+        between them, carve ingest blocks on the stager thread while the
+        card runs, fold the last full block into the next call where the
+        learner supports it, and retire calls through their probes.
+
+        Host syncs happen only when the window is full and the oldest call
+        missed its poll deadline, at the ``sync_every`` cadence, and at emit
+        and exit, each counted in ``pipeline.host_syncs``.  Bit for bit the
+        strict path's result for the same chunk order
+        (``tests/test_torch_pipeline_overlap.py``)."""
+        cfg = self.cfg
+        fused = self.fused
+        self._run_start_step = self._learner_step
+        last_metrics = None
+        # The callbacks hold what they need, not ``self``: no reference
+        # cycle keeps a finished pipeline (and its device ring) alive.
+        rate, worker = self._steps_rate, self.worker
+        pipeline = DispatchPipeline(
+            self._pipeline_depth, probe_fn=loss_probe,
+            on_retire=lambda _m, steps: rate.add(steps),
+            gap_hist_ms=self._overlap_gaps,
+        )
+        self._dispatch_pipeline = pipeline
+        stager = _IngestStagerThread(fused, self.stop_event, lambda: worker.finished)
+        try:
+            self.worker.start()
+            self._wait_for_warmup(WARMUP_TIMEOUT_S)
+            stager.start()
+            t0 = time.monotonic()
+            next_log = self._learner_step + self.log_every
+            next_sync = (self._learner_step + self._sync_every
+                         if self._sync_every else None)
+            while self._learner_step < target and not self.stop_event.is_set():
+                if stager.error is not None:
+                    raise RuntimeError("ingest stager failed") from stager.error
+                with self.timers.stage("ingest"):
+                    # Device half only: the stager carved the blocks.  The
+                    # last full block rides with the call where it can.
+                    blocks = fused.pop_prepared()
+                    fold = None
+                    if blocks and fused.supports_ingest_fold \
+                            and len(blocks[-1][0]) == cfg.learner.ingest_block:
+                        fold = blocks.pop()
+                    for blk in blocks:
+                        fused.add_block(*blk)
+                beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
+                                     cfg.replay.is_exponent)
+                with self.timers.stage("fused_dispatch"):
+                    if fold is not None:
+                        last_metrics = pipeline.dispatch(
+                            lambda: fused.train_with_ingest(beta, *fold),
+                            fused.steps_per_call)
+                    else:
+                        last_metrics = pipeline.dispatch(lambda: fused.train(beta),
+                                                         fused.steps_per_call)
+                self._learner_step += fused.steps_per_call
+                if next_sync is not None and self._learner_step >= next_sync:
+                    # Cadence: bound how far the host-visible metrics and
+                    # flow control trail the dispatch edge.
+                    with self.timers.stage("pipeline_sync"):
+                        pipeline.sync()
+                    while next_sync <= self._learner_step:
+                        next_sync += self._sync_every
+                if self._learner_step % max(
+                    cfg.learner.publish_every, fused.steps_per_call
+                ) < fused.steps_per_call:
+                    with self.timers.stage("publish"):
+                        self._publish(fused.params_for_publish())
+                self._maybe_eval()
+                if self._learner_step >= next_log:
+                    pipeline.sync()  # the emit reads last_metrics on the host
+                    self._emit(last_metrics)
+                    next_log += self.log_every
+            pipeline.sync()
+            self._finish_publishes()
+            self.train_seconds = time.monotonic() - t0
+        finally:
+            self.stop_event.set()
+            stager.stop()
+            self.worker.join()
+            self._publisher.close()
+        if stager.error is not None and not isinstance(stager.error, Exception):
+            raise RuntimeError("ingest stager died") from stager.error
+        if self.worker.error is not None:
+            raise RuntimeError("actor worker died") from self.worker.error
+        if last_metrics is not None:
+            loss = last_metrics.loss.cpu().numpy()
+            if not np.all(np.isfinite(loss)):
+                raise FloatingPointError("non-finite loss in fused learner")
+        return self._emit(last_metrics, final=True)
+
+    def _pipeline_extra(self) -> dict:
+        """The JSONL ``pipeline`` section (JAX :1860-1881): host syncs
+        against the steps this run took, and the overlap gaps."""
+        p = self._dispatch_pipeline
+        steps = max(1, self._learner_step - self._run_start_step)
+        gp50, gp95 = (self._overlap_gaps.percentile(q) for q in (50, 95))
+        return {
+            "depth": p.depth,
+            "sync_every": self._sync_every,
+            "host_syncs": p.host_syncs,
+            "syncs_per_1k_steps": round(1000.0 * p.host_syncs / steps, 3),
+            "overlap_gap_ms_p50": round(gp50, 3) if gp50 == gp50 else None,
+            "overlap_gap_ms_p95": round(gp95, 3) if gp95 == gp95 else None,
+            "gaps_observed": p.gaps_observed,
+            "inflight": len(p),
+        }
+
     # -- metrics -----------------------------------------------------------
 
     def _emit(self, metrics, final: bool = False) -> dict:
@@ -509,6 +705,8 @@ class AsyncPipeline:
         path = {"stage_us": self.timers.us_per_call()}
         if self.fused is not None:
             path["staged_rows"] = self.fused.staged_rows
+        if self._dispatch_pipeline is not None:
+            path["pipeline"] = self._pipeline_extra()
         return self.logger.emit(
             step=self._learner_step,
             actor_steps=self.worker.actor_steps,

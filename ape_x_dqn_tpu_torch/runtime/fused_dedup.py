@@ -15,7 +15,10 @@ of the TRANSITION blocks that reference them: a transition block becomes
 eligible only when every frame it references has been carved
 (``max_ref < shipped_f``).  Thread discipline matches the double-store
 learner: actor threads only stage; device work happens on the one thread
-that calls ``train()``.
+that calls ``train()``, which runs the fused call as CUDA-graph replays on
+a card (``runtime/graphed_call.GraphedCall``, captured when the learner is
+built), and ``add_block`` copies through pinned staging on a copy stream
+(``runtime/infeed.HostToDevice``), so ingest never synchronises the host.
 
 Not part of the port yet, and refused by name: the sharded ring (``mesh``,
 ``replay/device_dedup_dp.py``, ROADMAP A10) and the snapshots of ring and
@@ -34,11 +37,13 @@ from ape_x_dqn_tpu_torch.learner.train_step import build_train_step
 from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.replay.dedup import CarryResolver
 from ape_x_dqn_tpu_torch.replay.device_dedup import (
-    build_dedup_fused_learn_step,
     dedup_device_add_frames,
     dedup_device_add_transitions,
+    dedup_sample_many,
     init_dedup_device_replay,
 )
+from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
+from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import DedupChunk, TrainState
 
 _TXN_FIELDS = ("obs_seq", "next_seq", "action", "reward", "discount", "prio")
@@ -186,11 +191,14 @@ class FusedDedupLearner:
         self._seq_mod = self._replay.seq_modulus
         step_fn = build_train_step(network, optimizer, loss_kind=loss_kind,
                                    sync_in_step=False)
-        self._fused = build_dedup_fused_learn_step(
-            step_fn, batch_size, steps_per_call=self.steps_per_call,
-            priority_exponent=priority_exponent, target_sync_freq=target_sync_freq,
-            sample_ahead=sample_ahead,
-        )
+        self._call = GraphedCall(step_fn, batch_size=batch_size,
+                                 steps_per_call=self.steps_per_call,
+                                 priority_exponent=priority_exponent,
+                                 target_sync_freq=target_sync_freq,
+                                 sample_ahead=sample_ahead,
+                                 sample_many_fn=dedup_sample_many)
+        self._call.bind(state, self._replay)   # a card: warm up and capture now
+        self._h2d = HostToDevice(self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed((int(state.seed) ^ 0x5EED) & (2**63 - 1))
         self._stager = DedupStager()
@@ -239,6 +247,10 @@ class FusedDedupLearner:
 
     def params_for_publish(self):
         return self._state.params
+
+    @property
+    def graphed_call(self) -> GraphedCall:
+        return self._call
 
     # ------------------------------------------------------------- learner
 
@@ -289,22 +301,17 @@ class FusedDedupLearner:
     def add_block(self, kind: str, block) -> int:
         """Add one prepared block to the device ring (learner thread).
         Returns the transition rows added (0 for a frame block)."""
-        dev = self.device
         if kind == "f":
-            dedup_device_add_frames(self._replay, torch.as_tensor(block).to(dev))
+            (frames,) = self._h2d([block])
+            dedup_device_add_frames(self._replay, frames)
             return 0
-
-        def put(a, dtype=None):
-            return torch.as_tensor(np.asarray(a, dtype)).to(dev)
-
         Q = self._seq_mod
-        dedup_device_add_transitions(
-            self._replay,
-            put(np.remainder(block["obs_seq"], Q), np.int32),
-            put(np.remainder(block["next_seq"], Q), np.int32),
-            put(block["action"]), put(block["reward"]), put(block["discount"]),
-            put(block["prio"]), self._priority_exponent,
-        )
+        cols = self._h2d([
+            np.remainder(block["obs_seq"], Q).astype(np.int32),
+            np.remainder(block["next_seq"], Q).astype(np.int32),
+            block["action"], block["reward"], block["discount"], block["prio"],
+        ])
+        dedup_device_add_transitions(self._replay, *cols, self._priority_exponent)
         n = len(block["prio"])
         self._size += n
         return n
@@ -323,8 +330,8 @@ class FusedDedupLearner:
 
     def train(self, beta: float, u: Optional[torch.Tensor] = None):
         """One fused call: K steps of sample/train/restamp.  Returns the
-        stacked metrics, still on the device."""
-        self._state, self._replay, metrics = self._fused(
+        call's metrics [K, ...], still on the device."""
+        self._state, self._replay, metrics = self._call(
             self._state, self._replay, beta, u=u, generator=self._generator
         )
         return metrics

@@ -3,13 +3,18 @@
 Port of ``ape_x_dqn_tpu/runtime/fused_learner.FusedDeviceLearner``,
 single-device branch (:68-103 of the JAX module).  The replay ring and the
 train state live on the device; each ``train()`` call runs K ×
-[prioritized sample → double-Q train → priority restamp] as a plain Python
-loop that never synchronises with the device.
+[prioritized sample → double-Q train → priority restamp] through
+``runtime/graphed_call.GraphedCall``: CUDA-graph replays on a card
+(captured when the learner is built, before any actor thread starts), the
+same body eagerly on the CPU.  Neither synchronises with the device.
 
 Thread discipline: ``add_chunk`` (actor threads) only appends numpy to a
-host staging list under a lock; ``prepare_staged`` (any thread) carves
-staged rows into fixed ``ingest_block`` blocks; device work — ``add_block``
-and ``train`` — happens on the one thread that calls ``train()``.
+host staging list under a lock; ``prepare_staged`` (any thread, e.g. the
+overlapped pipeline's stager thread) carves staged rows into fixed
+``ingest_block`` blocks; device work — ``add_block`` and ``train`` —
+happens on the one thread that calls ``train()``.  ``add_block`` copies a
+block through pinned staging on a copy stream (``runtime/infeed.
+HostToDevice``): the learner's stream waits for the copy, the host does not.
 
 Sampling stream: the learner owns a ``torch.Generator`` on the device,
 seeded from the train state's seed with the JAX learner's salt (0x5EED);
@@ -26,11 +31,9 @@ import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.learner.train_step import build_train_step
-from ape_x_dqn_tpu_torch.replay.device import (
-    build_fused_learn_step,
-    device_replay_add,
-    init_device_replay,
-)
+from ape_x_dqn_tpu_torch.replay.device import device_replay_add, init_device_replay
+from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
+from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
 
 
@@ -62,17 +65,13 @@ class FusedDeviceLearner:
         self._replay = init_device_replay(capacity, obs_shape, self.device)
         step_fn = build_train_step(network, optimizer, loss_kind=loss_kind,
                                    sync_in_step=False)
-        fused_args = dict(
-            batch_size=batch_size,
-            steps_per_call=self.steps_per_call,
-            priority_exponent=priority_exponent,
-            target_sync_freq=target_sync_freq,
-            sample_ahead=sample_ahead,
-        )
-        self._fused = build_fused_learn_step(step_fn, include_ingest=False,
-                                             **fused_args)
-        self._fused_ingest = build_fused_learn_step(step_fn, include_ingest=True,
-                                                    **fused_args)
+        self._call = GraphedCall(step_fn, batch_size=batch_size,
+                                 steps_per_call=self.steps_per_call,
+                                 priority_exponent=priority_exponent,
+                                 target_sync_freq=target_sync_freq,
+                                 sample_ahead=sample_ahead)
+        self._call.bind(state, self._replay)   # a card: warm up and capture now
+        self._h2d = HostToDevice(self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed((int(state.seed) ^ 0x5EED) & (2**63 - 1))
         self._lock = threading.Lock()
@@ -114,6 +113,16 @@ class FusedDeviceLearner:
 
     def params_for_publish(self):
         return self._state.params
+
+    @property
+    def graphed_call(self) -> GraphedCall:
+        return self._call
+
+    @property
+    def supports_ingest_fold(self) -> bool:
+        """A full ``ingest_block`` can ride with the fused call
+        (``train_with_ingest``)."""
+        return True
 
     # ------------------------------------------------------------- learner
 
@@ -160,15 +169,12 @@ class FusedDeviceLearner:
             self._prepared_rows = 0
         return blocks
 
-    def _to_device(self, priorities, transitions):
-        dev = self.device
-        return (transitions.map(lambda a: torch.as_tensor(np.asarray(a)).to(dev)),
-                torch.as_tensor(np.asarray(priorities, np.float32)).to(dev))
-
     def add_block(self, priorities: np.ndarray, transitions) -> int:
         """Move one prepared block to the device ring (learner thread)."""
-        trans, prio = self._to_device(priorities, transitions)
-        device_replay_add(self._replay, trans, prio, self._priority_exponent)
+        *fields, prio = self._h2d([*(getattr(transitions, f) for f in _FIELDS),
+                                   np.asarray(priorities, np.float32)])
+        device_replay_add(self._replay, NStepTransition(*fields), prio,
+                          self._priority_exponent)
         self._size += len(priorities)
         return len(priorities)
 
@@ -180,28 +186,28 @@ class FusedDeviceLearner:
 
     def train(self, beta: float, u: Optional[torch.Tensor] = None):
         """One fused call: K steps of sample/train/restamp.  Returns the
-        stacked metrics, still on the device (read them lazily)."""
-        self._state, self._replay, metrics = self._fused(
+        call's metrics [K, ...], still on the device (read them lazily)."""
+        self._state, self._replay, metrics = self._call(
             self._state, self._replay, beta, u=u, generator=self._generator
         )
         return metrics
 
     def train_with_ingest(self, beta: float, priorities: np.ndarray,
                           transitions, u: Optional[torch.Tensor] = None):
-        """Ingest one full ``ingest_block`` then run the K-step call; the
-        same result as ``add_block`` followed by ``train``."""
+        """Ingest one full ``ingest_block``, then the K-step call, queued
+        back to back with no host sync between them (the JAX learner's
+        single-dispatch fold); the same result as ``add_block`` followed by
+        ``train``."""
         if len(priorities) != self._ingest_block:
             raise ValueError(
                 f"train_with_ingest requires a full ingest_block "
                 f"({self._ingest_block} rows), got {len(priorities)}"
             )
-        trans, prio = self._to_device(priorities, transitions)
-        self._state, self._replay, metrics = self._fused_ingest(
-            self._state, self._replay, trans, prio, beta,
-            u=u, generator=self._generator,
-        )
-        self._size += self._ingest_block
-        return metrics
+        self.add_block(priorities, transitions)
+        return self.train(beta, u)
+
+
+_FIELDS = ("obs", "action", "reward", "discount", "next_obs")
 
 
 def _concat_chunks(chunks) -> NStepTransition:
@@ -209,5 +215,5 @@ def _concat_chunks(chunks) -> NStepTransition:
         return chunks[0].map(np.asarray)
     return NStepTransition(*(
         np.concatenate([np.asarray(getattr(c, f)) for c in chunks])
-        for f in ("obs", "action", "reward", "discount", "next_obs")
+        for f in _FIELDS
     ))

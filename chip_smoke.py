@@ -51,9 +51,11 @@ Phases, each printing one JSON line:
                 card, finite loss;
   9. proc_train — phase 5 with ``--set actor.mode=process --set
                 actor.num_workers=2``: the 8 actors run in two CPU-only
-                worker processes.  Finite loss, steps reached, sampler
-                launches == steps, chunks from both workers past param
-                version 1, 0 restarts, both workers reporting no CUDA
+                worker processes.  The run goes past 512 steps until both
+                workers have delivered a chunk acted with a published param
+                version (> 1), within 60 s.  Finite loss, steps reached,
+                sampler launches == steps, chunks from both workers past
+                param version 1, 0 restarts, both workers reporting no CUDA
                 initialisation, at most one pid (the learner's) in
                 nvidia-smi's compute apps while it runs, and no /dev/shm
                 segment of the run left after it; prints rates, peak device
@@ -69,7 +71,21 @@ Phases, each printing one JSON line:
                 sampled indices identical and the gathered frames byte-equal;
                 one full-width fused dedup call within phase 4's tolerance;
                 2 sampler launches;
- 12. dedup_train — ``train.main`` with config3's learner on one card: the
+ 12. graph_parity — the fused call as CUDA-graph replays against the same
+                body run eagerly on the card, from one state and the same
+                uniforms, at full width on rings of C = 4 096: both layouts,
+                strict and sample-ahead, float32, TF32 off, cuDNN's
+                deterministic algorithms (the default ones may sum a
+                convolution's gradient in another order on every call, and
+                a strict call then samples other slots from its second
+                step on: a different trajectory, not a graph's error).  Sample-ahead
+                indices identical in every step, strict step 0 identical
+                (later strict steps: mismatches reported), losses, updates
+                and masses within 1e-3 of the largest; a rebound parameter
+                tensor recaptures and the replays go on equal; one profiled
+                graphed call holds in its trace exactly the sampler kernels
+                the runner counted;
+ 13. dedup_train — ``train.main`` with config3's learner on one card: the
                 dedup ring at 2 000 000 slots (frame_ratio 1.25), sample-ahead
                 K = 2048, ingest blocks of 2048, bf16 second moment and
                 target, target sync 2500 (→ 2048), publish 2500, process
@@ -78,9 +94,17 @@ Phases, each printing one JSON line:
                 frame bytes, learner steps/s over the second call, ring
                 bytes, dropped carries, frame/transition ratio, dead slots,
                 workers without CUDA, /dev/shm clean;
- 13. kernels  — one JSON object per ported kernel with its launches on this
+ 14. overlap_train — phase 13 with ``learner.pipeline_depth=2`` and
+                ``learner.sync_every=2048``: the overlapped pipeline
+                (stager thread, ``DispatchPipeline``).  Its ``pipeline``
+                section (inflight 0, host syncs within steps/sync_every +
+                calls/depth + 2), the staged rows left beside phase 13's,
+                learner steps/s;
+ 15. kernels  — one JSON object per ported kernel with its launches on this
                 slice's main path (dedup_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
+Every device-replay phase (4, 5, 9, 11–14) runs each fused call as
+CUDA-graph replays, the port's only device path.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -89,6 +113,7 @@ when there is no CUDA device, the kernel does not build, or any check fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -590,6 +615,49 @@ def check_workers(phase: str, pool, apps) -> tuple:
     return reports, pids
 
 
+def latest_versions(pool) -> dict:
+    """A copy of ``pool.last_versions`` (worker -> param version of its
+    latest chunk), which the pool's pump thread updates."""
+    while True:
+        try:
+            return dict(pool.last_versions)
+        except RuntimeError:   # a worker's first chunk landed mid-copy
+            continue
+
+
+@contextlib.contextmanager
+def run_until_fresh_chunks(seen, steps: int, grace_s: float = 60.0):
+    """Stop the observed process-actor run once it has taken ``steps``
+    learner steps and both workers have delivered a chunk acted with a
+    published param version (> 1), or ``grace_s`` after it reached
+    ``steps`` if that never happens (the phase's check then fails).  The
+    run ends after the call or step in progress, with its final record."""
+    stop = threading.Event()
+
+    def loop():
+        reached = None
+        while not stop.wait(0.02):
+            if not seen or seen[0].worker is None:
+                continue
+            pipe = seen[0]
+            if pipe._learner_step < steps:
+                continue
+            reached = reached or time.monotonic()
+            versions = latest_versions(pipe.worker.pool)
+            fresh = set(versions) == {0, 1} and min(versions.values()) > 1
+            if fresh or time.monotonic() - reached > grace_s:
+                pipe.stop_event.set()
+                return
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join(10)
+
+
 def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     """``train.main --set actor.mode=process --set actor.num_workers=2`` at
     the width of phase 5, on the device-replay path (``proc_train``) or the
@@ -597,9 +665,11 @@ def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     import torch
 
     phase = "proc_train" if device_replay else "proc_host_train"
-    # Workers poll the param buffer every 100 fleet steps (500 by default),
-    # so chunks past the first publish arrive inside a 512-step run.
-    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "128",
+    # Workers poll the param buffer every 100 fleet steps (500 by default).
+    # The graphed learner takes 512 steps in under a second, often before a
+    # worker has polled and flushed a chunk acted with a published version,
+    # so the run goes on past ``steps`` (up to 64×) until both workers have.
+    argv = ["--device", "cuda", "--steps", str(64 * steps), "--log-every", "128",
             "--set", "actor.mode=process", "--set", "actor.num_workers=2",
             "--set", "actor.sync_every=100", *FULL_WIDTH]
     if device_replay:
@@ -609,7 +679,8 @@ def phase_process(sampling, card: str, device_replay: bool, steps: int = 512):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sampling.sample_indices.launches = 0
-    with capture_pipelines() as seen, compute_apps() as apps:
+    with capture_pipelines() as seen, compute_apps() as apps, \
+            run_until_fresh_chunks(seen, steps):
         final, wall = run_train(argv)
     launches = sampling.sample_indices.launches
     pipe = seen[0]
@@ -762,6 +833,148 @@ def phase_dedup_parity(sampling):
     return result
 
 
+def _parity_rings(layout, dev, rng, C=4096, M=3072):
+    """Two identical (train state, ring) pairs at full width on ``dev``."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.learner.train_step import init_train_state, make_optimizer
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.replay import device as rdev
+    from ape_x_dqn_tpu_torch.replay import device_dedup as rdd
+    from ape_x_dqn_tpu_torch.types import NStepTransition
+
+    obs_shape = (84, 84, 1)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = build_network("conv", 3, obs_shape, compute_dtype=torch.float32)
+    opt = make_optimizer("rmsprop")
+    frames = torch.as_tensor(rng.integers(0, 256, (M + 3, *obs_shape), dtype=np.uint8),
+                             device=dev)
+    prio = torch.as_tensor((rng.random(M) + 0.05).astype(np.float32), device=dev)
+    cols = dict(action=torch.as_tensor(rng.integers(0, 3, M).astype(np.int32), device=dev),
+                reward=torch.as_tensor(rng.normal(size=M).astype(np.float32), device=dev),
+                discount=torch.full((M,), 0.97, device=dev))
+    pairs = []
+    for _ in range(2):
+        state = init_train_state(net, opt, seed=SEED, device=dev)
+        if layout == "double":
+            ring = rdev.init_device_replay(C, obs_shape, device=dev)
+            rdev.device_replay_add(ring, NStepTransition(obs=frames[:M], next_obs=frames[3:],
+                                                         **cols), prio)
+        else:
+            ring = rdd.init_dedup_device_replay(C, obs_shape, frame_ratio=1.25, device=dev)
+            rdd.dedup_device_add_frames(ring, frames)
+            seq = torch.arange(M, dtype=torch.int32, device=dev)
+            rdd.dedup_device_add_transitions(ring, seq, seq + 3, cols["action"],
+                                             cols["reward"], cols["discount"], prio)
+        pairs.append((state, ring))
+    return net, opt, pairs
+
+
+def phase_graph_parity(sampling):
+    """The graphed fused call against the eager body on the card."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.learner.train_step import build_train_step
+    from ape_x_dqn_tpu_torch.profile_fused import profile_call
+    from ape_x_dqn_tpu_torch.replay import device as rdev
+    from ape_x_dqn_tpu_torch.replay import device_dedup as rdd
+    from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    K, B, calls, tol = 16, 32, 3, 1e-3
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cases, launches_total = [], 0
+    try:
+        for layout in ("double", "dedup"):
+            for sample_ahead in (False, True):
+                net, opt, ((sg, rg), (se, re)) = _parity_rings(layout, dev, rng)
+                step = build_train_step(net, opt, sync_in_step=False)
+                knobs = dict(steps_per_call=K, batch_size=B, priority_exponent=0.6,
+                             sample_ahead=sample_ahead,
+                             sample_many_fn=rdd.dedup_sample_many if layout == "dedup" else None)
+                call = GraphedCall(step, target_sync_freq=K, **knobs)
+                call.bind(sg, rg)
+                init = {k: v.clone() for k, v in sg.params.items()}
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                mismatch, loss_err, launches = [], 0.0, 0
+                for i in range(calls):
+                    u = torch.rand((K, B), generator=gen, device=dev)
+                    before = sampling.sample_indices.launches
+                    _, _, mg = call(sg, rg, 0.4, u=u)
+                    launches += sampling.sample_indices.launches - before
+                    ig = call.body.sampled_indices()
+                    body = rdev.FusedBody(step.update, se, re, **knobs)
+                    me = rdev.run_eager(body, 0.4, u)
+                    rdev.finish_call(se, K, K)
+                    ie = body.sampled_indices()
+                    torch.cuda.synchronize()
+                    if sample_ahead and not torch.equal(ig, ie):
+                        raise AssertionError(f"graph_parity {layout} sample-ahead call {i}: "
+                                             "sampled indices differ from the eager body")
+                    if i == 0 and not torch.equal(ig[0], ie[0]):
+                        raise AssertionError(f"graph_parity {layout}: step 0 indices differ")
+                    mismatch.append(int((ig != ie).sum()))
+                    loss_err = max(loss_err, float((mg.loss - me.loss).abs().max())
+                                   / (float(me.loss.abs().max()) + 1e-12))
+                    if i == 0:
+                        # A weight import that rebinds a tensor: the next
+                        # call must recapture and stay equal.
+                        for state, _ in ((sg, rg), (se, re)):
+                            state.params["value.weight"] = state.params["value.weight"].clone()
+                worst = 0.0
+                for k in init:
+                    d_g, d_e = sg.params[k] - init[k], se.params[k] - init[k]
+                    worst = max(worst, float((d_g - d_e).abs().max())
+                                / (float(d_e.abs().max()) + 1e-12))
+                mass_err = float((rg.mass - re.mass).abs().max()) / float(re.mass.abs().max())
+                want = calls * (1 if sample_ahead else K)
+                case = {"layout": layout, "sample_ahead": sample_ahead, "calls": calls, "K": K,
+                        "param_update_err_rel": worst, "mass_err_rel": mass_err,
+                        "loss_err_rel": loss_err, "index_mismatches_by_call": mismatch,
+                        "captures": call.captures, "sampler_launches": launches}
+                if worst > tol or mass_err > tol or loss_err > tol:
+                    emit({"phase": "graph_parity", "failed_case": case})
+                    raise AssertionError(f"graph_parity {layout} sample_ahead={sample_ahead}: "
+                                         f"update error {worst:.3g}, mass error {mass_err:.3g}, "
+                                         f"loss error {loss_err:.3g} (tolerance {tol})")
+                if call.captures != 2 or launches != want or sg.step != se.step:
+                    raise AssertionError(f"graph_parity {layout}: {call.captures} captures "
+                                         f"(want 2), {launches} sampler launches (want {want})")
+                launches_total += launches
+                if layout == "double" and not sample_ahead:
+                    # One profiled graphed call: the device's own count of
+                    # sampler kernels against the runner's.
+                    before = sampling.sample_indices.launches
+                    prof = profile_call(lambda: call(sg, rg, 0.4, generator=gen))
+                    counted = sampling.sample_indices.launches - before
+                    if prof["sampler_kernels"] != counted or counted != K:
+                        raise AssertionError(f"profiled graphed call: {prof['sampler_kernels']} "
+                                             f"sampler kernels in the trace, {counted} counted, "
+                                             f"want {K}")
+                    case["profiled_call"] = {k: prof[k] for k in (
+                        "call_ms", "device_busy_ms", "device_idle_share", "sampler_kernels")}
+                    case["profiled_call"]["counted"] = counted
+                cases.append(case)
+                del call, sg, rg, se, re
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    result = {"phase": "graph_parity", "C": 4096, "B": B, "cases": cases,
+              "math": "float32, TF32 off, cudnn.deterministic",
+              "sampler_launches": launches_total,
+              "tolerance": {"param_update_err_rel": tol, "mass_err_rel": tol,
+                            "loss_err_rel": tol},
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
 @contextlib.contextmanager
 def timed_fused_calls():
     """CUDA events around every ``FusedDedupLearner.train`` call: each
@@ -788,16 +1001,21 @@ def timed_fused_calls():
         FusedDedupLearner.train = train
 
 
-def phase_dedup_train(sampling, card: str, calls: int = 2):
+def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False,
+                      beside: dict | None = None):
     """``train.main`` with config3's learner (``configs/config3_seaquest_
     256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
     slots, sample-ahead K = 2048, bf16 second moment and target, process
     actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
     workers × 8 actors for 8 × 32, warm-up 16 384 for 50 000, ``calls``
-    fused calls, data_parallel 1 for 4."""
+    fused calls, data_parallel 1 for 4.  ``overlap``: the overlapped
+    pipeline (``overlap_train``: depth 2, a sync every K steps), reported
+    beside ``beside`` (``dedup_train``'s result)."""
     import torch
 
     K = 2048
+    depth, sync_every = (2, K) if overlap else (1, 0)
+    phase = "overlap_train" if overlap else "dedup_train"
     steps = calls * K
     argv = ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
             "--set", "network=conv", "--set", "env.name=catch:84", "--set", f"seed={SEED}",
@@ -813,9 +1031,13 @@ def phase_dedup_train(sampling, card: str, calls: int = 2):
             "--set", "actor.mode=process", "--set", "actor.num_workers=2",
             "--set", "actor.num_actors=16", "--set", "actor.num_steps=3",
             "--set", "actor.flush_every=16", "--set", "actor.sync_every=500",
-            "--set", "actor.worker_nice=5"]
+            "--set", "actor.worker_nice=5",
+            "--set", f"learner.pipeline_depth={depth}", "--set", f"learner.sync_every={sync_every}"]
     t0 = time.monotonic()
+    gc.collect()   # nothing of an earlier phase may hold device memory
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     sampling.sample_indices.launches = 0
     with capture_pipelines() as seen, compute_apps() as apps, timed_fused_calls() as spans:
@@ -825,13 +1047,23 @@ def phase_dedup_train(sampling, card: str, calls: int = 2):
     pipe = seen[0]
     fused, pool = pipe.fused, pipe.worker.pool
     if type(fused).__name__ != "FusedDedupLearner":
-        raise AssertionError(f"dedup_train ran {type(fused).__name__}")
+        raise AssertionError(f"{phase} ran {type(fused).__name__}")
     if final["step"] < steps or len(spans) != calls:
-        raise AssertionError(f"dedup_train: {final['step']} steps in {len(spans)} fused "
+        raise AssertionError(f"{phase}: {final['step']} steps in {len(spans)} fused "
                              f"calls, want {steps} in {calls}")
     if launches != calls:
-        raise AssertionError(f"dedup_train: {launches} sampler launches in {calls} "
+        raise AssertionError(f"{phase}: {launches} sampler launches in {calls} "
                              "sample-ahead fused calls")
+    if fused.graphed_call.captures != 1:
+        raise AssertionError(f"{phase}: {fused.graphed_call.captures} captures, want 1")
+    pipeline = final.get("pipeline")
+    if overlap:
+        bound = steps // sync_every + calls // depth + 2
+        if pipeline is None or pipeline["inflight"] != 0 or pipeline["host_syncs"] > bound:
+            raise AssertionError(f"{phase}: pipeline section {pipeline}, want inflight 0 and "
+                                 f"host_syncs <= {bound}")
+    elif pipeline is not None:
+        raise AssertionError(f"{phase}: the strict loop reported a pipeline section")
     ring = fused.replay
     if ring.capacity != 2_000_000:
         raise AssertionError(f"dedup ring of {ring.capacity} slots, want 2 000 000")
@@ -841,26 +1073,28 @@ def phase_dedup_train(sampling, card: str, calls: int = 2):
     if peak >= double_store["frames"]:
         raise AssertionError(f"peak device memory {peak} is not below the double-store's "
                              f"frame bytes {double_store['frames']}")
-    reports, pids = check_workers("dedup_train", pool, apps)
+    reports, pids = check_workers(phase, pool, apps)
     call_ms = [s.elapsed_time(e) for s, e in spans]
     size = fused.size
     stager = fused.stager
     transport = pool.transport_stats()
     result = {
-        "phase": "dedup_train", "card": card, "learner_steps": final["step"],
+        "phase": phase, "card": card, "learner_steps": final["step"],
         "fused_calls": len(spans), "steps_per_call": K, "loss": final["learner/loss"],
         "sampler_launches": launches,
         "learner_steps_per_s_second_call": K / (call_ms[-1] / 1e3),
         "fused_call_ms": call_ms,
         "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
-        "peak_mem_bytes": peak,
+        "peak_mem_bytes": peak, "mem_at_start_bytes": mem_at_start,
+        "mem_at_end_bytes": torch.cuda.memory_allocated(),
         "ring_bytes": ring.nbytes(), "double_store_bytes": double_store,
         "frame_capacity": ring.frame_capacity, "capacity": ring.capacity,
         "replay_size": size, "dead_slots": int((ring.mass[:size] == 0).sum()),
         "dropped_carry": stager.dropped_carry,
         "frames_staged": stager.fseq, "transitions_staged": stager.rows_in,
         "frame_per_transition": stager.fseq / max(stager.rows_in, 1),
-        "staged_rows_left": fused.staged_rows,
+        "staged_rows_left": fused.staged_rows, "pipeline": pipeline,
+        "stage_us": final["stage_us"],
         "target_dtype": str(next(iter(fused.state.target_params.values())).dtype),
         "nu_dtype": str(next(iter(fused.state.opt_state["nu"].values())).dtype),
         "actor_fps": final["actor_fps"], "actor_steps": final["actor_steps"],
@@ -879,6 +1113,10 @@ def phase_dedup_train(sampling, card: str, calls: int = 2):
                  "data_parallel": "1 for 4"},
         "wall_s": wall, "seconds": time.monotonic() - t0,
     }
+    if beside is not None:
+        result["beside_dedup_train"] = {k: beside[k] for k in (
+            "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
+            "fused_call_ms", "peak_mem_bytes")}
     emit(result)
     return result
 
@@ -921,7 +1159,9 @@ def main() -> int:
     proc = phase_process(sampling, card=smi, device_replay=True)
     proc_host = phase_process(sampling, card=smi, device_replay=False)
     dedup_parity = phase_dedup_parity(sampling)
+    graph_parity = phase_graph_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
+    overlap = phase_dedup_train(sampling, card=smi, overlap=True, beside=dedup)
 
     # This slice's main path: the dedup ring's sample-ahead launch.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
@@ -937,7 +1177,10 @@ def main() -> int:
                              "process_device_replay": proc["sampler_launches"],
                              "process_host_replay": proc_host["sampler_launches"],
                              "dedup_parity": dedup_parity["sampler_launches"],
-                             "process_device_dedup": dedup["sampler_launches"]},
+                             "graph_parity": graph_parity["sampler_launches"],
+                             "process_device_dedup": dedup["sampler_launches"],
+                             "process_device_dedup_overlapped":
+                                 overlap["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -386,7 +386,7 @@ def test_greedy_evaluator_matches_jax():
 
 @pytest.mark.parametrize("overrides,message", [
     (["learner.pipeline_depth=0"], "pipeline_depth must be >= 1"),
-    (["learner.device_replay=true", "learner.pipeline_depth=2"], "overlapped fused"),
+    (["learner.sync_every=64"], "overlapped fused"),
     (["learner.device_replay=true", "replay.frame_compression=true"], "host replay only"),
     (["learner.checkpoint_every=5"], "unknown config field"),
 ])
