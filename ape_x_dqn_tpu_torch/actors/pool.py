@@ -1,9 +1,11 @@
 """The actor fleet: batched rollouts, ε-ladder, n-step emission, priorities.
 
 Port of ``ape_x_dqn_tpu/actors/pool.py`` (dense and frame-dedup emission,
-overlapping and strided; central inference is not part of the port yet):
+overlapping and strided, local or central action selection):
   * N actor envs step in lockstep (``SyncVectorEnv``); action selection for
-    the whole fleet is one batched forward + ε-greedy on the device.
+    the whole fleet is one batched forward + ε-greedy on the device, or,
+    with a selector (central inference), one request to the serving tier
+    with ε-greedy applied on the worker.
   * Actor i uses ε^(1+α·i/(N−1)) (reference actor.py:111-114).
   * A host history ring of the last ``flush_every + n`` steps feeds
     sliding-window n-step emission every ``flush_every`` steps, with
@@ -313,9 +315,15 @@ class ActorFleet:
         self._last_bw[g] = bw
         return Chunk(priorities[:, a0:a1].reshape(-1), chunk, F * Ng)
 
-    def collect(self, num_steps: int, param_source=None):
-        """Run ``num_steps`` fleet steps; return (chunks, episode stats)."""
-        if self.params is None:
+    def collect(self, num_steps: int, param_source=None, selector=None):
+        """Run ``num_steps`` fleet steps; return (chunks, episode stats).
+
+        ``selector`` is the central-inference seam (JAX :410-440,
+        ``serving/central.CentralSelector``): with one, action selection is
+        ``selector.select(obs, step) -> (actions, q, param_version)``, the
+        fleet holds no params, ``param_version`` follows the replies, and
+        the q rows feed the priority math as local q values do."""
+        if selector is None and self.params is None:
             if param_source is None or not self.sync_params(param_source):
                 raise RuntimeError(
                     "ActorFleet has no params — call sync_params or pass param_source"
@@ -323,7 +331,12 @@ class ActorFleet:
         chunks: List[Chunk] = []
         stats: List[EpisodeStat] = []
         for _ in range(num_steps):
-            actions, q = self._policy_step(self.params, self._obs, self._epsilons)
+            if selector is not None:
+                actions, q, version = selector.select(self._obs, self._step_count)
+                actions, q = np.asarray(actions), np.asarray(q)
+                self.param_version = int(version)
+            else:
+                actions, q = self._policy_step(self.params, self._obs, self._epsilons)
             vs = self.envs.step(actions)
             done = vs.terminated | vs.truncated
             discount = (self.gamma * (1.0 - done)).astype(np.float32)

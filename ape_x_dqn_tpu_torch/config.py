@@ -1,12 +1,13 @@
 """Typed configuration — the port's own copy of ``ape_x_dqn_tpu/config.py``.
 
 The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
-sections, reference-format ``parameters.json`` files, ``--set
-section.field=value`` overrides), cut down to the fields the port runs.
-A key the port does not run raises rather than loading as a dead setting,
-so a config written for the JAX package's other paths (central inference,
-the tcp transport, serving, checkpoints, data parallel, the host dedup
-replay and the tiered store) fails loudly here instead of running
+sections, plus ``supervisor`` and ``serving``, reference-format
+``parameters.json`` files, ``--set section.field=value`` overrides), cut
+down to the fields the port runs.  A key the port does not run raises
+rather than loading as a dead setting, so a config written for the JAX
+package's other paths (the tcp transport, the serving router and param
+hub, chaos, checkpoints, data parallel, the host dedup replay and the
+tiered store) fails loudly here instead of running
 something else; the keys of those paths that the JAX configs use are
 refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -62,6 +63,35 @@ class ActorConfig:
     # supervisor policy: a worker that crashes at start-up must not spin
     # the pool at spawn speed.
     respawn_min_interval_s: float = 0.25
+    # --- central inference (serving/central.py; JAX config.py:160-210) ---
+    # "local": each actor fleet holds params and runs its own forward.
+    # "central": fleets hold NO params; each fleet step ships its
+    # observation batch to the serving tier's micro-batcher and gets greedy
+    # actions + q rows + param_version back; ε-greedy stays on the worker,
+    # from its slice of the global ε-ladder.
+    inference: str = "local"
+    # The serving endpoint the workers dial.  Port 0 = auto: the trainer
+    # hosts a PolicyServer + ServingNetServer in its own process (on the
+    # learner's card) on an ephemeral port and hands the endpoint to the
+    # workers before they spawn; a nonzero port names an external server.
+    inference_host: str = "127.0.0.1"
+    inference_port: int = 0
+    # The v2 serve hello's run token; 0 = anonymous, and auto mode draws a
+    # fresh one per run.
+    inference_token: int = 0
+    # Row groups each fleet step splits into, all in flight at once.
+    inference_inflight: int = 4
+    # Observation payload codec ("off" | "zlib", kept only when smaller)
+    # and in-request frame dedup.
+    inference_codec: str = "off"
+    inference_dedup: bool = True
+    # Per-select deadline across reconnects and retries, then the typed
+    # InferenceUnavailable.
+    inference_timeout_s: float = 30.0
+    # On an outage: "none" blocks (stall counted) until the server
+    # answers; "local" keeps the param subscription and acts from the
+    # cached params meanwhile.
+    inference_fallback: str = "none"
 
 
 @dataclasses.dataclass
@@ -140,18 +170,79 @@ class SupervisorConfig:
 
 
 @dataclasses.dataclass
+class ServingConfig:
+    """Policy-serving knobs (``serving/`` and ``python -m
+    ape_x_dqn_tpu_torch.serve``; JAX config.py:401-443)."""
+
+    max_batch: int = 32          # largest bucket one forward serves
+    max_wait_ms: float = 5.0     # deadline: oldest request's max queue wait
+    queue_capacity: int = 256    # admission bound (load shed beyond)
+    reload_poll_s: float = 0.25  # param-source poll cadence (hot reload)
+    # Staleness bound on the served params (ServingStalenessPolicy): only
+    # 0 (off) runs in the port.
+    param_stale_s: float = 0.0
+    # Bind host/port of the socket plane (serve --listen); port 0 =
+    # ephemeral, announced as a serving_listen JSONL event.
+    listen_host: str = "127.0.0.1"
+    listen_port: int = 0
+    # Fleet width of serve --replicas (the router: not part of the port).
+    replicas: int = 2
+    # Length-prefix cap on the request plane.
+    max_request_bytes: int = 8 << 20
+    # Router probe cadence, replica spawn budget, param-tail base cadence
+    # (the router, the fleet and the tail are not part of the port; the
+    # fields load and validate as in the JAX package).
+    probe_interval_s: float = 0.5
+    replica_spawn_timeout_s: float = 240.0
+    param_tail_base_every: int = 16
+
+
+@dataclasses.dataclass
 class ApexConfig:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     actor: ActorConfig = dataclasses.field(default_factory=ActorConfig)
     learner: LearnerConfig = dataclasses.field(default_factory=LearnerConfig)
     replay: ReplayConfig = dataclasses.field(default_factory=ReplayConfig)
     supervisor: SupervisorConfig = dataclasses.field(default_factory=SupervisorConfig)
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
 
     def validate(self) -> "ApexConfig":
         a, l, r, s = self.actor, self.learner, self.replay, self.supervisor
+        v = self.serving
         checks = [
+            (a.inference in ("local", "central"),
+             f"unknown actor.inference: {a.inference}"),
+            (0 <= a.inference_port <= 65535,
+             "actor.inference_port must be in [0, 65535]"),
+            (a.inference_inflight >= 1, "actor.inference_inflight must be >= 1"),
+            (a.inference_codec in ("off", "zlib"),
+             f"unknown actor.inference_codec: {a.inference_codec}"),
+            (a.inference_timeout_s > 0.0, "actor.inference_timeout_s must be > 0"),
+            (a.inference_fallback in ("none", "local"),
+             f"unknown actor.inference_fallback: {a.inference_fallback}"),
+            (v.max_batch >= 1, "serving.max_batch must be >= 1"),
+            (v.max_wait_ms >= 0.0, "serving.max_wait_ms must be >= 0"),
+            (v.queue_capacity >= v.max_batch,
+             "serving.queue_capacity must be >= serving.max_batch (a full "
+             "batch must be admissible)"),
+            (v.reload_poll_s > 0.0, "serving.reload_poll_s must be > 0"),
+            (v.param_stale_s >= 0.0, "serving.param_stale_s must be >= 0"),
+            (v.param_stale_s == 0.0,
+             f"serving.param_stale_s={v.param_stale_s}: the serving staleness "
+             "policy (runtime/supervisor.ServingStalenessPolicy) is not part "
+             "of the port yet (ROADMAP A6)"),
+            (0 <= v.listen_port <= 65535, "serving.listen_port must be in [0, 65535]"),
+            (v.replicas >= 1, "serving.replicas must be >= 1"),
+            (v.max_request_bytes >= 1 << 16,
+             "serving.max_request_bytes must be >= 64 KiB (one batched "
+             "observation must fit a frame)"),
+            (v.probe_interval_s > 0.0, "serving.probe_interval_s must be > 0"),
+            (v.replica_spawn_timeout_s > 0.0,
+             "serving.replica_spawn_timeout_s must be > 0"),
+            (v.param_tail_base_every >= 1,
+             "serving.param_tail_base_every must be >= 1"),
             (a.mode in ("thread", "process"), f"unknown actor.mode: {a.mode}"),
             (a.num_workers >= 1, "actor.num_workers must be >= 1"),
             (a.mode != "process" or a.num_actors >= a.num_workers,
@@ -322,7 +413,7 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 # refused by name (any other unknown key is refused as unknown).
 _TIERED = "the tiered frame store (replay/tiered.py, ROADMAP A7)"
 _NOT_PORTED = {
-    "actor.inference": "central inference (serving/central.py, ROADMAP A8)",
+    "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP A6)",
     "actor.max_workers": "elastic grow/retire of process actors (ROADMAP A6)",
     "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP A6)",
     "replay.hot_frame_budget_bytes": _TIERED,
@@ -348,6 +439,8 @@ def apply_overrides(cfg: ApexConfig, overrides: Sequence[str]) -> ApexConfig:
         if "=" not in item:
             raise ValueError(f"override must be key=value, got: {item}")
         path, raw = item.split("=", 1)
+        if path in _NOT_PORTED:
+            raise _unknown_key(path)
         parts = path.split(".")
         obj = cfg
         for p in parts[:-1]:
@@ -378,7 +471,7 @@ def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Ap
 _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
-    "supervisor": SupervisorConfig,
+    "supervisor": SupervisorConfig, "serving": ServingConfig,
 }
 
 
@@ -399,6 +492,9 @@ def _from_native_json(data: dict) -> ApexConfig:
             setattr(cfg, key, _SECTIONS[key](**value))
         elif key in ("network", "seed"):
             setattr(cfg, key, data[key])
+        elif isinstance(value, dict) and any(f"{key}.{f}" in _NOT_PORTED for f in value):
+            raise _unknown_key(next(f"{key}.{f}" for f in value
+                                    if f"{key}.{f}" in _NOT_PORTED))
         elif key.startswith("_"):
             pass  # "_comment" and friends: documentation, not config
         else:

@@ -48,9 +48,19 @@ store takes the ``ParamStore``'s place, a pump thread drains the workers'
 rings into the same sink, and the fused loop lets 8 calls queue and reads
 them all back at once, since no actor touches the device (JAX :353-375).
 
-Central inference, observability (the overlapped loop keeps its host
-syncs and overlap gaps itself, without the obs registry), health checks,
-checkpoints and the chaos stall of the stager are not part of the port yet.
+With ``actor.inference=central`` (JAX :658-680, :936-1080) the actors
+are paramless: the runtime hosts a ``PolicyServer`` behind a
+``ServingNetServer`` in this process, on the learner's device, fed by the
+param store's publishes (``_build_central_serving``); thread fleets get a
+``CentralSelector`` each incarnation, process workers dial the endpoint
+the pool hands them.  Every emit then carries an ``inference`` section
+(the fleet's client counters, ``version_lag``, ``batch_occupancy_mean``),
+and ``register_jsonl_section`` lets a caller (``serve --attach``) add its
+own.
+
+Observability (the overlapped loop keeps its host syncs and overlap gaps
+itself, without the obs registry), health checks, checkpoints, tracing and
+the chaos stall of the stager are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -226,8 +236,11 @@ class _ActorWorker:
     """Supervised actor-fleet thread with respawn-on-crash."""
 
     def __init__(self, comps, store: ParamStore, stop: threading.Event,
-                 logger: MetricLogger, fps: RateCounter, sink):
+                 logger: MetricLogger, fps: RateCounter, sink,
+                 selector_factory=None):
         self._comps = comps
+        # Central inference: (fleet, incarnation) -> CentralSelector.
+        self._selector_factory = selector_factory
         self._store = store
         self._stop = stop
         self._logger = logger
@@ -265,8 +278,12 @@ class _ActorWorker:
             fleet = None
             try:
                 fleet = self._comps.make_fleet(seed_offset=self.restarts)
-                fleet.sync_params(self._store)
-                self._run_fleet(fleet, self._comps.cfg.actor.T - steps_done)
+                selector = None
+                if self._selector_factory is not None:
+                    selector = self._selector_factory(fleet, self.restarts)
+                else:
+                    fleet.sync_params(self._store)
+                self._run_fleet(fleet, self._comps.cfg.actor.T - steps_done, selector)
                 self.finished = not self._stop.is_set()
                 return
             except Exception as e:  # noqa: BLE001 — respawn boundary
@@ -282,10 +299,12 @@ class _ActorWorker:
                     return
                 time.sleep(0.1)
 
-    def _run_fleet(self, fleet, max_steps: int):
+    def _run_fleet(self, fleet, max_steps: int, selector=None):
+        source = self._store if selector is None else None
         while not self._stop.is_set() and fleet.step_count < max_steps:
             quantum = min(self._quantum, max_steps - fleet.step_count)
-            chunks, stats = fleet.collect(quantum, param_source=self._store)
+            chunks, stats = fleet.collect(quantum, param_source=source,
+                                          selector=selector)
             for chunk in chunks:
                 self._sink(chunk.priorities, chunk.transitions)
                 self.actor_steps += chunk.actor_steps
@@ -342,6 +361,12 @@ class AsyncPipeline:
             self.train_step = self.comps.make_train_step()
             self._sample = self.comps.make_sampler(lambda: self._learner_step)
             self._place = DevicePlacer(self.comps.device)
+        central = self.cfg.actor.inference == "central"
+        self._jsonl_sections: dict = {}
+        self._central_server = None
+        self._central_net = None
+        self._central_selectors: list = []
+        self._central_endpoint = None
         if process:
             self._init_process_actors(sink)
         else:
@@ -349,7 +374,16 @@ class AsyncPipeline:
             self.worker = _ActorWorker(
                 self.comps, self.store, self.stop_event, self.logger, self._fps,
                 sink=sink,
+                selector_factory=self._make_central_selector if central else None,
             )
+        if central:
+            try:
+                self._build_central_serving()
+            except BaseException:
+                self._close_central()
+                self.worker.join()   # releases a pool's segments
+                raise
+            self.register_jsonl_section("inference", self._inference_section)
         self._publisher = _AsyncPublisher(self.store)
         # Periodic greedy evaluation on the learner thread; 0 disables.
         self._eval_every = int(eval_every)
@@ -372,12 +406,17 @@ class AsyncPipeline:
         if self.cfg.supervisor.enabled:
             pool.respawn_policy = RespawnPolicy.from_config(self.cfg.supervisor,
                                                             seed=self.cfg.seed)
-        self.store = pool.store
-        try:
-            self.store.publish(self.comps.state.params)
-        except BaseException:
-            pool.stop()
-            raise
+        if pool.store is None:
+            # Central-paramless fleet: the workers get actions, not params;
+            # a host store feeds the serving tier's reload.
+            self.store = ParamStore(self.comps.state.params)
+        else:
+            self.store = pool.store
+            try:
+                self.store.publish(self.comps.state.params)
+            except BaseException:
+                pool.stop()
+                raise
         if self.fused is not None:
             fused = self.fused
 
@@ -390,6 +429,127 @@ class AsyncPipeline:
             process_sink = sink  # replay.add copies into its own arrays
         self.worker = ProcessActorWorker(pool, process_sink, logger=self.logger,
                                          fps=self._fps, stop_event=self.stop_event)
+
+    # -- central inference ---------------------------------------------------
+
+    def _build_central_serving(self) -> None:
+        """Resolve the central-inference endpoint (JAX :936-979): with port 0
+        host a ``PolicyServer`` (on this runtime's device, reloading from
+        the param store) behind a ``ServingNetServer`` on an ephemeral port
+        with a fresh run token; a nonzero port names an external server.
+        The endpoint goes to the process pool before its workers spawn."""
+        a, s = self.cfg.actor, self.cfg.serving
+        host, port, token = a.inference_host, int(a.inference_port), int(a.inference_token)
+        if port == 0:
+            import secrets
+
+            from ape_x_dqn_tpu_torch.serving.net_server import ServingNetServer
+            from ape_x_dqn_tpu_torch.serving.server import PolicyServer
+
+            if token == 0:
+                token = secrets.randbits(63) or 1
+            server = PolicyServer(
+                self.comps.network, param_source=self.store,
+                max_batch=s.max_batch, max_wait_ms=s.max_wait_ms,
+                queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
+                device=self.comps.device,
+            )
+            self._central_server = server
+            server.warmup(self.comps.obs_shape)
+            server.start()
+            self._central_net = ServingNetServer(
+                server, host=host, port=0,
+                max_request_bytes=s.max_request_bytes, run_token=token,
+            ).start()
+            port = self._central_net.port
+            self.logger.event("central_inference_listen", port=port, host=host)
+        self._central_endpoint = (host, port, token)
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            pool.set_inference_endpoint(host, port, token)
+
+    def _make_central_selector(self, fleet, incarnation: int = 0):
+        """Thread-mode selector factory (JAX :981-1019): one client and
+        selector per fleet incarnation, dialing the resolved endpoint."""
+        from ape_x_dqn_tpu_torch.serving.central import (
+            CentralInferenceClient,
+            CentralSelector,
+            InferenceUnavailable,
+        )
+
+        a = self.cfg.actor
+        host, port, token = self._central_endpoint
+        client = CentralInferenceClient(
+            host, port, wid=0, attempt=incarnation, token=token,
+            codec=a.inference_codec, dedup=a.inference_dedup,
+            inflight=a.inference_inflight, seed=self.cfg.seed,
+        )
+        fallback = None
+        if a.inference_fallback == "local":
+            def fallback(obs, step):
+                fleet.sync_params(self.store)
+                if fleet.params is None:
+                    raise InferenceUnavailable("no param snapshot yet")
+                actions, q = fleet._policy_step(fleet.params, obs, fleet._epsilons)
+                return actions, q, fleet.param_version
+        sel = CentralSelector(
+            client, fleet._epsilons.cpu().numpy(), fleet.envs.num_actions,
+            seed=self.cfg.seed + 77_000 + incarnation,
+            timeout_s=a.inference_timeout_s, fallback=fallback,
+            should_stop=self.stop_event.is_set,
+        )
+        for old in self._central_selectors:
+            old.close()
+        self._central_selectors = [sel]   # the latest incarnation's
+        return sel
+
+    def _inference_section(self) -> dict:
+        """The JSONL ``inference`` section (JAX :1049-1080): the fleet's
+        client aggregate, ``version_lag`` (publishes the newest reply's
+        version trails the store by) and the in-process batcher's mean
+        occupancy."""
+        from ape_x_dqn_tpu_torch.serving.central import aggregate_inference_stats
+
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            out = pool.inference_stats()
+        else:
+            out = aggregate_inference_stats(
+                [s.stats(include_hist=True) for s in self._central_selectors])
+        v = out.get("param_version", -1)
+        out["version_lag"] = max(0, self.store.version - v) if v >= 0 else None
+        occ = None
+        if self._central_server is not None:
+            hist = dict(self._central_server.batcher.batch_hist)
+            total = sum(hist.values())
+            if total:
+                occ = round(sum(k * c for k, c in hist.items()) / total, 2)
+        out["batch_occupancy_mean"] = occ
+        return out
+
+    def _close_central(self) -> None:
+        """Close the serving tier (the workers are joined by then; the
+        server's counters outlive it for the final emit)."""
+        for part in (self._central_net, self._central_server, *self._central_selectors):
+            if part is not None:
+                try:
+                    part.close()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
+
+    def register_jsonl_section(self, name: str, fn) -> None:
+        """Fold ``fn()`` into every emit as section ``name`` (JAX :1815); a
+        section that raises is left out of that record."""
+        self._jsonl_sections[str(name)] = fn
+
+    def _sections_extra(self) -> dict:
+        out = {}
+        for name, fn in list(self._jsonl_sections.items()):
+            try:
+                out[name] = fn()
+            except Exception:  # noqa: BLE001 — a sick section must not
+                pass           # take the emit down
+        return out
 
     @property
     def learner_step(self) -> int:
@@ -472,6 +632,7 @@ class AsyncPipeline:
             self.stop_event.set()
             self.worker.join()
             self._publisher.close()
+            self._close_central()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
         # The final emit carries the last step's metrics (one host read), so
@@ -573,6 +734,7 @@ class AsyncPipeline:
             self.stop_event.set()
             self.worker.join()
             self._publisher.close()
+            self._close_central()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
         if last_metrics is not None:
@@ -664,6 +826,7 @@ class AsyncPipeline:
             stager.stop()
             self.worker.join()
             self._publisher.close()
+            self._close_central()
         if stager.error is not None and not isinstance(stager.error, Exception):
             raise RuntimeError("ingest stager died") from stager.error
         if self.worker.error is not None:
@@ -707,6 +870,7 @@ class AsyncPipeline:
             path["staged_rows"] = self.fused.staged_rows
         if self._dispatch_pipeline is not None:
             path["pipeline"] = self._pipeline_extra()
+        path.update(self._sections_extra())
         return self.logger.emit(
             step=self._learner_step,
             actor_steps=self.worker.actor_steps,

@@ -46,6 +46,15 @@ How it meets the traps of capturing a training step:
 * **The sampler's shared scratch** (``ops/sampling.py``): replays and every
   eager sampler call run on the learner's stream; the warm-up's side stream
   is joined both ways around it.
+* **Other streams' launches.**  The host can issue a step graph far
+  faster than the card runs it (~1.2 ms); unpaced, a call fills CUDA's
+  launch queue, and from then on every kernel launch of the
+  process, on any stream — a ``PolicyServer``'s forward on its
+  high-priority stream among them — waits for room in it: on an H100
+  beside config3's learner, an 8-row forward's round trip took ~57 ms
+  unpaced and ~3 ms paced (``profile_serving``).
+  So the runner keeps at most ``MAX_REPLAYS_AHEAD`` replays in flight,
+  waiting (GIL released) on the event of the replay that many back.
 * **Launch counting.**  ``sample_indices.launches`` counts on the host
   when a launch is issued; a capture issues none and a replay issues one
   per captured launch.  So the runner undoes the counts of its warm-up and
@@ -71,6 +80,10 @@ from ape_x_dqn_tpu_torch.replay.device import FusedBody, finish_call, run_eager
 STEPS_PER_GRAPH = 1
 # Eager body steps before a capture (at most K).
 WARMUP_STEPS = 2
+# Replays in flight at most (the pacing above): ~19 ms of step graphs at
+# 1.2 ms per step, so the host's wake-ups never starve the card.  0 turns
+# the pacing off (``profile_serving`` measures both).
+MAX_REPLAYS_AHEAD = 16
 
 
 def _state_tensors(body: FusedBody) -> List[Tuple[str, torch.Tensor]]:
@@ -137,6 +150,11 @@ class GraphedCall:
         self._graphs: list = []      # (graph, sampler launches captured, replays per call)
         self._signature: Optional[tuple] = None
         self.captures = 0
+        # Pacing: one event per replay slot (blocking: the learner thread
+        # sleeps instead of spinning a core the actors need) and the count
+        # of replays issued.
+        self._paced: list = []
+        self._replayed = 0
 
     def bind(self, train_state, replay_state) -> FusedBody:
         """The body over these states; on a card, captured for their
@@ -160,9 +178,23 @@ class GraphedCall:
         body = self.bind(train_state, replay_state)
         if body.device.type == "cuda":
             body.load(beta, u, generator)
+            stream = torch.cuda.current_stream(body.device)
+            ahead = MAX_REPLAYS_AHEAD
+            if len(self._paced) != ahead:
+                self._paced = [torch.cuda.Event(blocking=True) for _ in range(ahead)]
+                self._replayed = 0
             for graph, launches, replays in self._graphs:
                 for _ in range(replays):
+                    if ahead:
+                        # The ring's slot holds the event of the replay
+                        # ``ahead`` back: wait for it, then reuse it.
+                        ev = self._paced[self._replayed % ahead]
+                        if self._replayed >= ahead:
+                            ev.synchronize()
                     graph.replay()
+                    if ahead:
+                        ev.record(stream)
+                        self._replayed += 1
                 sampling.sample_indices.launches += launches * replays
             metrics = body.read_metrics()
         else:

@@ -35,8 +35,18 @@ package's:
     :1404-1411).  A respawned worker's fresh fleet has a fresh source, so
     the consumer drops only the rows that carried into the dead one.
 
+  * **Central inference** (``actor.inference=central``, JAX :394-500,
+    :827, :1296-1320): a worker builds a ``CentralInferenceClient`` and
+    ``CentralSelector`` against the endpoint the pool was given
+    (``set_inference_endpoint``) and acts from the serving tier's replies.
+    Without the local fallback the fleet is paramless: no param buffer
+    exists, none is mapped and nothing is published to the workers
+    (``param_spec = {"kind": "none"}``).  Each worker ships its client's
+    counters on the control queue every quantum; ``inference_stats``
+    folds them into the JSONL ``inference`` section.
+
 Not ported yet (the config refuses them by name): the tcp transport and
-its param path (``runtime/net.py``), central inference, grow/retire and
+its param path (``runtime/net.py``'s experience plane), grow/retire and
 remote workers, chaos ``SlowEnv``, lineage trace sampling, the per-worker
 stats blocks, the flight recorder and post-mortem files.
 
@@ -224,6 +234,7 @@ def _cfg_from_dict(cfg_dict: dict):
         EnvConfig,
         LearnerConfig,
         ReplayConfig,
+        ServingConfig,
         SupervisorConfig,
     )
 
@@ -233,6 +244,7 @@ def _cfg_from_dict(cfg_dict: dict):
         learner=LearnerConfig(**cfg_dict["learner"]),
         replay=ReplayConfig(**cfg_dict["replay"]),
         supervisor=SupervisorConfig(**cfg_dict["supervisor"]),
+        serving=ServingConfig(**cfg_dict["serving"]),
         network=cfg_dict["network"],
         seed=cfg_dict["seed"],
     )
@@ -275,6 +287,40 @@ def encode_record(chunk, param_version: int) -> list:
     )
 
 
+def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt):
+    """The worker's ``CentralSelector`` (JAX :442-494): a pipelined client
+    to the configured endpoint, ε from the fleet's ladder slice, a seeded
+    stream per incarnation, and with ``inference_fallback=local`` the
+    fleet's own policy step over its cached params as the outage path."""
+    from ape_x_dqn_tpu_torch.serving.central import (
+        CentralInferenceClient,
+        CentralSelector,
+        InferenceUnavailable,
+    )
+
+    a = cfg.actor
+    client = CentralInferenceClient(
+        a.inference_host, a.inference_port, wid=worker_id, attempt=attempt,
+        token=a.inference_token, codec=a.inference_codec, dedup=a.inference_dedup,
+        inflight=a.inference_inflight, seed=cfg.seed + worker_id,
+    )
+    fallback = None
+    if a.inference_fallback == "local" and source is not None:
+        def fallback(obs, step):
+            fleet.sync_params(source)
+            if fleet.params is None:
+                raise InferenceUnavailable("fallback configured but no param "
+                                           "snapshot adopted yet")
+            actions, q = fleet._policy_step(fleet.params, obs, fleet._epsilons)
+            return actions, q, fleet.param_version
+    return CentralSelector(
+        client, fleet._epsilons.cpu().numpy(), fleet.envs.num_actions,
+        seed=cfg.seed + 77_000 + worker_id + 100_000 * attempt,
+        timeout_s=a.inference_timeout_s, fallback=fallback,
+        should_stop=stop_evt.is_set,
+    )
+
+
 def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                  param_spec: dict, xp_spec: dict, ctl_queue, stop_evt,
                  steps_budget: int, quantum: int, attempt: int = 0, nice: int = 0):
@@ -296,6 +342,7 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
         import torch
 
         from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
+        from ape_x_dqn_tpu_torch.serving.central import InferenceUnavailable
         from ape_x_dqn_tpu_torch.envs import make_env
         from ape_x_dqn_tpu_torch.runtime.components import dedup_groups
         from ape_x_dqn_tpu_torch.utils.memory import trim_malloc
@@ -329,24 +376,38 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             emit_dedup_groups=dedup_groups(cfg),
         )
         ring = connect_channel(xp_spec)
-        buf = SharedParamBuffer(param_spec["capacity"], name=param_spec["name"],
-                                create=False)
-        source = SharedBufferParamSource(buf, template)
-        # Wait for the learner's first publication.
-        deadline = time.monotonic() + 60.0
-        while not fleet.sync_params(source):
-            if stop_evt.is_set() or time.monotonic() > deadline:
-                ctl_queue.put(("done", worker_id, 0))
-                return
-            time.sleep(0.01)
+        source = None
+        if param_spec["kind"] == "shm":
+            buf = SharedParamBuffer(param_spec["capacity"], name=param_spec["name"],
+                                    create=False)
+            source = SharedBufferParamSource(buf, template)
+        # "none": a central-paramless worker; its actions come from the
+        # serving tier.
+        selector = (_central_selector(cfg, fleet, source, worker_id, attempt, stop_evt)
+                    if cfg.actor.inference == "central" else None)
+        if source is not None:
+            # Wait for the learner's first publication (a central worker with
+            # the local fallback does not gate on it).
+            deadline = time.monotonic() + 60.0
+            while selector is None and not fleet.sync_params(source):
+                if stop_evt.is_set() or time.monotonic() > deadline:
+                    ctl_queue.put(("done", worker_id, 0))
+                    return
+                time.sleep(0.01)
         collect_s = 0.0
         while not stop_evt.is_set() and fleet.step_count < steps_budget:
             # The budget bounds TOTAL fleet steps across incarnations, so the
             # last quantum is clamped to land on it exactly.
             t0 = time.monotonic()
-            chunks, ep_stats = fleet.collect(
-                min(quantum, steps_budget - fleet.step_count), param_source=source
-            )
+            try:
+                chunks, ep_stats = fleet.collect(
+                    min(quantum, steps_budget - fleet.step_count),
+                    param_source=source, selector=selector,
+                )
+            except InferenceUnavailable:
+                if stop_evt.is_set():
+                    break     # stopped while waiting for the serving tier
+                raise
             collect_s += time.monotonic() - t0
             for c in chunks:
                 parts = encode_record(c, fleet.param_version)
@@ -360,14 +421,28 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                     [(s.actor_id + lo, s.episode_return, s.episode_length)
                      for s in ep_stats],
                 ))
+            if selector is not None:
+                # The client's counters, at the quantum cadence (one dict).
+                try:
+                    ctl_queue.put_nowait(("inference", worker_id,
+                                          selector.stats(include_hist=True)))
+                except queue_mod.Full:
+                    pass
             trim_malloc()  # the obs-batch stream otherwise grows the RSS
-        ctl_queue.put(("report", worker_id, {
+        report = {
             "cuda_initialized": bool(torch.cuda.is_initialized()),
+            "param_buffer": buf is not None,
+            "held_params": fleet.params is not None,
             "threads": torch.get_num_threads(),
             "pid": os.getpid(),
             "env_steps": fleet.step_count * (hi - lo),
             "collect_s": collect_s,
-        }))
+        }
+        if selector is not None:
+            report["inference"] = selector.stats(include_hist=True)
+            ctl_queue.put(("inference", worker_id, report["inference"]))
+            selector.close()
+        ctl_queue.put(("report", worker_id, report))
         ctl_queue.put(("done", worker_id, fleet.step_count))
     except Exception as e:  # noqa: BLE001 — reported on the control queue; the pool decides
         try:
@@ -400,11 +475,21 @@ class ProcessActorPool:
         self._ring_bytes = int(cfg.actor.xp_ring_bytes)
         self._drain_budget = int(cfg.actor.xp_drain_budget_bytes)
         self._transport = make_transport(cfg)
-        # The serialized template's size, with headroom.
-        _, _, template = network_and_template(cfg)
-        capacity = len(tree_to_bytes(template))
-        self.buffer = SharedParamBuffer(capacity + capacity // 4 + 4096)
-        self.store = SharedMemoryParamStore(self.buffer)
+        # Central inference without the local fallback: paramless workers —
+        # no seqlock buffer and no store (the runtime keeps a host
+        # ParamStore for the serving tier's reload).
+        self._central = cfg.actor.inference == "central"
+        self._paramless = self._central and cfg.actor.inference_fallback != "local"
+        self.inference_by_worker: dict = {}   # wid -> latest client stats
+        if self._paramless:
+            self.buffer = None
+            self.store = None
+        else:
+            # The serialized template's size, with headroom.
+            _, _, template = network_and_template(cfg)
+            capacity = len(tree_to_bytes(template))
+            self.buffer = SharedParamBuffer(capacity + capacity // 4 + 4096)
+            self.store = SharedMemoryParamStore(self.buffer)
         # spawn, never fork: the learner holds a CUDA context and threads.
         self._ctx = mp.get_context("spawn")
         self._queues: dict = {}   # wid -> control queue of the live incarnation
@@ -450,7 +535,9 @@ class ProcessActorPool:
         self._queues[wid] = self._ctx.Queue(maxsize=_CONTROL_QUEUE_SIZE)
         self._rings[wid] = self._transport.make_channel(wid, attempt)
         xp_spec = self._transport.endpoint(self._rings[wid], wid, attempt)
-        param_spec = {"name": self.buffer.name, "capacity": self.buffer.capacity}
+        param_spec = ({"kind": "shm", "name": self.buffer.name,
+                       "capacity": self.buffer.capacity}
+                      if self.buffer is not None else {"kind": "none"})
         p = self._ctx.Process(
             target=_worker_main,
             args=(wid, self._cfg_dict, self.num_workers, param_spec, xp_spec,
@@ -580,7 +667,28 @@ class ProcessActorPool:
             self._salvage_incarnation(wid)
 
     def publish(self, params) -> int:
+        if self.store is None:
+            return -1    # central-paramless fleet: nothing to fan out
         return self.store.publish(params)
+
+    def set_inference_endpoint(self, host: str, port: int, token: int) -> None:
+        """Hand the resolved serving endpoint (auto mode binds an ephemeral
+        port after the config was frozen) to every worker spawned from now
+        on."""
+        a = self._cfg_dict["actor"]
+        a["inference_host"] = str(host)
+        a["inference_port"] = int(port)
+        a["inference_token"] = int(token)
+
+    def inference_stats(self) -> dict:
+        """The fleet's ``inference`` section: the workers' client counters
+        summed and their round-trip histograms merged."""
+        from ape_x_dqn_tpu_torch.serving.central import aggregate_inference_stats
+
+        return aggregate_inference_stats(
+            list(self.inference_by_worker.values()),
+            mode="central" if self._central else "local",
+        )
 
     @property
     def finished(self) -> bool:
@@ -670,6 +778,8 @@ class ProcessActorPool:
             self.episodes.extend(msg[2])
         elif kind == "report":
             self.worker_reports[wid] = msg[2]
+        elif kind == "inference":
+            self.inference_by_worker[wid] = msg[2]
         elif kind == "done":
             self.finished_workers.add(wid)
             # Each "done" reports its own incarnation's fleet steps.
@@ -703,7 +813,8 @@ class ProcessActorPool:
                 ring.unlink()
             for wid in list(self._queues):
                 self._queues.pop(wid).close()
-            self.buffer.close()
+            if self.buffer is not None:
+                self.buffer.close()
 
 
 class ProcessActorWorker:

@@ -1,0 +1,222 @@
+"""CLI serving mode: ``python -m ape_x_dqn_tpu_torch.serve``.
+
+Port of ``ape_x_dqn_tpu/serve.py`` for its ``--attach`` mode:
+
+    python -m ape_x_dqn_tpu_torch.serve --attach [--listen [HOST:]PORT] \\
+        [--run-token T] [--params-file F] [--set section.field=value ...] \\
+        [--duration S] [--clients N] [--steps N] [--metrics-file F] \\
+        [--metrics-every S] [--device cuda|cpu]
+
+``--attach`` runs the async trainer (``runtime/async_pipeline.py``) in a
+thread of this process and serves its live ``ParamStore`` through a
+``PolicyServer`` on the same device (its forwards on a high-priority stream
+of their own, beside the learner's).  ``--listen`` mounts the socket front
+end (``serving/net_server.py``) and announces the bound port as a
+``serving_listen`` JSONL event (port 0 = ephemeral); the trainer's records
+then carry a ``serving_net`` section.  ``--clients N`` runs N built-in
+closed-loop clients against the server; every ``--metrics-every`` seconds
+a ``serve/`` record is emitted.  ``--device`` defaults to ``cuda`` and a
+missing card raises.
+
+The other modes and flags of the JAX CLI exist and raise
+``NotPortedError`` by name: ``--checkpoint`` (checkpoints, ROADMAP A9),
+``--param-hub``, ``--param-tail`` and ``--replicas`` (the param hub, the
+param tail and the replica router, ROADMAP A1/A6), ``--obs-port`` (the
+observability exporter, ROADMAP A2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+import time
+
+from ape_x_dqn_tpu_torch.config import load_config, to_dict
+from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
+from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
+
+# Flags of the JAX CLI whose feature the port does not run yet.
+_NOT_PORTED_FLAGS = {
+    "checkpoint": "--checkpoint: serving from a checkpoint dir (checkpoints, ROADMAP A9)",
+    "param_hub": "--param-hub: the replica's socket param source (the param hub, "
+                 "ROADMAP A6)",
+    "param_tail": "--param-tail: the APXC param tail (ROADMAP A6)",
+    "replicas": "--replicas: the replica fleet behind the router (ROADMAP A1)",
+    "obs_port": "--obs-port: the /metrics exporter (observability, ROADMAP A2)",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ape_x_dqn_tpu_torch.serve",
+        description="Batched Q-network policy serving with hot param reload and "
+        "a socket front end, PyTorch/CUDA port",
+    )
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--attach", action="store_true",
+                     help="run the async trainer in-process and serve its live params")
+    src.add_argument("--checkpoint", default=None, metavar="DIR",
+                     help="not part of the port yet")
+    src.add_argument("--param-hub", default=None, metavar="HOST:PORT:TOKEN:RID:ATTEMPT",
+                     help="not part of the port yet")
+    src.add_argument("--param-tail", default=None, metavar="DIR",
+                     help="not part of the port yet")
+    p.add_argument("--listen", default=None, metavar="[HOST:]PORT",
+                   help="serve the socket request/reply protocol here (0 = "
+                   "ephemeral; the bound port is announced as a serving_listen "
+                   "JSONL event)")
+    p.add_argument("--replicas", type=int, default=None, metavar="N",
+                   help="not part of the port yet")
+    p.add_argument("--run-token", type=int, default=0, metavar="TOKEN",
+                   help="v2 hellos (central-inference workers) must carry it or "
+                   "are rejected at the handshake; 0 accepts any hello")
+    p.add_argument("--params-file", default=None,
+                   help="JSON config (native or reference format)")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="PATH=VALUE",
+                   help="config override, e.g. --set serving.max_batch=64")
+    p.add_argument("--duration", type=float, default=10.0,
+                   help="seconds to serve; 0 = until SIGTERM/SIGINT")
+    p.add_argument("--clients", type=int, default=0,
+                   help="built-in closed-loop clients (0 = idle serve)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="learner steps to train (default: config total)")
+    p.add_argument("--metrics-file", default=None, help="also write JSONL here")
+    p.add_argument("--metrics-every", type=float, default=2.0)
+    p.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                   help="not part of the port yet")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+def _parse_listen(spec: str, default_host: str):
+    """``[HOST:]PORT`` → (host, port)."""
+    if ":" in spec:
+        host, port = spec.rsplit(":", 1)
+        return host or default_host, int(port)
+    return default_host, int(spec)
+
+
+def _install_stop_handlers(stop: threading.Event) -> None:
+    """SIGTERM/SIGINT → a clean drain: sockets closed, final record
+    flushed."""
+
+    def _handler(signum, frame):  # noqa: ARG001
+        stop.set()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, _handler)
+        except (ValueError, OSError):
+            pass  # not the main thread (tests drive main() directly)
+
+
+def _client_loop(server, obs_shape, stop, errors, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    while not stop.is_set():
+        obs = rng.integers(0, 255, obs_shape, dtype=np.uint8)
+        try:
+            server.act(obs, timeout=30.0)
+        except Exception:  # noqa: BLE001 — counted, loop continues
+            errors.append(1)
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    for flag, what in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) is not None:
+            raise NotPortedError(f"{what} is not part of the port yet")
+    cfg = load_config(args.params_file, overrides=args.overrides)
+    print("serving config:", to_dict(cfg), file=sys.stderr)
+    logger = MetricLogger(stream=sys.stdout, path=args.metrics_file)
+
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+    from ape_x_dqn_tpu_torch.serving.net_server import ServingNetServer
+    from ape_x_dqn_tpu_torch.serving.server import PolicyServer
+
+    # One process, both halves: the trainer owns the learner's stream, the
+    # server's forwards run on a stream of their own on the same device,
+    # and params flow learner -> store -> server in host memory.
+    pipe = AsyncPipeline(cfg, logger=logger, log_every=10_000, device=args.device)
+    trainer_error: list = []
+    stop = threading.Event()
+
+    def train():
+        try:
+            pipe.run(learner_steps=args.steps)
+        except BaseException as e:  # noqa: BLE001 — surfaced by main
+            if not stop.is_set():     # not the stop this CLI asked for
+                trainer_error.append(e)
+
+    trainer_thread = threading.Thread(target=train, name="attached-trainer", daemon=True)
+    s = cfg.serving
+    server = PolicyServer(
+        pipe.comps.network, param_source=pipe.store,
+        max_batch=s.max_batch, max_wait_ms=s.max_wait_ms,
+        queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
+        device=pipe.comps.device,
+    )
+    server.warmup(pipe.comps.obs_shape)
+    server.start()
+
+    net_srv = None
+    if args.listen is not None:
+        host, port = _parse_listen(args.listen, s.listen_host)
+        net_srv = ServingNetServer(
+            server, host=host, port=port, max_request_bytes=s.max_request_bytes,
+            run_token=args.run_token,
+        ).start()
+        server.attach_transport(net_srv.stats)
+        logger.event("serving_listen", port=net_srv.port, host=host, mode="replica")
+        # The trainer's records carry the socket plane as their own section.
+        pipe.register_jsonl_section("serving_net", net_srv.stats)
+
+    trainer_thread.start()
+    _install_stop_handlers(stop)
+    errors: list = []
+    clients = [
+        threading.Thread(target=_client_loop,
+                         args=(server, pipe.comps.obs_shape, stop, errors, cfg.seed + i),
+                         name=f"serve-client-{i}", daemon=True)
+        for i in range(args.clients)
+    ]
+    for c in clients:
+        c.start()
+    try:
+        deadline = time.monotonic() + args.duration if args.duration > 0 else None
+        while not stop.is_set():
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                stop.wait(min(args.metrics_every, remaining))
+            else:
+                stop.wait(args.metrics_every)
+            extra = {"serving_net": net_srv.stats()} if net_srv else {}
+            server.emit_metrics(logger, **extra)
+            if not trainer_thread.is_alive():
+                break
+    finally:
+        stop.set()
+        for c in clients:
+            c.join(timeout=5.0)
+        pipe.stop_event.set()
+        if trainer_thread.is_alive():
+            trainer_thread.join(timeout=60.0)
+        if net_srv is not None:
+            net_srv.close()
+        extra = {"serving_net": net_srv.stats()} if net_srv else {}
+        server.emit_metrics(logger, final=True, **extra)
+        server.close()
+        logger.close()
+    if trainer_error:
+        raise RuntimeError("the attached trainer failed") from trainer_error[0]
+    return 0 if not errors else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

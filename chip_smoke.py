@@ -100,10 +100,35 @@ Phases, each printing one JSON line:
                 section (inflight 0, host syncs within steps/sync_every +
                 calls/depth + 2), the staged rows left beside phase 13's,
                 learner steps/s;
- 15. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (dedup_train) and on each path, error,
+ 15. serve_parity — the card's ``PolicyServer`` (its forwards on a
+                high-priority stream of their own) against the port's plain
+                CPU forward at full width, float32, TF32 off, for every batch
+                size 1..32: q within 1e-4 of the largest |q|, actions equal
+                wherever the top-2 gap exceeds 2e-4 of it; a hot reload under
+                load (4 clients, 3 published versions): no request dropped,
+                every reply's q its claimed version's; each bucket's host and
+                device ms per eager batch at bf16, beside the same forward's
+                device ms as a CUDA-graph replay;
+ 16. central_train — phase 13 with ``actor.inference=central``: the 2
+                workers × 8 actors are paramless and act through the
+                ``PolicyServer`` that the runtime hosts on the card behind a
+                ``ServingNetServer``.  Learner steps/s and each worker's env
+                steps/s beside phase 13's (local), the round trip's p50/p99
+                while the learner replays, batch occupancy, version lag, the
+                server's per-bucket times; checks: no param buffer, no params
+                and no CUDA in any worker, every fleet step's actions from
+                the server, 0 torn frames and replies, 2 sampler launches;
+ 17. central_wide — phase 16 with 2 workers × 32 actors, then the same
+                fleet local (``central_wide_local``), in one call;
+ 18. serve_attach — ``serve.main(["--attach", "--listen", "0", "--clients",
+                "4", ...])``: phase 5's device-replay learner trains in a
+                thread while 4 closed-loop clients act through the server
+                and it hot-reloads the learner's publishes: QPS, latency
+                p50/p99, reloads, 0 client errors;
+ 19. kernels  — one JSON object per ported kernel with its launches on this
+                slice's main path (central_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
-Every device-replay phase (4, 5, 9, 11–14) runs each fused call as
+Every device-replay phase (4, 5, 9, 11–14, 16–18) runs each fused call as
 CUDA-graph replays, the port's only device path.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -125,6 +150,11 @@ import time
 import numpy as np
 
 SEED = 0
+# config3's learner as the dedup phases run it: fused call length, ring
+# slots, warm-up rows (cut from 50 000).
+DEDUP_K = 2048
+DEDUP_SLOTS = 2_000_000
+DEDUP_WARMUP = 16_384
 
 
 def emit(obj) -> None:
@@ -1002,37 +1032,43 @@ def timed_fused_calls():
 
 
 def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False,
-                      beside: dict | None = None):
+                      beside: dict | None = None, central: bool = False,
+                      actors: int = 16, phase: str | None = None):
     """``train.main`` with config3's learner (``configs/config3_seaquest_
     256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
     slots, sample-ahead K = 2048, bf16 second moment and target, process
     actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
-    workers × 8 actors for 8 × 32, warm-up 16 384 for 50 000, ``calls``
-    fused calls, data_parallel 1 for 4.  ``overlap``: the overlapped
-    pipeline (``overlap_train``: depth 2, a sync every K steps), reported
-    beside ``beside`` (``dedup_train``'s result)."""
+    workers × ``actors`` / 2 actors for 8 × 32, warm-up 16 384 for 50 000,
+    ``calls`` fused calls, data_parallel 1 for 4.  ``overlap``: the
+    overlapped pipeline (``overlap_train``: depth 2, a sync every K steps),
+    reported beside ``beside`` (``dedup_train``'s result).  ``central``:
+    the workers are paramless and act through the ``PolicyServer`` that
+    the runtime hosts on the card (``actor.inference=central``)."""
     import torch
 
-    K = 2048
+    K = DEDUP_K
     depth, sync_every = (2, K) if overlap else (1, 0)
-    phase = "overlap_train" if overlap else "dedup_train"
+    phase = phase or ("overlap_train" if overlap else "dedup_train")
     steps = calls * K
     argv = ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
             "--set", "network=conv", "--set", "env.name=catch:84", "--set", f"seed={SEED}",
-            "--set", "replay.capacity=2000000", "--set", "replay.dedup=true",
+            "--set", f"replay.capacity={DEDUP_SLOTS}", "--set", "replay.dedup=true",
             "--set", "replay.frame_ratio=1.25", "--set", "replay.priority_exponent=0.6",
             "--set", "replay.is_exponent=0.4",
             "--set", "learner.device_replay=true", "--set", "learner.sample_ahead=true",
-            "--set", f"learner.steps_per_call={K}", "--set", "learner.ingest_block=2048",
+            "--set", f"learner.steps_per_call={K}", "--set", f"learner.ingest_block={K}",
             "--set", "learner.second_moment_dtype=bfloat16",
             "--set", "learner.target_dtype=bfloat16",
             "--set", "learner.q_target_sync_freq=2500", "--set", "learner.publish_every=2500",
-            "--set", "learner.replay_sample_size=32", "--set", "learner.min_replay_mem_size=16384",
+            "--set", "learner.replay_sample_size=32",
+            "--set", f"learner.min_replay_mem_size={DEDUP_WARMUP}",
             "--set", "actor.mode=process", "--set", "actor.num_workers=2",
-            "--set", "actor.num_actors=16", "--set", "actor.num_steps=3",
+            "--set", f"actor.num_actors={actors}", "--set", "actor.num_steps=3",
             "--set", "actor.flush_every=16", "--set", "actor.sync_every=500",
             "--set", "actor.worker_nice=5",
             "--set", f"learner.pipeline_depth={depth}", "--set", f"learner.sync_every={sync_every}"]
+    if central:
+        argv += ["--set", "actor.inference=central"]
     t0 = time.monotonic()
     gc.collect()   # nothing of an earlier phase may hold device memory
     torch.cuda.synchronize()
@@ -1040,7 +1076,8 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     sampling.sample_indices.launches = 0
-    with capture_pipelines() as seen, compute_apps() as apps, timed_fused_calls() as spans:
+    with capture_pipelines() as seen, compute_apps() as apps, \
+            timed_fused_calls() as spans, rtt_after_warmup() as warm_rtt:
         final, wall = run_train(argv)
     launches = sampling.sample_indices.launches
     torch.cuda.synchronize()
@@ -1065,8 +1102,8 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
     elif pipeline is not None:
         raise AssertionError(f"{phase}: the strict loop reported a pipeline section")
     ring = fused.replay
-    if ring.capacity != 2_000_000:
-        raise AssertionError(f"dedup ring of {ring.capacity} slots, want 2 000 000")
+    if ring.capacity != DEDUP_SLOTS:
+        raise AssertionError(f"dedup ring of {ring.capacity} slots, want {DEDUP_SLOTS}")
     peak = torch.cuda.max_memory_allocated()
     obs_bytes = int(np.prod(ring.frames.shape[1:]))
     double_store = {"frames": 2 * ring.capacity * obs_bytes, "columns": ring.capacity * 16}
@@ -1074,6 +1111,7 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
         raise AssertionError(f"peak device memory {peak} is not below the double-store's "
                              f"frame bytes {double_store['frames']}")
     reports, pids = check_workers(phase, pool, apps)
+    inference = check_central(phase, pipe, final, reports, warm_rtt) if central else None
     call_ms = [s.elapsed_time(e) for s, e in spans]
     size = fused.size
     stager = fused.stager
@@ -1107,16 +1145,315 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
                     for w, r in sorted(reports.items())},
         "smi_compute_pids": sorted(pids),
         "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine, A11)",
-                 "actors": "2 workers x 8 actors for 8 x 32",
-                 "min_replay_mem_size": "16384 for 50000",
+                 "actors": f"2 workers x {actors // 2} actors for 8 x 32",
+                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
                  "steps": f"{calls} fused calls ({steps} steps) for 2000000",
                  "data_parallel": "1 for 4"},
         "wall_s": wall, "seconds": time.monotonic() - t0,
     }
+    if inference is not None:
+        result["central"] = inference
     if beside is not None:
-        result["beside_dedup_train"] = {k: beside[k] for k in (
-            "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
-            "fused_call_ms", "peak_mem_bytes")}
+        result[f"beside_{beside['phase']}"] = {
+            k: beside[k] for k in (
+                "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
+                "fused_call_ms", "peak_mem_bytes", "workers")}
+    emit(result)
+    return result
+
+
+@contextlib.contextmanager
+def rtt_after_warmup():
+    """The central workers' round-trip histogram states (worker -> state)
+    when the learner's warm-up ends: the run's final states less these are
+    the round trips taken while the learner replayed its calls."""
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+
+    snap, wait = {}, AsyncPipeline._wait_for_warmup
+
+    def observed(self, *args, **kwargs):
+        out = wait(self, *args, **kwargs)
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            snap.update({w: dict(st["rtt_state"]) for w, st in
+                         list(pool.inference_by_worker.items())})
+        return out
+
+    AsyncPipeline._wait_for_warmup = observed
+    try:
+        yield snap
+    finally:
+        AsyncPipeline._wait_for_warmup = wait
+
+
+def rtt_summary(final_states: dict, warm: dict) -> dict:
+    """p50/p99 (ms) of the round trips in ``final_states`` beyond ``warm``."""
+    from ape_x_dqn_tpu_torch.utils.metrics import LatencyHistogram
+
+    hist = LatencyHistogram()
+    for w, st in final_states.items():
+        base = warm.get(w, {"counts": [0] * len(st["counts"]), "count": 0, "sum": 0.0})
+        hist.merge_state({"counts": [a - b for a, b in zip(st["counts"], base["counts"])],
+                          "count": st["count"] - base["count"],
+                          "sum": st["sum"] - base["sum"], "max": st["max"]})
+    return hist.summary()
+
+
+def check_central(phase: str, pipe, final: dict, reports: dict, warm_rtt: dict) -> dict:
+    """A central run: paramless workers (no param buffer, no params, no CUDA),
+    every fleet step's actions from the card's server (completed selects ==
+    fleet steps, no fallback, the server's per-worker rows cover them), no
+    torn frame or reply; returns what the phase reports of it."""
+    pool = pipe.worker.pool
+    server, net = pipe._central_server, pipe._central_net
+    if pool.buffer is not None or pool.store is not None:
+        raise AssertionError(f"{phase}: the central pool made a param buffer")
+    if server is None or server.device.type != "cuda":
+        raise AssertionError(f"{phase}: no PolicyServer on the card")
+    per_worker = {}
+    net_stats = net.stats()
+    for w, r in sorted(reports.items()):
+        inf = r["inference"]
+        steps = r["env_steps"] // (pool.cfg.actor.num_actors // pool.num_workers)
+        served_rows = net_stats["sources"].get(str(w), {}).get("rows", 0)
+        if r["param_buffer"] or r["held_params"] or r["cuda_initialized"]:
+            raise AssertionError(f"{phase}: worker {w} report {r}")
+        if inf["selects"] - inf["outages"] != steps or inf["fallback_steps"] \
+                or served_rows < r["env_steps"]:
+            raise AssertionError(f"{phase}: worker {w} took {steps} fleet steps, "
+                                 f"{inf['selects']} selects ({inf['outages']} cut), "
+                                 f"{inf['fallback_steps']} fallback, server rows {served_rows}")
+        per_worker[w] = {"selects": inf["selects"], "rows": inf["rows"],
+                         "rtt": inf["rtt"], "stall_ms": inf["stall_ms"]}
+    section = final["inference"]
+    if section["torn_replies"] or net_stats["torn_frames"] or section["errors"]:
+        raise AssertionError(f"{phase}: torn replies {section['torn_replies']}, "
+                             f"torn frames {net_stats['torn_frames']}, errors {section['errors']}")
+    stats = server.stats()
+    return {
+        "inference": {k: v for k, v in section.items() if k != "rtt_exemplars"},
+        "rtt_while_learning": rtt_summary(
+            {w: r["inference"]["rtt_state"] for w, r in reports.items()}, warm_rtt),
+        "workers": per_worker,
+        "server": {"batch_hist": stats["batch_hist"], "served_total": stats["served_total"],
+                   "latency": stats["latency"], "reloads": stats["reloads"],
+                   "param_version": stats["param_version"],
+                   "forward_times": server.forward_times()},
+        "net": {k: net_stats[k] for k in ("requests", "replies", "inference_rows",
+                                          "torn_frames", "bad_hellos", "shed", "errors",
+                                          "bytes_in", "bytes_out", "latency")},
+    }
+
+
+def phase_serve_parity(card: str, reps: int = 50):
+    """The card's ``PolicyServer`` against the port's plain CPU forward at
+    full width (conv 64/64/64, hidden 512, 84×84×1), float32, TF32 off: for
+    every batch size 1..32 (one batch each), q within 1e-4 of the largest
+    |q| and actions equal wherever the top-2 gap exceeds 2e-4 of it.  Then
+    a hot reload under load: 4 clients while 3 versions are published, no
+    request dropped, each reply's q equal to its claimed version's CPU
+    forward.  Last, each bucket's host and device time per batch at the
+    default bf16 compute, ``reps`` batches per bucket."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.envs import make_env
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
+    from ape_x_dqn_tpu_torch.serving.server import PolicyServer
+
+    obs_shape, A = (84, 84, 1), make_env("catch:84").num_actions
+
+    def params_of(seed):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            net = build_network("conv", A, obs_shape)
+        return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    def cpu_q(net, params, obs):
+        with torch.no_grad():
+            return net.apply_params(params, torch.from_numpy(obs)).q.numpy()
+
+    t0 = time.monotonic()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    net = build_network("conv", A, obs_shape, compute_dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    worst, mismatched, ties = 0.0, 0, 0
+    try:
+        p0 = params_of(SEED)
+        server = PolicyServer(net, p0, max_batch=32, max_wait_ms=200.0, device="cuda")
+        server.warmup(obs_shape)
+        server.start()
+        try:
+            for n in range(1, 33):
+                obs = rng.integers(0, 256, (n, *obs_shape), dtype=np.uint8)
+                res = [f.result(timeout=60) for f in [server.submit(o) for o in obs]]
+                q_ref = cpu_q(net, p0, obs)
+                q = np.stack([r.q_values for r in res])
+                scale = float(np.abs(q_ref).max())
+                worst = max(worst, float(np.abs(q - q_ref).max()) / scale)
+                top2 = np.sort(q_ref, axis=1)[:, -2:]
+                clear = top2[:, 1] - top2[:, 0] > 2e-4 * scale
+                ties += int((~clear).sum())
+                acts = np.array([r.action for r in res])
+                mismatched += int((acts[clear] != q_ref[clear].argmax(axis=1)).sum())
+            hist = server.stats()["batch_hist"]
+        finally:
+            server.close()
+        if worst > 1e-4 or mismatched or hist != {str(n): 1 for n in range(1, 33)}:
+            raise AssertionError(f"serve_parity: q error {worst} of the largest, "
+                                 f"{mismatched} actions differ, batches {hist}")
+        # Hot reload under load.
+        versions = {0: p0}
+        store = ParamStore(p0)
+        server = PolicyServer(net, param_source=store, max_batch=32, max_wait_ms=1.0,
+                              reload_poll_s=0.02, device="cuda")
+        server.warmup(obs_shape)
+        server.start()
+        results, errors = [], []
+        stop = threading.Event()
+
+        def client(seed):
+            crng = np.random.default_rng(seed)
+            while not stop.is_set():
+                o = crng.integers(0, 256, obs_shape, dtype=np.uint8)
+                try:
+                    results.append((o, server.act(o, timeout=60)))
+                except Exception as e:  # noqa: BLE001 — counted, the check fails
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(SEED + i,), daemon=True)
+                   for i in range(4)]
+        try:
+            for t in threads:
+                t.start()
+            for v in (1, 2, 3):
+                time.sleep(0.3)
+                versions[v] = params_of(SEED + v)
+                store.publish(versions[v])
+                deadline = time.monotonic() + 30
+                while server.param_version < v and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+            server.close()
+        reload_worst, by_version = 0.0, {}
+        for v, params in versions.items():
+            group = [(o, r) for o, r in results if r.param_version == v]
+            by_version[v] = len(group)
+            if group:
+                q_ref = cpu_q(net, params, np.stack([o for o, _ in group]))
+                q = np.stack([r.q_values for _, r in group])
+                reload_worst = max(reload_worst,
+                                   float(np.abs(q - q_ref).max() / np.abs(q_ref).max()))
+        if errors or sorted(by_version) != [0, 1, 2, 3] or min(by_version.values()) == 0 \
+                or reload_worst > 1e-4 or server.reload_count != 3:
+            raise AssertionError(f"serve_parity reload: errors {errors[:3]}, replies by "
+                                 f"version {by_version}, q error {reload_worst}, "
+                                 f"reloads {server.reload_count}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    # Per-bucket times at the runtime's bf16 compute: each bucket alone.
+    net16 = build_network("conv", A, obs_shape)
+    server = PolicyServer(net16, p0, max_batch=32, max_wait_ms=50.0, device="cuda")
+    server.warmup(obs_shape)
+    server.start()
+    try:
+        for b in (1, 2, 4, 8, 16, 32):
+            obs = rng.integers(0, 256, (b, *obs_shape), dtype=np.uint8)
+            for _ in range(reps):
+                for f in [server.submit(o) for o in obs]:
+                    f.result(timeout=60)
+        times = server.forward_times()
+    finally:
+        server.close()
+    # The same forwards as CUDA-graph replays: the device's own time per
+    # batch, against which the eager batch's host time is launch overhead.
+    graphed = graphed_forward_ms(net16, p0, obs_shape, reps)
+    result = {"phase": "serve_parity", "card": card, "buckets": 32,
+              "q_max_err_rel": worst, "q_tolerance_rel": 1e-4,
+              "action_gap_tolerance_rel": 2e-4, "near_ties_skipped": ties,
+              "actions_differing": mismatched, "reload_replies_by_version": by_version,
+              "reload_q_max_err_rel": reload_worst, "reload_errors": len(errors),
+              "reloads": 3, "forward_times_bf16": times,
+              "graph_replay_device_ms_bf16": graphed,
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
+def graphed_forward_ms(net, params, obs_shape, reps: int) -> dict:
+    """Device ms of one greedy forward per bucket, captured in a CUDA graph
+    and replayed ``reps`` times between two events (a measurement only; the
+    server runs its forwards eagerly)."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.models.dueling import build_greedy_apply
+
+    apply = build_greedy_apply(net)
+    dparams = {k: v.to("cuda") for k, v in params.items()}
+    side = torch.cuda.Stream()
+    out = {}
+    for b in (1, 2, 4, 8, 16, 32):
+        x = torch.zeros((b, *obs_shape), dtype=torch.uint8, device="cuda")
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                apply(dparams, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            apply(dparams, x)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out[str(b)] = round(start.elapsed_time(end) / reps, 4)
+        del graph
+    return out
+
+
+def phase_serve_attach(sampling, card: str, duration: float = 20.0):
+    """``serve.main(["--attach", "--listen", "0", "--clients", "4", ...])``
+    on the card: the device-replay learner of phase 5 trains in a thread
+    while 4 closed-loop clients act through the server and it hot-reloads
+    the learner's publishes.  QPS, latency p50/p99, reloads, 0 client
+    errors (exit code 0), a bound socket port."""
+    from ape_x_dqn_tpu_torch import serve
+
+    argv = ["--attach", "--listen", "0", "--clients", "4", "--duration", str(duration),
+            "--metrics-every", "5", "--device", "cuda", "--steps", "10000000",
+            "--set", "learner.device_replay=true", "--set", "learner.steps_per_call=128",
+            "--set", "learner.ingest_block=256", "--set", "serving.reload_poll_s=0.25",
+            *FULL_WIDTH]
+    sampling.sample_indices.launches = 0
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(argv)
+    wall = time.monotonic() - t0
+    recs = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    listen = [r for r in recs if r.get("event") == "serving_listen"]
+    served = [r for r in recs if "serve/served_total" in r]
+    trainer = [r for r in recs if "step" in r and "serve/served_total" not in r]
+    final = served[-1] if served else {}
+    if rc != 0 or not listen or not final.get("final") or final["serve/served_total"] == 0 \
+            or final["serve/reloads"] < 1:
+        raise AssertionError(f"serve_attach: rc {rc}, listen {listen}, final {final}")
+    result = {"phase": "serve_attach", "card": card, "duration_s": duration, "wall_s": wall,
+              "port": listen[0]["port"], "served_total": final["serve/served_total"],
+              "qps": final["serve/served_total"] / duration,
+              "qps_30s": final["serve/qps"],
+              "latency_ms": {k: final.get(f"serve/{k}_ms") for k in ("p50", "p95", "p99")},
+              "reloads": final["serve/reloads"], "param_version": final["serve/param_version"],
+              "batch_hist": final["serve/batch_hist"], "shed": final["serve/shed_total"],
+              "learner_steps": trainer[-1]["step"] if trainer else 0,
+              "sampler_launches": sampling.sample_indices.launches}
     emit(result)
     return result
 
@@ -1162,15 +1499,24 @@ def main() -> int:
     graph_parity = phase_graph_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
     overlap = phase_dedup_train(sampling, card=smi, overlap=True, beside=dedup)
+    phase_serve_parity(card=smi)
+    central = phase_dedup_train(sampling, card=smi, central=True, beside=dedup,
+                                phase="central_train")
+    wide = phase_dedup_train(sampling, card=smi, central=True, actors=64,
+                             phase="central_wide")
+    wide_local = phase_dedup_train(sampling, card=smi, actors=64, beside=wide,
+                                   phase="central_wide_local")
+    attach = phase_serve_attach(sampling, card=smi)
 
-    # This slice's main path: the dedup ring's sample-ahead launch.
+    # This slice's main path: config3's learner fed by central workers, one
+    # sample-ahead launch per fused call.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": dedup["sampler_launches"],
+        "launches": central["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
@@ -1180,7 +1526,12 @@ def main() -> int:
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],
                              "process_device_dedup_overlapped":
-                                 overlap["sampler_launches"]},
+                                 overlap["sampler_launches"],
+                             "process_device_dedup_central": central["sampler_launches"],
+                             "process_device_dedup_central_wide":
+                                 wide["sampler_launches"],
+                             "process_device_dedup_wide": wide_local["sampler_launches"],
+                             "serve_attach": attach["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],

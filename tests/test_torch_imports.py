@@ -38,7 +38,15 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.utils.memory",
                  "ape_x_dqn_tpu_torch.replay.dedup",
                  "ape_x_dqn_tpu_torch.replay.device_dedup",
-                 "ape_x_dqn_tpu_torch.runtime.fused_dedup"):
+                 "ape_x_dqn_tpu_torch.runtime.fused_dedup",
+                 "ape_x_dqn_tpu_torch.runtime.net",
+                 "ape_x_dqn_tpu_torch.obs.lineage",
+                 "ape_x_dqn_tpu_torch.serving",
+                 "ape_x_dqn_tpu_torch.serving.batcher",
+                 "ape_x_dqn_tpu_torch.serving.server",
+                 "ape_x_dqn_tpu_torch.serving.net_server",
+                 "ape_x_dqn_tpu_torch.serving.central",
+                 "ape_x_dqn_tpu_torch.serve"):
         assert want in mods
 
 
@@ -48,6 +56,25 @@ def test_process_actor_modules_load_no_torch():
     code = (
         "import json, sys\n"
         "import ape_x_dqn_tpu_torch.runtime.process_actors\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serving_wire_modules_load_no_torch():
+    """A central worker dials the server through ``serving.central`` (and
+    the wire, batcher, socket server and trace logs beside it): stdlib +
+    numpy only, like the process-actor module."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.serving.central\n"
+        "import ape_x_dqn_tpu_torch.serving.net_server\n"
+        "import ape_x_dqn_tpu_torch.serving\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
         "print(json.dumps(bad))\n"

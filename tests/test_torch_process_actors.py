@@ -408,7 +408,7 @@ def test_fused_publish_through_the_publisher_equals_inline():
 
 @pytest.mark.parametrize("override,message", [
     ("actor.transport=tcp", "runtime/net.py"),
-    ("actor.inference=central", "central inference"),
+    ("serving.param_stale_s=5", "ServingStalenessPolicy"),
     ("actor.max_workers=4", "grow/retire"),
     ("actor.remote_workers=1", "remote workers"),
     ("actor.mode=fork", "unknown actor.mode"),
@@ -433,8 +433,13 @@ def test_native_json_with_process_keys_loads_and_refuses_central(tmp_path):
     cfg = load_config(str(path))
     assert cfg.actor.mode == "process" and cfg.actor.worker_nice == 5
     assert not cfg.supervisor.enabled and cfg.supervisor.crash_loop_budget == 2
+    # Central inference loads; a central config that names the serving
+    # staleness bound, which the port does not run, is refused by name.
     path.write_text(json.dumps({"actor": {"mode": "process", "inference": "central"}}))
-    with pytest.raises(ValueError, match="central inference"):
+    assert load_config(str(path)).actor.inference == "central"
+    path.write_text(json.dumps({"actor": {"mode": "process", "inference": "central"},
+                                "serving": {"param_stale_s": 5.0}}))
+    with pytest.raises(ValueError, match="ServingStalenessPolicy"):
         load_config(str(path))
 
 
