@@ -6,8 +6,8 @@ sections, plus ``supervisor`` and ``serving``, reference-format
 down to the fields the port runs.  A key the port does not run raises
 rather than loading as a dead setting, so a config written for the JAX
 package's other paths (the tcp transport, the serving router and param
-hub, chaos, checkpoints, data parallel, the host dedup replay and the
-tiered store) fails loudly here instead of running
+hub, chaos, data parallel, the host dedup replay and the tiered store)
+fails loudly here instead of running
 something else; the keys of those paths that the JAX configs use are
 refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -105,6 +105,21 @@ class LearnerConfig:
     loss: str = "huber"                   # "huber" | "squared" (parity)
     max_grad_norm: Optional[float] = 40.0
     publish_every: int = 10               # param-store publish period (steps)
+    # Checkpoints (utils/checkpoint.py): every checkpoint_every learner
+    # steps (0 disables) the train state and the replay go to
+    # checkpoint_dir/step_<N>/.  restore_from (the reference's
+    # load_saved_state): False, True ("my checkpoint_dir") or a path; a
+    # missing checkpoint warns and starts from scratch.
+    checkpoint_every: int = 0
+    checkpoint_dir: str = "checkpoints"
+    restore_from: str | bool = False
+    # The replay leg as the incremental chain of utils/checkpoint_inc
+    # (dirty-span deltas written by a writer thread) instead of an inline
+    # replay.npz; a full base every checkpoint_base_every deltas;
+    # zlib-compressed chunk payloads with checkpoint_compress.
+    checkpoint_incremental: bool = False
+    checkpoint_base_every: int = 16
+    checkpoint_compress: bool = False
     # True: the replay ring lives in device memory and each fused call runs
     # steps_per_call sample/train/restamp steps.  False (the default): the
     # host replay + one train step per sample (the golden path).
@@ -126,7 +141,7 @@ class LearnerConfig:
     # strict sequential PER (one sampler launch per step).
     sample_ahead: bool = False
     # Data-parallel learner over several cards: only 1 is part of the port
-    # (the multi-GPU learner is ROADMAP A10).
+    # (the multi-GPU learner is ROADMAP item 8).
     data_parallel: int = 1
     # Low-precision storage ("bfloat16" | "float32" | None): RMSProp's
     # second moment, the target net, and the network params (bfloat16
@@ -232,7 +247,7 @@ class ApexConfig:
             (v.param_stale_s == 0.0,
              f"serving.param_stale_s={v.param_stale_s}: the serving staleness "
              "policy (runtime/supervisor.ServingStalenessPolicy) is not part "
-             "of the port yet (ROADMAP A6)"),
+             "of the port yet (ROADMAP item 6)"),
             (0 <= v.listen_port <= 65535, "serving.listen_port must be in [0, 65535]"),
             (v.replicas >= 1, "serving.replicas must be >= 1"),
             (v.max_request_bytes >= 1 << 16,
@@ -276,6 +291,9 @@ class ApexConfig:
             (a.emission != "strided" or a.flush_every >= a.num_steps,
              "actor.emission=strided requires flush_every >= num_steps"),
             (l.publish_every >= 1, "learner.publish_every must be >= 1"),
+            (l.checkpoint_every >= 0, "learner.checkpoint_every must be >= 0"),
+            (l.checkpoint_base_every >= 1,
+             "learner.checkpoint_base_every must be >= 1"),
             (l.replay_sample_size >= 1, "learner.replay_sample_size must be >= 1"),
             (l.q_target_sync_freq >= 1, "learner.q_target_sync_freq must be >= 1"),
             (r.capacity >= l.replay_sample_size,
@@ -305,11 +323,11 @@ class ApexConfig:
             (l.data_parallel == 1,
              f"learner.data_parallel={l.data_parallel}: the multi-GPU learner "
              "(parallel/dp.py, replay/device_dp.py, replay/device_dedup_dp.py) "
-             "is not part of the port yet (ROADMAP A10)"),
+             "is not part of the port yet (ROADMAP item 8)"),
             (not r.dedup or l.device_replay,
              "replay.dedup with learner.device_replay=false: the host "
              "DedupReplay (replay/dedup.py, native_dedup.py) is not part of "
-             "the port yet (ROADMAP A7); the device dedup ring is "
+             "the port yet (ROADMAP item 4); the device dedup ring is "
              "(learner.device_replay=true)"),
             (not r.dedup or a.flush_every >= a.num_steps,
              "replay.dedup requires actor.flush_every >= actor.num_steps "
@@ -347,6 +365,7 @@ _REFERENCE_KEY_MAP = {
     ("Learner", "q_target_sync_freq"): ("learner", "q_target_sync_freq", int),
     ("Learner", "min_replay_mem_size"): ("learner", "min_replay_mem_size", int),
     ("Learner", "replay_sample_size"): ("learner", "replay_sample_size", int),
+    ("Learner", "load_saved_state"): ("learner", "restore_from", lambda v: v),
     ("Learner", "remove_old_xp_freq"): (None, None, None),  # no-op (ring evicts)
     ("Replay_Memory", "soft_capacity"): ("replay", "capacity", int),
     ("Replay_Memory", "priority_exponent"): ("replay", "priority_exponent", float),
@@ -356,20 +375,12 @@ _REFERENCE_KEY_MAP = {
 
 def from_reference_json(data: dict) -> ApexConfig:
     """Load a reference-format parameters.json dict.  Unknown keys raise.
-    ``Learner.load_saved_state`` is accepted only when false: checkpoints
-    are not part of the port yet."""
+    ``Learner.load_saved_state`` maps to ``learner.restore_from``."""
     cfg = ApexConfig()
     for section, keys in data.items():
         if not isinstance(keys, dict):
             raise ValueError(f"unknown top-level config entry: {section}")
         for key, value in keys.items():
-            if (section, key) == ("Learner", "load_saved_state"):
-                if value:
-                    raise ValueError(
-                        "Learner.load_saved_state: checkpoint restore is not "
-                        "part of the port yet"
-                    )
-                continue
             mapping = _REFERENCE_KEY_MAP.get((section, key))
             if mapping is None:
                 raise ValueError(f"unknown config key: {section}.{key}")
@@ -379,6 +390,10 @@ def from_reference_json(data: dict) -> ApexConfig:
             setattr(getattr(cfg, attr), field, transform(value))
     return cfg.validate()
 
+
+# Fields typed str | bool: only boolean words coerce, anything else is a
+# path.
+_PATH_OR_BOOL_FIELDS = {"restore_from"}
 
 # Optional-typed fields where a CLI "none" legitimately means None.
 _OPTIONAL_FIELDS = {"state_shape", "action_dim", "max_grad_norm",
@@ -401,6 +416,8 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
             return True
         if low in ("0", "false", "no"):
             return False
+        if field in _PATH_OR_BOOL_FIELDS:
+            return raw   # a path (JAX config.py:1187-1192)
         raise ValueError(f"{field}: expected a boolean, got {raw!r}")
     if isinstance(current, int):
         return int(raw)
@@ -411,18 +428,18 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 
 # Keys of the JAX package's config whose feature the port does not run yet,
 # refused by name (any other unknown key is refused as unknown).
-_TIERED = "the tiered frame store (replay/tiered.py, ROADMAP A7)"
+_TIERED = "the tiered frame store (replay/tiered.py, ROADMAP item 4)"
 _NOT_PORTED = {
-    "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP A6)",
-    "actor.max_workers": "elastic grow/retire of process actors (ROADMAP A6)",
-    "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP A6)",
+    "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP item 6)",
+    "actor.max_workers": "elastic grow/retire of process actors (ROADMAP item 6)",
+    "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP item 6)",
     "replay.hot_frame_budget_bytes": _TIERED,
     "replay.spill_dir": _TIERED,
     "replay.spill_span_frames": _TIERED,
     "replay.spill_watermark_high": _TIERED,
     "replay.spill_watermark_low": _TIERED,
     "replay.service_dedup": "the replay service and its frame dedup "
-                            "(replay/service.py, ROADMAP A7)",
+                            "(replay/service.py, ROADMAP item 4)",
 }
 
 

@@ -12,9 +12,14 @@ flat arrays.  Identity is the slot index — what the learner echoes back
 with new priorities.  One mutex guards mutation and sampling, taken once
 per batch (an actor chunk or a learner batch), not per transition.
 
+Snapshots (``state_dict`` / ``load_state_dict``) and the incremental
+checkpoint protocol (``delta_state_dict`` / ``apply_delta_state_dict``,
+JAX :531-628: the span written since the last mark, the restamped slots
+since then, ``chain_prev`` / ``chain_mark``) keep the JAX replay's keys and
+dtypes (masses float64), so either package loads the other's.
+
 Not ported yet, and refused by name (``NotPortedError``): the tiered frame
-store (``hot_frame_budget_bytes``, ROADMAP A7) and the incremental
-checkpoint protocol (``delta_state_dict`` / ``apply_delta_state_dict``, A9).
+store (``hot_frame_budget_bytes``, ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -97,6 +102,20 @@ class CompressedFrameStore:
             ).reshape(self.shape)
         return out
 
+    def export_blobs_idx(self, idx: np.ndarray) -> tuple:
+        """Deflated slots at arbitrary indices (dirty-span checkpoints)."""
+        blobs = [self._slots[int(k)] for k in idx]
+        lens = np.array([len(b) for b in blobs], np.int64)
+        return np.frombuffer(b"".join(blobs), np.uint8).copy(), lens
+
+    def import_blobs_idx(self, idx: np.ndarray, blob: np.ndarray,
+                         lens: np.ndarray) -> None:
+        raw = blob.tobytes()
+        off = 0
+        for k, n in zip(idx, lens):
+            self._slots[int(k)] = raw[off:off + int(n)]
+            off += int(n)
+
     def export_blobs(self, size: int) -> tuple:
         """(blob uint8 [sum lens], lens int64 [size]) — the deflated slots
         verbatim, so a snapshot never materializes the dense buffer."""
@@ -141,8 +160,8 @@ class PrioritizedReplay:
     ):
         if hot_frame_budget_bytes > 0:
             raise NotPortedError(
-                "the tiered frame store (hot_frame_budget_bytes) is not part "
-                "of the port yet"
+                "the tiered frame store (hot_frame_budget_bytes, ROADMAP item "
+                "4) is not part of the port yet"
             )
         if sum_tree_cls is None:
             from ape_x_dqn_tpu_torch.replay.native import default_sum_tree_cls
@@ -162,6 +181,12 @@ class PrioritizedReplay:
         self._cursor = 0
         self._count = 0  # total transitions ever added
         self._lock = threading.Lock()
+        # Incremental-checkpoint marks: (count, cursor) at the last delta
+        # snapshot, and the restamped index arrays since.  None: the next
+        # delta_state_dict is a full base.
+        self._ckpt = None
+        self._dirty: list = []
+        self._dirty_rows = 0
 
     # -- write path (actors) ---------------------------------------------
 
@@ -261,6 +286,17 @@ class PrioritizedReplay:
             self._tree.set(
                 indices, np.power(np.maximum(priorities, 1e-12), self.alpha)
             )
+            self._track_dirty_locked(indices)
+
+    def _track_dirty_locked(self, indices: np.ndarray) -> None:
+        if self._ckpt is None:
+            return
+        self._dirty.append(np.array(indices, np.int64, copy=True))
+        self._dirty_rows += len(indices)
+        if self._dirty_rows > 4 * self.capacity:
+            # The sparse record would rival a full snapshot: drop it, and
+            # the next delta becomes a base.
+            self._dirty, self._dirty_rows, self._ckpt = [], 0, None
 
     # -- misc ------------------------------------------------------------
 
@@ -318,27 +354,116 @@ class PrioritizedReplay:
         """Snapshot in the JAX replay's layout, so either package loads the
         other's."""
         with self._lock:
-            size = min(self._count, self.capacity)
-            idx = np.arange(size)
+            return self._state_dict_locked()
+
+    def _state_dict_locked(self) -> dict:
+        size = min(self._count, self.capacity)
+        idx = np.arange(size)
+        out = {
+            "action": self._action[:size].copy(),
+            "reward": self._reward[:size].copy(),
+            "discount": self._discount[:size].copy(),
+            "tree_priorities": self._tree.get(idx),
+            "cursor": self._cursor,
+            "count": self._count,
+        }
+        if self._obs.compressed:
+            # The deflated slots verbatim: a compressed buffer never
+            # materializes its dense form to snapshot.
+            out["obs_blob"], out["obs_lens"] = self._obs.export_blobs(size)
+            out["next_obs_blob"], out["next_obs_lens"] = (
+                self._next_obs.export_blobs(size)
+            )
+        else:
+            out["obs"] = self._obs.get(idx)
+            out["next_obs"] = self._next_obs.get(idx)
+        return out
+
+    def delta_state_dict(self, force_base: bool = False) -> dict:
+        """A full base (first call, forced, or a span of a whole ring) or
+        the delta since the previous call: the span written since then and
+        the restamped slots' masses, so the bytes follow the interval, not
+        the capacity.  Resets the mark."""
+        with self._lock:
+            n_new = self._count - (self._ckpt[0] if self._ckpt else 0)
+            if force_base or self._ckpt is None or n_new >= self.capacity:
+                out = self._state_dict_locked()
+                out["chain_mark"] = np.asarray([self._count], np.int64)
+                self._mark_locked()
+                return out
+            prev_count, prev_cursor = self._ckpt
+            span = (prev_cursor + np.arange(n_new)) % self.capacity
+            dirty = self._drain_dirty_locked()
             out = {
-                "action": self._action[:size].copy(),
-                "reward": self._reward[:size].copy(),
-                "discount": self._discount[:size].copy(),
-                "tree_priorities": self._tree.get(idx),
+                "delta": np.asarray(True),
+                "chain_prev": np.asarray([prev_count], np.int64),
+                "chain_mark": np.asarray([self._count], np.int64),
+                "span_idx": span,
+                "span_action": self._action[span].copy(),
+                "span_reward": self._reward[span].copy(),
+                "span_discount": self._discount[span].copy(),
+                "span_tree": self._tree.get(span),
+                "prio_idx": dirty,
+                "prio_mass": self._tree.get(dirty),
                 "cursor": self._cursor,
                 "count": self._count,
             }
             if self._obs.compressed:
-                # The deflated slots verbatim: a compressed buffer never
-                # materializes its dense form to snapshot.
-                out["obs_blob"], out["obs_lens"] = self._obs.export_blobs(size)
-                out["next_obs_blob"], out["next_obs_lens"] = (
-                    self._next_obs.export_blobs(size)
-                )
+                out["span_obs_blob"], out["span_obs_lens"] = (
+                    self._obs.export_blobs_idx(span))
+                out["span_next_obs_blob"], out["span_next_obs_lens"] = (
+                    self._next_obs.export_blobs_idx(span))
             else:
-                out["obs"] = self._obs.get(idx)
-                out["next_obs"] = self._next_obs.get(idx)
+                out["span_obs"] = self._obs.get(span)
+                out["span_next_obs"] = self._next_obs.get(span)
+            self._mark_locked()
             return out
+
+    def _mark_locked(self) -> None:
+        self._ckpt = (self._count, self._cursor)
+        self._dirty, self._dirty_rows = [], 0
+
+    def _drain_dirty_locked(self) -> np.ndarray:
+        if not self._dirty:
+            return np.zeros((0,), np.int64)
+        idx = np.unique(np.concatenate(self._dirty))
+        return idx[(idx >= 0) & (idx < self.capacity)]
+
+    def apply_delta_state_dict(self, delta: dict) -> None:
+        """Apply one delta onto the current counters; a delta that does not
+        continue them raises instead of composing."""
+        with self._lock:
+            if "delta" not in delta:
+                raise ValueError("not a delta snapshot (missing 'delta' key)")
+            prev = int(np.asarray(delta["chain_prev"]).reshape(-1)[0])
+            if prev != self._count:
+                raise ValueError(f"delta chain discontinuity: delta continues count "
+                                 f"{prev}, replay is at {self._count}")
+            span = np.asarray(delta["span_idx"], np.int64)
+            if "span_obs_blob" in delta:
+                if not self._obs.compressed:
+                    raise ValueError("compressed-span delta into a raw frame store — "
+                                     "replay.frame_compression must match across resume")
+                self._obs.import_blobs_idx(span, delta["span_obs_blob"],
+                                           delta["span_obs_lens"])
+                self._next_obs.import_blobs_idx(span, delta["span_next_obs_blob"],
+                                                delta["span_next_obs_lens"])
+            else:
+                if self._obs.compressed:
+                    raise ValueError("raw-span delta into a compressed frame store — "
+                                     "replay.frame_compression must match across resume")
+                self._obs.put(span, delta["span_obs"])
+                self._next_obs.put(span, delta["span_next_obs"])
+            self._action[span] = delta["span_action"]
+            self._reward[span] = delta["span_reward"]
+            self._discount[span] = delta["span_discount"]
+            self._tree.set(span, np.asarray(delta["span_tree"], np.float64))
+            prio_idx = np.asarray(delta["prio_idx"], np.int64)
+            if prio_idx.size:
+                self._tree.set(prio_idx, np.asarray(delta["prio_mass"], np.float64))
+            self._cursor = int(delta["cursor"]) % self.capacity
+            self._count = int(delta["count"])
+            self._mark_locked()
 
     def load_state_dict(self, state: dict) -> None:
         compressed_snap = "obs_blob" in state
@@ -377,11 +502,6 @@ class PrioritizedReplay:
             self._tree.set(np.arange(size), state["tree_priorities"])
             self._cursor = int(state["cursor"]) % self.capacity
             self._count = int(state["count"])
-
-    def delta_state_dict(self, force_base: bool = False) -> dict:
-        raise NotPortedError("incremental replay checkpoints are not part of "
-                             "the port yet")
-
-    def apply_delta_state_dict(self, delta: dict) -> None:
-        raise NotPortedError("incremental replay checkpoints are not part of "
-                             "the port yet")
+            # A full load ends dirty tracking: the next incremental save is
+            # a base unless deltas follow (their apply re-marks).
+            self._ckpt, self._dirty, self._dirty_rows = None, [], 0

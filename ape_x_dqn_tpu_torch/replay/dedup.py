@@ -8,7 +8,7 @@ int64 frame sequence numbers given the consumer's frame counter, and drops
 only the carried rows when a source's stream has a gap.
 
 The host ``DedupReplay`` of that module (and its C++ core) is not part of
-the port yet (ROADMAP A7); the device dedup ring (``device_dedup.py``,
+the port yet (ROADMAP item 4); the device dedup ring (``device_dedup.py``,
 driven by ``runtime/fused_dedup.py``) is.
 """
 
@@ -56,3 +56,13 @@ class CarryResolver:
             for key in oldest[: len(self.sources) // 2]:
                 del self.sources[key]
         return obs_seq, next_seq, keep
+
+    def state_arrays(self):
+        """(source ids int64 [S], records int64 [S, 3]) — the snapshot form
+        (JAX :92-104)."""
+        src = self.sources
+        return (np.array(list(src.keys()), np.int64),
+                np.array([list(v) for v in src.values()], np.int64).reshape(len(src), 3))
+
+    def load_state_arrays(self, ids, rows) -> None:
+        self.sources = {int(s): tuple(int(x) for x in row) for s, row in zip(ids, rows)}

@@ -58,9 +58,22 @@ the pool hands them.  Every emit then carries an ``inference`` section
 and ``register_jsonl_section`` lets a caller (``serve --attach``) add its
 own.
 
+Checkpoints (JAX :420-450, :745-770, :1497-1501, :1595-1606,
+:1633-1725): every ``learner.checkpoint_every`` steps each loop saves the
+train state and the replay (``utils/checkpoint``), the fused loops after
+draining the staged rows into the ring and, in the overlapped loop, after
+``pipeline.sync()`` (graph replays update the state in place, so a call in
+flight would tear the snapshot).  With ``learner.checkpoint_incremental``
+the replay leg is the chain of ``utils/checkpoint_inc`` instead, its
+writer thread built after the restore so that it continues a resumed
+chain, and flushed at exit.  Each save logs the learner-visible stall as
+``ckpt/learner_stall_ms`` and the writer's counters go in a ``ckpt``
+section.  A restored run resumes at the checkpoint's step; the fused
+learner's ring restores once the learner exists.
+
 Observability (the overlapped loop keeps its host syncs and overlap gaps
-itself, without the obs registry), health checks, checkpoints, tracing and
-the chaos stall of the stager are not part of the port yet.
+itself, without the obs registry), health checks, tracing and the chaos
+stall of the stager are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -336,7 +349,7 @@ class AsyncPipeline:
         self._steps_rate = RateCounter(window_s=30.0)
         # Per-stage host wall clock, exported as stage_us in every emit.
         self.timers = StageTimer()
-        self._learner_step = 0
+        self._learner_step = self.comps.learner_step
         self.train_seconds = 0.0  # wall time of the learner loop, after warmup
         # Host path: write-back batching.  Device path: depth > 1 or a sync
         # cadence selects the overlapped loop (JAX :376-386).
@@ -355,6 +368,8 @@ class AsyncPipeline:
         self._fused_inflight = 8 if process else FUSED_INFLIGHT
         if self.cfg.learner.device_replay:
             self.fused = self.comps.make_fused_learner()
+            if self.comps.restored_path is not None:
+                self._restore_ring(self.comps.restored_path)
             sink = self.fused.add_chunk
         else:
             sink = self.comps.replay.add
@@ -385,12 +400,33 @@ class AsyncPipeline:
                 raise
             self.register_jsonl_section("inference", self._inference_section)
         self._publisher = _AsyncPublisher(self.store)
+        # Built after the restore, so that its first save continues a
+        # resumed run's committed chain instead of starting a new base.
+        self._ckpt_inc = None
+        lc = self.cfg.learner
+        if lc.checkpoint_every and lc.checkpoint_incremental:
+            from ape_x_dqn_tpu_torch.utils.checkpoint_inc import IncrementalCheckpointer
+
+            self._ckpt_inc = IncrementalCheckpointer(
+                lc.checkpoint_dir, self.fused if self.fused is not None else self.comps.replay,
+                base_every=lc.checkpoint_base_every, compress=lc.checkpoint_compress)
+            self.register_jsonl_section("ckpt", self._ckpt_inc.stats)
         # Periodic greedy evaluation on the learner thread; 0 disables.
         self._eval_every = int(eval_every)
         self._eval_episodes = int(eval_episodes)
         self._next_eval = self._eval_every
         self._evaluator = None
         self.eval_scores: List[float] = []
+
+    def _restore_ring(self, path: str) -> None:
+        """The second half of a resume: the device ring (and its staged
+        rows) from the checkpoint's replay leg, the npz or the chain."""
+        from ape_x_dqn_tpu_torch.utils.checkpoint import load_replay_leg
+        from ape_x_dqn_tpu_torch.utils.metrics import emit_event
+
+        if load_replay_leg(path, self.fused) is None:
+            emit_event("checkpoint_restore_missing_replay", path=path,
+                       consequence="fused ring resumes empty")
 
     def _init_process_actors(self, sink) -> None:
         """Actors in CPU-only worker processes (``runtime/process_actors``):
@@ -621,23 +657,71 @@ class AsyncPipeline:
                     if self._learner_step % cfg.learner.publish_every == 0:
                         with self.timers.stage("publish"):
                             self._publish(state.params)
+                    if (cfg.learner.checkpoint_every
+                            and self._learner_step % cfg.learner.checkpoint_every == 0):
+                        with self.timers.stage("checkpoint"):
+                            self._save_checkpoint()
                     self._maybe_eval()
                     if self._learner_step % self.log_every == 0:
                         self._emit(metrics)
                 if pending:
                     self._flush_priority_writeback(pending)
             self._finish_publishes()
+            self._finish_checkpoints()
             self.train_seconds = time.monotonic() - t0
         finally:
             self.stop_event.set()
             self.worker.join()
             self._publisher.close()
+            self._close_checkpoints()
             self._close_central()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
         # The final emit carries the last step's metrics (one host read), so
         # the returned record always has learner/loss.
         return self._emit(metrics, final=True)
+
+    # -- checkpoints -------------------------------------------------------
+
+    def _save_checkpoint(self) -> str:
+        """One periodic save (learner thread): the state leg (with the fused
+        learner's sampling generator), and the replay as an npz or, with the
+        incremental chain, a snapshot handed to its writer thread.  A fused
+        learner's staged rows are drained into the ring first, so a restore
+        from this checkpoint loses none of them; the host loop's deferred
+        priority write-backs stay deferred, as in JAX."""
+        from ape_x_dqn_tpu_torch.utils.checkpoint import save_checkpoint
+
+        fused = self.fused
+        if fused is not None:
+            fused.ingest_staged(drain=True)
+            state, replay, generator = fused.state, fused, fused.generator
+        else:
+            state, replay, generator = self.comps.state, self.comps.replay, None
+        t0 = time.perf_counter()
+        if self._ckpt_inc is not None:
+            self._ckpt_inc.save(int(state.step))
+            replay = None
+        path = save_checkpoint(self.cfg.learner.checkpoint_dir, state, replay=replay,
+                               generator=generator)
+        self.logger.log("ckpt/learner_stall_ms", (time.perf_counter() - t0) * 1e3)
+        return path
+
+    def _finish_checkpoints(self) -> None:
+        """Drain the incremental writer on success: an unwritten final delta
+        is replay lost at the next resume.  Re-raises a writer failure."""
+        if self._ckpt_inc is not None and not self._ckpt_inc.flush():
+            raise RuntimeError("incremental checkpoint writer could not drain within "
+                               "its timeout — the final replay delta was never committed")
+
+    def _close_checkpoints(self) -> None:
+        """Exit-path close, best effort: the success path already surfaced
+        writer failures."""
+        if self._ckpt_inc is not None:
+            try:
+                self._ckpt_inc.close(timeout=30.0)
+            except Exception:  # noqa: BLE001 — teardown must not mask the primary error
+                pass
 
     def _flush_priority_writeback(self, pending: list) -> None:
         """Commit the deferred (indices, priorities) in one batched update,
@@ -705,6 +789,7 @@ class AsyncPipeline:
             self._wait_for_warmup(WARMUP_TIMEOUT_S)
             t0 = time.monotonic()
             next_log = self._learner_step + self.log_every
+            next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
                 fused.ingest_staged(drain=self.worker.finished)
                 beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
@@ -722,6 +807,10 @@ class AsyncPipeline:
                 ) < fused.steps_per_call:
                     with self.timers.stage("publish"):
                         self._publish(fused.params_for_publish())
+                if next_ckpt is not None and self._learner_step >= next_ckpt:
+                    with self.timers.stage("checkpoint"):
+                        self._save_checkpoint()
+                    next_ckpt += cfg.learner.checkpoint_every
                 self._maybe_eval()
                 if self._learner_step >= next_log:
                     self._emit(last_metrics)
@@ -729,11 +818,13 @@ class AsyncPipeline:
             while inflight:
                 self._force_fused(inflight.pop(0))
             self._finish_publishes()
+            self._finish_checkpoints()
             self.train_seconds = time.monotonic() - t0
         finally:
             self.stop_event.set()
             self.worker.join()
             self._publisher.close()
+            self._close_checkpoints()
             self._close_central()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
@@ -777,6 +868,7 @@ class AsyncPipeline:
             next_log = self._learner_step + self.log_every
             next_sync = (self._learner_step + self._sync_every
                          if self._sync_every else None)
+            next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
                 if stager.error is not None:
                     raise RuntimeError("ingest stager failed") from stager.error
@@ -813,6 +905,13 @@ class AsyncPipeline:
                 ) < fused.steps_per_call:
                     with self.timers.stage("publish"):
                         self._publish(fused.params_for_publish())
+                if next_ckpt is not None and self._learner_step >= next_ckpt:
+                    # Graph replays update the state in place: every call
+                    # dispatched must have landed before the snapshot.
+                    pipeline.sync()
+                    with self.timers.stage("checkpoint"):
+                        self._save_checkpoint()
+                    next_ckpt += cfg.learner.checkpoint_every
                 self._maybe_eval()
                 if self._learner_step >= next_log:
                     pipeline.sync()  # the emit reads last_metrics on the host
@@ -820,12 +919,14 @@ class AsyncPipeline:
                     next_log += self.log_every
             pipeline.sync()
             self._finish_publishes()
+            self._finish_checkpoints()
             self.train_seconds = time.monotonic() - t0
         finally:
             self.stop_event.set()
             stager.stop()
             self.worker.join()
             self._publisher.close()
+            self._close_checkpoints()
             self._close_central()
         if stager.error is not None and not isinstance(stager.error, Exception):
             raise RuntimeError("ingest stager died") from stager.error
@@ -836,6 +937,10 @@ class AsyncPipeline:
             if not np.all(np.isfinite(loss)):
                 raise FloatingPointError("non-finite loss in fused learner")
         return self._emit(last_metrics, final=True)
+
+    def _next_checkpoint(self) -> Optional[int]:
+        every = self.cfg.learner.checkpoint_every
+        return self._learner_step + every if every else None
 
     def _pipeline_extra(self) -> dict:
         """The JSONL ``pipeline`` section (JAX :1860-1881): host syncs

@@ -11,11 +11,19 @@ live on ``device`` ("cuda" unless the caller asks for the CPU).  The
 low-precision knobs (``learner.param_dtype``, ``second_moment_dtype``,
 ``target_dtype``) are wired here as the JAX package wires them
 (``components.py:233-253``).
+
+``learner.restore_from`` is the resume gate (JAX :314-345, the reference's
+``load_saved_state``): the train state and the host replay restore here,
+in place, from the newest committed checkpoint (``True``: the config's
+``checkpoint_dir``), and ``Components.restored_path`` tells the runtime to
+restore the fused learner's ring once it exists.  A missing checkpoint
+warns and starts from scratch, as the reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -47,6 +55,11 @@ class Components:
     replay: Optional[PrioritizedReplay]   # None in device-replay mode
     env_fns: List[Callable]
     device: torch.device
+    restored_path: Optional[str] = None   # the checkpoint resumed from, if any
+
+    @property
+    def learner_step(self) -> int:
+        return self.state.step
 
     def make_train_step(self):
         """The host path's learner step.  It syncs the target inside the step
@@ -194,6 +207,7 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
             priority_exponent=cfg.replay.priority_exponent,
             frame_compression=cfg.replay.frame_compression,
         )
+    restored_path = _restore(cfg, state, replay)
     env_fns = [
         (lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i))
         for i in range(cfg.actor.num_actors)
@@ -201,5 +215,22 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
     return Components(
         cfg=cfg, obs_shape=obs_shape, num_actions=num_actions,
         network=network, optimizer=optimizer, state=state, replay=replay,
-        env_fns=env_fns, device=device,
+        env_fns=env_fns, device=device, restored_path=restored_path,
     )
+
+
+def _restore(cfg: ApexConfig, state: TrainState, replay) -> Optional[str]:
+    """The resume gate: the path restored from, or None."""
+    if not cfg.learner.restore_from:
+        return None
+    from ape_x_dqn_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    path = (cfg.learner.checkpoint_dir if cfg.learner.restore_from is True
+            else str(cfg.learner.restore_from))
+    try:
+        _, step = restore_checkpoint(path, state, replay=replay)
+    except FileNotFoundError:
+        print(f"WARNING: no checkpoint at {path}; starting from scratch", file=sys.stderr)
+        return None
+    print(f"restored checkpoint at step {step}", file=sys.stderr)
+    return path

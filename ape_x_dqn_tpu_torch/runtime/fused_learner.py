@@ -17,9 +17,16 @@ block through pinned staging on a copy stream (``runtime/infeed.
 HostToDevice``): the learner's stream waits for the copy, the host does not.
 
 Sampling stream: the learner owns a ``torch.Generator`` on the device,
-seeded from the train state's seed with the JAX learner's salt (0x5EED);
+seeded from the train state's seed with the JAX learner's salt (0x5EED),
+or set to the state's ``rng_state`` when a checkpoint restored one;
 ``train(beta, u=...)`` takes the K×B uniforms instead, which is how tests
 feed it JAX's draws.
+
+Snapshots (JAX :319-393): ``state_dict`` copies the ring to host numpy in
+the JAX package's keys and dtypes, with the staged and prepared rows as
+``staged_*``; ``load_state_dict`` copies a snapshot into the existing
+device tensors in place, so the graph runner keeps its captures.  There is
+no delta protocol, as in JAX: ``utils/checkpoint_inc`` writes full bases.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ape_x_dqn_tpu_torch.replay.device import device_replay_add, init_device_rep
 from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
+from ape_x_dqn_tpu_torch.utils.checkpoint import adopt_rng_state
 
 
 class FusedDeviceLearner:
@@ -72,8 +80,7 @@ class FusedDeviceLearner:
                                  sample_ahead=sample_ahead)
         self._call.bind(state, self._replay)   # a card: warm up and capture now
         self._h2d = HostToDevice(self.device)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed((int(state.seed) ^ 0x5EED) & (2**63 - 1))
+        self._generator = sampling_generator(state, self.device)
         self._lock = threading.Lock()
         self._staged: list = []
         self._staged_rows = 0
@@ -117,6 +124,11 @@ class FusedDeviceLearner:
     @property
     def graphed_call(self) -> GraphedCall:
         return self._call
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The sampling stream (saved with the state leg)."""
+        return self._generator
 
     @property
     def supports_ingest_fold(self) -> bool:
@@ -207,7 +219,64 @@ class FusedDeviceLearner:
         return self.train(beta, u)
 
 
+    # ------------------------------------------------------------ snapshots
+
+    def state_dict(self) -> dict:
+        """The ring as host numpy (the replay leg of ``utils/checkpoint``),
+        plus staged rows not yet in the ring as ``staged_*`` arrays:
+        prepared blocks first, in ring order.  The copies wait for the
+        learner's queued work (a full synchronous snapshot)."""
+        r = self._replay
+        # A copy on the CPU too: the snapshot may be written on another
+        # thread while the ring goes on changing.
+        out = {f: getattr(r, f).to("cpu", copy=True).numpy() for f in _RING_FIELDS}
+        out["cursor"] = np.asarray(r.cursor, np.int32)
+        out["count"] = np.asarray(r.count, np.int32)
+        with self._lock:
+            staged = list(self._prepared) + list(self._staged)
+        if staged:
+            cat = _concat_chunks([t for _, t in staged])
+            out["staged_prio"] = np.concatenate([p for p, _ in staged])
+            for f in _FIELDS:
+                out[f"staged_{f}"] = np.asarray(getattr(cat, f))
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the ring from a snapshot of the same capacity and
+        observation shape (a resize is a config error), copying into the
+        existing device tensors.  Staged rows re-enter staging."""
+        want, got = tuple(self._replay.obs.shape), tuple(np.shape(state["obs"]))
+        if want != got:
+            raise ValueError(f"replay snapshot shape {got} != configured ring {want}")
+        if np.shape(state["cursor"]) != ():
+            raise ValueError(f"replay snapshot shard layout {np.shape(state['cursor'])} "
+                             "!= the port's single ring (the sharded ring is ROADMAP "
+                             "item 8)")
+        r = self._replay
+        with torch.no_grad():
+            for f in _RING_FIELDS:
+                getattr(r, f).copy_(torch.from_numpy(np.asarray(state[f])))
+        r.cursor = int(state["cursor"])
+        r.count = int(np.sum(state["count"]))
+        self._size = r.count
+        if "staged_prio" in state and len(state["staged_prio"]):
+            self.add_chunk(state["staged_prio"], NStepTransition(
+                *(np.asarray(state[f"staged_{f}"]) for f in _FIELDS)))
+
+
+def sampling_generator(state: TrainState, device: torch.device) -> torch.Generator:
+    """The fused learners' sampling stream: seeded from ``state.seed`` with
+    the JAX learner's salt, then set to ``state.rng_state`` when a
+    checkpoint restored one."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(state.seed) ^ 0x5EED) & (2**63 - 1))
+    if state.rng_state is not None:
+        adopt_rng_state(gen, state.rng_state)
+    return gen
+
+
 _FIELDS = ("obs", "action", "reward", "discount", "next_obs")
+_RING_FIELDS = ("obs", "next_obs", "action", "reward", "discount", "mass")
 
 
 def _concat_chunks(chunks) -> NStepTransition:

@@ -26,7 +26,7 @@ bytes with the JAX package's).
 
 The experience plane's tcp transport (``NetChannel``, ``NetTransport``,
 ``NetWriter``) and the param-delta helpers are not part of the port yet
-(ROADMAP A6).  Standard library only at module scope (numpy is imported
+(ROADMAP item 6).  Standard library only at module scope (numpy is imported
 inside the codecs that need it): a worker process imports this module
 before anything else.
 """

@@ -11,7 +11,9 @@ once it holds ``min_replay_mem_size`` transitions, ``learner_steps_per_iter``
 learner steps, each one sample on the host → explicit copy of the batch to
 ``device`` → train step → ``update_priorities`` with the host indices and
 the priorities read back to the host; params are published to the fleet
-every ``publish_every`` steps.  Checkpoints are not part of the port yet.
+every ``publish_every`` steps, and every ``learner.checkpoint_every`` steps
+the train state and the replay are saved (JAX :95-115).  A driver built
+with ``learner.restore_from`` resumes at the restored step.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ class SingleProcessDriver:
         self.network = comps.network
         self.state = comps.state
         self.replay = comps.replay
-        self._learner_step = 0
+        self._learner_step = comps.learner_step
         self.train_step = comps.make_train_step()
         self._sample = comps.make_sampler(lambda: self._learner_step)
         self.fleet = comps.make_fleet()
@@ -85,6 +87,11 @@ class SingleProcessDriver:
         )
         if self._learner_step % self.cfg.learner.publish_every == 0:
             self.param_source.publish(self.state.params)
+        every = self.cfg.learner.checkpoint_every
+        if every and self._learner_step % every == 0:
+            from ape_x_dqn_tpu_torch.utils.checkpoint import save_checkpoint
+
+            save_checkpoint(self.cfg.learner.checkpoint_dir, self.state, replay=self.replay)
         return host_batch, metrics
 
     def run_iteration(self) -> IterationResult:

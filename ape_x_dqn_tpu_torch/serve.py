@@ -1,28 +1,34 @@
 """CLI serving mode: ``python -m ape_x_dqn_tpu_torch.serve``.
 
-Port of ``ape_x_dqn_tpu/serve.py`` for its ``--attach`` mode:
+Port of ``ape_x_dqn_tpu/serve.py`` for its ``--attach`` and ``--checkpoint``
+modes:
 
-    python -m ape_x_dqn_tpu_torch.serve --attach [--listen [HOST:]PORT] \\
-        [--run-token T] [--params-file F] [--set section.field=value ...] \\
-        [--duration S] [--clients N] [--steps N] [--metrics-file F] \\
-        [--metrics-every S] [--device cuda|cpu]
+    python -m ape_x_dqn_tpu_torch.serve (--attach | --checkpoint DIR) \\
+        [--listen [HOST:]PORT] [--run-token T] [--params-file F] \\
+        [--set section.field=value ...] [--duration S] [--clients N] \\
+        [--steps N] [--metrics-file F] [--metrics-every S] [--device cuda|cpu]
 
 ``--attach`` runs the async trainer (``runtime/async_pipeline.py``) in a
 thread of this process and serves its live ``ParamStore`` through a
 ``PolicyServer`` on the same device (its forwards on a high-priority stream
-of their own, beside the learner's).  ``--listen`` mounts the socket front
-end (``serving/net_server.py``) and announces the bound port as a
-``serving_listen`` JSONL event (port 0 = ephemeral); the trainer's records
-then carry a ``serving_net`` section.  ``--clients N`` runs N built-in
-closed-loop clients against the server; every ``--metrics-every`` seconds
-a ``serve/`` record is emitted.  ``--device`` defaults to ``cuda`` and a
-missing card raises.
+of their own, beside the learner's).  ``--checkpoint DIR`` serves a trained
+policy from a checkpoint root (``serving/sources.CheckpointParamSource``,
+JAX :285-330): the newest committed step, hot-reloaded whenever a newer
+one commits (polled every ``serving.reload_poll_s``); an empty root exits
+with 2 and ``no checkpoint under DIR``.  The config must describe the
+network the checkpoint was trained with.  ``--listen`` mounts the socket
+front end (``serving/net_server.py``) and announces the bound port as a
+``serving_listen`` JSONL event (port 0 = ephemeral); with ``--attach`` the
+trainer's records then carry a ``serving_net`` section.  ``--clients N``
+runs N built-in closed-loop clients against the server; every
+``--metrics-every`` seconds a ``serve/`` record is emitted.  ``--device``
+defaults to ``cuda`` and a missing card raises.
 
 The other modes and flags of the JAX CLI exist and raise
-``NotPortedError`` by name: ``--checkpoint`` (checkpoints, ROADMAP A9),
-``--param-hub``, ``--param-tail`` and ``--replicas`` (the param hub, the
-param tail and the replica router, ROADMAP A1/A6), ``--obs-port`` (the
-observability exporter, ROADMAP A2).
+``NotPortedError`` by name: ``--param-hub``, ``--param-tail`` and
+``--replicas`` (the param hub, the param tail and the replica router,
+ROADMAP item 1), ``--obs-port`` (the observability exporter, ROADMAP
+item 5).
 """
 
 from __future__ import annotations
@@ -39,12 +45,11 @@ from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
 # Flags of the JAX CLI whose feature the port does not run yet.
 _NOT_PORTED_FLAGS = {
-    "checkpoint": "--checkpoint: serving from a checkpoint dir (checkpoints, ROADMAP A9)",
     "param_hub": "--param-hub: the replica's socket param source (the param hub, "
-                 "ROADMAP A6)",
-    "param_tail": "--param-tail: the APXC param tail (ROADMAP A6)",
-    "replicas": "--replicas: the replica fleet behind the router (ROADMAP A1)",
-    "obs_port": "--obs-port: the /metrics exporter (observability, ROADMAP A2)",
+                 "ROADMAP item 1)",
+    "param_tail": "--param-tail: the APXC param tail (ROADMAP item 1)",
+    "replicas": "--replicas: the replica fleet behind the router (ROADMAP item 1)",
+    "obs_port": "--obs-port: the /metrics exporter (observability, ROADMAP item 5)",
 }
 
 
@@ -58,7 +63,8 @@ def build_argparser() -> argparse.ArgumentParser:
     src.add_argument("--attach", action="store_true",
                      help="run the async trainer in-process and serve its live params")
     src.add_argument("--checkpoint", default=None, metavar="DIR",
-                     help="not part of the port yet")
+                     help="serve the newest checkpoint under DIR, hot-reloading "
+                     "newer ones")
     src.add_argument("--param-hub", default=None, metavar="HOST:PORT:TOKEN:RID:ATTEMPT",
                      help="not part of the port yet")
     src.add_argument("--param-tail", default=None, metavar="DIR",
@@ -134,33 +140,48 @@ def main(argv=None) -> int:
     print("serving config:", to_dict(cfg), file=sys.stderr)
     logger = MetricLogger(stream=sys.stdout, path=args.metrics_file)
 
-    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
     from ape_x_dqn_tpu_torch.serving.net_server import ServingNetServer
     from ape_x_dqn_tpu_torch.serving.server import PolicyServer
 
-    # One process, both halves: the trainer owns the learner's stream, the
-    # server's forwards run on a stream of their own on the same device,
-    # and params flow learner -> store -> server in host memory.
-    pipe = AsyncPipeline(cfg, logger=logger, log_every=10_000, device=args.device)
+    pipe = trainer_thread = None
     trainer_error: list = []
     stop = threading.Event()
+    if args.attach:
+        from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
 
-    def train():
-        try:
-            pipe.run(learner_steps=args.steps)
-        except BaseException as e:  # noqa: BLE001 — surfaced by main
-            if not stop.is_set():     # not the stop this CLI asked for
-                trainer_error.append(e)
+        # One process, both halves: the trainer owns the learner's stream,
+        # the server's forwards run on a stream of their own on the same
+        # device, and params flow learner -> store -> server in host memory.
+        pipe = AsyncPipeline(cfg, logger=logger, log_every=10_000, device=args.device)
+        comps, source = pipe.comps, pipe.store
 
-    trainer_thread = threading.Thread(target=train, name="attached-trainer", daemon=True)
+        def train():
+            try:
+                pipe.run(learner_steps=args.steps)
+            except BaseException as e:  # noqa: BLE001 — surfaced by main
+                if not stop.is_set():     # not the stop this CLI asked for
+                    trainer_error.append(e)
+
+        trainer_thread = threading.Thread(target=train, name="attached-trainer",
+                                          daemon=True)
+    else:
+        from ape_x_dqn_tpu_torch.runtime.components import build_components
+        from ape_x_dqn_tpu_torch.serving.sources import CheckpointParamSource
+
+        comps = build_components(cfg, device=args.device)
+        source = CheckpointParamSource(args.checkpoint, comps.state.params)
+        if source.version < 0:
+            print(f"no checkpoint under {args.checkpoint}", file=sys.stderr)
+            logger.close()
+            return 2
     s = cfg.serving
     server = PolicyServer(
-        pipe.comps.network, param_source=pipe.store,
+        comps.network, param_source=source,
         max_batch=s.max_batch, max_wait_ms=s.max_wait_ms,
         queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
-        device=pipe.comps.device,
+        device=comps.device,
     )
-    server.warmup(pipe.comps.obs_shape)
+    server.warmup(comps.obs_shape)
     server.start()
 
     net_srv = None
@@ -172,15 +193,17 @@ def main(argv=None) -> int:
         ).start()
         server.attach_transport(net_srv.stats)
         logger.event("serving_listen", port=net_srv.port, host=host, mode="replica")
-        # The trainer's records carry the socket plane as their own section.
-        pipe.register_jsonl_section("serving_net", net_srv.stats)
+        if pipe is not None:
+            # The trainer's records carry the socket plane as a section.
+            pipe.register_jsonl_section("serving_net", net_srv.stats)
 
-    trainer_thread.start()
+    if trainer_thread is not None:
+        trainer_thread.start()
     _install_stop_handlers(stop)
     errors: list = []
     clients = [
         threading.Thread(target=_client_loop,
-                         args=(server, pipe.comps.obs_shape, stop, errors, cfg.seed + i),
+                         args=(server, comps.obs_shape, stop, errors, cfg.seed + i),
                          name=f"serve-client-{i}", daemon=True)
         for i in range(args.clients)
     ]
@@ -198,15 +221,16 @@ def main(argv=None) -> int:
                 stop.wait(args.metrics_every)
             extra = {"serving_net": net_srv.stats()} if net_srv else {}
             server.emit_metrics(logger, **extra)
-            if not trainer_thread.is_alive():
+            if trainer_thread is not None and not trainer_thread.is_alive():
                 break
     finally:
         stop.set()
         for c in clients:
             c.join(timeout=5.0)
-        pipe.stop_event.set()
-        if trainer_thread.is_alive():
-            trainer_thread.join(timeout=60.0)
+        if pipe is not None:
+            pipe.stop_event.set()
+            if trainer_thread.is_alive():
+                trainer_thread.join(timeout=60.0)
         if net_srv is not None:
             net_srv.close()
         extra = {"serving_net": net_srv.stats()} if net_srv else {}

@@ -16,10 +16,12 @@ front end and central inference):
   * typed errors: :class:`ServingError`, :class:`ServerOverloaded`,
     :class:`ServerClosed`.
 
-The router and replica fleet, the param hub and tail, and the checkpoint
-source (``router.py``, ``sources.py``) are not part of the port yet.
-``server.py`` imports torch; the other modules import only the standard
-library and numpy, so this package imports ``server`` lazily.
+``sources.CheckpointParamSource`` serves a checkpoint root (``serve
+--checkpoint``).  The router and replica fleet, the param hub and the
+param tail (``router.py``, the rest of ``sources.py``) are not part of the
+port yet (ROADMAP item 1).  ``server.py`` and ``sources.py`` import torch;
+the other modules import only the standard library and numpy, so this
+package imports ``server`` lazily.
 """
 
 from ape_x_dqn_tpu_torch.serving.batcher import (

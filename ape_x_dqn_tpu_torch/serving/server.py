@@ -85,7 +85,7 @@ class PolicyServer:
     ):
         if apply_delay_ms:
             raise NotPortedError("chaos.serving_delay_ms: the chaos injector is "
-                                 "not part of the port yet (ROADMAP A6)")
+                                 "not part of the port yet (ROADMAP item 6)")
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and not torch.cuda.is_available():

@@ -11,7 +11,7 @@ and are cast to the compute dtype inside the network.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -113,6 +113,10 @@ class TrainState:
     keeps a device scalar; here the host owns the count, so the fused loop
     never reads the device to decide a target sync).  ``seed`` roots the
     learner's sampling stream, as the JAX state's PRNG key does.
+    ``rng_state`` is that stream's generator state as a checkpoint restored
+    it (a uint8 CPU tensor; None: fresh from ``seed``): the fused learners
+    adopt it when they are built, so a resumed learner draws the uniforms
+    the uninterrupted one would have drawn.
     """
 
     params: Dict[str, torch.Tensor]
@@ -120,3 +124,4 @@ class TrainState:
     opt_state: Dict[str, Any]
     step: int
     seed: int
+    rng_state: Optional[torch.Tensor] = None

@@ -8,7 +8,10 @@ JAX :107-405, same bucket layout, so stats dicts merge across the two
 packages) and ``MetricLogger`` (``log`` accumulates scalars, ``emit``
 writes one record of their mean/min/max/count plus extra fields, ``event``
 one out-of-band record, each stamped with a per-process ``seq`` and the
-``pid``, to a stream and optionally to a file, appended).
+``pid``, to a stream and optionally to a file, appended), and the
+loggerless ``emit_event`` (JAX :407-423) for code with no logger in scope:
+the checkpoint restore paths' ``checkpoint_restore_missing_replay`` and
+``degraded_restore``.
 """
 
 from __future__ import annotations
@@ -238,6 +241,25 @@ def merge_counter_maps(a: dict, b: dict) -> dict:
         elif k not in out:
             out[k] = v
     return out
+
+
+_EVENT_SEQ = itertools.count(1)
+
+
+def emit_event(event: str, stream: Optional[IO] = None, **fields) -> dict:
+    """One structured ``{"event": ..., ...}`` JSONL line to ``stream``
+    (stderr by default: stdout carries the run's metric records), stamped
+    with a per-process ``seq`` and the ``pid``.  Returns the record."""
+    record = {"event": event, **fields}
+    record.setdefault("seq", next(_EVENT_SEQ))
+    record.setdefault("pid", os.getpid())
+    out = stream if stream is not None else sys.stderr
+    try:
+        out.write(json.dumps(record) + "\n")
+        out.flush()
+    except ValueError:  # a closed stream
+        pass
+    return record
 
 
 class TransportStats:

@@ -22,10 +22,13 @@ CPU tensors or Python scalars; they flatten in ``jax.tree_util``'s order
 dtype ``"bfloat16"`` (a torch tensor is viewed as int16, never cast), and a
 0-d leaf stays 0-d.
 
-Two restore modes:
+Restore modes:
   * ``tree_from_bytes(data)`` — nested dicts/lists of numpy arrays
     rebuilt from the paths; a bfloat16 leaf comes back as a CPU
     ``torch.bfloat16`` tensor (numpy has no bfloat16 dtype of its own);
+  * ``tree_from_file(path, subtree=None)`` — the same from a file, reading
+    only the leaves under the top-level key ``subtree`` when one is named
+    (the serving tier loads a checkpoint's params, not its optimizer);
   * ``restore_like(template, data)`` — the template's structure, each leaf
     of the template's kind (tensor or array), after checking every leaf's
     path, dtype and shape against the manifest.
@@ -164,6 +167,38 @@ def tree_from_bytes(data) -> Any:
         get(node, key)
         node[key] = arr
     return root
+
+
+def tree_from_file(path: str, subtree: str | None = None) -> Any:
+    """``tree_from_bytes`` of an APXT file.  With ``subtree``, only the
+    leaves under that top-level dict key are read (the rest are skipped
+    with a seek) and the subtree itself is returned."""
+    with open(path, "rb") as f:
+        prefix = f.read(_PREFIX.size)
+        magic, version, header_len = _PREFIX.unpack(prefix)
+        if magic != _MAGIC:
+            raise ValueError(f"{path}: not an APXT snapshot (bad magic)")
+        if version != _VERSION:
+            raise ValueError(f"{path}: unsupported snapshot format version {version}")
+        leaves = json.loads(f.read(header_len))["leaves"]
+        if subtree is None:
+            return tree_from_bytes(prefix + json.dumps({"leaves": leaves}).encode()
+                                   + f.read())
+        keep, bufs = [], []
+        off = f.tell()
+        for entry in leaves:
+            dt = np.dtype(np.uint16 if entry["dtype"] == "bfloat16" else entry["dtype"])
+            n = int(np.prod(entry["shape"], dtype=np.int64)) * dt.itemsize
+            if entry["path"][:1] == [{"k": subtree}]:
+                f.seek(off)
+                bufs.append(f.read(n))
+                keep.append({**entry, "path": entry["path"][1:]})
+            off += n
+    if not keep:
+        raise KeyError(f"{path}: no subtree {subtree!r}")
+    header = json.dumps({"leaves": keep}).encode()
+    return tree_from_bytes(b"".join([_PREFIX.pack(_MAGIC, _VERSION, len(header)),
+                                     header, *bufs]))
 
 
 def restore_like(template: Any, data) -> Any:

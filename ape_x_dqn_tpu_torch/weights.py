@@ -1,4 +1,4 @@
-"""Carry network weights between the JAX package's flax params and the port.
+"""Carry network weights and train states between the JAX package and the port.
 
 ``params_from_jax(network, flax_params)`` returns a ``state_dict``-layout
 dict of tensors for the port's ``network``, each leaf in its own dtype
@@ -13,16 +13,27 @@ arrays on the flax side, so this module imports no JAX.  Conversions:
   * the first Dense after the conv torso's flatten also has its input rows
     permuted: flax flattens NHWC as (h, w, c) (``models/dueling.py:94`` of
     the JAX package), the port flattens NCHW as (c, h, w).
+
+``train_state_from_jax`` / ``train_state_to_jax`` carry a whole train
+state the same way: params, target, the optax chain's moments (found by
+their ``nu`` / ``mu`` / ``count`` fields in its nested state tuples, and
+the float32 master copy that ``with_float32_master`` keeps first) as the
+port's ``{"master", "nu", "mu", "count"}`` optimizer dict, and ``step``.
+JAX's threefry PRNG key cannot become a ``torch.Generator``: a state
+carried into the port reseeds its sampling stream from ``seed``, and one
+carried back keeps its template's key.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.models.dueling import DuelingDQN, DuelingMLP
+from ape_x_dqn_tpu_torch.types import TrainState
 
 
 def _layer_map(network) -> List[Tuple[str, str, str]]:
@@ -91,3 +102,92 @@ def params_to_jax(network, params: Dict[str, torch.Tensor]) -> dict:
             kernel = w.T
         tree[fname] = {"kernel": np.ascontiguousarray(kernel), "bias": bias.copy()}
     return {"params": tree}
+
+
+def _moments(opt_state):
+    """The optax state node that holds the second moment (``nu``: RMSProp's
+    or Adam's state), searched depth first through the chain's tuples."""
+    if hasattr(opt_state, "_fields"):
+        if "nu" in opt_state._fields:
+            return opt_state
+        children = tuple(opt_state)
+    elif isinstance(opt_state, (tuple, list)):
+        children = opt_state
+    else:
+        return None
+    for child in children:
+        found = _moments(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(network, optimizer, jax_state, seed: int = 0) -> TrainState:
+    """A JAX ``TrainState`` (numpy or jax leaves) → the port's, on the CPU,
+    every leaf in its own dtype.  ``optimizer`` is the port's (its
+    ``float32_master`` and ``kind`` say what the optax state holds); the
+    sampling stream reseeds from ``seed``."""
+    opt = jax_state.opt_state
+    out = {}
+    if optimizer.float32_master:
+        master, opt = opt            # with_float32_master: (master, inner)
+        out["master"] = params_from_jax(network, master)
+    moments = _moments(opt)
+    if moments is None:
+        raise ValueError("no second-moment state (nu) in the JAX optimizer state")
+    out["nu"] = params_from_jax(network, moments.nu)
+    if optimizer.kind == "adam":
+        out["mu"] = params_from_jax(network, moments.mu)
+        out["count"] = torch.tensor(int(np.asarray(moments.count)), dtype=torch.int32)
+    return TrainState(params=params_from_jax(network, jax_state.params),
+                      target_params=params_from_jax(network, jax_state.target_params),
+                      opt_state=out, step=int(np.asarray(jax_state.step)), seed=int(seed))
+
+
+def _flax_like(network, params, like) -> dict:
+    """``params_to_jax`` with every leaf cast to the dtype of ``like``'s
+    (a bf16 value survives the float32 round trip exactly)."""
+    tree = params_to_jax(network, params)
+    want = like["params"] if "params" in like else like
+
+    def cast(node, ref):
+        if isinstance(node, dict):
+            return {k: cast(v, ref[k]) for k, v in node.items()}
+        return node.astype(np.asarray(ref).dtype)
+
+    out = cast(tree["params"], want)
+    return {"params": out} if "params" in like else out
+
+
+def train_state_to_jax(network, state: TrainState, template):
+    """The port's ``TrainState`` → a JAX ``TrainState`` of numpy leaves, in
+    the structure and dtypes of ``template`` (an initialised JAX state of
+    the same network and optimizer), whose PRNG key it keeps."""
+    opt = state.opt_state
+
+    def moments(node):
+        if hasattr(node, "_fields"):
+            if "nu" in node._fields:
+                fields = {"nu": _flax_like(network, opt["nu"], node.nu)}
+                if "mu" in node._fields:
+                    fields["mu"] = _flax_like(network, opt["mu"], node.mu)
+                    fields["count"] = np.asarray(int(opt["count"]),
+                                                 np.asarray(node.count).dtype)
+                return node._replace(**fields)
+            return node._replace(**{f: moments(getattr(node, f)) for f in node._fields})
+        if isinstance(node, (tuple, list)):
+            return type(node)(moments(c) for c in node)
+        return node
+
+    if "master" in opt:
+        master, inner = template.opt_state
+        new_opt = (_flax_like(network, opt["master"], master), moments(inner))
+    else:
+        new_opt = moments(template.opt_state)
+    return dataclasses.replace(
+        template,
+        params=_flax_like(network, state.params, template.params),
+        target_params=_flax_like(network, state.target_params, template.target_params),
+        opt_state=new_opt,
+        step=np.asarray(int(state.step), np.asarray(template.step).dtype),
+    )

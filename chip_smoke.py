@@ -125,11 +125,40 @@ Phases, each printing one JSON line:
                 thread while 4 closed-loop clients act through the server
                 and it hot-reloads the learner's publishes: QPS, latency
                 p50/p99, reloads, 0 client errors;
- 19. kernels  — one JSON object per ported kernel with its launches on this
+ 19. ckpt_parity — resume in a fresh process equals the uninterrupted
+                learner: full-width fused learners (float32, TF32 off,
+                cuDNN's deterministic algorithms, sample-ahead K = 64,
+                B = 32) on the double-store ring at 4 096 and 100 000 slots
+                and the dedup ring at 4 096 run two calls and save (the npz
+                leg; for the dedup ring an APXC base and one delta, written
+                off the learner thread), a chunk still staged; call 3 is the
+                reference.  A spawned ``chip_smoke.py --ckpt-child`` builds
+                fresh learners, restores them in place and runs call 3:
+                sampled indices, params, ν, target, masses and counters
+                bit-identical, no recapture after the restore, one sampler
+                launch per resumed call;
+ 20. ckpt_train — ``train.main`` with config3's learner on a ring cut to
+                262 144 slots, 8 thread actors, incremental checkpoints
+                every 2048 steps, as a child process SIGKILLed after its
+                second committed manifest; then ``train.main`` with
+                ``learner.restore_from=true`` and the overlapped pipeline:
+                it resumes at the committed step with the ring's counts at
+                the chain's mark, trains one more call (one sampler launch)
+                and its save continues the chain; no /dev/shm segment left.
+                The stall of each save, the bytes of each chunk, the
+                restore's seconds;
+ 21. serve_checkpoint — ``serve.main(["--checkpoint", ckpt_train's dir,
+                "--listen", "0", "--clients", "4", ...])``: a newer step
+                committed mid-run is reloaded and served (its version in
+                the replies, a probe's q within 1e-4 of the CPU forward of
+                its params, the served network in float32), 0 client
+                errors; QPS and latency p50/p99;
+ 22. kernels  — one JSON object per ported kernel with its launches on this
                 slice's main path (central_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
-Every device-replay phase (4, 5, 9, 11–14, 16–18) runs each fused call as
-CUDA-graph replays, the port's only device path.
+Every device-replay phase (4, 5, 9, 11–14, 16–21) runs each fused call as
+CUDA-graph replays, the port's only device path.  Checkpoints go under the
+checkout's ``build/ckpt_smoke/`` and are removed at the end.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -1458,7 +1487,521 @@ def phase_serve_attach(sampling, card: str, duration: float = 20.0):
     return result
 
 
+# -- checkpoints ------------------------------------------------------------------
+
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt_smoke")
+# ckpt_parity: (layout, ring slots); sample-ahead calls of CKPT_K steps.
+CKPT_CASES = (("double", 4096), ("double", 100_000), ("dedup", 4096))
+CKPT_K = 64
+# ckpt_train: config3's learner on a ring cut to this many slots.
+CKPT_SLOTS = 262_144
+CKPT_WARMUP = 4096
+
+
+@contextlib.contextmanager
+def float32_math():
+    """float32 math, TF32 off, cuDNN's deterministic algorithms."""
+    import torch
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def _ckpt_learner(layout: str, C: int):
+    """A full-width fused learner (float32 compute, RMSProp, sample-ahead
+    K = CKPT_K, B = 32) on the card, from the seed."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.learner.train_step import init_train_state, make_optimizer
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+    from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = build_network("conv", 3, (84, 84, 1), compute_dtype=torch.float32)
+    opt = make_optimizer("rmsprop")
+    state = init_train_state(net, opt, seed=SEED, device="cuda")
+    kw = dict(capacity=C, batch_size=32, steps_per_call=CKPT_K, ingest_block=1024,
+              target_sync_freq=CKPT_K, sample_ahead=True, device="cuda")
+    if layout == "dedup":
+        return FusedDedupLearner(net, opt, state, (84, 84, 1), frame_ratio=1.25, **kw)
+    return FusedDeviceLearner(net, opt, state, (84, 84, 1), **kw)
+
+
+def _ckpt_feed(learner, layout: str, k: int, rows: int = 2000, ingest: bool = True):
+    """Chunk ``k`` of a seeded stream (integer priorities 1..4); dedup
+    chunks carry refs into the previous chunk from the second on."""
+    from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
+
+    r = np.random.default_rng(SEED + 1000 + k)
+    prio = r.integers(1, 5, rows).astype(np.float32)
+    cols = dict(action=r.integers(0, 3, rows).astype(np.int32),
+                reward=r.normal(size=rows).astype(np.float32),
+                discount=np.full(rows, 0.97, np.float32))
+    if layout == "dedup":
+        obs_ref = np.arange(rows, dtype=np.int32)
+        if k:
+            obs_ref[:2] = [-2, -1]
+        learner.add_chunk(prio, DedupChunk(
+            frames=r.integers(0, 256, (rows + 1, 84, 84, 1), dtype=np.uint8),
+            obs_ref=obs_ref, next_ref=np.arange(1, rows + 1, dtype=np.int32),
+            source=1, chunk_seq=k, prev_frames=rows + 1, **cols))
+    else:
+        learner.add_chunk(prio, NStepTransition(
+            obs=r.integers(0, 256, (rows, 84, 84, 1), dtype=np.uint8),
+            next_obs=r.integers(0, 256, (rows, 84, 84, 1), dtype=np.uint8), **cols))
+    if ingest:
+        learner.ingest_staged(drain=layout == "dedup")
+
+
+def _ckpt_record(learner, sampling) -> dict:
+    """Call 3 (staged rows drained first) and what it left, on the host."""
+    import torch
+
+    learner.ingest_staged(drain=True)
+    before = sampling.sample_indices.launches
+    learner.train(0.4)
+    torch.cuda.synchronize()
+    st, ring = learner.state, learner.replay
+    tensors = {f"params.{k}": v for k, v in st.params.items()}
+    tensors.update({f"target.{k}": v for k, v in st.target_params.items()})
+    tensors.update({f"nu.{k}": v for k, v in st.opt_state["nu"].items()})
+    tensors["ring.mass"] = ring.mass
+    return {"indices": learner.graphed_call.body.sampled_indices().cpu(),
+            "tensors": {k: v.detach().cpu() for k, v in tensors.items()},
+            "counters": [learner.step, learner.size, ring.cursor, ring.count,
+                         getattr(ring, "fcount", 0)],
+            "launches": sampling.sample_indices.launches - before,
+            "captures": learner.graphed_call.captures}
+
+
+def ckpt_child(root: str) -> int:
+    """``chip_smoke.py --ckpt-child ROOT``: a fresh process (no tensor and
+    no graph of the parent) builds each case's learner, restores it in
+    place from ``ROOT/<case>`` and runs call 3; the records go to
+    ``ROOT/child.pt``."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.ops import sampling
+    from ape_x_dqn_tpu_torch.utils.checkpoint import load_replay_leg, restore_checkpoint
+
+    out = {}
+    with float32_math():
+        for layout, C in CKPT_CASES:
+            case = os.path.join(root, f"{layout}_{C}")
+            learner = _ckpt_learner(layout, C)
+            captured = learner.graphed_call.captures
+            t0 = time.perf_counter()
+            restore_checkpoint(case, learner.state, generator=learner.generator)
+            leg = load_replay_leg(case, learner)
+            torch.cuda.synchronize()
+            rec = _ckpt_record(learner, sampling)
+            rec.update(leg=leg, captured_at_build=captured,
+                       restore_s=time.perf_counter() - t0)
+            out[f"{layout}_{C}"] = rec
+            del learner
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(root, "child.pt"))
+    return 0
+
+
+def phase_ckpt_parity(sampling):
+    """Resume in a fresh process equals the uninterrupted learner, bit for
+    bit: two fused calls, a save (the npz leg for the double-store ring;
+    an APXC base after call 1 and a delta after call 2 for the dedup ring,
+    with a chunk still staged), call 3 as the reference; then a spawned
+    ``chip_smoke.py --ckpt-child`` restores and runs call 3."""
+    import shutil
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.utils.checkpoint import save_checkpoint
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import IncrementalCheckpointer
+
+    t0 = time.monotonic()
+    root = os.path.join(CKPT_ROOT, "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    refs, saves = {}, {}
+    with float32_math():
+        for layout, C in CKPT_CASES:
+            name = f"{layout}_{C}"
+            case = os.path.join(root, name)
+            a = _ckpt_learner(layout, C)
+            ck = IncrementalCheckpointer(case, a) if layout == "dedup" else None
+            launches = sampling.sample_indices.launches
+            _ckpt_feed(a, layout, 0)
+            a.train(0.4)
+            stalls = []
+            if ck is not None:
+                s0 = time.perf_counter()
+                if not ck.save(a.step):
+                    raise AssertionError("ckpt_parity: the base save was refused")
+                stalls.append((time.perf_counter() - s0) * 1e3)
+                ck.flush(600.0)
+            _ckpt_feed(a, layout, 1)
+            a.train(0.4)
+            _ckpt_feed(a, layout, 2, rows=600, ingest=False)   # rides the save staged
+            s0 = time.perf_counter()
+            if ck is not None:
+                if not ck.save(a.step):
+                    raise AssertionError("ckpt_parity: the delta save was refused")
+                save_checkpoint(case, a.state, generator=a.generator)
+            else:
+                save_checkpoint(case, a.state, replay=a, generator=a.generator)
+            stalls.append((time.perf_counter() - s0) * 1e3)
+            if ck is not None:
+                ck.close()
+                if ck.stats()["deltas"] != 1 or ck.stats()["bases"] != 1:
+                    raise AssertionError(f"ckpt_parity: chain {ck.stats()}")
+            refs[name] = _ckpt_record(a, sampling)
+            refs[name]["parent_launches"] = sampling.sample_indices.launches - launches
+            sizes = {f: os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(case)
+                     for f in fs}
+            saves[name] = {"stall_ms": stalls, "files": sizes}
+            del a, ck
+            gc.collect()
+            torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--ckpt-child", root],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"ckpt_parity child failed ({res.returncode}): "
+                             f"{res.stderr[-3000:]}")
+    child = torch.load(os.path.join(root, "child.pt"))
+    cases, child_launches = [], 0
+    for name, ref in refs.items():
+        got = child[name]
+        diff = {k: float((t.double() - got["tensors"][k].double()).abs().max())
+                for k, t in ref["tensors"].items() if not torch.equal(t, got["tensors"][k])}
+        case = {"case": name, "leg": got["leg"], "counters": got["counters"],
+                "index_mismatches": int((ref["indices"] != got["indices"]).sum()),
+                "unequal_tensors": diff, "child_captures": got["captures"],
+                "child_launches": got["launches"], "parent_launches": ref["parent_launches"],
+                "restore_s": got["restore_s"], "saves": saves[name]}
+        cases.append(case)
+        want_leg = "incremental" if name.startswith("dedup") else "snapshot"
+        if case["index_mismatches"] or diff or got["counters"] != ref["counters"] \
+                or got["captures"] != 1 or got["captured_at_build"] != 1 \
+                or got["launches"] != 1 or ref["parent_launches"] != 3 \
+                or got["leg"] != want_leg:
+            emit({"phase": "ckpt_parity", "failed_case": case,
+                  "reference_counters": ref["counters"]})
+            raise AssertionError(f"ckpt_parity {name}: the resumed call differs from the "
+                                 "uninterrupted one")
+        child_launches += got["launches"]
+    shutil.rmtree(root, ignore_errors=True)
+    result = {"phase": "ckpt_parity", "K": CKPT_K, "B": 32, "cases": cases,
+              "math": "float32, TF32 off, cudnn.deterministic",
+              "checks": "indices, params, nu, target, mass, step/size/cursor/count/fcount "
+                        "bit-identical; 1 capture in the child (none after the restore); "
+                        "1 sampler launch per resumed call",
+              "sampler_launches": child_launches, "child_s": time.monotonic() - t1,
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
+def _jsonl(path: str) -> list:
+    """The records of a JSONL file; a line cut by a kill is skipped."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def _shm_segments() -> set:
+    return {n for n in os.listdir("/dev/shm") if n.startswith("apx")}
+
+
+@contextlib.contextmanager
+def observe_resume():
+    """Time the resume's two halves (the state leg in ``build_components``,
+    the ring once the fused learner exists) and record the learner's
+    counters when ``run`` starts, before it trains."""
+    from ape_x_dqn_tpu_torch.runtime import components
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+
+    seen = {"restore_s": 0.0}
+    restore, ring, run = components._restore, AsyncPipeline._restore_ring, AsyncPipeline.run
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen["restore_s"] += time.perf_counter() - t0
+        return wrapper
+
+    def observed(self, *args, **kwargs):
+        f = self.fused
+        seen.update(pipe=self, step=self.learner_step, size=f.size,
+                    shipped=f.stager.shipped_f, fcount=f.replay.fcount)
+        return run(self, *args, **kwargs)
+
+    components._restore, AsyncPipeline._restore_ring = timed(restore), timed(ring)
+    AsyncPipeline.run = observed
+    try:
+        yield seen
+    finally:
+        components._restore, AsyncPipeline._restore_ring = restore, ring
+        AsyncPipeline.run = run
+
+
+def _ckpt_train_argv(root: str, steps: int, overlap: bool) -> list:
+    K = DEDUP_K
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
+            "--set", "network=conv", "--set", "env.name=catch:84", "--set", f"seed={SEED}",
+            "--set", f"replay.capacity={CKPT_SLOTS}", "--set", "replay.dedup=true",
+            "--set", "replay.frame_ratio=1.25",
+            "--set", "learner.device_replay=true", "--set", "learner.sample_ahead=true",
+            "--set", f"learner.steps_per_call={K}", "--set", f"learner.ingest_block={K}",
+            "--set", "learner.second_moment_dtype=bfloat16",
+            "--set", "learner.target_dtype=bfloat16",
+            "--set", "learner.q_target_sync_freq=2500", "--set", "learner.publish_every=2500",
+            "--set", f"learner.min_replay_mem_size={CKPT_WARMUP}",
+            "--set", "actor.mode=thread", "--set", "actor.num_actors=8",
+            "--set", "actor.flush_every=16", "--set", "actor.T=1000000",
+            "--set", f"learner.checkpoint_every={K}", "--set", f"learner.checkpoint_dir={root}",
+            "--set", "learner.checkpoint_incremental=true"]
+    if overlap:
+        argv += ["--set", "learner.pipeline_depth=2", "--set", f"learner.sync_every={K}"]
+    return argv
+
+
+def phase_ckpt_train(sampling, card: str):
+    """``train.main`` with config3's learner (ring cut to CKPT_SLOTS, thread
+    actors) and incremental checkpoints every K steps, as a child process
+    SIGKILLed after its second committed manifest; then ``train.main`` again
+    with ``restore_from=true`` and the overlapped pipeline: it resumes at
+    the committed step with the chain's counts and trains one more call,
+    whose save continues the chain."""
+    import shutil
+    import signal
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.utils.checkpoint import latest_step
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import inc_dir, read_manifest
+
+    t0 = time.monotonic()
+    K = DEDUP_K
+    root = os.path.join(CKPT_ROOT, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shm_before = _shm_segments()
+    metrics = os.path.join(root, "killed.jsonl")
+    stderr = open(os.path.join(root, "killed.stderr"), "w")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "ape_x_dqn_tpu_torch.train", "--metrics-file", metrics,
+         *_ckpt_train_argv(root, 200 * K, overlap=False)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=stderr)
+    try:
+        deadline = time.monotonic() + 400
+        while True:
+            m = read_manifest(inc_dir(root))
+            if m is not None and len(m["chunks"]) >= 2:
+                break
+            if child.poll() is not None:
+                with open(os.path.join(root, "killed.stderr")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"ckpt_train: the trainer exited ({child.returncode}) "
+                                     f"before two commits: {tail}")
+            if time.monotonic() > deadline:
+                raise AssertionError("ckpt_train: no second committed manifest in 400 s")
+            time.sleep(0.05)
+    finally:
+        child.send_signal(signal.SIGKILL)
+        child.wait(60)
+        stderr.close()
+    killed_s = time.monotonic() - t0
+    manifest = read_manifest(inc_dir(root))
+    committed = latest_step(root)
+    # Each record after a save holds its stall; the first accepted save is
+    # the base (no manifest yet), the later ones deltas or refused (the
+    # writer still busy: ``inflight_skips``).
+    saves = [{"step": r["step"], "stall_ms": r["ckpt/learner_stall_ms"],
+              "saves": r["ckpt"]["saves"], "inflight_skips": r["ckpt"]["inflight_skips"]}
+             for r in _jsonl(metrics) if "ckpt/learner_stall_ms" in r]
+    chunk_bytes = {n: os.path.getsize(os.path.join(inc_dir(root), n))
+                   for n in manifest["chunks"]}
+    # The resume: the overlapped pipeline this time.
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampling.sample_indices.launches = 0
+    resumed_metrics = os.path.join(root, "resumed.jsonl")
+    with observe_resume() as seen:
+        final, wall = run_train(_ckpt_train_argv(root, committed + K, overlap=True)
+                                + ["--set", "learner.restore_from=true",
+                                   "--metrics-file", resumed_metrics])
+    resumed_stall = [r["ckpt/learner_stall_ms"] for r in _jsonl(resumed_metrics)
+                     if "ckpt/learner_stall_ms" in r]
+    launches = sampling.sample_indices.launches
+    pipe = seen["pipe"]
+    fused = pipe.fused
+    mark = manifest["chain_mark"]
+    after = read_manifest(inc_dir(root))
+    Q = fused.replay.seq_modulus
+    if seen["step"] != committed or seen["size"] != min(mark[0], CKPT_SLOTS) \
+            or seen["shipped"] != mark[1] or seen["fcount"] != mark[1] % Q:
+        raise AssertionError(f"ckpt_train: resumed at step {seen['step']} (committed "
+                             f"{committed}), ring size {seen['size']}, frames shipped "
+                             f"{seen['shipped']} (fcount {seen['fcount']}); chain mark {mark}")
+    if final["step"] != committed + K or launches != 1:
+        raise AssertionError(f"ckpt_train: resumed run ended at {final['step']} with "
+                             f"{launches} sampler launches, want {committed + K} and 1")
+    if after["generation"] != manifest["generation"] or \
+            len(after["chunks"]) != len(manifest["chunks"]) + 1 or latest_step(root) != final["step"]:
+        raise AssertionError(f"ckpt_train: the resumed save did not continue the chain: "
+                             f"{manifest} -> {after}, latest step {latest_step(root)}")
+    leftover = _shm_segments() - shm_before
+    if leftover:
+        raise AssertionError(f"ckpt_train: segments left in /dev/shm: {sorted(leftover)}")
+    result = {
+        "phase": "ckpt_train", "card": card, "capacity": CKPT_SLOTS,
+        "frame_capacity": fused.replay.frame_capacity, "K": K,
+        "killed_after_s": killed_s, "committed_step": committed,
+        "chain": {"generation": manifest["generation"], "chunks": manifest["chunks"],
+                  "chain_mark": mark, "chunk_bytes": chunk_bytes},
+        "saves_before_kill": saves,
+        "resumed": {"step": seen["step"], "ring_size": seen["size"],
+                    "frames_shipped": seen["shipped"], "restore_s": seen["restore_s"],
+                    "final_step": final["step"], "sampler_launches": launches,
+                    "save_stall_ms": resumed_stall,
+                    "ckpt": final.get("ckpt"), "pipeline": final.get("pipeline"),
+                    "delta_bytes": os.path.getsize(os.path.join(inc_dir(root),
+                                                                after["chunks"][-1])),
+                    "wall_s": wall, "loss": final["learner/loss"]},
+        "cuts": {"capacity": f"{CKPT_SLOTS} for 2000000 (a base of the 2M ring is 17.64 GB "
+                             "on disk: profile_checkpoint measures that)",
+                 "actors": "8 thread actors for 256", "env": "catch:84 for Seaquest",
+                 "min_replay_mem_size": f"{CKPT_WARMUP} for 50000"},
+        "sampler_launches": launches, "seconds": time.monotonic() - t0,
+    }
+    state = pipe.comps.state
+    del seen, pipe, fused
+    emit(result)
+    return result, root, state
+
+
+def phase_serve_checkpoint(card: str, root: str, state, duration: float = 20.0):
+    """``serve.main(["--checkpoint", root, "--listen", "0", "--clients", "4",
+    ...])`` on the card over ``ckpt_train``'s directory; mid-run a newer step
+    commits (``save_checkpoint``): the server reloads it, the replies carry
+    its version, and a probe's q equals the CPU forward of that step's
+    params within 1e-4 of the largest |q| (the served network computes in
+    float32 here, TF32 off, as in ``serve_parity``); 0 client errors."""
+    import torch
+
+    from ape_x_dqn_tpu_torch import serve
+    from ape_x_dqn_tpu_torch.config import load_config
+    from ape_x_dqn_tpu_torch.runtime import components
+    from ape_x_dqn_tpu_torch.serving.net_server import ServingClient
+    from ape_x_dqn_tpu_torch.types import TrainState
+    from ape_x_dqn_tpu_torch.utils.checkpoint import latest_step, save_checkpoint
+
+    t0 = time.monotonic()
+    argv = ["--checkpoint", root, "--listen", "0", "--clients", "4",
+            "--duration", str(duration), "--metrics-every", "5", "--device", "cuda",
+            "--set", "serving.reload_poll_s=0.25", "--set", "network=conv",
+            "--set", "env.name=catch:84", "--set", f"seed={SEED}"]
+    seeded = components.seeded_network
+
+    def float32_network(*args, **kwargs):
+        net = seeded(*args, **kwargs)
+        net.compute_dtype = torch.float32
+        return net
+
+    out, rc, errors = io.StringIO(), [], []
+
+    def serve_thread():
+        try:
+            rc.append(serve.main(argv))
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    v0 = latest_step(root)
+    components.seeded_network = float32_network
+    thread = threading.Thread(target=serve_thread, daemon=True)
+    try:
+        with float32_math(), contextlib.redirect_stdout(out):
+            thread.start()
+            deadline = time.monotonic() + 120
+            port = None
+            while port is None:
+                for line in out.getvalue().splitlines():
+                    if '"serving_listen"' in line:
+                        port = json.loads(line)["port"]
+                if errors or time.monotonic() > deadline:
+                    raise AssertionError(f"serve_checkpoint: no serving_listen ({errors})")
+                time.sleep(0.1)
+            client = ServingClient("127.0.0.1", port)
+            obs = np.random.default_rng(SEED).integers(0, 256, (84, 84, 1), dtype=np.uint8)
+            first = client.act(obs)
+            params = {k: v.detach().clone() for k, v in state.params.items()}
+            with torch.no_grad():
+                for v in params.values():
+                    v.mul_(1.01)
+            newer = TrainState(params=params, target_params=state.target_params,
+                               opt_state=state.opt_state, step=v0 + 1, seed=state.seed)
+            save_checkpoint(root, newer)
+            committed_at = time.monotonic()
+            while True:
+                reply = client.act(obs)
+                if reply.param_version == v0 + 1:
+                    break
+                if time.monotonic() - committed_at > 30:
+                    raise AssertionError("serve_checkpoint: the newer step was not served")
+            reload_s = time.monotonic() - committed_at
+            net = float32_network(load_config(None, [
+                "network=conv", "env.name=catch:84", f"seed={SEED}"]), 3, (84, 84, 1))
+            with torch.no_grad():
+                want = net.apply_params({k: v.cpu() for k, v in params.items()},
+                                        torch.from_numpy(obs[None])).q[0].numpy()
+            q_err = float(np.abs(reply.q_values - want).max() / np.abs(want).max())
+            client.close()
+            thread.join(duration + 120)
+    finally:
+        components.seeded_network = seeded
+    if errors:
+        raise AssertionError("serve_checkpoint: serve.main raised") from errors[0]
+    recs = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    final = [r for r in recs if "serve/served_total" in r][-1]
+    if rc != [0] or not final.get("final") or final["serve/reloads"] < 1 \
+            or final["serve/param_version"] != v0 + 1 or first.param_version != v0 \
+            or q_err > 1e-4:
+        raise AssertionError(f"serve_checkpoint: rc {rc}, first version "
+                             f"{first.param_version} (want {v0}), q error {q_err:.3g}, "
+                             f"final {final}")
+    result = {"phase": "serve_checkpoint", "card": card, "duration_s": duration,
+              "versions": [v0, v0 + 1], "reload_after_commit_s": reload_s,
+              "q_err_rel": q_err, "served_total": final["serve/served_total"],
+              "qps": final["serve/served_total"] / duration, "qps_30s": final["serve/qps"],
+              "latency_ms": {k: final.get(f"serve/{k}_ms") for k in ("p50", "p95", "p99")},
+              "reloads": final["serve/reloads"], "batch_hist": final["serve/batch_hist"],
+              "shed": final["serve/shed_total"], "client_errors": 0,
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1507,6 +2050,11 @@ def main() -> int:
     wide_local = phase_dedup_train(sampling, card=smi, actors=64, beside=wide,
                                    phase="central_wide_local")
     attach = phase_serve_attach(sampling, card=smi)
+    ckpt_parity = phase_ckpt_parity(sampling)
+    ckpt_train, ckpt_root, ckpt_state = phase_ckpt_train(sampling, card=smi)
+    phase_serve_checkpoint(smi, ckpt_root, ckpt_state)
+    del ckpt_state
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
     # This slice's main path: config3's learner fed by central workers, one
     # sample-ahead launch per fused call.
@@ -1531,7 +2079,9 @@ def main() -> int:
                              "process_device_dedup_central_wide":
                                  wide["sampler_launches"],
                              "process_device_dedup_wide": wide_local["sampler_launches"],
-                             "serve_attach": attach["sampler_launches"]},
+                             "serve_attach": attach["sampler_launches"],
+                             "ckpt_parity": ckpt_parity["sampler_launches"],
+                             "ckpt_train": ckpt_train["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1551,4 +2101,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-child"]:
+        raise SystemExit(ckpt_child(sys.argv[2]))
     raise SystemExit(main())

@@ -191,14 +191,14 @@ def test_fleet_dedup_arguments_checked(kw, message):
 
 
 @pytest.mark.parametrize("override,message", [
-    ("replay.dedup=true", "ROADMAP A7"),                 # host DedupReplay
-    ("replay.hot_frame_budget_bytes=1000000", "tiered frame store.*ROADMAP A7"),
-    ("replay.spill_dir=/tmp/x", "tiered frame store.*ROADMAP A7"),
-    ("replay.spill_span_frames=64", "tiered frame store.*ROADMAP A7"),
-    ("replay.spill_watermark_high=0.9", "tiered frame store.*ROADMAP A7"),
-    ("replay.spill_watermark_low=0.5", "tiered frame store.*ROADMAP A7"),
-    ("replay.service_dedup=true", "replay service.*ROADMAP A7"),
-    ("learner.data_parallel=4", "multi-GPU learner.*ROADMAP A10"),
+    ("replay.dedup=true", "ROADMAP item 4"),                 # host DedupReplay
+    ("replay.hot_frame_budget_bytes=1000000", "tiered frame store.*ROADMAP item 4"),
+    ("replay.spill_dir=/tmp/x", "tiered frame store.*ROADMAP item 4"),
+    ("replay.spill_span_frames=64", "tiered frame store.*ROADMAP item 4"),
+    ("replay.spill_watermark_high=0.9", "tiered frame store.*ROADMAP item 4"),
+    ("replay.spill_watermark_low=0.5", "tiered frame store.*ROADMAP item 4"),
+    ("replay.service_dedup=true", "replay service.*ROADMAP item 4"),
+    ("learner.data_parallel=4", "multi-GPU learner.*ROADMAP item 8"),
     ("replay.frame_ratio=0", "frame_ratio must be positive"),
     ("learner.target_dtype=float16", "unknown target_dtype"),
 ])
@@ -224,7 +224,7 @@ def test_config3_learner_and_replay_keys_load_except_data_parallel(tmp_path):
         data = json.load(f)
     path = tmp_path / "config3.json"
     path.write_text(json.dumps(data))
-    with pytest.raises(ValueError, match="data_parallel=4.*ROADMAP A10"):
+    with pytest.raises(ValueError, match="data_parallel=4.*ROADMAP item 8"):
         load_config(str(path))
     data["learner"].pop("data_parallel")
     path.write_text(json.dumps(data))

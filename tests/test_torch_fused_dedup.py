@@ -178,11 +178,16 @@ def test_learner_refuses_dense_chunks_a_mesh_and_snapshots():
     dense = _fleet_chunks(24, dedup=False)
     with pytest.raises(TypeError, match="DedupChunk"):
         learner.add_chunk(dense[0].priorities, dense[0].transitions)
-    with pytest.raises(NotPortedError, match="ROADMAP A10"):
+    with pytest.raises(NotPortedError, match="ROADMAP item 8"):
         _learner(mesh=object())
-    for name in ("state_dict", "load_state_dict", "delta_state_dict", "apply_delta_state_dict"):
-        with pytest.raises(NotPortedError, match="ROADMAP A9"):
-            getattr(learner, name)({})
+    # Snapshots are ported; a snapshot of another layout is refused.
+    with pytest.raises(ValueError, match="not a dedup-ring snapshot"):
+        learner.load_state_dict({})
+    with pytest.raises(ValueError, match="not a delta snapshot"):
+        learner.apply_delta_state_dict(learner.state_dict())
+    stage = learner.stager.state_dict()
+    with pytest.raises(ValueError, match="ROADMAP item 8"):
+        learner.stager.load_state_dict({**stage, "n_shards": 2})
 
 
 def test_drain_ships_unaligned_tails():

@@ -141,10 +141,12 @@ def test_partial_fill_and_errors():
 def test_tiered_and_delta_requests_raise_by_name():
     with pytest.raises(NotPortedError):
         TReplay(CAP, OBS, sum_tree_cls=tsum.SumTree, hot_frame_budget_bytes=1 << 20)
+    # The delta protocol is ported (tests/test_torch_checkpoint_inc.py): the
+    # first request is a full base, and a non-delta is refused by name.
     t = TReplay(CAP, OBS, sum_tree_cls=tsum.SumTree)
-    with pytest.raises(NotPortedError):
-        t.delta_state_dict()
-    with pytest.raises(NotPortedError):
+    base = t.delta_state_dict()
+    assert "delta" not in base and base["chain_mark"].tolist() == [0]
+    with pytest.raises(ValueError, match="not a delta"):
         t.apply_delta_state_dict({})
     assert issubclass(NotPortedError, NotImplementedError)
 

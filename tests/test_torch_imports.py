@@ -46,7 +46,11 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.serving.server",
                  "ape_x_dqn_tpu_torch.serving.net_server",
                  "ape_x_dqn_tpu_torch.serving.central",
-                 "ape_x_dqn_tpu_torch.serve"):
+                 "ape_x_dqn_tpu_torch.serve",
+                 "ape_x_dqn_tpu_torch.utils.checkpoint",
+                 "ape_x_dqn_tpu_torch.utils.checkpoint_inc",
+                 "ape_x_dqn_tpu_torch.serving.sources",
+                 "ape_x_dqn_tpu_torch.profile_checkpoint"):
         assert want in mods
 
 
@@ -75,6 +79,22 @@ def test_serving_wire_modules_load_no_torch():
         "import ape_x_dqn_tpu_torch.serving.central\n"
         "import ape_x_dqn_tpu_torch.serving.net_server\n"
         "import ape_x_dqn_tpu_torch.serving\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_checkpoint_chunk_reader_loads_no_torch():
+    """Reading an APXC chunk or manifest (restore tooling, a killed
+    writer's inspection) pays for stdlib + numpy only."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.utils.checkpoint_inc\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
         "print(json.dumps(bad))\n"

@@ -395,7 +395,7 @@ class TestServeCLI:
         assert {"port", "torn_frames", "inference_rows"} <= set(final["serving_net"])
 
     @pytest.mark.parametrize("flags,name", [
-        (["--checkpoint", "/nonexistent"], "--checkpoint"),
+        (["--checkpoint", "/nonexistent", "--replicas", "2"], "--replicas"),
         (["--param-hub", "h:1:2:3:4"], "--param-hub"),
         (["--param-tail", "/nonexistent"], "--param-tail"),
         (["--attach", "--replicas", "2"], "--replicas"),
