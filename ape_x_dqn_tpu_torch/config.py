@@ -5,11 +5,10 @@ sections, plus ``supervisor`` and ``serving``, reference-format
 ``parameters.json`` files, ``--set section.field=value`` overrides), cut
 down to the fields the port runs.  A key the port does not run raises
 rather than loading as a dead setting, so a config written for the JAX
-package's other paths (the tcp transport, the serving router and param
-hub, chaos, data parallel, the host dedup replay and the tiered store)
-fails loudly here instead of running
-something else; the keys of those paths that the JAX configs use are
-refused by name, with their ROADMAP item.  The port owns this copy; it never
+package's other paths (the serving router, chaos, data parallel, the host
+dedup replay, the tiered store and the replay service) fails loudly here
+instead of running something else; the keys of those paths that the JAX
+configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
 """
 
@@ -18,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Optional, Sequence
+
+TRANSPORT_KINDS = ("shm", "tcp")
 
 
 @dataclasses.dataclass
@@ -42,16 +43,40 @@ class ActorConfig:
     emission: str = "overlapping"
     # Actor placement: "thread" = one fleet thread in the learner process;
     # "process" = num_workers CPU-only worker processes, each running its
-    # slice of the actor set, params over a shared-memory seqlock buffer and
-    # experience over one shared-memory ring per worker
-    # (runtime/process_actors.py).
+    # slice of the actor set (runtime/process_actors.py).
     mode: str = "thread"
     num_workers: int = 2                  # worker processes (mode="process")
     # Unix niceness applied inside each worker, so the learner's dispatch
     # thread is scheduled first where workers share its cores.  0 = default.
     worker_nice: int = 0
-    # Experience transport (mode="process"): "shm" only in the port.
+    # Experience transport (mode="process"; runtime/transport.py): "shm" =
+    # one shared-memory ring per worker incarnation and the params over a
+    # shared-memory seqlock buffer, one host only; "tcp" (runtime/net.py) =
+    # the same CRC-framed records over one socket per worker (loopback or
+    # another host), the params as delta-or-full frames on the same
+    # connection.
     transport: str = "shm"
+    # The tcp listener's bind address and port (0 = ephemeral; a fixed
+    # port is for workers on other hosts that need it in advance).
+    transport_host: str = "127.0.0.1"
+    transport_port: int = 0
+    # Hosts the worker fleet spans: planning arithmetic of
+    # transport_budget() only; 1 for shm (/dev/shm cannot cross hosts).
+    transport_hosts: int = 1
+    # Per-connection kernel socket buffer (SO_SNDBUF worker-side, SO_RCVBUF
+    # learner-side): the tcp twin of xp_ring_bytes, the bytes a worker may
+    # have in flight before its writes block (full_waits).
+    net_conn_buf_bytes: int = 1 << 20
+    # Wire-efficiency layers of the tcp transport (F_XPB frames): the batch
+    # codec negotiated at the hello ("off" keeps the v1 wire; "zlib"
+    # deflates every batch, kept only when smaller; "auto" only while the
+    # writer meets backpressure), the coalescing budget (0 = one frame per
+    # record), the longest a record waits in the coalescing buffer, and
+    # in-window frame dedup (a frame already in the batch ships as a ref).
+    net_codec: str = "off"
+    net_coalesce_bytes: int = 0
+    net_coalesce_wait_ms: float = 20.0
+    net_dedup: bool = True
     # Bytes of each worker's experience ring: at least one chunk (about
     # flush_every × actors-per-worker × 2 × frame bytes) plus slack for the
     # learner's drain cadence.
@@ -63,6 +88,18 @@ class ActorConfig:
     # supervisor policy: a worker that crashes at start-up must not spin
     # the pool at spawn speed.
     respawn_min_interval_s: float = 0.25
+    # Remote-worker slots (tcp only; python -m ape_x_dqn_tpu_torch.host_join):
+    # worker ids beyond the local capacity whose channels the pool reserves
+    # and whose actor slices are carved from the same global partition; the
+    # pool writes a join spec to remote_join_path (required when > 0) and
+    # never spawns or supervises them.
+    remote_workers: int = 0
+    remote_join_path: str = ""
+    # Elastic headroom: the ε-ladder partition is carved over
+    # max(num_workers, max_workers) local worker ids at construction, so a
+    # worker grown later (ProcessActorPool.grow) claims a slice reserved
+    # from step zero.  0 = num_workers (no headroom).
+    max_workers: int = 0
     # --- central inference (serving/central.py; JAX config.py:160-210) ---
     # "local": each actor fleet holds params and runs its own forward.
     # "central": fleets hold NO params; each fleet step ships its
@@ -169,12 +206,15 @@ class ReplayConfig:
 
 @dataclasses.dataclass
 class SupervisorConfig:
-    """Worker respawn policy of process actors (runtime/supervisor.py): an
+    """The supervision tier (runtime/supervisor.py).  Worker respawn: an
     exponential backoff (base doubling per death in the crash-loop window,
     capped) with multiplicative jitter; more than crash_loop_budget deaths
     inside the window quarantine the worker.  Disabled, a worker respawns
     at once until the pool's restart budget runs out, and the next death is
-    fatal."""
+    fatal.  The learner watchdog: no progress (learner step or host syncs)
+    for stall_deadline_s drops the overlapped pipeline to strict depth 1;
+    still none wedge_deadline_s later declares the run wedged (an event,
+    not a kill).  poll_s is the supervisor thread's cadence."""
 
     enabled: bool = True
     respawn_backoff_base_s: float = 0.5
@@ -182,6 +222,9 @@ class SupervisorConfig:
     respawn_jitter: float = 0.25          # +/- fraction of the backoff
     crash_loop_window_s: float = 120.0
     crash_loop_budget: int = 5
+    stall_deadline_s: float = 120.0
+    wedge_deadline_s: float = 120.0
+    poll_s: float = 0.5
 
 
 @dataclasses.dataclass
@@ -193,8 +236,9 @@ class ServingConfig:
     max_wait_ms: float = 5.0     # deadline: oldest request's max queue wait
     queue_capacity: int = 256    # admission bound (load shed beyond)
     reload_poll_s: float = 0.25  # param-source poll cadence (hot reload)
-    # Staleness bound on the served params (ServingStalenessPolicy): only
-    # 0 (off) runs in the port.
+    # Staleness bound on the served params (ServingStalenessPolicy): past
+    # this many seconds without a fresh snapshot the server sheds with the
+    # typed ServerOverloaded until one lands.  0 = off.
     param_stale_s: float = 0.0
     # Bind host/port of the socket plane (serve --listen); port 0 =
     # ephemeral, announced as a serving_listen JSONL event.
@@ -204,9 +248,10 @@ class ServingConfig:
     replicas: int = 2
     # Length-prefix cap on the request plane.
     max_request_bytes: int = 8 << 20
-    # Router probe cadence, replica spawn budget, param-tail base cadence
-    # (the router, the fleet and the tail are not part of the port; the
-    # fields load and validate as in the JAX package).
+    # Router probe cadence and replica spawn budget (the router and the
+    # fleet are not part of the port; the fields load and validate as in
+    # the JAX package), and the param tail's full-snapshot cadence
+    # (serving/sources.ParamTailWriter).
     probe_interval_s: float = 0.5
     replica_spawn_timeout_s: float = 240.0
     param_tail_base_every: int = 16
@@ -244,10 +289,6 @@ class ApexConfig:
              "batch must be admissible)"),
             (v.reload_poll_s > 0.0, "serving.reload_poll_s must be > 0"),
             (v.param_stale_s >= 0.0, "serving.param_stale_s must be >= 0"),
-            (v.param_stale_s == 0.0,
-             f"serving.param_stale_s={v.param_stale_s}: the serving staleness "
-             "policy (runtime/supervisor.ServingStalenessPolicy) is not part "
-             "of the port yet (ROADMAP item 6)"),
             (0 <= v.listen_port <= 65535, "serving.listen_port must be in [0, 65535]"),
             (v.replicas >= 1, "serving.replicas must be >= 1"),
             (v.max_request_bytes >= 1 << 16,
@@ -262,9 +303,39 @@ class ApexConfig:
             (a.num_workers >= 1, "actor.num_workers must be >= 1"),
             (a.mode != "process" or a.num_actors >= a.num_workers,
              "actor.num_actors must be >= actor.num_workers in process mode"),
-            (a.transport == "shm",
-             f"actor.transport={a.transport}: only the shm transport is part of "
-             "the port (runtime/net.py, the tcp transport, is not ported yet)"),
+            (a.transport in TRANSPORT_KINDS, f"unknown actor.transport: {a.transport}"),
+            (0 <= a.transport_port <= 65535, "actor.transport_port must be in [0, 65535]"),
+            (a.transport_hosts >= 1, "actor.transport_hosts must be >= 1"),
+            (a.transport == "tcp" or a.transport_hosts == 1,
+             "actor.transport_hosts > 1 requires actor.transport=tcp "
+             "(shm rings cannot leave the host)"),
+            (a.net_conn_buf_bytes >= 1 << 16,
+             "actor.net_conn_buf_bytes must be >= 64 KiB (one chunk must "
+             "fit the in-flight window)"),
+            (a.net_codec in ("off", "zlib", "auto"), f"unknown actor.net_codec: {a.net_codec}"),
+            (a.net_coalesce_bytes == 0 or a.net_coalesce_bytes >= 1 << 12,
+             "actor.net_coalesce_bytes must be 0 (off) or >= 4 KiB (a "
+             "budget below one record degenerates to per-record flushes)"),
+            (a.net_coalesce_wait_ms >= 0.0, "actor.net_coalesce_wait_ms must be >= 0"),
+            (a.transport == "tcp" or (a.net_codec == "off" and a.net_coalesce_bytes == 0),
+             "actor.net_codec / net_coalesce_bytes require actor.transport=tcp "
+             "(the shm ring has no wire bytes to save)"),
+            (a.remote_workers >= 0, "actor.remote_workers must be >= 0"),
+            (a.remote_workers == 0 or a.transport == "tcp",
+             "actor.remote_workers requires actor.transport=tcp"),
+            (a.remote_workers == 0 or bool(a.remote_join_path),
+             "actor.remote_workers requires actor.remote_join_path (where the "
+             "join spec is written)"),
+            (a.max_workers == 0 or a.max_workers >= a.num_workers,
+             "actor.max_workers must be 0 (no headroom) or >= "
+             "actor.num_workers (the spawned width is part of the "
+             "reserved partition)"),
+            (a.max_workers == 0 or a.mode == "process",
+             "actor.max_workers requires actor.mode=process (the elastic "
+             "pool is the process fleet)"),
+            (a.mode != "process" or a.num_actors >= max(a.num_workers, a.max_workers),
+             "actor.num_actors must cover the reserved worker capacity "
+             "(max(num_workers, max_workers)) in process mode"),
             (0 <= a.worker_nice <= 19, "actor.worker_nice must be in [0, 19]"),
             (a.xp_ring_bytes >= 1 << 16,
              "actor.xp_ring_bytes must be >= 64 KiB (one chunk + record header)"),
@@ -280,6 +351,9 @@ class ApexConfig:
             (0.0 <= s.respawn_jitter <= 1.0, "supervisor.respawn_jitter must be in [0, 1]"),
             (s.crash_loop_window_s > 0.0, "supervisor.crash_loop_window_s must be > 0"),
             (s.crash_loop_budget >= 1, "supervisor.crash_loop_budget must be >= 1"),
+            (s.stall_deadline_s > 0.0, "supervisor.stall_deadline_s must be > 0"),
+            (s.wedge_deadline_s > 0.0, "supervisor.wedge_deadline_s must be > 0"),
+            (s.poll_s > 0.0, "supervisor.poll_s must be > 0"),
             (a.num_actors >= 1, "actor.num_actors must be >= 1"),
             (a.num_steps >= 1, "actor.num_steps must be >= 1"),
             (0.0 <= a.epsilon <= 1.0, "actor.epsilon must be in [0, 1]"),
@@ -431,8 +505,6 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 _TIERED = "the tiered frame store (replay/tiered.py, ROADMAP item 4)"
 _NOT_PORTED = {
     "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP item 6)",
-    "actor.max_workers": "elastic grow/retire of process actors (ROADMAP item 6)",
-    "actor.remote_workers": "remote workers (runtime/net.py, ROADMAP item 6)",
     "replay.hot_frame_budget_bytes": _TIERED,
     "replay.spill_dir": _TIERED,
     "replay.spill_span_frames": _TIERED,
@@ -521,3 +593,57 @@ def _from_native_json(data: dict) -> ApexConfig:
 
 def to_dict(cfg: ApexConfig) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def transport_budget(cfg: ApexConfig, num_workers: Optional[int] = None,
+                     hosts: Optional[int] = None) -> dict:
+    """fd, shm and socket budget of the process-actor transport at a given
+    fleet width (JAX config.py:1266): the planning arithmetic whose live
+    twin is ``ProcessActorPool.shm_accounting``.
+
+    shm: per worker one ring segment, the control queue's pipe pair and
+    the process sentinel (~5 fds), plus one param segment for the fleet.
+    tcp: the ring becomes a connection and its bytes kernel socket buffers;
+    the learner's host also holds one receive buffer per connection.
+    ``per_host`` spreads the workers over ``hosts`` (default
+    ``actor.transport_hosts``; host 0 is the learner's): shm bytes are
+    charged to host 0 only, socket, coalescing and codec buffers to each
+    worker's host and once more per connection to host 0.
+    ``conn_drain_budget_bytes`` is the per-connection share of the poll
+    sweep's byte budget that ``runtime/transport.make_transport`` gives
+    each channel."""
+    a = cfg.actor
+    w = int(num_workers if num_workers is not None else a.num_workers)
+    h_n = max(1, int(hosts if hosts is not None else a.transport_hosts))
+    ring, conn = int(a.xp_ring_bytes), int(a.net_conn_buf_bytes)
+    conn_drain = max(64 << 10, int(a.xp_drain_budget_bytes) // max(1, w))
+    coal = int(a.net_coalesce_bytes)
+    codec_scratch = max(coal, 1 << 20) if a.net_codec != "off" else 0
+    shm = a.transport == "shm"
+
+    def workers_and_learner(each: int, wh: int, h: int) -> int:
+        return 0 if shm else wh * each + (w * each if h == 0 else 0)
+
+    per_host = []
+    for h in range(h_n):
+        wh = (h + 1) * w // h_n - h * w // h_n
+        per_host.append({
+            "host": h,
+            "workers": wh,
+            "shm_bytes": w * ring if (shm and h == 0) else 0,
+            "sock_buf_bytes": workers_and_learner(conn, wh, h),
+            "conn_drain_budget_bytes": 0 if shm else conn_drain,
+            "coalesce_buf_bytes": workers_and_learner(coal, wh, h),
+            "codec_scratch_bytes": workers_and_learner(codec_scratch, wh, h),
+        })
+    return {
+        "workers": w,
+        "transport": a.transport,
+        "hosts": h_n,
+        "shm_segments": (w + 1) if shm else 0,   # rings + param buffer
+        "ring_bytes_each": ring if shm else 0,
+        "ring_bytes_total": w * ring if shm else 0,
+        "fds_per_worker": 5,
+        "est_parent_fds": 5 * w + 8,
+        "per_host": per_host,
+    }

@@ -71,6 +71,16 @@ chain, and flushed at exit.  Each save logs the learner-visible stall as
 section.  A restored run resumes at the checkpoint's step; the fused
 learner's ring restores once the learner exists.
 
+Supervision (JAX :566-581, :804-815, :1083; ``runtime/supervisor.py``):
+with ``supervisor.enabled`` a ``FleetSupervisor`` is the process pool's
+respawn policy, and its watchdog reads the learner's progress (step, host
+syncs) every ``supervisor.poll_s``: a stall past
+``supervisor.stall_deadline_s`` drops the overlapped pipeline to strict
+depth 1, a second deadline declares the run wedged.  Its counters ride
+every emit as a ``supervisor`` section and its events go to the JSONL.
+Process actors add an ``xp_transport`` section, and on the tcp transport a
+``net`` section (JAX :640-646, :1845-1858).
+
 Observability (the overlapped loop keeps its host syncs and overlap gaps
 itself, without the obs registry), health checks, tracing and the chaos
 stall of the stager are not part of the port yet.
@@ -378,6 +388,17 @@ class AsyncPipeline:
             self._place = DevicePlacer(self.comps.device)
         central = self.cfg.actor.inference == "central"
         self._jsonl_sections: dict = {}
+        self.supervisor = None
+        if self.cfg.supervisor.enabled:
+            from ape_x_dqn_tpu_torch.runtime.supervisor import FleetSupervisor
+
+            self.supervisor = FleetSupervisor(self.cfg.supervisor, emit=self.logger.event,
+                                              seed=self.cfg.seed)
+            # A learner wedged inside a dispatch advances neither count.
+            self.supervisor.attach_learner(
+                progress_fn=lambda: (self._learner_step, self._host_syncs()),
+                degrade_fn=self._degrade_pipeline)
+            self.register_jsonl_section("supervisor", self._supervisor_section)
         self._central_server = None
         self._central_net = None
         self._central_selectors: list = []
@@ -436,12 +457,13 @@ class AsyncPipeline:
             ProcessActorPool,
             ProcessActorWorker,
         )
-        from ape_x_dqn_tpu_torch.runtime.supervisor import RespawnPolicy
 
         pool = ProcessActorPool(self.cfg, num_workers=self.cfg.actor.num_workers)
-        if self.cfg.supervisor.enabled:
-            pool.respawn_policy = RespawnPolicy.from_config(self.cfg.supervisor,
-                                                            seed=self.cfg.seed)
+        if self.supervisor is not None:
+            self.supervisor.attach_pool(pool)
+        self.register_jsonl_section("xp_transport", pool.transport_stats)
+        if pool.transport_kind == "tcp":
+            self.register_jsonl_section("net", pool.net_stats)
         if pool.store is None:
             # Central-paramless fleet: the workers get actions, not params;
             # a host store feeds the serving tier's reload.
@@ -621,11 +643,38 @@ class AsyncPipeline:
     def run(self, learner_steps: Optional[int] = None) -> dict:
         """Train until ``learner_steps`` (default: config total_steps)."""
         target = learner_steps if learner_steps is not None else self.cfg.learner.total_steps
-        if self.fused is None:
-            return self._run_host(target)
-        if self._overlapped:
-            return self._run_fused_overlapped(target)
-        return self._run_fused(target)
+        if self.supervisor is not None:
+            self.supervisor.start()
+        try:
+            if self.fused is None:
+                return self._run_host(target)
+            if self._overlapped:
+                return self._run_fused_overlapped(target)
+            return self._run_fused(target)
+        finally:
+            if self.supervisor is not None:
+                self.supervisor.close()
+
+    # -- supervision -------------------------------------------------------
+
+    def _host_syncs(self) -> int:
+        p = self._dispatch_pipeline
+        return p.host_syncs if p is not None else 0
+
+    def _degrade_pipeline(self) -> None:
+        """The watchdog's degrade action: strict dispatch from now on."""
+        p = self._dispatch_pipeline
+        if p is not None:
+            p.degrade()
+
+    def _supervisor_section(self) -> dict:
+        """The JSONL ``supervisor`` section (JAX :1908-1921)."""
+        s = self.supervisor
+        return {"respawns": s.respawns.value, "quarantines": s.quarantines.value,
+                "degradations": s.degradations.value,
+                "fallback_restores": s.fallback_restores.value,
+                "quarantined": sorted(s.respawn_policy.quarantined),
+                "watchdog": s.watchdog.phase if s.watchdog is not None else None}
 
     # -- host replay -------------------------------------------------------
 

@@ -1,15 +1,22 @@
-"""The serving wire: CRC-framed requests and replies over TCP.
+"""The tcp wire: CRC-framed experience, params and serving over TCP.
 
-Port of the serving half of ``ape_x_dqn_tpu/runtime/net.py`` (:1-578 and
-:665-892), byte for byte: a JAX client can talk to a port server and the
-other way round (``tests/test_torch_serving_net.py`` compares every codec's
-bytes with the JAX package's).
+Port of ``ape_x_dqn_tpu/runtime/net.py``, byte for byte: a JAX writer can
+feed a port transport and the other way round, and a JAX client can talk to
+a port server (``tests/test_torch_net_transport.py`` and
+``tests/test_torch_serving_net.py`` compare the bytes with the JAX
+package's).
 
-  * **Serve hello** (client → server, once per connection): v1 is
-    ``4s magic "APXQ" | u32 version``; v2 appends the fleet extension
-    ``i64 worker_id | i64 attempt | i64 token | u8 codec | u8 flags | 6x``
-    (``HELLO_FLAG_TRACE`` makes every request payload lead with an i64
-    trace id).
+  * **Experience hello** (worker → learner, once per connection): v1 is
+    ``4s magic "APXN" | u32 version | i64 worker_id | i64 attempt | i64
+    token``; v2 appends ``u8 codec | u8 flags | 6x`` (the batch codec the
+    writer proposes, bit 0 of flags: batch frames).  ``token`` is the
+    pool's per-run secret and ``attempt`` the worker's incarnation: a
+    writer of another run, or of an earlier incarnation, is rejected at the
+    handshake.
+  * **Serve hello** (client → server): v1 is ``4s magic "APXQ" | u32
+    version``; v2 appends the fleet extension ``i64 worker_id | i64 attempt
+    | i64 token | u8 codec | u8 flags | 6x`` (``HELLO_FLAG_TRACE`` makes
+    every request payload lead with an i64 trace id).
   * **Frames** (both directions after the hello)::
 
         u32 len | u32 crc | i64 seq | u8 kind | 7x pad   + payload
@@ -18,26 +25,43 @@ bytes with the JAX package's).
     ``seq`` runs from 1 per connection per direction.  Any framing fault —
     truncation, a crc mismatch, a seq skip, a length over the bound — is a
     torn frame: nothing of it is decoded, and the connection is retired.
-  * **Kinds**: ``F_SREQ`` / ``F_SREP`` / ``F_SERR`` (one observation,
-    greedy action and q, typed refusal) and ``F_IREQ`` / ``F_IREP`` (a
-    worker's batch of observation rows in the ``F_XPB`` container, with
-    in-request frame dedup and an optional zlib codec; the greedy actions,
-    q rows and the oldest param version that served them).
+    The writer reconnects with ``Backoff`` and a fresh seq stream.
+  * **Experience kinds**: ``F_XP`` (one shm-ring record payload, byte for
+    byte, so ``shm_ring.decode_chunk`` decodes either transport) and
+    ``F_XPB`` (many records in one frame: the coalescing budget
+    ``actor.net_coalesce_bytes``, in-window frame dedup, an optional zlib
+    codec negotiated at the hello; every layer off keeps the v1 wire).
+    The learner answers on the same connection with ``F_PARAM_FULL`` on
+    connect and ``F_PARAM_DELTA`` page-deltas after (64 KiB pages over the
+    serialized snapshot, crc-checked after the patch).
+  * **Serving kinds**: ``F_SREQ`` / ``F_SREP`` / ``F_SERR`` (one
+    observation, greedy action and q, typed refusal) and ``F_IREQ`` /
+    ``F_IREP`` (a worker's batch of observation rows in the ``F_XPB``
+    container; the greedy actions, q rows and the oldest param version
+    that served them).
 
-The experience plane's tcp transport (``NetChannel``, ``NetTransport``,
-``NetWriter``) and the param-delta helpers are not part of the port yet
-(ROADMAP item 6).  Standard library only at module scope (numpy is imported
-inside the codecs that need it): a worker process imports this module
-before anything else.
+Standard library only at module scope (numpy is imported inside the codecs
+that need it): a worker process imports this module before anything else,
+and before it hides the card.
 """
 
 from __future__ import annotations
 
 import json
+import secrets
+import select
+import socket
 import struct
+import threading
 import time
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+_NET_MAGIC = b"APXN"
+_NET_VERSION = 1
+_NET_VERSION_EXT = 2                  # v2 hello: v1 fields + _HELLO_EXT
+_HELLO = struct.Struct("<4sIqqq")     # magic, version, worker_id, attempt, token
+_HELLO_EXT = struct.Struct("<BB6x")   # codec id, flags (bit0: batch frames)
 
 _FRAME = struct.Struct("<IIqB7x")     # len, crc32, seq, kind (24 B, aligned)
 FRAME = _FRAME                        # public alias (serving plane, tools)
@@ -52,6 +76,7 @@ F_XPB = 4          # worker → learner: coalesced/encoded experience batch
 # transport's policy accepted CODEC_ZLIB at the handshake).
 CODEC_OFF = 0
 CODEC_ZLIB = 1
+_CODEC_IDS = {"off": CODEC_OFF, "zlib": CODEC_ZLIB, "auto": CODEC_ZLIB}
 
 # Serving request/reply kinds (serving/net_server.py) — the policy tier's
 # wire protocol rides the SAME frame header + crc/seq discipline, so one
@@ -86,6 +111,16 @@ E_INTERNAL = 4     # batch raised; the exception type rides the message
 
 _CRC_WINDOW = 4096          # shm_ring's sampled-crc coverage, mirrored
 _MAX_FRAME = 1 << 30        # sanity bound on the length prefix
+_RECV_CHUNK = 1 << 18
+_PARAM_PAGE = 64 << 10      # delta granule over the serialized snapshot
+_PFULL = struct.Struct("<q")              # version
+_PDELTA = struct.Struct("<qqIIII")        # version, base, full_crc,
+#                                           page_size, total_pages, changed
+_PIDX = struct.Struct("<I")
+
+_SEND_SLICE = 1 << 18
+_AUTO_OFF_FLUSHES = 256   # net_codec=auto: raw again after this many
+#                           backpressure-free flushes
 
 # Serving hello: v1 clients are anonymous (no run token — the serving
 # port is a public-ish front door, not the fleet's private experience
@@ -510,6 +545,107 @@ class Backoff:
         self._next_ok = 0.0
 
 
+def _send_queue_bytes(sock: socket.socket) -> Optional[int]:
+    """Bytes written but not yet acknowledged by the peer (Linux SIOCOUTQ);
+    None where the platform cannot say."""
+    try:
+        import fcntl
+        import termios
+
+        return struct.unpack("i", fcntl.ioctl(sock.fileno(), termios.TIOCOUTQ,
+                                              b"\0\0\0\0"))[0]
+    except (ImportError, OSError, AttributeError):
+        return None
+
+
+def close_gracefully(sock: socket.socket, timeout_s: float = 2.0) -> None:
+    """Close a connection this end is done writing to without resetting it.
+
+    A plain ``close()`` with unread bytes in the receive buffer (a reply or
+    a param push that arrived after the last read) makes the kernel send a
+    reset, and a reset discards whatever this end wrote that still sits in
+    its send queue: the peer reads a frame cut short and counts it torn.
+    So: FIN after every byte already written, then read and discard what
+    the peer sends until it has acknowledged every byte written (the send
+    queue is empty: nothing is left to lose), it closes, or ``timeout_s``
+    passes; then close."""
+    try:
+        sock.shutdown(socket.SHUT_WR)
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline and _send_queue_bytes(sock) != 0:
+            if select.select([sock], [], [], 0.01)[0] and not sock.recv(_RECV_CHUNK):
+                break
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def build_param_full(version: int, payload: bytes) -> bytes:
+    return _PFULL.pack(int(version)) + payload
+
+
+def build_param_delta(version: int, base_version: int, prev: bytes,
+                      new: bytes, page: int = _PARAM_PAGE) -> Optional[bytes]:
+    """Page-delta between two serialized snapshots, or None when a delta
+    is impossible (size changed) or not worth it (the encoded delta is
+    not meaningfully smaller than the full snapshot — a steady-state
+    training publish touches every page, and then the full frame is the
+    cheaper message)."""
+    if len(prev) != len(new):
+        return None
+    # Small snapshots delta at fine granularity; big ones at the default
+    # page so the per-page compare/index overhead stays negligible.
+    page = min(page, max(256, len(new) // 64))
+    total = (len(new) + page - 1) // page
+    pv, nv = memoryview(prev), memoryview(new)
+    changed: List[int] = []
+    for i in range(total):
+        s = i * page
+        e = min(s + page, len(new))
+        if pv[s:e] != nv[s:e]:
+            changed.append(i)
+    head = _PDELTA.pack(int(version), int(base_version), zlib.crc32(new),
+                        page, total, len(changed))
+    idx = b"".join(_PIDX.pack(i) for i in changed)
+    pages = b"".join(
+        bytes(nv[i * page:min(i * page + page, len(new))]) for i in changed
+    )
+    delta = head + idx + pages
+    if len(delta) > 0.6 * (len(new) + _PFULL.size):
+        return None
+    return delta
+
+
+def apply_param_delta(prev: bytes, payload: bytes) -> Tuple[int, int, bytes]:
+    """(version, base_version, new blob) from one delta frame applied to
+    ``prev``.  Raises ValueError on base mismatch or a crc that does not
+    match the patched blob — the caller's recovery is the connection
+    (drop → reconnect → full snapshot)."""
+    version, base, full_crc, page, total, changed = _PDELTA.unpack_from(
+        payload, 0
+    )
+    off = _PDELTA.size
+    idxs = [
+        _PIDX.unpack_from(payload, off + k * _PIDX.size)[0]
+        for k in range(changed)
+    ]
+    off += changed * _PIDX.size
+    blob = bytearray(prev)
+    if (len(blob) + page - 1) // page != total:
+        raise ValueError("param delta page count mismatch")
+    for i in idxs:
+        s = i * page
+        e = min(s + page, len(blob))
+        blob[s:e] = payload[off:off + (e - s)]
+        off += e - s
+    out = bytes(blob)
+    if zlib.crc32(out) != full_crc:
+        raise ValueError("param delta crc mismatch after patch")
+    return version, base, out
+
 
 
 # ---------------------------------------------------------------------------
@@ -754,3 +890,948 @@ def decode_xpb_payload(payload, allow_zlib: bool = True,
     elif codec != CODEC_OFF:
         raise ValueError(f"batch: unknown codec {codec}")
     return decode_batch(body)
+
+
+# ---------------------------------------------------------------------------
+# Learner side: listener + per-worker channels.
+# ---------------------------------------------------------------------------
+
+
+class NetChannel:
+    """Learner-side endpoint of one worker incarnation's connection — the
+    ring-reader surface ``ProcessActorPool`` sweeps (``read_next`` /
+    ``torn_tail`` / ``committed`` / ``close``), so the pool's poll,
+    salvage, lineage and stats paths are backend-agnostic.
+
+    A channel outlives individual connections: a worker whose socket
+    drops reconnects (fresh hello, same worker_id+attempt) and the
+    channel adopts the new socket, counting the reconnect and treating
+    any half-received frame from the old one as torn.
+    """
+
+    def __init__(self, wid: int, attempt: int, drain_budget: int,
+                 crc_full: bool = False):
+        self.wid = int(wid)
+        self.attempt = int(attempt)
+        self._drain_budget = max(1 << 16, int(drain_budget))
+        self._crc_full = bool(crc_full)
+        self._sock: Optional[socket.socket] = None
+        self._parser = FrameParser(crc_full=crc_full)
+        self._send_lock = threading.Lock()
+        self._out_seq = 0
+        self._ready: List[Tuple[int, bytes]] = []
+        self.records_read = 0
+        self.bytes_read = 0          # delivered frames (header + payload)
+        self.raw_bytes_in = 0        # everything recv'd, incl. torn tails
+        self.reconnects = 0
+        self.torn_frames = 0
+        self.param_sent_version = -1
+        self.param_full_sent = 0
+        self.param_delta_sent = 0
+        self.param_bytes_sent = 0
+        self._ever_connected = False
+        self.full_waits = 0          # backpressure lives worker-side (0)
+        # Wire-efficiency accounting:
+        # wire bytes are raw_bytes_in; these count the LOGICAL side.
+        self.codec = CODEC_OFF       # negotiated at adopt (v2 hello ext)
+        self.wire_frames = 0         # accepted xp wire frames (F_XP|F_XPB)
+        self.coalesced_frames = 0    # F_XPB batches among them
+        self.codec_frames = 0        # compressed batches among those
+        self.logical_bytes = 0       # decoded record bytes delivered
+        self.decode_s = 0.0          # batch decompress+reconstruct time
+        self._rbuf = bytearray(_RECV_CHUNK)  # persistent recv_into scratch
+
+    # -- connection lifecycle ---------------------------------------------
+
+    def adopt(self, sock: socket.socket, codec: int = CODEC_OFF) -> None:
+        """Route a freshly-handshaked connection here.  A live previous
+        connection is retired first (its partial frame, if any, counts
+        torn — same as a disconnect).  ``codec`` is the hello-negotiated
+        batch codec this connection may use; a compressed batch on an
+        off-codec connection decodes as a protocol violation."""
+        with self._send_lock:
+            if self._sock is not None or self._ever_connected:
+                self.reconnects += int(self._ever_connected)
+            self._retire_conn_locked()
+            sock.setblocking(False)
+            self._sock = sock
+            self._parser = FrameParser(crc_full=self._crc_full)
+            self._out_seq = 0
+            self.codec = int(codec)
+            self.param_sent_version = -1
+            self._ever_connected = True
+
+    def _accept_frame(self, kind: int, payload: bytes) -> bool:
+        """Route one crc/seq-verified frame into the ready queue; False =
+        protocol violation (wrong kind, un-negotiated codec, or a batch
+        that fails to decode) — the caller counts torn and retires."""
+        if kind == F_XP:
+            self._ready.append((kind, payload))
+            self.wire_frames += 1
+            self.logical_bytes += len(payload)
+            return True
+        if kind == F_XPB:
+            t0 = time.perf_counter()
+            try:
+                recs = decode_xpb_payload(
+                    payload, allow_zlib=self.codec != CODEC_OFF
+                )
+            except ValueError:
+                return False
+            self.decode_s += time.perf_counter() - t0
+            self.wire_frames += 1
+            self.coalesced_frames += 1
+            self.codec_frames += int(payload[:1] == b"\x01")
+            for r in recs:
+                self._ready.append((F_XP, r))
+                self.logical_bytes += len(r)
+            return True
+        return False
+
+    def _retire_conn_locked(self) -> None:
+        # Deliver every frame that already verified BEFORE declaring the
+        # remainder torn — a disconnect must not discard committed
+        # records buffered ahead of the torn tail (the ring's
+        # drain-then-torn salvage order).
+        while True:
+            got = self._parser.next()
+            if got is None:
+                break
+            if not self._accept_frame(*got):
+                self.torn_frames += 1
+                self._parser = FrameParser(crc_full=self._crc_full)
+                break
+        if self._parser.pending() or self._parser.error is not None:
+            self.torn_frames += 1
+            self._parser = FrameParser(crc_full=self._crc_full)
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    @property
+    def connected(self) -> bool:
+        return self._sock is not None
+
+    # -- reader surface (the ring interface) ------------------------------
+
+    def _pump_recv(self) -> None:
+        sock = self._sock
+        if sock is None:
+            return
+        budget = self._drain_budget
+        while budget > 0:
+            try:
+                # recv_into the persistent scratch: no per-sweep bytes
+                # allocation on the hot drain path (the parser's append
+                # is the one remaining copy).
+                n = sock.recv_into(self._rbuf, min(_RECV_CHUNK, budget))
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                with self._send_lock:
+                    self._retire_conn_locked()
+                return
+            if n == 0:
+                # Orderly close: a truncated frame in the buffer is torn.
+                with self._send_lock:
+                    self._retire_conn_locked()
+                return
+            budget -= n
+            self.raw_bytes_in += n
+            self._parser.feed(memoryview(self._rbuf)[:n])
+
+    def _drain_parser(self) -> None:
+        while True:
+            got = self._parser.next()
+            if got is None:
+                if self._parser.error is not None:
+                    # Unrecoverable stream: torn, retire the connection —
+                    # the writer's reconnect is the resync point.
+                    with self._send_lock:
+                        self._retire_conn_locked()
+                return
+            if not self._accept_frame(*got):
+                # Protocol violation from a worker (param kinds only flow
+                # learner→worker; an undecodable batch is stream
+                # corruption however well it framed).
+                self.torn_frames += 1
+                with self._send_lock:
+                    self._retire_conn_locked()
+                return
+
+    def read_next(self) -> Optional[bytes]:
+        """The next verified experience payload, or None — the exact
+        ShmRing.read_next contract (bounded work per call: one budgeted
+        recv sweep)."""
+        if not self._ready:
+            self._pump_recv()
+            self._drain_parser()
+        if not self._ready:
+            return None
+        _, payload = self._ready.pop(0)
+        self.records_read += 1
+        self.bytes_read += _FRAME.size + len(payload)
+        return payload
+
+    def torn_tail(self) -> bool:
+        """After the writer is gone and the channel drained: did any
+        stream end mid-frame / fail verification?  (Cumulative over the
+        channel's connections — the salvage counter's contract.)"""
+        if self._parser.pending() or self._parser.error is not None:
+            return True
+        return self.torn_frames > 0
+
+    @property
+    def torn_live(self) -> int:
+        """Torn count safe to read on a LIVE channel: a partial frame
+        still arriving on a connected socket is mid-receive, not torn —
+        only a dead connection's leftover (or a parser fault) counts."""
+        return self.torn_frames + int(
+            self._parser.error is not None
+            or (self._parser.pending() > 0 and not self.connected)
+        )
+
+    @property
+    def started(self) -> int:
+        return self.records_read + len(self._ready) + (
+            1 if (self._parser.pending() or self._parser.error) else 0
+        )
+
+    @property
+    def committed(self) -> int:
+        return self.records_read + len(self._ready)
+
+    @property
+    def committed_bytes(self) -> int:
+        return self.raw_bytes_in
+
+    # -- param push (learner → worker) ------------------------------------
+
+    def send_frame(self, kind: int, payload: bytes,
+                   timeout: float = 2.0) -> bool:
+        """Bounded send of one learner→worker frame.  On timeout or error
+        the connection is dropped (a slow/stuck subscriber must not stall
+        the publish fan-out; the worker reconnects and gets a full
+        snapshot) — False is returned either way."""
+        with self._send_lock:
+            sock = self._sock
+            if sock is None:
+                return False
+            buf = memoryview(frame_bytes(kind, self._out_seq + 1, [payload],
+                                         self._crc_full))
+            deadline = time.monotonic() + timeout
+            off = 0
+            while off < len(buf):
+                try:
+                    off += sock.send(buf[off:off + _SEND_SLICE])
+                except (BlockingIOError, InterruptedError):
+                    if time.monotonic() > deadline:
+                        self._retire_conn_locked()
+                        return False
+                    select.select([], [sock], [], 0.05)
+                except OSError:
+                    self._retire_conn_locked()
+                    return False
+            self._out_seq += 1
+            return True
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        # Settle accounting BEFORE dropping the socket: bytes the kernel
+        # already buffered may still complete frames (they are simply
+        # discarded unread — close is teardown, not salvage; salvage
+        # drains via read_next first).
+        self._pump_recv()
+        self._drain_parser()
+        with self._send_lock:
+            self._retire_conn_locked()
+
+    def unlink(self) -> None:  # shm-interface parity: nothing on disk
+        pass
+
+
+class NetTransport:
+    """Learner-side TCP transport: one nonblocking listener, one
+    ``NetChannel`` per live worker incarnation, and the param fan-out.
+
+    ``pump()`` (called from the pool's poll sweep) accepts pending
+    connections, completes hellos, routes each to its channel — rejecting
+    stale tokens/attempts — and pushes the current param snapshot to
+    fresh connections.  ``set_params`` fans a new version out to every
+    connected worker as delta-or-full frames, recording the cost per
+    push.
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 drain_budget_per_conn: int = 1 << 20,
+                 conn_buf_bytes: int = 1 << 20, crc_full: bool = False,
+                 hello_timeout_s: float = 5.0, codec: str = "off"):
+        if codec not in _CODEC_IDS:
+            raise ValueError(f"unknown net codec: {codec}")
+        self.host = host
+        self._conn_buf = int(conn_buf_bytes)
+        self._drain_budget = int(drain_budget_per_conn)
+        self._crc_full = bool(crc_full)
+        self._hello_timeout = float(hello_timeout_s)
+        # Accept policy for v2 hellos: "off" admits only codec-off
+        # writers; "zlib"/"auto" additionally admit zlib-capable ones.
+        self._codec_policy = codec
+        self._accept_codecs = (
+            {CODEC_OFF} if codec == "off" else {CODEC_OFF, CODEC_ZLIB}
+        )
+        self.codec_rejects = 0
+        self.token = secrets.randbits(63) or 1
+        self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._lsock.bind((host, int(port)))
+        self._lsock.listen(512)
+        self._lsock.setblocking(False)
+        self.port = self._lsock.getsockname()[1]
+        self._lock = threading.RLock()
+        self._channels: Dict[int, NetChannel] = {}
+        self._pending: List[list] = []   # [sock, bytearray, deadline]
+        self.rejects = 0
+        self.param_pushes = 0
+        self.param_bytes = 0
+        self.param_full = 0
+        self.param_delta = 0
+        self.param_drops = 0
+        self.param_fanout_ms_total = 0.0
+        self.param_last_push: Optional[dict] = None
+        self._param_payload: Optional[bytes] = None
+        self._param_version = 0
+        self._param_prev: Optional[bytes] = None
+        self._param_prev_version = -1
+        self._rate_t = time.monotonic()
+        self._rate_bytes = 0
+        # Retired-channel accumulators: a respawned worker's old channel
+        # (or the whole fleet at stop) must not take its traffic history
+        # with it — stats() reports base + live sums, the pool's
+        # _full_waits_base discipline.
+        self._base = {"bytes_in": 0, "frames_in": 0, "torn_frames": 0,
+                      "reconnects": 0, "logical_bytes": 0, "wire_frames": 0,
+                      "coalesced_frames": 0, "codec_frames": 0,
+                      "decode_s": 0.0}
+        self._closed = False
+
+    # -- channel registry --------------------------------------------------
+
+    def make_channel(self, wid: int, attempt: int) -> NetChannel:
+        """A fresh channel for one worker incarnation (the per-incarnation
+        ring's twin — the pool replaces it on respawn, so a zombie
+        previous incarnation can never write into the new stream)."""
+        ch = NetChannel(wid, attempt, self._drain_budget,
+                        crc_full=self._crc_full)
+        with self._lock:
+            self._channels[wid] = ch
+        return ch
+
+    def _fold_retired_locked(self, ch: NetChannel) -> None:
+        self._base["bytes_in"] += ch.raw_bytes_in
+        self._base["frames_in"] += ch.records_read + len(ch._ready)
+        self._base["torn_frames"] += ch.torn_live
+        self._base["reconnects"] += ch.reconnects
+        self._base["logical_bytes"] += ch.logical_bytes
+        self._base["wire_frames"] += ch.wire_frames
+        self._base["coalesced_frames"] += ch.coalesced_frames
+        self._base["codec_frames"] += ch.codec_frames
+        self._base["decode_s"] += ch.decode_s
+
+    def drop_channel(self, wid: int, channel: NetChannel) -> None:
+        with self._lock:
+            if self._channels.get(wid) is channel:
+                del self._channels[wid]
+                self._fold_retired_locked(channel)
+
+    # -- accept/handshake pump ---------------------------------------------
+
+    def pump(self) -> None:
+        if self._closed:
+            return
+        while True:
+            try:
+                sock, _addr = self._lsock.accept()
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                break
+            sock.setblocking(False)
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                self._conn_buf)
+            except OSError:
+                pass
+            self._pending.append(
+                [sock, bytearray(), time.monotonic() + self._hello_timeout]
+            )
+        still = []
+        for ent in self._pending:
+            sock, buf, deadline = ent
+            try:
+                # v1 hellos are _HELLO.size bytes; a v2 version word
+                # promises a feature extension right behind it.
+                need = _HELLO.size
+                if len(buf) >= _HELLO.size:
+                    need += _HELLO_EXT.size * int(
+                        _HELLO.unpack_from(buf, 0)[1] == _NET_VERSION_EXT
+                    )
+                while len(buf) < need:
+                    data = sock.recv(need - len(buf))
+                    if not data:
+                        raise OSError("eof before hello")
+                    buf += data
+                    if len(buf) == _HELLO.size and \
+                            _HELLO.unpack_from(buf, 0)[1] == _NET_VERSION_EXT:
+                        need = _HELLO.size + _HELLO_EXT.size
+            except (BlockingIOError, InterruptedError):
+                if time.monotonic() > deadline:
+                    self.rejects += 1
+                    sock.close()
+                else:
+                    still.append(ent)
+                continue
+            except OSError:
+                self.rejects += 1
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
+            self._route(sock, bytes(buf))
+        self._pending = still
+
+    def _route(self, sock: socket.socket, hello: bytes) -> None:
+        conn_codec = CODEC_OFF
+        try:
+            magic, version, wid, attempt, token = _HELLO.unpack_from(
+                hello, 0
+            )
+            if version == _NET_VERSION_EXT:
+                if len(hello) != _HELLO.size + _HELLO_EXT.size:
+                    raise struct.error("v2 hello without its extension")
+                conn_codec, _flags = _HELLO_EXT.unpack_from(
+                    hello, _HELLO.size
+                )
+            elif len(hello) != _HELLO.size:
+                raise struct.error("hello length mismatch")
+        except struct.error:
+            magic = b""
+            version = wid = attempt = token = -1
+        with self._lock:
+            ch = self._channels.get(wid)
+            ok = (
+                magic == _NET_MAGIC
+                and version in (_NET_VERSION, _NET_VERSION_EXT)
+                and token == self.token and ch is not None
+                and ch.attempt == attempt
+            )
+            if ok and conn_codec not in self._accept_codecs:
+                # Codec-mismatch hello: the writer proposes a codec this
+                # transport's policy refuses — reject BEFORE any framing
+                # state exists (the adversarial-decode contract's
+                # handshake rung), counted separately for the operator.
+                self.codec_rejects += 1
+                ok = False
+            if not ok:
+                self.rejects += 1
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                return
+            ch.adopt(sock, codec=conn_codec)
+            payload, pversion = self._param_payload, self._param_version
+        # Fresh connection: the current snapshot rides down immediately
+        # (full — the worker has no baseline), so a worker that connects
+        # after the first publish still syncs without waiting a cadence.
+        if payload is not None:
+            if ch.send_frame(F_PARAM_FULL,
+                             build_param_full(pversion, payload)):
+                ch.param_sent_version = pversion
+                ch.param_full_sent += 1
+                ch.param_bytes_sent += len(payload)
+                self.param_full += 1
+                self.param_bytes += len(payload)
+            else:
+                self.param_drops += 1
+
+    # -- param fan-out ------------------------------------------------------
+
+    def set_params(self, payload: bytes, version: int) -> dict:
+        """Fan one published version out to every connected worker —
+        delta against the previous push where the worker holds it, full
+        otherwise.  Returns the per-push cost record (also kept as
+        ``param_last_push`` for the stats surface)."""
+        t0 = time.perf_counter()
+        with self._lock:
+            prev, prev_v = self._param_payload, self._param_version
+            self._param_prev, self._param_prev_version = prev, prev_v
+            self._param_payload, self._param_version = payload, int(version)
+            channels = list(self._channels.values())
+        delta = None
+        if prev is not None:
+            delta = build_param_delta(version, prev_v, prev, payload)
+        sent_full = sent_delta = sent_bytes = drops = 0
+        for ch in channels:
+            if not ch.connected:
+                continue
+            if delta is not None and ch.param_sent_version == prev_v:
+                if ch.send_frame(F_PARAM_DELTA, delta):
+                    ch.param_sent_version = int(version)
+                    ch.param_delta_sent += 1
+                    ch.param_bytes_sent += len(delta)
+                    sent_delta += 1
+                    sent_bytes += len(delta)
+                else:
+                    drops += 1
+                continue
+            full = build_param_full(version, payload)
+            if ch.send_frame(F_PARAM_FULL, full):
+                ch.param_sent_version = int(version)
+                ch.param_full_sent += 1
+                ch.param_bytes_sent += len(full)
+                sent_full += 1
+                sent_bytes += len(full)
+            else:
+                drops += 1
+        ms = (time.perf_counter() - t0) * 1e3
+        self.param_pushes += 1
+        self.param_full += sent_full
+        self.param_delta += sent_delta
+        self.param_bytes += sent_bytes
+        self.param_drops += drops
+        self.param_fanout_ms_total += ms
+        push = {
+            "version": int(version),
+            "subscribers": sent_full + sent_delta,
+            "full": sent_full,
+            "delta": sent_delta,
+            "bytes": sent_bytes,
+            "delta_bytes": len(delta) if delta is not None else None,
+            "fanout_ms": round(ms, 3),
+            "drops": drops,
+        }
+        self.param_last_push = push
+        return push
+
+    # -- stats --------------------------------------------------------------
+
+    def stats(self) -> dict:
+        """The JSONL ``net`` section, the JAX package's key set (pinned
+        by ``tests/test_torch_net_transport.py``)."""
+        with self._lock:
+            channels = list(self._channels.values())
+            base = dict(self._base)
+        bytes_in = base["bytes_in"] + sum(c.raw_bytes_in for c in channels)
+        logical = base["logical_bytes"] + sum(
+            c.logical_bytes for c in channels
+        )
+        wire_frames = base["wire_frames"] + sum(
+            c.wire_frames for c in channels
+        )
+        frames_in = base["frames_in"] + sum(
+            c.records_read + len(c._ready) for c in channels
+        )
+        now = time.monotonic()
+        dt = max(1e-3, now - self._rate_t)
+        rate = max(0.0, bytes_in - self._rate_bytes) / dt
+        if dt >= 0.2:
+            self._rate_t, self._rate_bytes = now, bytes_in
+        return {
+            "connections": sum(1 for c in channels if c.connected),
+            "expected": len(channels),
+            "bytes_in": bytes_in,
+            "bytes_in_per_s": round(rate, 1),
+            "frames_in": frames_in,
+            # Wire-efficiency surface: logical bytes are the decoded APXT
+            # record bytes replay ingest sees; wire bytes (bytes_in) fall
+            # below them when dedup/compression are winning.
+            "logical_bytes_in": logical,
+            "wire_over_logical": (
+                round(bytes_in / logical, 4) if logical else None
+            ),
+            "wire_frames_in": wire_frames,
+            "coalesced_frames_in": base["coalesced_frames"] + sum(
+                c.coalesced_frames for c in channels
+            ),
+            "records_per_frame": round(
+                frames_in / max(1, wire_frames), 2
+            ),
+            "codec": self._codec_policy,
+            "codec_frames_in": base["codec_frames"] + sum(
+                c.codec_frames for c in channels
+            ),
+            "codec_ms": round(1e3 * (base["decode_s"] + sum(
+                c.decode_s for c in channels
+            )), 1),
+            "codec_rejects": self.codec_rejects,
+            "torn_frames": base["torn_frames"] + sum(
+                c.torn_live for c in channels
+            ),
+            "reconnects": base["reconnects"] + sum(
+                c.reconnects for c in channels
+            ),
+            "rejects": self.rejects,
+            "param_pushes": self.param_pushes,
+            "param_full": self.param_full,
+            "param_delta": self.param_delta,
+            "param_bytes": self.param_bytes,
+            "param_drops": self.param_drops,
+            "param_fanout_ms_last": (
+                self.param_last_push["fanout_ms"]
+                if self.param_last_push else None
+            ),
+            "param_fanout_ms_mean": round(
+                self.param_fanout_ms_total / max(1, self.param_pushes), 3
+            ),
+            "param_last_push": self.param_last_push,
+        }
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._lsock.close()
+        except OSError:
+            pass
+        for ent in self._pending:
+            try:
+                ent[0].close()
+            except OSError:
+                pass
+        self._pending = []
+        with self._lock:
+            for ch in self._channels.values():
+                try:
+                    ch.close()
+                except OSError:
+                    pass
+                self._fold_retired_locked(ch)
+            self._channels.clear()
+
+
+# ---------------------------------------------------------------------------
+# Worker side.
+# ---------------------------------------------------------------------------
+
+
+class NetWriter:
+    """Worker-side end of the transport: the ShmRing-writer surface
+    (``write(parts, should_stop, ...)``) over a TCP connection, plus the
+    param subscription riding the same socket in reverse.
+
+    Backpressure comes from the kernel send buffer instead of ring
+    occupancy — a blocked send counts ``full_waits`` exactly like a
+    ring-full sleep.  On any socket error the writer reconnects with
+    jittered exponential backoff (``Backoff``) and re-sends the frame in
+    flight whole.  Delivery contract at a connection loss: the ONE frame
+    in flight may be duplicated (send errored, re-sent whole — a
+    duplicate experience chunk is harmless to replay) or lost (the
+    kernel accepted it before the peer's reset — experience streams are
+    loss-tolerant by design; the pool's respawn/salvage discipline is
+    what bounds it); every other frame is exactly-once, and the
+    per-connection seq stream guarantees no SILENT gaps within a
+    connection.
+    """
+
+    def __init__(self, spec: dict, crc_full: bool = False):
+        self.host = spec["host"]
+        self.port = int(spec["port"])
+        self.wid = int(spec["wid"])
+        self.attempt = int(spec["attempt"])
+        self.token = int(spec["token"])
+        self._conn_buf = int(spec.get("conn_buf", 1 << 20))
+        self._crc_full = bool(crc_full)
+        # Wire-efficiency knobs (spec defaults keep legacy specs — tests,
+        # old tooling — on the bit-identical v1 wire).
+        self._codec = str(spec.get("codec", "off"))
+        if self._codec not in _CODEC_IDS:
+            raise ValueError(f"unknown net codec: {self._codec}")
+        self._coalesce = int(spec.get("coalesce", 0))
+        self._coal_wait_ms = float(spec.get("coalesce_wait_ms", 20.0))
+        self._dedup = bool(spec.get("dedup", True))
+        self._features = self._codec != "off" or self._coalesce > 0
+        self._coal: List[bytes] = []
+        self._coal_bytes = 0
+        self._coal_t0 = 0.0
+        # net_codec=auto control loop: compress only while the kernel
+        # buffer backpressures (full_waits growing); fall back to raw
+        # after a long quiet spell so fast links stop paying codec CPU.
+        self._auto_on = False
+        self._auto_idle = 0
+        self._auto_fw_mark = 0
+        self._sock: Optional[socket.socket] = None
+        self._seq = 0
+        self._parser = FrameParser(crc_full=crc_full)
+        self._backoff = Backoff(seed=(self.wid << 8) ^ self.attempt)
+        self.full_waits = 0
+        self.reconnects = 0
+        self.records_written = 0
+        self.bytes_written = 0       # wire bytes (frames as sent)
+        self.logical_bytes_out = 0   # record bytes before encoding
+        self.flushes = 0             # F_XPB frames sent
+        self.compressed_frames = 0
+        self.dedup_ref_bytes = 0     # bytes replaced by window refs
+        self.codec_s = 0.0           # encode (dedup scan + deflate) time
+        self.param_crc_errors = 0
+        self._param_payload: Optional[bytes] = None
+        self._param_version = -1
+        self._ever_connected = False
+
+    # -- connection management ---------------------------------------------
+
+    def _drop_conn(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def ensure_connected(self) -> bool:
+        """One bounded connect attempt when the backoff window allows —
+        callers poll (the write loop, pump_params) rather than block."""
+        if self._sock is not None:
+            return True
+        if not self._backoff.ready():
+            return False
+        try:
+            sock = socket.create_connection((self.host, self.port),
+                                            timeout=2.0)
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            try:
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF,
+                                self._conn_buf)
+            except OSError:
+                pass
+            hello = _HELLO.pack(
+                _NET_MAGIC,
+                _NET_VERSION_EXT if self._features else _NET_VERSION,
+                self.wid, self.attempt, self.token,
+            )
+            if self._features:
+                # v2 extension: propose the codec capability ("auto"
+                # proposes zlib — whether a given frame compresses is the
+                # writer's per-flush decision) + the batch-frames flag.
+                hello += _HELLO_EXT.pack(_CODEC_IDS[self._codec], 1)
+            sock.sendall(hello)
+            sock.setblocking(False)
+        except OSError:
+            self._backoff.fail()
+            return False
+        self._sock = sock
+        self._seq = 0
+        self._parser = FrameParser(crc_full=self._crc_full)
+        self._backoff.reset()
+        self.reconnects += int(self._ever_connected)
+        self._ever_connected = True
+        return True
+
+    # -- experience writes (the ring-writer surface) -----------------------
+
+    def _send_frame(self, kind: int, payload: bytes,
+                    should_stop: Optional[Callable] = None,
+                    sleep_s: float = 0.001,
+                    deadline: Optional[float] = None) -> bool:
+        """Blocking send of one frame with backpressure and reconnect;
+        aborts (False) on ``should_stop`` or the deadline.  On a mid-send
+        connection loss the frame is rebuilt whole against the fresh
+        connection's seq stream (the documented at-most-one-duplicate
+        contract)."""
+        buf: Optional[memoryview] = None
+        off = 0
+        while True:
+            if should_stop is not None and should_stop():
+                return False
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            if self._sock is None:
+                buf = None
+                if not self.ensure_connected():
+                    time.sleep(sleep_s)
+                    continue
+            if buf is None:
+                buf = memoryview(
+                    _FRAME.pack(len(payload),
+                                _crc_payload(payload, self._crc_full),
+                                self._seq + 1, kind) + payload
+                )
+                off = 0
+            try:
+                off += self._sock.send(buf[off:off + _SEND_SLICE])
+            except (BlockingIOError, InterruptedError):
+                # Kernel buffer full: the socket twin of a ring-full sleep.
+                self.full_waits += 1
+                self.pump_params()
+                select.select([], [self._sock], [], sleep_s)
+                continue
+            except OSError:
+                self._drop_conn()
+                self._backoff.fail()
+                continue
+            if off >= len(buf):
+                self._seq += 1
+                self.bytes_written += len(buf)
+                self.pump_params()
+                return True
+
+    def write(self, parts: Sequence, should_stop: Optional[Callable] = None,
+              sleep_s: float = 0.001, timeout: Optional[float] = None) -> bool:
+        """Blocking send of one experience record with backpressure and
+        reconnect; aborts (False) on ``should_stop`` or ``timeout`` —
+        the exact ShmRing.write contract.  With the wire-efficiency
+        layers enabled the record lands in the coalescing buffer and the
+        wire send happens at the flush boundary (budget reached, max-wait
+        elapsed, or an explicit ``flush()``)."""
+        payload = b"".join(_as_bytes(p) for p in parts)
+        deadline = time.monotonic() + timeout if timeout else None
+        if not self._features:
+            # Legacy path: one F_XP frame per record, bit-identical to
+            # the v1 wire format.
+            if not self._send_frame(F_XP, payload, should_stop, sleep_s,
+                                    deadline):
+                return False
+            self.records_written += 1
+            self.logical_bytes_out += len(payload)
+            return True
+        now = time.monotonic()
+        if not self._coal:
+            self._coal_t0 = now
+        self._coal.append(payload)
+        self._coal_bytes += len(payload)
+        if (self._coalesce <= 0
+                or self._coal_bytes >= self._coalesce
+                or (now - self._coal_t0) * 1e3 >= self._coal_wait_ms):
+            return self._flush(should_stop, sleep_s, deadline)
+        return True
+
+    def _effective_codec(self) -> int:
+        if self._codec == "zlib":
+            return CODEC_ZLIB
+        if self._codec == "auto" and self._auto_on:
+            return CODEC_ZLIB
+        return CODEC_OFF
+
+    def _auto_update(self) -> None:
+        if self._codec != "auto":
+            return
+        if self.full_waits > self._auto_fw_mark:
+            self._auto_fw_mark = self.full_waits
+            self._auto_on = True
+            self._auto_idle = 0
+        elif self._auto_on:
+            self._auto_idle += 1
+            if self._auto_idle >= _AUTO_OFF_FLUSHES:
+                self._auto_on = False
+
+    def _flush(self, should_stop: Optional[Callable] = None,
+               sleep_s: float = 0.001,
+               deadline: Optional[float] = None) -> bool:
+        if not self._coal:
+            return True
+        records = self._coal
+        n_logical = self._coal_bytes
+        self._coal = []
+        self._coal_bytes = 0
+        t0 = time.perf_counter()
+        payload, st = encode_xpb_payload(
+            records, codec=self._effective_codec(), dedup=self._dedup
+        )
+        self.codec_s += time.perf_counter() - t0
+        self.dedup_ref_bytes += st["dedup_bytes"]
+        ok = self._send_frame(F_XPB, payload, should_stop, sleep_s,
+                              deadline)
+        if ok:
+            self.flushes += 1
+            self.compressed_frames += int(st["compressed"])
+            self.records_written += len(records)
+            self.logical_bytes_out += n_logical
+        self._auto_update()
+        return ok
+
+    def flush(self, should_stop: Optional[Callable] = None,
+              sleep_s: float = 0.001,
+              timeout: Optional[float] = None) -> bool:
+        """Push any coalesced records to the wire now (quantum
+        boundaries, teardown) — no-op on the legacy path."""
+        deadline = time.monotonic() + timeout if timeout else None
+        return self._flush(should_stop, sleep_s, deadline)
+
+    # -- param subscription -------------------------------------------------
+
+    def pump_params(self) -> None:
+        """Drain learner→worker frames (nonblocking).  A delta that fails
+        to apply — wrong base, crc mismatch after patch — drops the
+        connection: the reconnect's full snapshot is the recovery, and
+        the stale params stay served meanwhile (never torn ones)."""
+        if self._sock is None:
+            self.ensure_connected()
+            if self._sock is None:
+                return
+        while True:
+            try:
+                data = self._sock.recv(_RECV_CHUNK)
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                self._drop_conn()
+                self._backoff.fail()
+                return
+            if not data:
+                self._drop_conn()
+                self._backoff.fail()
+                return
+            self._parser.feed(data)
+        while True:
+            got = self._parser.next()
+            if got is None:
+                if self._parser.error is not None:
+                    self._drop_conn()
+                    self._backoff.fail()
+                return
+            kind, payload = got
+            try:
+                if kind == F_PARAM_FULL:
+                    (version,) = _PFULL.unpack_from(payload, 0)
+                    self._param_payload = payload[_PFULL.size:]
+                    self._param_version = int(version)
+                elif kind == F_PARAM_DELTA:
+                    if self._param_payload is None:
+                        raise ValueError("delta with no baseline")
+                    version, base, blob = apply_param_delta(
+                        self._param_payload, payload
+                    )
+                    if base != self._param_version:
+                        raise ValueError("delta base version mismatch")
+                    self._param_payload = blob
+                    self._param_version = int(version)
+                # Unknown kinds: ignored (forward compatibility).
+            except ValueError:
+                self.param_crc_errors += 1
+                self._drop_conn()
+                self._backoff.fail()
+                return
+
+    def latest_params(self) -> Optional[Tuple[bytes, int]]:
+        if self._param_payload is None:
+            return None
+        return self._param_payload, self._param_version
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        # Orderly teardown flushes the coalescing buffer (bounded — a
+        # dead learner must not wedge a stopping worker); a SIGKILL loses
+        # it, exactly like bytes the kernel hadn't flushed.
+        if self._coal and self._ever_connected:
+            try:
+                self._flush(deadline=time.monotonic() + 2.0)
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+        if self._sock is not None:
+            close_gracefully(self._sock)
+            self._sock = None

@@ -45,10 +45,28 @@ package's:
     counters on the control queue every quantum; ``inference_stats``
     folds them into the JSONL ``inference`` section.
 
-Not ported yet (the config refuses them by name): the tcp transport and
-its param path (``runtime/net.py``'s experience plane), grow/retire and
-remote workers, chaos ``SlowEnv``, lineage trace sampling, the per-worker
-stats blocks, the flight recorder and post-mortem files.
+  * **The tcp transport** (``actor.transport=tcp``, JAX :709-760): the
+    rings become one ``NetChannel`` per worker incarnation behind one
+    listener (``runtime/transport.TcpTransport``), drained by the same
+    sweep; the params ride each connection in reverse as delta-or-full
+    frames (``NetParamStore``; a worker's param spec is ``{"kind":
+    "net"}`` and its source a ``NetParamSource`` over its writer).  No
+    /dev/shm segment exists on this backend, so the shm budget gate does
+    not apply; a dead incarnation's channel is salvaged (committed records
+    delivered, a torn tail counted, never decoded) and retired from the
+    transport's registry, its counters folded into the ``net`` stats.
+  * **Remote workers** (``actor.remote_workers``, JAX :1046-1096): channels
+    reserved for worker ids above the local capacity and a join spec
+    written for ``python -m ape_x_dqn_tpu_torch.host_join``; the pool never
+    spawns or supervises them.
+  * **Elastic grow/retire** (``actor.max_workers``, JAX :1097-1200): the
+    ε-ladder partition is carved over the local capacity at construction;
+    ``grow`` spawns reserved ids, ``retire`` ends one worker's collect loop
+    at its next quantum boundary (a clean drain, never a kill).
+
+Not ported yet (the config refuses them by name): chaos ``SlowEnv``,
+lineage trace sampling, the per-worker stats blocks, the flight recorder
+and post-mortem files.
 
 This module imports only the standard library and numpy at module scope:
 a spawned child imports it before the worker target runs, and pays for
@@ -57,6 +75,7 @@ whatever it imports.
 
 from __future__ import annotations
 
+import json
 import multiprocessing as mp
 import os
 import queue as queue_mod
@@ -77,7 +96,12 @@ from ape_x_dqn_tpu_torch.runtime.shm_ring import (
     encode_chunk_parts,
     owner_finalizer,
 )
-from ape_x_dqn_tpu_torch.runtime.transport import connect_channel, make_transport
+from ape_x_dqn_tpu_torch.runtime.transport import (
+    NetParamSource,
+    NetParamStore,
+    connect_channel,
+    make_transport,
+)
 from ape_x_dqn_tpu_torch.utils.metrics import TransportStats
 from ape_x_dqn_tpu_torch.utils.serialization import restore_like, tree_to_bytes
 
@@ -323,10 +347,17 @@ def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt
 
 def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                  param_spec: dict, xp_spec: dict, ctl_queue, stop_evt,
-                 steps_budget: int, quantum: int, attempt: int = 0, nice: int = 0):
+                 steps_budget: int, quantum: int, attempt: int = 0, nice: int = 0,
+                 retire_evt=None):
     """Worker process entry: one CPU ``ActorFleet`` over this worker's
-    slice, chunks into this incarnation's ring, control messages (episode
-    stats, the final report, done, errors) on the queue."""
+    slice of ``num_workers`` (the pool's whole partition, remote slots
+    included), chunks into this incarnation's channel (an shm ring or a tcp
+    connection, as ``xp_spec`` says), control messages (episode stats, the
+    final report, done, errors) on the queue.  Params come from the shared
+    seqlock buffer (``param_spec`` kind ``shm``), from frames on the tcp
+    connection (``net``) or not at all (``none``: central-paramless).  A
+    set ``retire_evt`` ends the collect loop at the next quantum boundary:
+    the worker flushes and exits through the clean "done" path."""
     if nice:
         # Where workers share cores with the learner, a positive niceness
         # keeps the learner's dispatch thread scheduled first.
@@ -381,6 +412,9 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             buf = SharedParamBuffer(param_spec["capacity"], name=param_spec["name"],
                                     create=False)
             source = SharedBufferParamSource(buf, template)
+        elif param_spec["kind"] == "net":
+            # tcp: params ride the experience connection in reverse.
+            source = NetParamSource(ring, template)
         # "none": a central-paramless worker; its actions come from the
         # serving tier.
         selector = (_central_selector(cfg, fleet, source, worker_id, attempt, stop_evt)
@@ -395,7 +429,11 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                     return
                 time.sleep(0.01)
         collect_s = 0.0
-        while not stop_evt.is_set() and fleet.step_count < steps_budget:
+
+        def retiring() -> bool:
+            return retire_evt is not None and retire_evt.is_set()
+
+        while not stop_evt.is_set() and not retiring() and fleet.step_count < steps_budget:
             # The budget bounds TOTAL fleet steps across incarnations, so the
             # last quantum is clamped to land on it exactly.
             t0 = time.monotonic()
@@ -415,6 +453,10 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                 # (a stopping learner no longer drains).
                 if not ring.write(parts, should_stop=stop_evt.is_set):
                     break
+            # tcp's coalescing buffer holds no record across a collect.
+            flush = getattr(ring, "flush", None)
+            if flush is not None:
+                flush(should_stop=stop_evt.is_set)
             if ep_stats:
                 ctl_queue.put((
                     "episodes", worker_id,
@@ -432,6 +474,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
         report = {
             "cuda_initialized": bool(torch.cuda.is_initialized()),
             "param_buffer": buf is not None,
+            "param_source": param_spec["kind"],
+            "retired": retiring(),
             "held_params": fleet.params is not None,
             "threads": torch.get_num_threads(),
             "pid": os.getpid(),
@@ -457,12 +501,13 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
 
 
 class ProcessActorPool:
-    """Owner of the worker processes, the shared param buffer and one
-    experience ring (and control queue) per worker incarnation.
+    """Owner of the worker processes, the param channel (the shared seqlock
+    buffer, or the tcp connections) and one experience channel (and control
+    queue) per worker incarnation.
 
     Lifecycle: ``publish(params)`` once, ``start()``, then the learner side
     interleaves ``publish`` with ``supervise`` + ``poll``, then ``stop()``.
-    ``poll`` drains every ring in one round-robin sweep (bounded by
+    ``poll`` drains every channel in one round-robin sweep (bounded by
     ``max_items`` and a byte budget) into (priorities, transitions) pairs.
     """
 
@@ -472,18 +517,28 @@ class ProcessActorPool:
 
         self.cfg = cfg
         self.num_workers = int(num_workers)
+        # The global actor partition is carved over every worker id the
+        # run may hold: the local capacity (spawned now or grown later) and
+        # the remote slots above it, so neither growth nor a joining host
+        # ever moves a running worker's slice.
+        self.remote_workers = int(cfg.actor.remote_workers)
+        self.local_capacity = max(self.num_workers, int(cfg.actor.max_workers))
+        self.total_workers = self.local_capacity + self.remote_workers
         self._ring_bytes = int(cfg.actor.xp_ring_bytes)
         self._drain_budget = int(cfg.actor.xp_drain_budget_bytes)
-        self._transport = make_transport(cfg)
+        self._transport = make_transport(cfg, self.total_workers, self._ring_bytes,
+                                         self._drain_budget)
         # Central inference without the local fallback: paramless workers —
-        # no seqlock buffer and no store (the runtime keeps a host
+        # no param channel and no store (the runtime keeps a host
         # ParamStore for the serving tier's reload).
         self._central = cfg.actor.inference == "central"
         self._paramless = self._central and cfg.actor.inference_fallback != "local"
         self.inference_by_worker: dict = {}   # wid -> latest client stats
+        self.buffer = self.store = None
         if self._paramless:
-            self.buffer = None
-            self.store = None
+            pass   # no param channel at all
+        elif self._transport.kind == "tcp":
+            self.store = NetParamStore(self._transport)
         else:
             # The serialized template's size, with headroom.
             _, _, template = network_and_template(cfg)
@@ -493,13 +548,13 @@ class ProcessActorPool:
         # spawn, never fork: the learner holds a CUDA context and threads.
         self._ctx = mp.get_context("spawn")
         self._queues: dict = {}   # wid -> control queue of the live incarnation
-        self._rings: dict = {}    # wid -> ShmRing of the live incarnation
+        self._rings: dict = {}    # wid -> channel of the live incarnation
         self.transport = TransportStats()
         self._full_waits_base = 0  # full_waits of retired incarnations
         self.stop_event = self._ctx.Event()
         self._cfg_dict = to_dict(cfg)
         self._quantum = quantum or cfg.actor.flush_every
-        self._procs: List = []
+        self._procs: List = []    # indexed by local wid
         self.actor_steps = 0
         self.episodes: List[tuple] = []
         self.last_versions: dict = {}   # wid -> param version of its latest chunk
@@ -516,12 +571,20 @@ class ProcessActorPool:
         self._dead_since: dict = {}       # wid -> first-seen-dead time
         self._salvaged: list = []         # chunks drained before a respawn
         self._silent_death_grace_s = 10.0
-        # With a policy attached (runtime/supervisor.RespawnPolicy) respawn
-        # timing and the crash-loop budget are its; without one, workers
-        # respawn at once until max_restarts, and the next death is fatal.
-        # The respawn_min_interval_s floor holds either way.
+        # With a policy attached (runtime/supervisor.FleetSupervisor or a
+        # bare RespawnPolicy) respawn timing and the crash-loop budget are
+        # its; without one, workers respawn at once until max_restarts, and
+        # the next death is fatal.  The respawn_min_interval_s floor holds
+        # either way.
         self.respawn_policy = None
         self.quarantined: set = set()
+        # Elastic state: cleanly retired wids, each live incarnation's
+        # retire event, every local wid ever spawned.
+        self.retired: set = set()
+        self._retire_events: dict = {}
+        self._spawned_local: set = set()
+        self.grows = 0
+        self.retires = 0
         self._death_pending: dict = {}    # wid -> error, awaiting respawn
         self._last_spawn: dict = {}       # wid -> spawn time
         self._min_respawn_interval = float(cfg.actor.respawn_min_interval_s)
@@ -532,27 +595,32 @@ class ProcessActorPool:
         self._last_spawn[wid] = time.monotonic()
         if wid in self._queues:
             self._salvage_incarnation(wid)
+        self._spawned_local.add(wid)
+        self._retire_events[wid] = self._ctx.Event()
         self._queues[wid] = self._ctx.Queue(maxsize=_CONTROL_QUEUE_SIZE)
         self._rings[wid] = self._transport.make_channel(wid, attempt)
         xp_spec = self._transport.endpoint(self._rings[wid], wid, attempt)
-        param_spec = ({"kind": "shm", "name": self.buffer.name,
-                       "capacity": self.buffer.capacity}
-                      if self.buffer is not None else {"kind": "none"})
         p = self._ctx.Process(
             target=_worker_main,
-            args=(wid, self._cfg_dict, self.num_workers, param_spec, xp_spec,
+            args=(wid, self._cfg_dict, self.total_workers, self._param_spec(), xp_spec,
                   self._queues[wid], self.stop_event, budget, self._quantum,
-                  attempt, self.cfg.actor.worker_nice),
+                  attempt, self.cfg.actor.worker_nice, self._retire_events[wid]),
             daemon=True,
         )
         p.start()
         return p
 
+    def _param_spec(self) -> dict:
+        if self.buffer is not None:
+            return {"kind": "shm", "name": self.buffer.name,
+                    "capacity": self.buffer.capacity}
+        return {"kind": "net" if self.store is not None else "none"}
+
     def _salvage_incarnation(self, wid: int) -> None:
         """Drain every fully committed record out of a dead incarnation's
-        ring (a kill mid-record leaves a torn tail the commit word detects:
-        counted, never delivered) and its control queue, then release both.
-        A respawn gets a fresh ring, so its stream restarts seq-clean."""
+        channel (a kill mid-record leaves a torn tail: counted, never
+        delivered) and its control queue, then release both.  A respawn
+        gets a fresh channel, so its stream restarts seq-clean."""
         self._drain_control(self._queues[wid])
         ring = self._rings.pop(wid, None)
         if ring is not None:
@@ -567,6 +635,7 @@ class ProcessActorPool:
             self._full_waits_base += ring.full_waits
             ring.close()
             ring.unlink()
+            self._transport.drop_channel(wid, ring)
         old = self._queues.pop(wid, None)
         if old is not None:
             old.close()  # release the pipe fds now, not at collection
@@ -580,18 +649,52 @@ class ProcessActorPool:
             except Exception:  # noqa: BLE001 — a torn pickle from a writer killed mid-put is unrecoverable by design
                 return
 
+    def shm_accounting(self) -> dict:
+        """Live fd and /dev/shm use of the transport (the planning twin is
+        ``config.transport_budget``); tcp holds no segment."""
+        try:
+            n_fds = len(os.listdir("/proc/self/fd"))
+        except OSError:
+            n_fds = -1
+        shm = self._transport.kind == "shm"
+        return {
+            "transport": self._transport.kind,
+            "shm_segments": ((1 if self.buffer is not None else 0) + len(self._rings)
+                             if shm else 0),
+            "ring_bytes_each": self._ring_bytes if shm else 0,
+            "ring_bytes_total": self._ring_bytes * len(self._rings) if shm else 0,
+            "param_buffer_bytes": self.buffer.capacity if self.buffer is not None else 0,
+            "process_fds": n_fds,
+        }
+
+    def net_stats(self) -> dict:
+        """The JSONL ``net`` section (tcp: bytes/s, frames, coalescing and
+        codec ratios, reconnects, torn frames, param pushes full and delta
+        and their fan-out ms); empty on the shm backend."""
+        return self._transport.stats()
+
+    @property
+    def transport_kind(self) -> str:
+        return self._transport.kind
+
     def start(self, stagger_s: Optional[float] = None):
-        """Spawn every worker, ``stagger_s`` seconds apart."""
+        """Spawn every worker, ``stagger_s`` seconds apart, then reserve the
+        remote slots."""
         stagger = stagger_s if stagger_s is not None else self.cfg.actor.spawn_stagger_s
-        self._gate_shm_budget()
+        self._gate_shm_budget(self.num_workers)
         for w in range(self.num_workers):
             self._procs.append(self._spawn(w, self.cfg.actor.T))
             if stagger and w + 1 < self.num_workers:
                 time.sleep(stagger)
+        if self.remote_workers:
+            self.register_remote_workers()
 
-    def _gate_shm_budget(self) -> None:
-        """Fail before spawning workers whose rings cannot fit /dev/shm."""
-        need = self.num_workers * self._ring_bytes
+    def _gate_shm_budget(self, new_rings: int) -> None:
+        """Fail before spawning workers whose rings cannot fit /dev/shm
+        (the shm backend only: tcp makes no ring)."""
+        if self._transport.kind != "shm":
+            return
+        need = new_rings * self._ring_bytes
         try:
             st = os.statvfs("/dev/shm")
         except OSError:
@@ -603,16 +706,133 @@ class ProcessActorPool:
                 "lower actor.xp_ring_bytes or actor.num_workers"
             )
 
+    def register_remote_workers(self, path: Optional[str] = None) -> str:
+        """Reserve a channel for each of the ``actor.remote_workers`` slots
+        and write the join spec ``host_join`` reads (JSON, tmp + fsync +
+        rename): one endpoint per remote wid (address, per-run token,
+        attempt 0, the wire knobs), the run's config and the partition's
+        width, so a joining host's actors land on the slices reserved for
+        them.  Remote channels ride the poll sweep; a quiet one is seen as
+        ``net.connections < net.expected``, never as a death."""
+        if self._transport.kind != "tcp":
+            raise RuntimeError("remote workers require actor.transport=tcp")
+        path = path or self.cfg.actor.remote_join_path
+        if not path:
+            raise RuntimeError("actor.remote_join_path is empty")
+        specs = []
+        for k in range(self.remote_workers):
+            wid = self.local_capacity + k
+            if wid not in self._rings:
+                self._attempt[wid] = 1   # attempt 0 is the joinable one
+                self._rings[wid] = self._transport.make_channel(wid, 0)
+            specs.append(self._transport.endpoint(self._rings[wid], wid, 0))
+        doc = {"cfg": self._cfg_dict, "num_workers_total": self.total_workers,
+               "num_local_workers": self.num_workers, "quantum": self._quantum,
+               "budget": int(self.cfg.actor.T), "specs": specs}
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return path
+
+    # -- elastic grow/retire -----------------------------------------------
+
+    def live_workers(self) -> List[int]:
+        """Local wids contributing now: spawned, not retired, quarantined,
+        finished or fatal (a booting respawn counts: its slice is held)."""
+        out = (set(self.retired) | set(self.quarantined) | set(self.worker_errors)
+               | set(self.finished_workers))
+        return sorted(set(self._spawned_local) - out)
+
+    def grow_candidates(self) -> List[int]:
+        """Reserved local wids a ``grow`` could start now: never spawned, or
+        cleanly retired and fully drained (process gone, channel and queue
+        reclaimed), with budget left; quarantined and fatal wids stay
+        written off."""
+        live = set(self.live_workers())
+
+        def settled(w: int) -> bool:
+            if w < len(self._procs) and self._procs[w].is_alive():
+                return False
+            return w not in self._rings and w not in self._queues
+
+        return sorted(w for w in range(self.local_capacity)
+                      if w not in live and w not in self.quarantined
+                      and w not in self.worker_errors and settled(w)
+                      and self._remaining_budget(w) > 0)
+
+    def grow(self, n: int = 1, stagger_s: Optional[float] = None) -> List[int]:
+        """Start up to ``n`` reserved wids: ``start``'s spawn path (a fresh
+        channel, the remaining budget, the stagger, the shm gate per ring)
+        on slices carved at construction."""
+        stagger = stagger_s if stagger_s is not None else self.cfg.actor.spawn_stagger_s
+        grown: List[int] = []
+        for wid in self.grow_candidates():
+            if len(grown) >= n:
+                break
+            self._gate_shm_budget(1)
+            if grown and stagger:
+                time.sleep(stagger)
+            self.retired.discard(wid)
+            self.finished_workers.discard(wid)
+            self._death_pending.pop(wid, None)
+            self._dead_since.pop(wid, None)
+            p = self._spawn(wid, self._remaining_budget(wid))
+            if wid < len(self._procs):
+                self._procs[wid] = p
+            else:
+                # Candidates ascend, so _procs stays indexed by wid.
+                self._procs.append(p)
+            self.grows += 1
+            grown.append(wid)
+        return grown
+
+    def retire(self, wid: Optional[int] = None) -> Optional[int]:
+        """Retire one worker by a clean drain, never a kill: its retire
+        event ends the collect loop at the next quantum boundary, the
+        worker flushes and exits through "done", and ``supervise`` drains
+        its channel before reclaiming it.  Default: the highest live wid."""
+        live = self.live_workers()
+        if wid is None:
+            if not live:
+                return None
+            wid = live[-1]
+        if wid not in live:
+            return None
+        self.retired.add(wid)
+        self.retires += 1
+        ev = self._retire_events.get(wid)
+        if ev is not None:
+            ev.set()
+        return wid
+
+    def set_drain_budget(self, budget_bytes: int) -> int:
+        """Tune the per-poll byte drain budget live (floored at 64 KiB)."""
+        self._drain_budget = max(64 << 10, int(budget_bytes))
+        return self._drain_budget
+
+    @property
+    def drain_budget_bytes(self) -> int:
+        return self._drain_budget
+
     def supervise(self) -> None:
         """Respawn dead workers with their REMAINING step budget.  A worker
         that exited without a clean "done" — a reported exception or a
         silent death (crash, OOM kill, SIGKILL) — is respawned when the
         interval floor and the policy's backoff (if any) have passed; with
-        no policy, the death after ``max_restarts`` respawns is fatal."""
+        no policy, the death after ``max_restarts`` respawns is fatal.  A
+        retired worker is never respawned: once it exited, its channel is
+        drained and reclaimed."""
         if self.stop_event.is_set():
             return
         now = time.monotonic()
         for wid, p in enumerate(self._procs):
+            if wid in self.retired:
+                if not p.is_alive() and wid in self._queues:
+                    self._salvage_incarnation(wid)
+                continue
             if wid in self.finished_workers or wid in self.worker_errors \
                     or wid in self.quarantined:
                 continue
@@ -635,7 +855,7 @@ class ProcessActorPool:
                     self.finished_workers.add(wid)
                     continue
                 if self.respawn_policy is not None:
-                    if self.respawn_policy.on_death(wid) == "quarantine":
+                    if self.respawn_policy.on_worker_death(wid, err) == "quarantine":
                         self._quarantine(wid)
                         continue
                 elif self.restarts >= self.max_restarts:
@@ -645,7 +865,7 @@ class ProcessActorPool:
             if now - self._last_spawn.get(wid, 0.0) < self._min_respawn_interval:
                 continue
             if self.respawn_policy is not None:
-                verdict = self.respawn_policy.decide(wid)
+                verdict = self.respawn_policy.decide_respawn(wid)
                 if verdict == "wait":
                     continue
                 if verdict == "quarantine":
@@ -674,7 +894,7 @@ class ProcessActorPool:
     def set_inference_endpoint(self, host: str, port: int, token: int) -> None:
         """Hand the resolved serving endpoint (auto mode binds an ephemeral
         port after the config was frozen) to every worker spawned from now
-        on."""
+        on, and to the join spec."""
         a = self._cfg_dict["actor"]
         a["inference_host"] = str(host)
         a["inference_port"] = int(port)
@@ -692,20 +912,23 @@ class ProcessActorPool:
 
     @property
     def finished(self) -> bool:
-        """Every worker has settled: done, fatal or quarantined."""
-        if not self._procs:
+        """Every local worker still expected to produce (ever spawned, not
+        retired) has settled: done, fatal or quarantined."""
+        if not self._spawned_local:
             return False
         settled = self.finished_workers | set(self.worker_errors) | self.quarantined
-        return all(w in settled for w in range(self.num_workers))
+        return all(w in settled for w in self._spawned_local - self.retired)
 
     def poll(self, max_items: int = 64, timeout: float = 0.0,
              max_bytes: Optional[int] = None) -> List[tuple]:
-        """One batched sweep over the control queues and every live ring
-        (a few records per ring per pass, so one hot worker cannot starve
-        the sweep), bounded by ``max_items`` chunks and the byte budget;
-        returns [(priorities, transitions), ...].  The arrays are read-only
-        views over each record's own copy: a sink that keeps rows copies
-        them."""
+        """One batched sweep over the control queues and every live channel
+        (a few records per channel per pass, so one hot worker cannot
+        starve the sweep), bounded by ``max_items`` chunks and the byte
+        budget; returns [(priorities, transitions), ...].  The arrays are
+        read-only views over each record's own copy: a sink that keeps rows
+        copies them.  On tcp each poll first accepts new connections and
+        routes their hellos."""
+        self._transport.pump()
         out = list(self._salvaged)
         self._salvaged.clear()
         budget = max_bytes if max_bytes is not None else self._drain_budget
@@ -738,8 +961,8 @@ class ProcessActorPool:
         return out
 
     def _decode_record(self, wid: int, payload: bytes) -> tuple:
-        """One ring record → (priorities, transitions) + pool accounting;
-        the transitions are a ``DedupChunk`` for a ``DXP`` record."""
+        """One record → (priorities, transitions) + pool accounting; the
+        transitions are a ``DedupChunk`` for a ``DXP`` record."""
         from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
 
         (kind, version, sent_t, steps, source, chunk_seq, prev_frames,
@@ -749,7 +972,7 @@ class ProcessActorPool:
         self.actor_steps += steps
         # Fleet steps = chunk rows / actors in the worker: a respawn gets
         # only the worker's REMAINING actor.T budget.
-        lo, hi = worker_slice(wid, self.cfg.actor.num_actors, self.num_workers)
+        lo, hi = worker_slice(wid, self.cfg.actor.num_actors, self.total_workers)
         self._steps_by_worker[wid] = (
             self._steps_by_worker.get(wid, 0) + steps // max(hi - lo, 1)
         )
@@ -761,9 +984,11 @@ class ProcessActorPool:
         return prio, NStepTransition(**arrays)
 
     def transport_stats(self) -> dict:
-        """Transport counters: chunks, bytes, latency, ring-full waits
-        (live rings and retired incarnations), salvage and torn counts."""
+        """The JSONL ``xp_transport`` section: chunks, bytes, latency,
+        channel-full waits (live channels and retired incarnations),
+        salvage and torn counts."""
         s = self.transport.summary()
+        s["transport"] = self._transport.kind
         s["ring_full_waits"] = self._full_waits_base + sum(
             r.full_waits for r in self._rings.values()
         )
@@ -790,8 +1015,9 @@ class ProcessActorPool:
 
     def stop(self, join_timeout: float = 15.0) -> None:
         """Stop every worker, drain what they committed, and release every
-        ring, control queue and the param buffer — on every exit path.  A
-        ring left with a torn tail counts on the transport's torn counter."""
+        channel, control queue, the listener and the param buffer — on
+        every exit path.  A channel left with a torn tail counts on the
+        transport's torn counter."""
         self.stop_event.set()
         try:
             deadline = time.monotonic() + join_timeout
@@ -811,8 +1037,10 @@ class ProcessActorPool:
                     self.transport.count_salvage(0, torn=True)
                 ring.close()
                 ring.unlink()
+                self._transport.drop_channel(wid, ring)
             for wid in list(self._queues):
                 self._queues.pop(wid).close()
+            self._transport.close()
             if self.buffer is not None:
                 self.buffer.close()
 

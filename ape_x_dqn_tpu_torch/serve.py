@@ -1,9 +1,9 @@
 """CLI serving mode: ``python -m ape_x_dqn_tpu_torch.serve``.
 
-Port of ``ape_x_dqn_tpu/serve.py`` for its ``--attach`` and ``--checkpoint``
-modes:
+Port of ``ape_x_dqn_tpu/serve.py`` for its one-server modes:
 
-    python -m ape_x_dqn_tpu_torch.serve (--attach | --checkpoint DIR) \\
+    python -m ape_x_dqn_tpu_torch.serve (--attach | --checkpoint DIR |
+        --param-hub HOST:PORT:TOKEN:RID:ATTEMPT | --param-tail DIR) \\
         [--listen [HOST:]PORT] [--run-token T] [--params-file F] \\
         [--set section.field=value ...] [--duration S] [--clients N] \\
         [--steps N] [--metrics-file F] [--metrics-every S] [--device cuda|cpu]
@@ -15,20 +15,27 @@ of their own, beside the learner's).  ``--checkpoint DIR`` serves a trained
 policy from a checkpoint root (``serving/sources.CheckpointParamSource``,
 JAX :285-330): the newest committed step, hot-reloaded whenever a newer
 one commits (polled every ``serving.reload_poll_s``); an empty root exits
-with 2 and ``no checkpoint under DIR``.  The config must describe the
-network the checkpoint was trained with.  ``--listen`` mounts the socket
-front end (``serving/net_server.py``) and announces the bound port as a
+with 2 and ``no checkpoint under DIR``.  ``--param-hub`` subscribes to a
+param hub (``serving/sources.SocketParamSource``: a full snapshot on
+connect, page-deltas after, waiting up to
+``serving.replica_spawn_timeout_s`` for the first); ``--param-tail DIR``
+tails a ``ParamTailWriter`` chain (an empty dir exits with 2).  The config
+must describe the network the params belong to.  ``serving.param_stale_s``
+> 0 attaches ``runtime/supervisor.ServingStalenessPolicy``: past that many
+seconds without a fresh snapshot the server sheds new requests with the
+typed ``ServerOverloaded`` (``E_OVERLOADED`` on the socket) until one
+lands; under ``--attach`` the trainer's supervisor ticks it, otherwise the
+metrics loop does, every ``--metrics-every`` seconds.  ``--listen`` mounts
+the socket front end (``serving/net_server.py``) and announces the bound port as a
 ``serving_listen`` JSONL event (port 0 = ephemeral); with ``--attach`` the
 trainer's records then carry a ``serving_net`` section.  ``--clients N``
 runs N built-in closed-loop clients against the server; every
 ``--metrics-every`` seconds a ``serve/`` record is emitted.  ``--device``
 defaults to ``cuda`` and a missing card raises.
 
-The other modes and flags of the JAX CLI exist and raise
-``NotPortedError`` by name: ``--param-hub``, ``--param-tail`` and
-``--replicas`` (the param hub, the param tail and the replica router,
-ROADMAP item 1), ``--obs-port`` (the observability exporter, ROADMAP
-item 5).
+The other flags of the JAX CLI exist and raise ``NotPortedError`` by
+name: ``--replicas`` (the replica router, ROADMAP item 1) and
+``--obs-port`` (the observability exporter, ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -45,9 +52,6 @@ from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
 # Flags of the JAX CLI whose feature the port does not run yet.
 _NOT_PORTED_FLAGS = {
-    "param_hub": "--param-hub: the replica's socket param source (the param hub, "
-                 "ROADMAP item 1)",
-    "param_tail": "--param-tail: the APXC param tail (ROADMAP item 1)",
     "replicas": "--replicas: the replica fleet behind the router (ROADMAP item 1)",
     "obs_port": "--obs-port: the /metrics exporter (observability, ROADMAP item 5)",
 }
@@ -66,9 +70,10 @@ def build_argparser() -> argparse.ArgumentParser:
                      help="serve the newest checkpoint under DIR, hot-reloading "
                      "newer ones")
     src.add_argument("--param-hub", default=None, metavar="HOST:PORT:TOKEN:RID:ATTEMPT",
-                     help="not part of the port yet")
+                     help="subscribe to a param hub: full snapshot on connect, "
+                     "page-deltas after")
     src.add_argument("--param-tail", default=None, metavar="DIR",
-                     help="not part of the port yet")
+                     help="tail a chain of param files (serving/sources.ParamTailWriter)")
     p.add_argument("--listen", default=None, metavar="[HOST:]PORT",
                    help="serve the socket request/reply protocol here (0 = "
                    "ephemeral; the bound port is announced as a serving_listen "
@@ -166,23 +171,44 @@ def main(argv=None) -> int:
                                           daemon=True)
     else:
         from ape_x_dqn_tpu_torch.runtime.components import build_components
-        from ape_x_dqn_tpu_torch.serving.sources import CheckpointParamSource
+        from ape_x_dqn_tpu_torch.serving import sources
 
         comps = build_components(cfg, device=args.device)
-        source = CheckpointParamSource(args.checkpoint, comps.state.params)
-        if source.version < 0:
-            print(f"no checkpoint under {args.checkpoint}", file=sys.stderr)
-            logger.close()
-            return 2
+        if args.param_hub:
+            source = sources.SocketParamSource(args.param_hub, comps.state.params)
+        else:
+            root, what, cls = ((args.param_tail, "param-tail chain", sources.ParamTailSource)
+                               if args.param_tail else
+                               (args.checkpoint, "checkpoint", sources.CheckpointParamSource))
+            source = cls(root, comps.state.params)
+            if source.version < 0:
+                print(f"no {what} under {root}", file=sys.stderr)
+                logger.close()
+                return 2
     s = cfg.serving
-    server = PolicyServer(
-        comps.network, param_source=source,
-        max_batch=s.max_batch, max_wait_ms=s.max_wait_ms,
-        queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
-        device=comps.device,
-    )
+    try:
+        server = PolicyServer(
+            comps.network, param_source=source,
+            max_batch=s.max_batch, max_wait_ms=s.max_wait_ms,
+            queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
+            # A replica may come up before the hub's first publish reaches it.
+            source_timeout_s=s.replica_spawn_timeout_s if args.param_hub else 30.0,
+            device=comps.device,
+        )
+    except BaseException:
+        if hasattr(source, "close"):
+            source.close()
+        raise
     server.warmup(comps.obs_shape)
     server.start()
+    staleness = None   # a policy this loop ticks (the trainer's supervisor ticks its own)
+    if s.param_stale_s > 0:
+        if pipe is not None and pipe.supervisor is not None:
+            pipe.supervisor.attach_serving(server, s.param_stale_s)
+        else:
+            from ape_x_dqn_tpu_torch.runtime.supervisor import ServingStalenessPolicy
+
+            staleness = ServingStalenessPolicy(server, s.param_stale_s, on_event=logger.event)
 
     net_srv = None
     if args.listen is not None:
@@ -219,6 +245,8 @@ def main(argv=None) -> int:
                 stop.wait(min(args.metrics_every, remaining))
             else:
                 stop.wait(args.metrics_every)
+            if staleness is not None:
+                staleness.check()
             extra = {"serving_net": net_srv.stats()} if net_srv else {}
             server.emit_metrics(logger, **extra)
             if trainer_thread is not None and not trainer_thread.is_alive():
@@ -236,6 +264,8 @@ def main(argv=None) -> int:
         extra = {"serving_net": net_srv.stats()} if net_srv else {}
         server.emit_metrics(logger, final=True, **extra)
         server.close()
+        if hasattr(source, "close"):
+            source.close()
         logger.close()
     if trainer_error:
         raise RuntimeError("the attached trainer failed") from trainer_error[0]

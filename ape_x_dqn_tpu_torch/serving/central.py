@@ -48,6 +48,7 @@ from ape_x_dqn_tpu_torch.runtime.net import (
     HELLO_FLAG_TRACE,
     Backoff,
     FrameParser,
+    close_gracefully,
     decode_error,
     decode_inference_reply,
     encode_inference_request,
@@ -369,7 +370,11 @@ class CentralInferenceClient:
         return out
 
     def close(self) -> None:
-        self._drop()
+        """Teardown: requests already written still reach the server whole
+        (``runtime/net.close_gracefully``), never cut by a reset."""
+        if self._sock is not None:
+            close_gracefully(self._sock)
+            self._sock = None
 
 
 def aggregate_inference_stats(stats_dicts, mode: str = "central") -> dict:

@@ -153,12 +153,45 @@ Phases, each printing one JSON line:
                 the replies, a probe's q within 1e-4 of the CPU forward of
                 its params, the served network in float32), 0 client
                 errors; QPS and latency p50/p99;
- 22. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (central_train) and on each path, error,
+ 22. tcp_train — phase 13 with ``actor.transport=tcp`` (run right after it,
+                in the same process): the 2 workers feed the learner over
+                loopback sockets, 256 KiB coalesced frames with in-window
+                frame dedup, the params back as delta-or-full frames.
+                Learner steps/s (and the second call alone) and actor fps
+                beside phase 13's, wire bytes/s and per transition, wire
+                over logical bytes, param pushes full and delta and the
+                64 KiB pages the last publish changed, ``version_lag``,
+                peak device memory; checks: 0 torn frames, every record
+                ingested, no /dev/shm segment, params from the wire, no
+                CUDA in a worker, 2 sampler launches;
+ 23. remote_join — phase 22's learner with 1 local worker,
+                ``actor.remote_workers=1`` and ``actor.max_workers=2``: a
+                ``python -m ape_x_dqn_tpu_torch.host_join`` process claims
+                the remote slot from the join spec; its child is SIGKILLed
+                and must be respawned (same attempt) and feed again; then
+                ``pool.grow(1)`` and ``pool.retire()``; the run stops once
+                that is done and 2 calls have run.  One sampler launch per
+                call, a reconnect counted, the grown worker's chunks
+                ingested, its retirement clean, host_join exits 0, no
+                /dev/shm segment left; the times of each step;
+ 24. serve_hub — a ``NetTransport`` here is the param hub: phase 22's
+                trained params (version 1) and a one-bias change (version
+                2, a page delta); a ``serve --param-hub --clients 4``
+                process (``chip_smoke.py --serve-child``, float32) serves
+                each version with q within 1e-4 of a float32 forward; a
+                ``serve`` here with ``serving.param_stale_s=2`` sheds with
+                ``E_OVERLOADED`` once publishing pauses and recovers on
+                version 3; ``serve --param-tail`` over a
+                ``ParamTailWriter`` chain (a full, a delta) serves the same
+                versions with the same q;
+ 25. kernels  — one JSON object per ported kernel with its launches on this
+                slice's main path (tcp_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
-Every device-replay phase (4, 5, 9, 11–14, 16–21) runs each fused call as
+Every device-replay phase (4, 5, 9, 11–14, 16–23) runs each fused call as
 CUDA-graph replays, the port's only device path.  Checkpoints go under the
-checkout's ``build/ckpt_smoke/`` and are removed at the end.
+checkout's ``build/ckpt_smoke/``, the join spec under
+``build/remote_join_smoke/``, the param tail under
+``build/param_tail_smoke/``; all are removed at the end.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -171,6 +204,7 @@ import gc
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -1060,26 +1094,12 @@ def timed_fused_calls():
         FusedDedupLearner.train = train
 
 
-def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False,
-                      beside: dict | None = None, central: bool = False,
-                      actors: int = 16, phase: str | None = None):
-    """``train.main`` with config3's learner (``configs/config3_seaquest_
-    256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
-    slots, sample-ahead K = 2048, bf16 second moment and target, process
-    actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
-    workers × ``actors`` / 2 actors for 8 × 32, warm-up 16 384 for 50 000,
-    ``calls`` fused calls, data_parallel 1 for 4.  ``overlap``: the
-    overlapped pipeline (``overlap_train``: depth 2, a sync every K steps),
-    reported beside ``beside`` (``dedup_train``'s result).  ``central``:
-    the workers are paramless and act through the ``PolicyServer`` that
-    the runtime hosts on the card (``actor.inference=central``)."""
-    import torch
-
+def config3_argv(steps: int, actors: int = 16, workers: int = 2, depth: int = 1,
+                 sync_every: int = 0) -> list:
+    """``train.main``'s arguments for config3's learner on one card (the
+    dedup phases' configuration; their docstrings list the cuts)."""
     K = DEDUP_K
-    depth, sync_every = (2, K) if overlap else (1, 0)
-    phase = phase or ("overlap_train" if overlap else "dedup_train")
-    steps = calls * K
-    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
+    return ["--device", "cuda", "--steps", str(steps), "--log-every", str(K),
             "--set", "network=conv", "--set", "env.name=catch:84", "--set", f"seed={SEED}",
             "--set", f"replay.capacity={DEDUP_SLOTS}", "--set", "replay.dedup=true",
             "--set", "replay.frame_ratio=1.25", "--set", "replay.priority_exponent=0.6",
@@ -1091,13 +1111,46 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
             "--set", "learner.q_target_sync_freq=2500", "--set", "learner.publish_every=2500",
             "--set", "learner.replay_sample_size=32",
             "--set", f"learner.min_replay_mem_size={DEDUP_WARMUP}",
-            "--set", "actor.mode=process", "--set", "actor.num_workers=2",
+            "--set", "actor.mode=process", "--set", f"actor.num_workers={workers}",
             "--set", f"actor.num_actors={actors}", "--set", "actor.num_steps=3",
             "--set", "actor.flush_every=16", "--set", "actor.sync_every=500",
             "--set", "actor.worker_nice=5",
             "--set", f"learner.pipeline_depth={depth}", "--set", f"learner.sync_every={sync_every}"]
+
+
+# The tcp transport as tcp_train and remote_join run it.
+TCP_ARGS = ["--set", "actor.transport=tcp", "--set", "actor.transport_host=127.0.0.1",
+            "--set", "actor.net_coalesce_bytes=262144", "--set", "actor.net_dedup=true"]
+
+
+def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False,
+                      beside: dict | None = None, central: bool = False, tcp: bool = False,
+                      actors: int = 16, phase: str | None = None):
+    """``train.main`` with config3's learner (``configs/config3_seaquest_
+    256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
+    slots, sample-ahead K = 2048, bf16 second moment and target, process
+    actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
+    workers × ``actors`` / 2 actors for 8 × 32, warm-up 16 384 for 50 000,
+    ``calls`` fused calls, data_parallel 1 for 4.  ``overlap``: the
+    overlapped pipeline (``overlap_train``: depth 2, a sync every K steps),
+    reported beside ``beside`` (``dedup_train``'s result).  ``central``:
+    the workers are paramless and act through the ``PolicyServer`` that
+    the runtime hosts on the card (``actor.inference=central``).  ``tcp``:
+    the workers feed the learner over loopback tcp (``tcp_train``: 256 KiB
+    coalesced frames, in-window frame dedup, the params as delta-or-full
+    frames on the same connections); the result then carries the wire's
+    counters and a host copy of the trained params under ``_params``."""
+    import torch
+
+    K = DEDUP_K
+    depth, sync_every = (2, K) if overlap else (1, 0)
+    phase = phase or ("overlap_train" if overlap else "dedup_train")
+    steps = calls * K
+    argv = config3_argv(steps, actors=actors, depth=depth, sync_every=sync_every)
     if central:
         argv += ["--set", "actor.inference=central"]
+    if tcp:
+        argv += TCP_ARGS
     t0 = time.monotonic()
     gc.collect()   # nothing of an earlier phase may hold device memory
     torch.cuda.synchronize()
@@ -1182,13 +1235,61 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
     }
     if inference is not None:
         result["central"] = inference
+    if tcp:
+        result["tcp"] = check_tcp(phase, pipe, final, reports, wall)
+        result["_params"] = {k: v.detach().to("cpu", copy=True)
+                             for k, v in fused.params_for_publish().items()}
     if beside is not None:
         result[f"beside_{beside['phase']}"] = {
             k: beside[k] for k in (
                 "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
                 "fused_call_ms", "peak_mem_bytes", "workers")}
-    emit(result)
+    emit({k: v for k, v in result.items() if not k.startswith("_")})
     return result
+
+
+def check_tcp(phase: str, pipe, final: dict, reports: dict, wall: float) -> dict:
+    """A run over the tcp transport: no /dev/shm segment of the pool, the
+    workers' params from the wire, 0 torn frames, every record the workers
+    sent ingested; returns the wire's numbers: bytes/s and per transition,
+    coalescing and dedup ratios, the param pushes full and delta (and, for
+    the last publish, the 64 KiB pages that changed: what a delta would
+    have shipped), ``version_lag`` (published version minus the oldest
+    version a worker's latest chunk was acted with)."""
+    pool = pipe.worker.pool
+    net, xp = final["net"], final["xp_transport"]
+    if pool.transport_kind != "tcp" or pool.shm_accounting()["shm_segments"]:
+        raise AssertionError(f"{phase}: transport {pool.shm_accounting()}")
+    if any(r["param_source"] != "net" for r in reports.values()):
+        raise AssertionError(f"{phase}: worker param sources {reports}")
+    if net["torn_frames"] or xp["torn_records"] or net["rejects"] \
+            or net["frames_in"] != xp["chunks"]:
+        raise AssertionError(f"{phase}: net {net}, xp_transport {xp}")
+    tr = pool._transport.net
+    prev, new = tr._param_prev, tr._param_payload
+    page = 64 << 10
+    changed = total = None
+    if prev is not None and new is not None and len(prev) == len(new):
+        total = (len(new) + page - 1) // page
+        changed = sum(prev[i * page:(i + 1) * page] != new[i * page:(i + 1) * page]
+                      for i in range(total))
+    train_s = max(final["train_s"], 1e-9)
+    return {
+        "wire_bytes": net["bytes_in"], "logical_bytes": net["logical_bytes_in"],
+        "wire_bytes_per_s_over_train_s": net["bytes_in"] / train_s,
+        "wire_bytes_per_s_over_wall": net["bytes_in"] / wall,
+        "wire_bytes_per_transition": net["bytes_in"] / max(xp["transitions"], 1),
+        "wire_over_logical": net["wire_over_logical"],
+        "records_per_frame": net["records_per_frame"], "wire_frames": net["wire_frames_in"],
+        "torn_frames": net["torn_frames"], "reconnects": net["reconnects"],
+        "param_pushes": net["param_pushes"], "param_full": net["param_full"],
+        "param_delta": net["param_delta"], "param_bytes": net["param_bytes"],
+        "param_last_push": net["param_last_push"], "param_fanout_ms_mean":
+            net["param_fanout_ms_mean"], "snapshot_bytes": len(new) if new else None,
+        "last_publish_pages_changed": changed, "pages": total,
+        "version_lag": final["param_version"] - min(latest_versions(pool).values()),
+        "chunk_latency_ms": xp["chunk_latency_ms"],
+    }
 
 
 @contextlib.contextmanager
@@ -1999,6 +2100,463 @@ def phase_serve_checkpoint(card: str, root: str, state, duration: float = 20.0):
     return result
 
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+JOIN_ROOT = os.path.join(REPO_DIR, "build", "remote_join_smoke")
+REMOTE_MAX_CALLS = 40
+
+
+class RemoteJoinController:
+    """Drives ``remote_join`` beside the running learner: once the pool has
+    written its join spec, a ``python -m ape_x_dqn_tpu_torch.host_join``
+    process claims the remote slot; after the slot delivered chunks its
+    child is SIGKILLed, and it must be respawned (same attempt) and feed
+    again; then ``pool.grow(1)`` starts the reserved local wid, which must
+    feed, and ``pool.retire()`` drains it out through "done"; then, past
+    ``min_steps``, the learner is stopped after the call in progress.  Any
+    step that misses its deadline stops the run and is the phase's
+    error."""
+
+    def __init__(self, seen: list, join_path: str, min_steps: int, step_s: float = 90.0):
+        self.seen, self.join_path, self.min_steps = seen, join_path, min_steps
+        self.step_s = step_s
+        self.events: list = []      # host_join's JSONL lines
+        self.log: dict = {}
+        self.error = None
+        self.proc = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.log["host_join_rc"] = self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.log["host_join_rc"] = self.proc.wait(timeout=10)
+        elif self.proc is not None:
+            self.log["host_join_rc"] = self.proc.returncode
+        return False
+
+    def _wait(self, cond, what: str):
+        deadline = time.monotonic() + self.step_s
+        while not cond():
+            if self._stop.is_set():
+                raise RuntimeError(f"stopped before: {what}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(what)
+            time.sleep(0.05)
+
+    def _spawns(self) -> list:
+        return [e for e in list(self.events) if e.get("event") == "host_join_spawn"]
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                try:
+                    self.events.append(json.loads(line))
+                except ValueError:
+                    pass
+
+    def _run(self):
+        pipe = None
+        try:
+            self._wait(lambda: bool(self.seen) and getattr(self.seen[0], "worker", None)
+                       is not None and os.path.exists(self.join_path), "the join spec")
+            pipe = self.seen[0]
+            pool = pipe.worker.pool
+            remote = pool.local_capacity     # the one remote wid
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "ape_x_dqn_tpu_torch.host_join", "--join",
+                 self.join_path, "--host", "127.0.0.1"],
+                cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            threading.Thread(target=self._read, daemon=True).start()
+            t0 = time.monotonic()
+            self._wait(lambda: pool.chunks_by_worker.get(remote, 0) >= 2,
+                       "the remote slot's first chunks")
+            self.log["remote_first_chunks_s"] = time.monotonic() - t0
+            victim = self._spawns()[0]["pid"]
+            before = pool.chunks_by_worker[remote]
+            os.kill(victim, signal.SIGKILL)
+            t_kill = time.monotonic()
+            self.log.update(killed_pid=victim, remote_chunks_at_kill=before)
+            self._wait(lambda: len(self._spawns()) >= 2
+                       and pool.chunks_by_worker.get(remote, 0) > before + 2,
+                       "the respawned remote child feeding again")
+            self.log["respawn_to_chunks_s"] = time.monotonic() - t_kill
+            self.log["grown"] = pool.grow(1)
+            if self.log["grown"] != [1]:
+                raise AssertionError(f"grow(1) started {self.log['grown']}")
+            t_grow = time.monotonic()
+            self._wait(lambda: pool.chunks_by_worker.get(1, 0) >= 2,
+                       "the grown worker's chunks")
+            self.log["grow_to_chunks_s"] = time.monotonic() - t_grow
+            self.log["retired"] = pool.retire()
+            t_retire = time.monotonic()
+            self._wait(lambda: 1 in pool.finished_workers and 1 not in pool._rings,
+                       "the retired worker's clean exit")
+            self.log["retire_to_reclaimed_s"] = time.monotonic() - t_retire
+            self._wait(lambda: pipe._learner_step >= self.min_steps, "the learner's steps")
+        except BaseException as e:  # noqa: BLE001 — the phase raises it
+            self.error = e
+        finally:
+            if pipe is None and self.seen:
+                pipe = self.seen[0]
+            if pipe is not None:
+                pipe.stop_event.set()
+
+
+def phase_remote_join(sampling, card: str, beside: dict):
+    """``train.main`` with config3's learner (``tcp_train``'s) fed by one
+    local worker and one remote slot (``actor.remote_workers=1``), with
+    ``actor.max_workers=2``: a separate ``host_join`` process claims the
+    slot from the join spec, its child is SIGKILLed and respawned on the
+    same attempt, and the pool grows a worker and retires it, all while the
+    learner trains (``RemoteJoinController``).  Checks: the learner passes
+    2 fused calls and every call launched the sampler once, the remote
+    slot's chunks resumed after the kill (its connection counted as a
+    reconnect, a torn tail counted, never decoded), the grown worker's
+    chunks ingested and its retirement clean (reported "retired", no
+    error, no restart), no CUDA in any local worker, no /dev/shm segment
+    left, ``host_join`` exits 0."""
+    import shutil
+
+    import torch
+
+    K = DEDUP_K
+    shutil.rmtree(JOIN_ROOT, ignore_errors=True)
+    os.makedirs(JOIN_ROOT)
+    join_path = os.path.join(JOIN_ROOT, "join.json")
+    argv = config3_argv(REMOTE_MAX_CALLS * K, workers=1) + TCP_ARGS + [
+        "--set", "actor.remote_workers=1", "--set", f"actor.remote_join_path={join_path}",
+        "--set", "actor.max_workers=2"]
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shm_before = _shm_segments()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, compute_apps() as apps, \
+            timed_fused_calls() as spans, \
+            RemoteJoinController(seen, join_path, min_steps=2 * K) as ctl:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    shutil.rmtree(JOIN_ROOT, ignore_errors=True)
+    if ctl.error is not None:
+        raise AssertionError(f"remote_join: {ctl.error!r}; log {ctl.log}; "
+                             f"host_join {ctl.events[-6:]}") from ctl.error
+    pipe = seen[0]
+    pool, fused = pipe.worker.pool, pipe.fused
+    calls = len(spans)
+    if final["step"] < 2 * K or launches != calls or final["step"] != calls * K:
+        raise AssertionError(f"remote_join: {final['step']} steps, {calls} calls, "
+                             f"{launches} sampler launches")
+    reports, pids = check_workers("remote_join", pool, apps)
+    if not reports[1].get("retired") or 1 not in pool.retired or pool.retires != 1 \
+            or pool.grows != 1:
+        raise AssertionError(f"remote_join: grow/retire {pool.grows}/{pool.retires}, "
+                             f"reports {reports}")
+    net, xp = final["net"], final["xp_transport"]
+    respawns = [e for e in ctl.events if e.get("event") == "host_join_respawn"]
+    if not respawns or net["reconnects"] < 1 or net["rejects"] \
+            or ctl.log.get("host_join_rc") != 0:
+        raise AssertionError(f"remote_join: host_join {ctl.events}, net {net}, "
+                             f"log {ctl.log}")
+    if _shm_segments() - shm_before:
+        raise AssertionError(f"remote_join: /dev/shm left {_shm_segments() - shm_before}")
+    call_ms = [s.elapsed_time(e) for s, e in spans]
+    remote = pool.local_capacity
+    result = {
+        "phase": "remote_join", "card": card, "learner_steps": final["step"],
+        "fused_calls": calls, "sampler_launches": launches,
+        "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
+        "learner_steps_per_s_second_call": K / (call_ms[1] / 1e3),
+        "fused_call_ms": call_ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "actor_fps": final["actor_fps"], "actor_steps": final["actor_steps"],
+        "chunks_by_worker": dict(pool.chunks_by_worker), "remote_wid": remote,
+        "controller": ctl.log, "host_join_events": [
+            {k: e[k] for k in ("event", "wid") if k in e} for e in ctl.events],
+        "net": {k: net[k] for k in ("connections", "expected", "bytes_in", "frames_in",
+                                    "wire_over_logical", "records_per_frame", "torn_frames",
+                                    "reconnects", "rejects", "param_pushes", "param_full",
+                                    "param_delta")},
+        "xp_transport": {k: xp[k] for k in ("chunks", "transitions", "salvaged_records",
+                                            "torn_records", "chunk_latency_ms")},
+        "workers": {w: {"threads": r["threads"], "cuda_initialized": r["cuda_initialized"],
+                        "retired": r["retired"], "param_source": r["param_source"]}
+                    for w, r in sorted(reports.items())},
+        "smi_compute_pids": sorted(pids), "staged_rows_left": fused.staged_rows,
+        "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4",
+                 "actors": "1 local worker + 1 remote slot (+1 grown, then retired) "
+                           "x 16 actors in all for 8 x 32",
+                 "hosts": "the remote slot joins over loopback (one host on the machine)",
+                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "data_parallel": "1 for 4"},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+        f"beside_{beside['phase']}": {k: beside[k] for k in (
+            "learner_steps_per_s", "learner_steps_per_s_second_call", "peak_mem_bytes")},
+    }
+    emit(result)
+    return result
+
+
+SERVE_HUB_ARGS = ["--set", "network=conv", "--set", "env.name=catch:84",
+                  "--set", f"seed={SEED}", "--set", "replay.capacity=1024",
+                  "--set", "learner.min_replay_mem_size=32",
+                  "--set", "serving.reload_poll_s=0.05"]
+
+
+def float32_serving(argv) -> int:
+    """``serve.main(argv)`` with the served network computing in float32
+    and TF32 off (the q checks' reference is a float32 forward)."""
+    import torch
+
+    from ape_x_dqn_tpu_torch import serve
+    from ape_x_dqn_tpu_torch.runtime import components
+
+    seeded = components.seeded_network
+
+    def float32_network(*args, **kwargs):
+        net = seeded(*args, **kwargs)
+        net.compute_dtype = torch.float32
+        return net
+
+    components.seeded_network = float32_network
+    try:
+        with float32_math():
+            return serve.main(argv)
+    finally:
+        components.seeded_network = seeded
+
+
+def serve_child(argv) -> int:
+    """``chip_smoke.py --serve-child ARGS``: one serve process (float32)."""
+    return float32_serving(argv)
+
+
+def _listen_port(out_lines, what: str, deadline_s: float = 180.0) -> int:
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        for line in list(out_lines()):
+            if '"serving_listen"' in line:
+                return json.loads(line)["port"]
+        time.sleep(0.1)
+    raise AssertionError(f"serve_hub: {what} never listened")
+
+
+def _probe_until(client, obs, version: int, timeout_s: float = 60.0):
+    """A reply served at ``version`` (or later), retried while shed."""
+    from ape_x_dqn_tpu_torch.serving.batcher import ServerOverloaded
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            reply = client.act(obs, timeout=30.0)
+        except ServerOverloaded:
+            time.sleep(0.05)
+            continue
+        if reply.param_version >= version:
+            return reply
+        time.sleep(0.02)
+    raise AssertionError(f"serve_hub: version {version} never served")
+
+
+def phase_serve_hub(card: str, trained: dict, duration: float = 12.0):
+    """The param hub and the param tail on the card.  A ``NetTransport`` in
+    this process is the hub: it publishes ``tcp_train``'s trained params
+    (version 1, full) and a newer version that changes one head's bias
+    (version 2, a page delta).  A ``serve --param-hub --listen 0 --clients
+    4`` process (``chip_smoke.py --serve-child``, float32) serves them: the
+    q of a probe at each version within 1e-4 (of the largest |q|) of a
+    float32 forward of that version's params, rc 0.  Then ``serve.main``
+    here, on a second hub channel with ``serving.param_stale_s=2``: after
+    publishing pauses, requests shed with ``E_OVERLOADED``; version 3
+    recovers it.  Then ``serve --param-tail`` over a ``ParamTailWriter``
+    chain of the same versions (a full, then a delta) serves them with the
+    same q."""
+    import shutil
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.config import load_config
+    from ape_x_dqn_tpu_torch.runtime import components
+    from ape_x_dqn_tpu_torch.runtime.net import NetTransport
+    from ape_x_dqn_tpu_torch.serving.batcher import ServerOverloaded
+    from ape_x_dqn_tpu_torch.serving.net_server import ServingClient
+    from ape_x_dqn_tpu_torch.serving.sources import ParamTailWriter
+    from ape_x_dqn_tpu_torch.utils.serialization import tree_to_bytes
+
+    t0 = time.monotonic()
+    v1 = {k: v.clone() for k, v in trained["_params"].items()}
+    v2 = {k: v.clone() for k, v in v1.items()}
+    head = sorted(k for k in v2 if k.endswith("bias"))[-1]
+    v2[head] += 0.25
+    v3 = {k: v.clone() for k, v in v2.items()}
+    v3[head] -= 0.5
+    versions = {1: v1, 2: v2, 3: v3}
+    net = components.seeded_network(load_config(None, [
+        "network=conv", "env.name=catch:84", f"seed={SEED}"]), 3, (84, 84, 1))
+    net.compute_dtype = torch.float32
+    obs = np.random.default_rng(SEED + 5).integers(0, 256, (84, 84, 1), dtype=np.uint8)
+    with torch.no_grad():
+        want = {v: net.apply_params(p, torch.from_numpy(obs[None])).q[0].numpy()
+                for v, p in versions.items()}
+
+    def q_err(reply):
+        w = want[reply.param_version]
+        return float(np.abs(reply.q_values - w).max() / np.abs(w).max())
+
+    result = {"phase": "serve_hub", "card": card, "changed_leaf": head}
+    hub = NetTransport(port=0)
+    for wid in (0, 1):
+        hub.make_channel(wid, 0)
+    stop_pump = threading.Event()
+
+    def pump():
+        while not stop_pump.wait(0.01):
+            hub.pump()
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+    tail_root = os.path.join(REPO_DIR, "build", "param_tail_smoke")
+    try:
+        pushes = [hub.set_params(tree_to_bytes(v1), 1)]
+        # The hub replica: a separate serve process.
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-child", "--param-hub",
+             f"127.0.0.1:{hub.port}:{hub.token}:0:0", "--listen", "0", "--clients", "4",
+             "--duration", str(duration), "--metrics-every", "1", "--device", "cuda",
+             *SERVE_HUB_ARGS],
+            cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        lines: list = []
+        threading.Thread(target=lambda: lines.extend(child.stdout), daemon=True).start()
+        port = _listen_port(lambda: lines, "the hub replica")
+        client = ServingClient("127.0.0.1", port)
+        r1 = _probe_until(client, obs, 1)
+        pushes.append(hub.set_params(tree_to_bytes(v2), 2))
+        r2 = _probe_until(client, obs, 2)
+        client.close()
+        rc = child.wait(timeout=duration + 120)
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        final = [r for r in recs if r.get("final")][-1]
+        errs = {1: q_err(r1), 2: q_err(r2)}
+        if rc != 0 or pushes[1]["delta"] != 1 or max(errs.values()) > 1e-4 \
+                or final["serve/param_version"] != 2 or final["serve/served_total"] <= 0:
+            raise AssertionError(f"serve_hub: rc {rc}, pushes {pushes}, q errors {errs}, "
+                                 f"final {final}")
+        result["hub_replica"] = {
+            "q_err_rel": errs, "pushes": pushes, "snapshot_bytes": len(tree_to_bytes(v1)),
+            "served_total": final["serve/served_total"],
+            "qps": final["serve/served_total"] / duration,
+            "latency_ms": {k: final.get(f"serve/{k}_ms") for k in ("p50", "p99")},
+            "reloads": final["serve/reloads"]}
+
+        # Staleness: serve.main here on the hub's second channel, no clients
+        # of its own; this process's client probes.
+        out, rcs, errors = io.StringIO(), [], []
+        stale_argv = ["--param-hub", f"127.0.0.1:{hub.port}:{hub.token}:1:0",
+                      "--listen", "0", "--duration", str(duration),
+                      "--metrics-every", "0.1", "--device", "cuda", *SERVE_HUB_ARGS,
+                      "--set", "serving.param_stale_s=2"]
+
+        def stale_thread():
+            try:
+                rcs.append(float32_serving(stale_argv))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        with contextlib.redirect_stdout(out):
+            th = threading.Thread(target=stale_thread, daemon=True)
+            th.start()
+            port = _listen_port(lambda: out.getvalue().splitlines(), "the stale-bound replica")
+            client = ServingClient("127.0.0.1", port)
+            fresh = _probe_until(client, obs, 2)
+            shed, t_quiet = 0, time.monotonic()
+            while not shed and time.monotonic() - t_quiet < 30:
+                try:
+                    client.act(obs, timeout=30.0)
+                except ServerOverloaded:
+                    shed += 1
+                time.sleep(0.05)
+            shed_after_s = time.monotonic() - t_quiet
+            t_publish = time.monotonic()
+            hub.set_params(tree_to_bytes(v3), 3)
+            recovered = _probe_until(client, obs, 3)
+            recover_s = time.monotonic() - t_publish
+            client.close()
+            th.join(duration + 120)
+        events = [json.loads(ln).get("event") for ln in out.getvalue().splitlines()
+                  if ln.startswith("{")]
+        errs3 = q_err(recovered)
+        if errors or rcs != [0] or not shed or "serving_degraded" not in events \
+                or "serving_recovered" not in events or errs3 > 1e-4 \
+                or fresh.param_version != 2:
+            raise AssertionError(f"serve_hub staleness: rc {rcs} {errors}, shed {shed}, "
+                                 f"events {events}, q error {errs3}")
+        result["staleness"] = {"param_stale_s": 2, "shed_seen": client.shed_seen,
+                               "shed_after_quiet_s": shed_after_s,
+                               "served_after_publish_s": recover_s,
+                               "recovered_version": recovered.param_version,
+                               "q_err_rel": errs3}
+        result["hub"] = {k: hub.stats()[k] for k in ("param_pushes", "param_full",
+                                                     "param_delta", "param_bytes",
+                                                     "reconnects", "rejects")}
+
+        # The tail: v1 full, then v2 as a delta file.
+        shutil.rmtree(tail_root, ignore_errors=True)
+        tail = ParamTailWriter(tail_root, base_every=16)
+        tail.publish(v1)
+        out = io.StringIO()
+        tail_argv = ["--param-tail", tail_root, "--listen", "0", "--clients", "4",
+                     "--duration", str(duration), "--metrics-every", "1", "--device", "cuda",
+                     *SERVE_HUB_ARGS]
+        rcs, errors = [], []
+
+        def tail_thread():
+            try:
+                rcs.append(float32_serving(tail_argv))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        with contextlib.redirect_stdout(out):
+            th = threading.Thread(target=tail_thread, daemon=True)
+            th.start()
+            port = _listen_port(lambda: out.getvalue().splitlines(), "the tail replica")
+            client = ServingClient("127.0.0.1", port)
+            t1 = _probe_until(client, obs, 1)
+            tail.publish(v2)
+            t2 = _probe_until(client, obs, 2)
+            client.close()
+            th.join(duration + 120)
+        recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        final = [r for r in recs if r.get("final")][-1]
+        errs = {1: q_err(t1), 2: q_err(t2)}
+        if errors or rcs != [0] or (tail.full_writes, tail.delta_writes) != (1, 1) \
+                or max(errs.values()) > 1e-4 or final["serve/param_version"] != 2:
+            raise AssertionError(f"serve_hub tail: rc {rcs} {errors}, writes "
+                                 f"{tail.full_writes}/{tail.delta_writes}, q {errs}")
+        result["tail_replica"] = {"q_err_rel": errs, "bytes_written": tail.bytes_written,
+                                  "served_total": final["serve/served_total"],
+                                  "qps": final["serve/served_total"] / duration,
+                                  "latency_ms": {k: final.get(f"serve/{k}_ms")
+                                                 for k in ("p50", "p99")}}
+    finally:
+        stop_pump.set()
+        pumper.join(10)
+        hub.close()
+        shutil.rmtree(tail_root, ignore_errors=True)
+    result["seconds"] = time.monotonic() - t0
+    emit(result)
+    return result
+
+
 def main() -> int:
     import shutil
 
@@ -2041,6 +2599,10 @@ def main() -> int:
     dedup_parity = phase_dedup_parity(sampling)
     graph_parity = phase_graph_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
+    tcp = phase_dedup_train(sampling, card=smi, tcp=True, beside=dedup, phase="tcp_train")
+    remote = phase_remote_join(sampling, card=smi, beside=tcp)
+    phase_serve_hub(card=smi, trained=tcp)
+    del tcp["_params"]
     overlap = phase_dedup_train(sampling, card=smi, overlap=True, beside=dedup)
     phase_serve_parity(card=smi)
     central = phase_dedup_train(sampling, card=smi, central=True, beside=dedup,
@@ -2056,7 +2618,7 @@ def main() -> int:
     del ckpt_state
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
-    # This slice's main path: config3's learner fed by central workers, one
+    # This slice's main path: config3's learner fed by workers over tcp, one
     # sample-ahead launch per fused call.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
@@ -2064,7 +2626,7 @@ def main() -> int:
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": central["sampler_launches"],
+        "launches": tcp["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
@@ -2073,6 +2635,9 @@ def main() -> int:
                              "dedup_parity": dedup_parity["sampler_launches"],
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],
+                             "process_device_dedup_tcp": tcp["sampler_launches"],
+                             "process_device_dedup_remote_join":
+                                 remote["sampler_launches"],
                              "process_device_dedup_overlapped":
                                  overlap["sampler_launches"],
                              "process_device_dedup_central": central["sampler_launches"],
@@ -2103,4 +2668,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-child"]:
         raise SystemExit(ckpt_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-child"]:
+        raise SystemExit(serve_child(sys.argv[2:]))
     raise SystemExit(main())

@@ -575,7 +575,7 @@ class TestConfig:
         ("actor.inference_fallback=cpu", "unknown actor.inference_fallback"),
         ("serving.queue_capacity=8", "queue_capacity"),
         ("serving.max_request_bytes=1024", "max_request_bytes"),
-        ("serving.param_stale_s=2", "ServingStalenessPolicy"),
+        ("serving.param_stale_s=-2", "param_stale_s"),
         ("chaos.serving_delay_ms=5", "serving delay"),
     ])
     def test_invalid_or_unported_knobs_raise_by_name(self, override, message):

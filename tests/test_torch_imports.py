@@ -50,7 +50,8 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.utils.checkpoint",
                  "ape_x_dqn_tpu_torch.utils.checkpoint_inc",
                  "ape_x_dqn_tpu_torch.serving.sources",
-                 "ape_x_dqn_tpu_torch.profile_checkpoint"):
+                 "ape_x_dqn_tpu_torch.profile_checkpoint",
+                 "ape_x_dqn_tpu_torch.host_join"):
         assert want in mods
 
 
@@ -60,6 +61,27 @@ def test_process_actor_modules_load_no_torch():
     code = (
         "import json, sys\n"
         "import ape_x_dqn_tpu_torch.runtime.process_actors\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_network_plane_loads_no_torch():
+    """The tcp transport's writer side (``runtime.net``, ``runtime.transport``)
+    and the remote-worker launcher load stdlib + numpy only: a spawned
+    worker and ``host_join`` import them before a child hides the card."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.runtime.net\n"
+        "import ape_x_dqn_tpu_torch.runtime.transport\n"
+        "import ape_x_dqn_tpu_torch.host_join\n"
+        "from ape_x_dqn_tpu_torch.host_join import build_argparser\n"
+        "build_argparser().parse_args(['--join', 'x.json', '--host', '10.0.0.2'])\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
         "print(json.dumps(bad))\n"

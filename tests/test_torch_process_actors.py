@@ -407,10 +407,10 @@ def test_fused_publish_through_the_publisher_equals_inline():
 
 
 @pytest.mark.parametrize("override,message", [
-    ("actor.transport=tcp", "runtime/net.py"),
-    ("serving.param_stale_s=5", "ServingStalenessPolicy"),
-    ("actor.max_workers=4", "grow/retire"),
-    ("actor.remote_workers=1", "remote workers"),
+    ("actor.transport=udp", "unknown actor.transport"),
+    ("serving.param_stale_s=-1", "param_stale_s"),
+    ("actor.max_workers=1", "max_workers must be 0"),
+    ("actor.remote_workers=1", "remote_workers requires actor.transport=tcp"),
     ("actor.mode=fork", "unknown actor.mode"),
     ("actor.num_workers=9", "num_actors must be >= actor.num_workers"),
     ("supervisor.crash_loop_budget=0", "crash_loop_budget"),
@@ -433,14 +433,12 @@ def test_native_json_with_process_keys_loads_and_refuses_central(tmp_path):
     cfg = load_config(str(path))
     assert cfg.actor.mode == "process" and cfg.actor.worker_nice == 5
     assert not cfg.supervisor.enabled and cfg.supervisor.crash_loop_budget == 2
-    # Central inference loads; a central config that names the serving
-    # staleness bound, which the port does not run, is refused by name.
+    # Central inference loads, and so does the serving staleness bound.
     path.write_text(json.dumps({"actor": {"mode": "process", "inference": "central"}}))
     assert load_config(str(path)).actor.inference == "central"
     path.write_text(json.dumps({"actor": {"mode": "process", "inference": "central"},
                                 "serving": {"param_stale_s": 5.0}}))
-    with pytest.raises(ValueError, match="ServingStalenessPolicy"):
-        load_config(str(path))
+    assert load_config(str(path)).serving.param_stale_s == 5.0
 
 
 def test_cli_process_mode_needs_the_card_or_cpu():

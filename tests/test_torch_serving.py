@@ -396,8 +396,6 @@ class TestServeCLI:
 
     @pytest.mark.parametrize("flags,name", [
         (["--checkpoint", "/nonexistent", "--replicas", "2"], "--replicas"),
-        (["--param-hub", "h:1:2:3:4"], "--param-hub"),
-        (["--param-tail", "/nonexistent"], "--param-tail"),
         (["--attach", "--replicas", "2"], "--replicas"),
         (["--attach", "--obs-port", "0"], "--obs-port"),
     ])
