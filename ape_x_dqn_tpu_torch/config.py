@@ -1,12 +1,13 @@
 """Typed configuration — the port's own copy of ``ape_x_dqn_tpu/config.py``.
 
 The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
-sections, plus ``supervisor`` and ``serving``, reference-format
+sections, plus ``supervisor``, ``serving`` and ``obs``, reference-format
 ``parameters.json`` files, ``--set section.field=value`` overrides), cut
 down to the fields the port runs.  A key the port does not run raises
 rather than loading as a dead setting, so a config written for the JAX
 package's other paths (the serving router, chaos, data parallel, the host
-dedup replay, the tiered store and the replay service) fails loudly here
+dedup replay, the tiered store, the replay service, the fleet aggregator
+and the timeline store) fails loudly here
 instead of running something else; the keys of those paths that the JAX
 configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -258,6 +259,31 @@ class ServingConfig:
 
 
 @dataclasses.dataclass
+class ObsConfig:
+    """Observability knobs (``obs/``; JAX config.py:445-482).  The fields
+    of the fleet aggregator and the timeline store (``obs.fleet_*``,
+    ``obs.timeline_*``) are refused by name: those modules are not part of
+    the port."""
+
+    # Port of the /metrics, /varz, /healthz exporter; None = no exporter,
+    # 0 = an ephemeral port (AsyncPipeline.obs_port, an obs_exporter event).
+    export_port: Optional[int] = None
+    # Share of actor chunks stamped with a lineage trace id (0 = none).
+    trace_sample_rate: float = 0.0
+    # Flight-recorder depth, in memory and in each worker's stats block.
+    recorder_depth: int = 256
+    # /healthz: a component whose heartbeat is older than this is degraded.
+    heartbeat_stale_s: float = 15.0
+    # Post-mortem files: "auto" = <learner.checkpoint_dir>/postmortem when
+    # checkpoints are on, else none; a path = there; None = none.
+    postmortem_dir: Optional[str] = "auto"
+    # /varz?trace=1: learner steps one capture traces, and where it goes
+    # (None = a fresh temporary directory per capture).
+    trace_steps: int = 512
+    trace_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
 class ApexConfig:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     actor: ActorConfig = dataclasses.field(default_factory=ActorConfig)
@@ -265,13 +291,20 @@ class ApexConfig:
     replay: ReplayConfig = dataclasses.field(default_factory=ReplayConfig)
     supervisor: SupervisorConfig = dataclasses.field(default_factory=SupervisorConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
 
     def validate(self) -> "ApexConfig":
         a, l, r, s = self.actor, self.learner, self.replay, self.supervisor
-        v = self.serving
+        v, o = self.serving, self.obs
         checks = [
+            (o.export_port is None or 0 <= o.export_port <= 65535,
+             "obs.export_port must be None or in [0, 65535]"),
+            (0.0 <= o.trace_sample_rate <= 1.0, "obs.trace_sample_rate must be in [0, 1]"),
+            (o.recorder_depth >= 1, "obs.recorder_depth must be >= 1"),
+            (o.heartbeat_stale_s > 0.0, "obs.heartbeat_stale_s must be > 0"),
+            (o.trace_steps >= 1, "obs.trace_steps must be >= 1"),
             (a.inference in ("local", "central"),
              f"unknown actor.inference: {a.inference}"),
             (0 <= a.inference_port <= 65535,
@@ -471,7 +504,8 @@ _PATH_OR_BOOL_FIELDS = {"restore_from"}
 
 # Optional-typed fields where a CLI "none" legitimately means None.
 _OPTIONAL_FIELDS = {"state_shape", "action_dim", "max_grad_norm",
-                    "second_moment_dtype", "target_dtype", "param_dtype"}
+                    "second_moment_dtype", "target_dtype", "param_dtype",
+                    "export_port", "postmortem_dir", "trace_dir"}
 
 
 def _coerce(current: Any, raw: str, field: str = "") -> Any:
@@ -503,7 +537,20 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 # Keys of the JAX package's config whose feature the port does not run yet,
 # refused by name (any other unknown key is refused as unknown).
 _TIERED = "the tiered frame store (replay/tiered.py, ROADMAP item 4)"
+_FLEET = "the fleet aggregator (obs/fleet.py, ROADMAP item 7)"
+_TIMELINE = "the timeline store (obs/timeline.py, ROADMAP item 7)"
 _NOT_PORTED = {
+    **{f"obs.{k}": _FLEET for k in (
+        "fleet_scrape_interval_s", "fleet_scrape_timeout_s", "fleet_port",
+        "fleet_slo_age_p95_ms", "fleet_slo_inference_rtt_p99_ms",
+        "fleet_slo_serving_p99_ms", "fleet_slo_serving_qps_min",
+        "fleet_slo_ring_occupancy_low", "fleet_slo_ring_occupancy_high",
+        "fleet_slo_replay_add_qps_high", "fleet_slo_endpoint_alive",
+        "fleet_slo_window_s", "fleet_slo_burn_threshold", "fleet_slo_clear_threshold",
+        "fleet_slo_min_samples")},
+    **{f"obs.{k}": _TIMELINE for k in (
+        "timeline_dir", "timeline_max_bytes", "timeline_segment_bytes",
+        "timeline_tail_keep_s")},
     "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP item 6)",
     "replay.hot_frame_budget_bytes": _TIERED,
     "replay.spill_dir": _TIERED,
@@ -560,7 +607,7 @@ def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> Ap
 _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
-    "supervisor": SupervisorConfig, "serving": ServingConfig,
+    "supervisor": SupervisorConfig, "serving": ServingConfig, "obs": ObsConfig,
 }
 
 

@@ -43,26 +43,15 @@ import time
 
 import torch
 
-SAMPLER_KERNEL = "sample_kernel"   # the kernel's name in ops/csrc/sampling.cu
+from ape_x_dqn_tpu_torch.obs.trace import SAMPLER_KERNEL, union_of_spans
 
 
 def _busy_ms(events) -> float:
     """Union of device kernel intervals, in ms."""
-    spans = sorted(
+    return union_of_spans(
         (e.time_range.start, e.time_range.end) for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3  # µs → ms
+    ) / 1e3  # µs → ms
 
 
 def profile_call(fn) -> dict:

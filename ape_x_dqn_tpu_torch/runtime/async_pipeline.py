@@ -81,9 +81,25 @@ every emit as a ``supervisor`` section and its events go to the JSONL.
 Process actors add an ``xp_transport`` section, and on the tcp transport a
 ``net`` section (JAX :640-646, :1845-1858).
 
-Observability (the overlapped loop keeps its host syncs and overlap gaps
-itself, without the obs registry), health checks, tracing and the chaos
-stall of the stager are not part of the port yet.
+Observability (JAX :464-565, :760-815; ``obs/``): a ``MetricsRegistry``
+and a ``Health`` are always built.  The registry holds
+``learner/host_syncs`` and ``learner/overlap_gap_ms`` (the overlapped
+loop's blocking reads and device gaps), ``host/rss_bytes``, the
+supervisor's counters and the providers ``learner``, ``stage_us``,
+``workers``, ``xp_transport``, ``net``, ``inference``, ``ckpt`` and, on
+the host-replay path, ``lineage``; ``/healthz`` has the components
+``learner`` (beaten once per step or fused call, and while warming up),
+``ingest``, ``ingest_stager``, ``ckpt_writer`` and ``supervisor``.  A
+``FlightRecorder`` dumps a post-mortem on a fault or SIGTERM into
+``obs.postmortem_dir`` ("auto": ``<checkpoint_dir>/postmortem`` when
+checkpoints are on), where the process pool also writes its salvaged
+workers' stats blocks.  The host path keeps a ``LineageTracker`` (ingest
+from the actors' sink, sample at each batch, trained at the deferred
+priority write-back); the fused ring never surfaces its sample indices.
+With ``obs.export_port`` set the ``/metrics``, ``/varz`` and ``/healthz``
+exporter starts last, with ``/varz?trace=1`` wired to a ``TraceOnDemand``
+over the learner's steps.  The chaos stall of the stager is not part of
+the port yet.
 """
 
 from __future__ import annotations
@@ -97,6 +113,13 @@ import torch
 
 from ape_x_dqn_tpu_torch.actors.pool import EpisodeStat
 from ape_x_dqn_tpu_torch.config import ApexConfig
+from ape_x_dqn_tpu_torch.obs import (
+    FlightRecorder,
+    Health,
+    LineageTracker,
+    MetricsRegistry,
+)
+from ape_x_dqn_tpu_torch.ops import sampling
 from ape_x_dqn_tpu_torch.runtime.components import build_components
 from ape_x_dqn_tpu_torch.runtime.infeed import (
     DevicePlacer,
@@ -241,27 +264,20 @@ class _IngestStagerThread:
                 return
 
 
-class _GapHistogram:
-    """The overlap gaps in ms, with percentiles (the JAX runtime keeps them
-    in its obs registry's ``learner/overlap_gap_ms``, not ported)."""
-
-    def __init__(self):
-        self._values: List[float] = []
-
-    def observe(self, value: float) -> None:
-        self._values.append(float(value))
-
-    def percentile(self, p: float) -> float:
-        return float(np.percentile(self._values, p)) if self._values else float("nan")
-
-
 class _ActorWorker:
     """Supervised actor-fleet thread with respawn-on-crash."""
 
     def __init__(self, comps, store: ParamStore, stop: threading.Event,
                  logger: MetricLogger, fps: RateCounter, sink,
-                 selector_factory=None):
+                 selector_factory=None, lineage=None, trace_sample_rate: float = 0.0):
+        import random
+
         self._comps = comps
+        # Lineage (host replay): the sink returns the chunk's slots, and a
+        # share ``trace_sample_rate`` of chunks open a trace.
+        self._lineage = lineage
+        self._trace_rate = float(trace_sample_rate)
+        self._trace_rng = random.Random(comps.cfg.seed ^ 0x11E4)
         # Central inference: (fleet, incarnation) -> CentralSelector.
         self._selector_factory = selector_factory
         self._store = store
@@ -329,9 +345,14 @@ class _ActorWorker:
             chunks, stats = fleet.collect(quantum, param_source=source,
                                           selector=selector)
             for chunk in chunks:
-                self._sink(chunk.priorities, chunk.transitions)
+                idx = self._sink(chunk.priorities, chunk.transitions)
                 self.actor_steps += chunk.actor_steps
                 self._fps.add(chunk.actor_steps)
+                if self._lineage is not None and idx is not None:
+                    trace_id = 0
+                    if self._trace_rate and self._trace_rng.random() < self._trace_rate:
+                        trace_id = self._trace_rng.getrandbits(63) or 1
+                    self._lineage.on_ingest(idx, trace_id=trace_id)
             if stats:
                 with self._ep_lock:
                     self.episodes.extend(stats)
@@ -367,7 +388,6 @@ class AsyncPipeline:
         self._sync_every = max(0, int(self.cfg.learner.sync_every))
         self._overlapped = self._pipeline_depth > 1 or self._sync_every > 0
         self._dispatch_pipeline: Optional[DispatchPipeline] = None
-        self._overlap_gaps = _GapHistogram()
         self._run_start_step = 0
         self.fused = None
         process = self.cfg.actor.mode == "process"
@@ -388,15 +408,17 @@ class AsyncPipeline:
             self._place = DevicePlacer(self.comps.device)
         central = self.cfg.actor.inference == "central"
         self._jsonl_sections: dict = {}
+        self._build_obs()
         self.supervisor = None
         if self.cfg.supervisor.enabled:
             from ape_x_dqn_tpu_torch.runtime.supervisor import FleetSupervisor
 
-            self.supervisor = FleetSupervisor(self.cfg.supervisor, emit=self.logger.event,
+            self.supervisor = FleetSupervisor(self.cfg.supervisor, registry=self.obs_registry,
+                                              health=self.health, emit=self.logger.event,
                                               seed=self.cfg.seed)
             # A learner wedged inside a dispatch advances neither count.
             self.supervisor.attach_learner(
-                progress_fn=lambda: (self._learner_step, self._host_syncs()),
+                progress_fn=lambda: (self._learner_step, int(self._host_syncs.value)),
                 degrade_fn=self._degrade_pipeline)
             self.register_jsonl_section("supervisor", self._supervisor_section)
         self._central_server = None
@@ -411,6 +433,7 @@ class AsyncPipeline:
                 self.comps, self.store, self.stop_event, self.logger, self._fps,
                 sink=sink,
                 selector_factory=self._make_central_selector if central else None,
+                lineage=self._lineage, trace_sample_rate=self.cfg.obs.trace_sample_rate,
             )
         if central:
             try:
@@ -420,6 +443,10 @@ class AsyncPipeline:
                 self.worker.join()   # releases a pool's segments
                 raise
             self.register_jsonl_section("inference", self._inference_section)
+            self.obs_registry.register_provider("inference", self._inference_section)
+        self.obs_registry.register_provider("learner", self._learner_varz)
+        self.obs_registry.register_provider("stage_us", self.timers.us_per_call)
+        self.health.register("ingest", lambda: time.monotonic() - self.worker.heartbeat)
         self._publisher = _AsyncPublisher(self.store)
         # Built after the restore, so that its first save continues a
         # resumed run's committed chain instead of starting a new base.
@@ -432,12 +459,144 @@ class AsyncPipeline:
                 lc.checkpoint_dir, self.fused if self.fused is not None else self.comps.replay,
                 base_every=lc.checkpoint_base_every, compress=lc.checkpoint_compress)
             self.register_jsonl_section("ckpt", self._ckpt_inc.stats)
+            self.obs_registry.register_provider("ckpt", self._ckpt_inc.stats)
+            # Saves are sparse, so the writer's liveness is structural: its
+            # thread alive (or not started) and no error recorded.
+            ckpt = self._ckpt_inc
+            self.health.register("ckpt_writer", lambda: 0.0 if (
+                ckpt.error is None and (ckpt._thread is None or ckpt._thread.is_alive())
+            ) else float("inf"))
         # Periodic greedy evaluation on the learner thread; 0 disables.
         self._eval_every = int(eval_every)
         self._eval_episodes = int(eval_episodes)
         self._next_eval = self._eval_every
         self._evaluator = None
         self.eval_scores: List[float] = []
+        self._start_exporter()
+
+    # -- observability -------------------------------------------------------
+
+    def _build_obs(self) -> None:
+        """The registry, health, flight recorder and (host replay) lineage
+        tracker, before anything registers on them (JAX :464-565)."""
+        from ape_x_dqn_tpu_torch.utils.memory import rss_bytes
+
+        ocfg = self.cfg.obs
+        reg = self.obs_registry = MetricsRegistry()
+        # Blocking device reads on the learner thread, and the device's idle
+        # between fused dispatches (0 when the next call was queued in time):
+        # the overlapped loop's two observables, counted per call or sync.
+        self._host_syncs = reg.counter("learner/host_syncs",
+                                       help="blocking device reads on the learner thread")
+        self._overlap_gap = reg.histogram("learner/overlap_gap_ms",
+                                          help="device idle between fused dispatches (ms)",
+                                          min_s=1e-2, max_s=6e4, per_decade=10)
+        reg.gauge("host/rss_bytes", help="resident set size of this process").set_fn(rss_bytes)
+        self.health = Health(stale_after_s=ocfg.heartbeat_stale_s)
+        self._postmortem_dir = self._resolve_postmortem_dir()
+        self.recorder = FlightRecorder("trainer", depth=ocfg.recorder_depth)
+        self.recorder.add_snapshot_provider("varz", reg.snapshot)
+        self._lineage = None
+        if self.fused is None:
+            self._lineage = LineageTracker(self.cfg.replay.capacity, emit=self.logger.event)
+            reg.register_provider("lineage", self._lineage.summary)
+            lineage = self._lineage
+            reg.gauge("lineage/clock_skew_clamped",
+                      help="cross-host act timestamps clamped to ingest time"
+                      ).set_fn(lambda: lineage.clock_skew_clamped)
+        self._sigterm = False     # this run's SIGTERM dump is installed
+        self.trace_on_demand = None
+        self.obs_server = None
+        self.obs_port = None
+
+    def _resolve_postmortem_dir(self) -> Optional[str]:
+        """``obs.postmortem_dir``: a path is used as given; "auto" is
+        ``<checkpoint_dir>/postmortem`` when checkpoints are on, else off."""
+        import os
+
+        d = self.cfg.obs.postmortem_dir
+        if d == "auto":
+            lc = self.cfg.learner
+            return os.path.join(lc.checkpoint_dir, "postmortem") if lc.checkpoint_every else None
+        return d
+
+    def _start_exporter(self) -> None:
+        """The on-demand tracer and, with ``obs.export_port`` set, the
+        exporter: last, once every provider is registered."""
+        from ape_x_dqn_tpu_torch.obs import ObsServer, TraceOnDemand
+
+        ocfg = self.cfg.obs
+        self.trace_on_demand = TraceOnDemand(
+            steps=ocfg.trace_steps, out_dir=ocfg.trace_dir,
+            counters_fn=lambda: {"learner_steps": self._learner_step,
+                                 "sampler_launches": sampling.sample_indices.launches},
+            beat_fn=lambda: self.health.beat("learner"))
+        if ocfg.export_port is not None:
+            self.obs_server = ObsServer(self.obs_registry, self.health,
+                                        port=ocfg.export_port,
+                                        trace_hook=self.trace_on_demand.trigger)
+            self.obs_port = self.obs_server.port
+            self.logger.event("obs_exporter", port=self.obs_port, url=self.obs_server.url)
+
+    def close_exporter(self) -> None:
+        """Close the exporter (``serve --obs-port`` mounts its own over this
+        registry, on the same port)."""
+        if self.obs_server is not None:
+            self.obs_server.close()
+            self.obs_server = None
+
+    def _obs_run_start(self, target: int) -> None:
+        """The flight recorder's run header, the SIGTERM dump (main thread
+        only) and the learner's first beat."""
+        self._sigterm = bool(self._postmortem_dir) and self.recorder.install_sigterm(
+            self._postmortem_dir)
+        self.recorder.record("run_start", target=target,
+                             mode="fused" if self.fused is not None else "host",
+                             actor_mode=self.cfg.actor.mode)
+        self.health.beat("learner")
+
+    def _obs_fault(self, e: BaseException) -> None:
+        """A fault: one recorded event and a post-mortem dump, neither of
+        which may hide the exception that brought us here."""
+        self.recorder.record("fault", error=f"{type(e).__name__}: {e}")
+        self.recorder.dump(self._postmortem_dir, "fault")
+
+    def _close_obs(self) -> None:
+        """End of a run (learner thread): a capture in flight stops, the
+        exporter closes and the SIGTERM handler this run installed gives way
+        to the one before it (it holds this runtime)."""
+        self.trace_on_demand.close()
+        self.close_exporter()
+        if self._sigterm:
+            self.recorder.restore_sigterm()
+            self._sigterm = False
+
+    def _learner_varz(self) -> dict:
+        """The ``learner`` section of ``/varz``: the numbers the JSONL emit
+        carries, readable between emits."""
+        return {
+            "step": self._learner_step,
+            "steps_per_sec": round(self._steps_rate.rate(), 1),
+            "actor_fps": round(self._fps.rate(), 1),
+            "actor_steps": self.worker.actor_steps,
+            "actor_restarts": self.worker.restarts,
+            "param_version": self.store.version,
+            "actor_heartbeat_age": round(time.monotonic() - self.worker.heartbeat, 3),
+            "replay_size": self._replay_size(),
+        }
+
+    def _obs_extra(self) -> dict:
+        """The JSONL ``workers`` (the stats blocks' sweep) and ``lineage``
+        sections."""
+        out: dict = {}
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            ws = pool.worker_stats()
+            if ws:
+                out["workers"] = ws
+        if self._lineage is not None and self._lineage.age_hist.count:
+            out["lineage"] = self._lineage.summary(include_recent=False)
+        return out
 
     def _restore_ring(self, path: str) -> None:
         """The second half of a resume: the device ring (and its staged
@@ -458,12 +617,16 @@ class AsyncPipeline:
             ProcessActorWorker,
         )
 
-        pool = ProcessActorPool(self.cfg, num_workers=self.cfg.actor.num_workers)
+        pool = ProcessActorPool(self.cfg, num_workers=self.cfg.actor.num_workers,
+                                postmortem_dir=self._postmortem_dir)
         if self.supervisor is not None:
             self.supervisor.attach_pool(pool)
         self.register_jsonl_section("xp_transport", pool.transport_stats)
+        self.obs_registry.register_provider("workers", pool.worker_stats)
+        self.obs_registry.register_provider("xp_transport", pool.transport_stats)
         if pool.transport_kind == "tcp":
             self.register_jsonl_section("net", pool.net_stats)
+            self.obs_registry.register_provider("net", pool.net_stats)
         if pool.store is None:
             # Central-paramless fleet: the workers get actions, not params;
             # a host store feeds the serving tier's reload.
@@ -486,7 +649,8 @@ class AsyncPipeline:
         else:
             process_sink = sink  # replay.add copies into its own arrays
         self.worker = ProcessActorWorker(pool, process_sink, logger=self.logger,
-                                         fps=self._fps, stop_event=self.stop_event)
+                                         fps=self._fps, stop_event=self.stop_event,
+                                         lineage=self._lineage)
 
     # -- central inference ---------------------------------------------------
 
@@ -537,10 +701,11 @@ class AsyncPipeline:
 
         a = self.cfg.actor
         host, port, token = self._central_endpoint
+        rate = self.cfg.obs.trace_sample_rate
         client = CentralInferenceClient(
             host, port, wid=0, attempt=incarnation, token=token,
             codec=a.inference_codec, dedup=a.inference_dedup,
-            inflight=a.inference_inflight, seed=self.cfg.seed,
+            inflight=a.inference_inflight, seed=self.cfg.seed, trace=rate > 0,
         )
         fallback = None
         if a.inference_fallback == "local":
@@ -553,7 +718,7 @@ class AsyncPipeline:
         sel = CentralSelector(
             client, fleet._epsilons.cpu().numpy(), fleet.envs.num_actions,
             seed=self.cfg.seed + 77_000 + incarnation,
-            timeout_s=a.inference_timeout_s, fallback=fallback,
+            timeout_s=a.inference_timeout_s, trace_sample_rate=rate, fallback=fallback,
             should_stop=self.stop_event.is_set,
         )
         for old in self._central_selectors:
@@ -622,6 +787,7 @@ class AsyncPipeline:
         fused, need = self.fused, self.cfg.learner.min_replay_mem_size
         deadline = time.monotonic() + timeout
         while True:
+            self.health.beat("learner")
             if fused is not None:
                 fused.ingest_staged(drain=self.worker.finished)
             size = self._replay_size()
@@ -643,6 +809,7 @@ class AsyncPipeline:
     def run(self, learner_steps: Optional[int] = None) -> dict:
         """Train until ``learner_steps`` (default: config total_steps)."""
         target = learner_steps if learner_steps is not None else self.cfg.learner.total_steps
+        self._obs_run_start(target)
         if self.supervisor is not None:
             self.supervisor.start()
         try:
@@ -651,18 +818,20 @@ class AsyncPipeline:
             if self._overlapped:
                 return self._run_fused_overlapped(target)
             return self._run_fused(target)
+        except BaseException as e:
+            self._obs_fault(e)
+            raise
         finally:
             if self.supervisor is not None:
                 self.supervisor.close()
+            self._close_obs()
 
     # -- supervision -------------------------------------------------------
 
-    def _host_syncs(self) -> int:
-        p = self._dispatch_pipeline
-        return p.host_syncs if p is not None else 0
-
     def _degrade_pipeline(self) -> None:
-        """The watchdog's degrade action: strict dispatch from now on."""
+        """The watchdog's degrade action: strict dispatch from now on (and a
+        flight-recorder mark)."""
+        self.recorder.record("pipeline_degraded", step=self._learner_step)
         p = self._dispatch_pipeline
         if p is not None:
             p.degrade()
@@ -670,9 +839,9 @@ class AsyncPipeline:
     def _supervisor_section(self) -> dict:
         """The JSONL ``supervisor`` section (JAX :1908-1921)."""
         s = self.supervisor
-        return {"respawns": s.respawns.value, "quarantines": s.quarantines.value,
-                "degradations": s.degradations.value,
-                "fallback_restores": s.fallback_restores.value,
+        return {"respawns": int(s.respawns.value), "quarantines": int(s.quarantines.value),
+                "degradations": int(s.degradations.value),
+                "fallback_restores": int(s.fallback_restores.value),
                 "quarantined": sorted(s.respawn_policy.quarantined),
                 "watchdog": s.watchdog.phase if s.watchdog is not None else None}
 
@@ -692,14 +861,18 @@ class AsyncPipeline:
                 pending: list = []
                 state = self.comps.state
                 while self._learner_step < target and not self.stop_event.is_set():
+                    self.health.beat("learner")
                     with self.timers.stage("sample+place"):
                         placed = queue.get()
                         batch = placed.wait()
+                    if self._lineage is not None:
+                        self._lineage.on_sample(placed.indices)
                     with self.timers.stage("step_dispatch"):
                         state, metrics = self.train_step(state, batch)
                     self.comps.state = state
                     self._learner_step += 1
                     self._steps_rate.add(1)
+                    self.trace_on_demand.tick(self._learner_step)
                     if len(pending) >= self._pipeline_depth:
                         self._flush_priority_writeback(pending)
                     pending.append((placed.indices, metrics.priorities))
@@ -753,7 +926,9 @@ class AsyncPipeline:
             replay = None
         path = save_checkpoint(self.cfg.learner.checkpoint_dir, state, replay=replay,
                                generator=generator)
-        self.logger.log("ckpt/learner_stall_ms", (time.perf_counter() - t0) * 1e3)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        self.logger.log("ckpt/learner_stall_ms", stall_ms)
+        self.recorder.record("checkpoint", step=self._learner_step, stall_ms=round(stall_ms, 1))
         return path
 
     def _finish_checkpoints(self) -> None:
@@ -781,6 +956,10 @@ class AsyncPipeline:
             idx = np.concatenate([i for i, _ in pending])
             prio = torch.cat([p for _, p in pending]).cpu().numpy()
             self.comps.replay.update_priorities(idx, prio)
+        if self._lineage is not None:
+            # The read above waited for these steps' device work: their
+            # slots are trained.
+            self._lineage.on_trained(idx)
         pending.clear()
 
     def _publish(self, params) -> None:
@@ -840,6 +1019,7 @@ class AsyncPipeline:
             next_log = self._learner_step + self.log_every
             next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
+                self.health.beat("learner")
                 fused.ingest_staged(drain=self.worker.finished)
                 beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
                                      cfg.replay.is_exponent)
@@ -850,6 +1030,7 @@ class AsyncPipeline:
                     while drain_all and inflight:
                         self._force_fused(inflight.pop(0))
                 self._learner_step += fused.steps_per_call
+                self.trace_on_demand.tick(self._learner_step)
                 # Publish at most once per fused call.
                 if self._learner_step % max(
                     cfg.learner.publish_every, fused.steps_per_call
@@ -905,7 +1086,7 @@ class AsyncPipeline:
         pipeline = DispatchPipeline(
             self._pipeline_depth, probe_fn=loss_probe,
             on_retire=lambda _m, steps: rate.add(steps),
-            gap_hist_ms=self._overlap_gaps,
+            sync_counter=self._host_syncs, gap_hist_ms=self._overlap_gap,
         )
         self._dispatch_pipeline = pipeline
         stager = _IngestStagerThread(fused, self.stop_event, lambda: worker.finished)
@@ -913,12 +1094,15 @@ class AsyncPipeline:
             self.worker.start()
             self._wait_for_warmup(WARMUP_TIMEOUT_S)
             stager.start()
+            self.health.register("ingest_stager",
+                                 lambda: time.monotonic() - stager.heartbeat)
             t0 = time.monotonic()
             next_log = self._learner_step + self.log_every
             next_sync = (self._learner_step + self._sync_every
                          if self._sync_every else None)
             next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
+                self.health.beat("learner")
                 if stager.error is not None:
                     raise RuntimeError("ingest stager failed") from stager.error
                 with self.timers.stage("ingest"):
@@ -942,6 +1126,7 @@ class AsyncPipeline:
                         last_metrics = pipeline.dispatch(lambda: fused.train(beta),
                                                          fused.steps_per_call)
                 self._learner_step += fused.steps_per_call
+                self.trace_on_demand.tick(self._learner_step)
                 if next_sync is not None and self._learner_step >= next_sync:
                     # Cadence: bound how far the host-visible metrics and
                     # flow control trail the dispatch edge.
@@ -996,12 +1181,13 @@ class AsyncPipeline:
         against the steps this run took, and the overlap gaps."""
         p = self._dispatch_pipeline
         steps = max(1, self._learner_step - self._run_start_step)
-        gp50, gp95 = (self._overlap_gaps.percentile(q) for q in (50, 95))
+        syncs = int(self._host_syncs.value)
+        gp50, gp95 = (self._overlap_gap.percentile(q) for q in (50, 95))
         return {
             "depth": p.depth,
             "sync_every": self._sync_every,
-            "host_syncs": p.host_syncs,
-            "syncs_per_1k_steps": round(1000.0 * p.host_syncs / steps, 3),
+            "host_syncs": syncs,
+            "syncs_per_1k_steps": round(1000.0 * syncs / steps, 3),
             "overlap_gap_ms_p50": round(gp50, 3) if gp50 == gp50 else None,
             "overlap_gap_ms_p95": round(gp95, 3) if gp95 == gp95 else None,
             "gaps_observed": p.gaps_observed,
@@ -1024,6 +1210,7 @@ class AsyncPipeline:
             path["staged_rows"] = self.fused.staged_rows
         if self._dispatch_pipeline is not None:
             path["pipeline"] = self._pipeline_extra()
+        path.update(self._obs_extra())
         path.update(self._sections_extra())
         return self.logger.emit(
             step=self._learner_step,

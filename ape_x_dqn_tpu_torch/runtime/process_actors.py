@@ -64,9 +64,21 @@ package's:
     ``grow`` spawns reserved ids, ``retire`` ends one worker's collect loop
     at its next quantum boundary (a clean drain, never a kill).
 
-Not ported yet (the config refuses them by name): chaos ``SlowEnv``,
-lineage trace sampling, the per-worker stats blocks, the flight recorder
-and post-mortem files.
+  * **Observability** (JAX :405-437, :800-905, :1548-1625): the parent
+    creates one ``obs/shm_stats.WorkerStatsBlock`` per local worker
+    incarnation and the worker is its single writer: slot values once per
+    quantum and a flight recorder (``obs/recorder``) mirrored into the
+    block's event ring, readable after a SIGKILL.  The salvage of a dead
+    incarnation turns its block into a post-mortem record (and a file,
+    with a post-mortem dir); blocks are unlinked at salvage, at retire
+    and at ``stop``.  ``worker_stats`` sweeps the live blocks.  A worker
+    stamps a random trace id on a share ``obs.trace_sample_rate`` of its
+    chunks (the envelope's trace field) and the pump hands each chunk's
+    slots, send time and trace id to the lineage tracker.  A central
+    worker's client traces at the same rate into its recorder.  Remote
+    workers have no block.
+
+Not ported yet: chaos ``SlowEnv``.
 
 This module imports only the standard library and numpy at module scope:
 a spawned child imports it before the worker target runs, and pays for
@@ -257,6 +269,7 @@ def _cfg_from_dict(cfg_dict: dict):
         ApexConfig,
         EnvConfig,
         LearnerConfig,
+        ObsConfig,
         ReplayConfig,
         ServingConfig,
         SupervisorConfig,
@@ -269,6 +282,7 @@ def _cfg_from_dict(cfg_dict: dict):
         replay=ReplayConfig(**cfg_dict["replay"]),
         supervisor=SupervisorConfig(**cfg_dict["supervisor"]),
         serving=ServingConfig(**cfg_dict["serving"]),
+        obs=ObsConfig(**cfg_dict["obs"]),
         network=cfg_dict["network"],
         seed=cfg_dict["seed"],
     )
@@ -289,10 +303,11 @@ def network_and_template(cfg):
     return obs_shape, network, template
 
 
-def encode_record(chunk, param_version: int) -> list:
+def encode_record(chunk, param_version: int, trace_id: int = 0) -> list:
     """Ring-ready parts of one fleet chunk: an ``XP`` record for a dense
     ``NStepTransition``, a ``DXP`` record for a ``DedupChunk`` (its int
-    identity fields ride the record's prefix)."""
+    identity fields ride the record's prefix); ``trace_id`` is the
+    envelope's lineage trace id (0 = not sampled)."""
     from ape_x_dqn_tpu_torch.types import DedupChunk
 
     t = chunk.transitions
@@ -303,15 +318,18 @@ def encode_record(chunk, param_version: int) -> list:
              **{k: np.asarray(getattr(t, k)) for k in (
                  "frames", "obs_ref", "next_ref", "action", "reward", "discount")}},
             source=t.source, chunk_seq=t.chunk_seq, prev_frames=t.prev_frames,
+            trace_id=trace_id,
         )
     return encode_chunk_parts(
         XP, param_version, chunk.actor_steps,
         {"prio": np.asarray(chunk.priorities), "obs": t.obs, "action": t.action,
          "reward": t.reward, "discount": t.discount, "next_obs": t.next_obs},
+        trace_id=trace_id,
     )
 
 
-def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt):
+def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt,
+                      recorder=None):
     """The worker's ``CentralSelector`` (JAX :442-494): a pipelined client
     to the configured endpoint, ε from the fleet's ladder slice, a seeded
     stream per incarnation, and with ``inference_fallback=local`` the
@@ -323,10 +341,12 @@ def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt
     )
 
     a = cfg.actor
+    trace_rate = float(cfg.obs.trace_sample_rate)
     client = CentralInferenceClient(
         a.inference_host, a.inference_port, wid=worker_id, attempt=attempt,
         token=a.inference_token, codec=a.inference_codec, dedup=a.inference_dedup,
         inflight=a.inference_inflight, seed=cfg.seed + worker_id,
+        trace=trace_rate > 0, span_recorder=recorder,
     )
     fallback = None
     if a.inference_fallback == "local" and source is not None:
@@ -340,15 +360,15 @@ def _central_selector(cfg, fleet, source, worker_id: int, attempt: int, stop_evt
     return CentralSelector(
         client, fleet._epsilons.cpu().numpy(), fleet.envs.num_actions,
         seed=cfg.seed + 77_000 + worker_id + 100_000 * attempt,
-        timeout_s=a.inference_timeout_s, fallback=fallback,
-        should_stop=stop_evt.is_set,
+        timeout_s=a.inference_timeout_s, trace_sample_rate=trace_rate,
+        fallback=fallback, should_stop=stop_evt.is_set,
     )
 
 
 def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                  param_spec: dict, xp_spec: dict, ctl_queue, stop_evt,
                  steps_budget: int, quantum: int, attempt: int = 0, nice: int = 0,
-                 retire_evt=None):
+                 retire_evt=None, stats_name: Optional[str] = None):
     """Worker process entry: one CPU ``ActorFleet`` over this worker's
     slice of ``num_workers`` (the pool's whole partition, remote slots
     included), chunks into this incarnation's channel (an shm ring or a tcp
@@ -357,7 +377,10 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
     seqlock buffer (``param_spec`` kind ``shm``), from frames on the tcp
     connection (``net``) or not at all (``none``: central-paramless).  A
     set ``retire_evt`` ends the collect loop at the next quantum boundary:
-    the worker flushes and exits through the clean "done" path."""
+    the worker flushes and exits through the clean "done" path.
+    ``stats_name`` names this incarnation's stats block (the parent made
+    it; this worker writes it); a block that cannot be attached leaves the
+    worker without stats, never without work."""
     if nice:
         # Where workers share cores with the learner, a positive niceness
         # keeps the learner's dispatch thread scheduled first.
@@ -369,7 +392,18 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     buf = None
     ring = None
+    sblock = None
     try:
+        import random
+
+        from ape_x_dqn_tpu_torch.obs.recorder import FlightRecorder
+        from ape_x_dqn_tpu_torch.obs.shm_stats import WorkerStatsBlock
+
+        if stats_name:
+            try:
+                sblock = WorkerStatsBlock(name=stats_name, create=False)
+            except (OSError, ValueError):
+                sblock = None
         import torch
 
         from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
@@ -417,7 +451,19 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             source = NetParamSource(ring, template)
         # "none": a central-paramless worker; its actions come from the
         # serving tier.
-        selector = (_central_selector(cfg, fleet, source, worker_id, attempt, stop_evt)
+        recorder = FlightRecorder(name=f"worker{worker_id}", depth=cfg.obs.recorder_depth,
+                                  shm_sink=sblock)
+        eps = fleet._epsilons.cpu().numpy()
+        if sblock is not None:
+            sblock.update(eps_mean=float(eps.mean()), eps_min=float(eps.min()),
+                          eps_max=float(eps.max()))
+        recorder.record("spawn", worker=worker_id, attempt=attempt, lo=lo, hi=hi,
+                        budget=steps_budget)
+        # Lineage: a sampled chunk carries a random nonzero 63-bit id.
+        trace_rng = random.Random((os.getpid() << 20) ^ (worker_id << 8) ^ attempt)
+        trace_rate = float(cfg.obs.trace_sample_rate)
+        selector = (_central_selector(cfg, fleet, source, worker_id, attempt, stop_evt,
+                                      recorder=recorder)
                     if cfg.actor.inference == "central" else None)
         if source is not None:
             # Wait for the learner's first publication (a central worker with
@@ -428,7 +474,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                     ctl_queue.put(("done", worker_id, 0))
                     return
                 time.sleep(0.01)
-        collect_s = 0.0
+        collect_s = write_s = 0.0
+        chunks_sent = transitions_sent = episodes_total = 0
 
         def retiring() -> bool:
             return retire_evt is not None and retire_evt.is_set()
@@ -447,22 +494,39 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                     break     # stopped while waiting for the serving tier
                 raise
             collect_s += time.monotonic() - t0
+            t0 = time.monotonic()
             for c in chunks:
-                parts = encode_record(c, fleet.param_version)
+                trace_id = 0
+                if trace_rate and trace_rng.random() < trace_rate:
+                    trace_id = trace_rng.getrandbits(63) or 1
+                parts = encode_record(c, fleet.param_version, trace_id)
                 # Backpressure: block on a full ring, abort promptly on stop
                 # (a stopping learner no longer drains).
                 if not ring.write(parts, should_stop=stop_evt.is_set):
                     break
+                chunks_sent += 1
+                transitions_sent += len(c.priorities)
+                if trace_id:
+                    recorder.record("trace_chunk", trace_id=trace_id,
+                                    rows=len(c.priorities), v=fleet.param_version)
             # tcp's coalescing buffer holds no record across a collect.
             flush = getattr(ring, "flush", None)
             if flush is not None:
                 flush(should_stop=stop_evt.is_set)
+            write_s += time.monotonic() - t0
             if ep_stats:
+                episodes_total += len(ep_stats)
                 ctl_queue.put((
                     "episodes", worker_id,
                     [(s.actor_id + lo, s.episode_return, s.episode_length)
                      for s in ep_stats],
                 ))
+            if sblock is not None:
+                # One slot update and heartbeat per quantum.
+                sblock.update(env_steps=fleet.step_count, chunks=chunks_sent,
+                              transitions=transitions_sent,
+                              param_version=fleet.param_version, episodes=episodes_total,
+                              collect_s=collect_s, write_s=write_s)
             if selector is not None:
                 # The client's counters, at the quantum cadence (one dict).
                 try:
@@ -471,6 +535,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
                 except queue_mod.Full:
                     pass
             trim_malloc()  # the obs-batch stream otherwise grows the RSS
+        recorder.record("done", steps=fleet.step_count, stopped=stop_evt.is_set(),
+                        retired=retiring())
         report = {
             "cuda_initialized": bool(torch.cuda.is_initialized()),
             "param_buffer": buf is not None,
@@ -498,6 +564,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             buf.close()
         if ring is not None:
             ring.close()
+        if sblock is not None:
+            sblock.close()
 
 
 class ProcessActorPool:
@@ -512,7 +580,7 @@ class ProcessActorPool:
     """
 
     def __init__(self, cfg, num_workers: int = 2, quantum: Optional[int] = None,
-                 max_restarts: int = 3):
+                 max_restarts: int = 3, postmortem_dir: Optional[str] = None):
         from ape_x_dqn_tpu_torch.config import to_dict
 
         self.cfg = cfg
@@ -588,23 +656,43 @@ class ProcessActorPool:
         self._death_pending: dict = {}    # wid -> error, awaiting respawn
         self._last_spawn: dict = {}       # wid -> spawn time
         self._min_respawn_interval = float(cfg.actor.respawn_min_interval_s)
+        # One stats block per live local incarnation (wid -> block); poll
+        # sweeps them into a cached snapshot, a salvage turns a dead one
+        # into a post-mortem record.
+        self._stats_blocks: dict = {}
+        self._stats_prev: dict = {}      # wid -> (t, env_steps, steps/s)
+        self._worker_snap: dict = {}
+        self._worker_snap_t = 0.0
+        self.postmortems: List[dict] = []
+        self._postmortem_dir = postmortem_dir
 
     def _spawn(self, wid: int, budget: int):
+        if wid in self._queues:
+            self._salvage_incarnation(wid)
         attempt = self._attempt.get(wid, 0)
         self._attempt[wid] = attempt + 1
         self._last_spawn[wid] = time.monotonic()
-        if wid in self._queues:
-            self._salvage_incarnation(wid)
         self._spawned_local.add(wid)
         self._retire_events[wid] = self._ctx.Event()
         self._queues[wid] = self._ctx.Queue(maxsize=_CONTROL_QUEUE_SIZE)
         self._rings[wid] = self._transport.make_channel(wid, attempt)
         xp_spec = self._transport.endpoint(self._rings[wid], wid, attempt)
+        from ape_x_dqn_tpu_torch.obs.shm_stats import WORKER_SLOTS, WorkerStatsBlock
+
+        self._stats_prev.pop(wid, None)   # a fresh incarnation: its rate restarts
+        try:
+            blk = WorkerStatsBlock(slots=WORKER_SLOTS,
+                                   event_depth=max(16, self.cfg.obs.recorder_depth))
+            self._stats_blocks[wid] = blk
+            stats_name = blk.name
+        except OSError:
+            stats_name = None   # stats must not block a spawn
         p = self._ctx.Process(
             target=_worker_main,
             args=(wid, self._cfg_dict, self.total_workers, self._param_spec(), xp_spec,
                   self._queues[wid], self.stop_event, budget, self._quantum,
-                  attempt, self.cfg.actor.worker_nice, self._retire_events[wid]),
+                  attempt, self.cfg.actor.worker_nice, self._retire_events[wid],
+                  stats_name),
             daemon=True,
         )
         p.start()
@@ -620,9 +708,13 @@ class ProcessActorPool:
         """Drain every fully committed record out of a dead incarnation's
         channel (a kill mid-record leaves a torn tail: counted, never
         delivered) and its control queue, then release both.  A respawn
-        gets a fresh channel, so its stream restarts seq-clean."""
+        gets a fresh channel, so its stream restarts seq-clean.  Its stats
+        block (the final slots and the recorder's last events) becomes a
+        post-mortem record in ``postmortems`` and, with a post-mortem dir,
+        a ``worker<wid>-salvage-*.json`` file; then it is unlinked."""
         self._drain_control(self._queues[wid])
         ring = self._rings.pop(wid, None)
+        ring_post: dict = {}
         if ring is not None:
             salvaged = 0
             while True:
@@ -631,11 +723,28 @@ class ProcessActorPool:
                     break
                 self._salvaged.append(self._decode_record(wid, rec))
                 salvaged += 1
-            self.transport.count_salvage(salvaged, torn=ring.torn_tail())
+            torn = ring.torn_tail()
+            self.transport.count_salvage(salvaged, torn=torn)
             self._full_waits_base += ring.full_waits
+            ring_post = {"salvaged_records": salvaged, "torn_tail": bool(torn),
+                         "full_waits": ring.full_waits}
             ring.close()
             ring.unlink()
             self._transport.drop_channel(wid, ring)
+        post = {"worker": wid, "attempt": self._attempt.get(wid, 1) - 1, "ring": ring_post}
+        blk = self._stats_blocks.pop(wid, None)
+        if blk is not None:
+            post["stats"] = blk.snapshot()
+            post["events"], post["events_torn"] = blk.recent_events()
+            blk.close()
+            blk.unlink()
+        if self._postmortem_dir:
+            from ape_x_dqn_tpu_torch.obs.recorder import write_postmortem
+
+            path = write_postmortem(self._postmortem_dir, f"worker{wid}", "salvage", post)
+            if path:
+                post["path"] = path
+        self.postmortems.append(post)
         old = self._queues.pop(wid, None)
         if old is not None:
             old.close()  # release the pipe fds now, not at collection
@@ -660,12 +769,43 @@ class ProcessActorPool:
         return {
             "transport": self._transport.kind,
             "shm_segments": ((1 if self.buffer is not None else 0) + len(self._rings)
-                             if shm else 0),
+                             if shm else 0) + len(self._stats_blocks),
             "ring_bytes_each": self._ring_bytes if shm else 0,
             "ring_bytes_total": self._ring_bytes * len(self._rings) if shm else 0,
             "param_buffer_bytes": self.buffer.capacity if self.buffer is not None else 0,
             "process_fds": n_fds,
         }
+
+    def worker_stats(self, max_age_s: float = 0.5) -> dict:
+        """The per-worker sweep of the live stats blocks, keyed by
+        ``str(wid)``: the slots, the writer's pid, seq, heartbeat age and
+        events, a parent-side ``env_steps_s``, the channel's backlog and
+        full waits, and ``alive``.  Cached for ``max_age_s``."""
+        now = time.monotonic()
+        if self._worker_snap and now - self._worker_snap_t < max_age_s:
+            return self._worker_snap
+        out: dict = {}
+        for wid, blk in list(self._stats_blocks.items()):
+            snap = blk.snapshot()
+            ring = self._rings.get(wid)
+            if ring is not None:
+                snap["ring_backlog_bytes"] = max(0, ring.committed_bytes - ring.bytes_read)
+                snap["ring_full_waits"] = ring.full_waits
+            prev = self._stats_prev.get(wid)
+            if prev is not None and now - prev[0] >= 0.2:
+                rate = max(0.0, snap["env_steps"] - prev[1]) / (now - prev[0])
+                snap["env_steps_s"] = round(rate, 1)
+                self._stats_prev[wid] = (now, snap["env_steps"], rate)
+            elif prev is not None:
+                snap["env_steps_s"] = round(prev[2], 1)
+            else:
+                snap["env_steps_s"] = 0.0
+                self._stats_prev[wid] = (now, snap["env_steps"], 0.0)
+            p = self._procs[wid] if wid < len(self._procs) else None
+            snap["alive"] = bool(p.is_alive()) if p is not None else False
+            out[str(wid)] = snap
+        self._worker_snap, self._worker_snap_t = out, now
+        return out
 
     def net_stats(self) -> dict:
         """The JSONL ``net`` section (tcp: bytes/s, frames, coalescing and
@@ -920,15 +1060,18 @@ class ProcessActorPool:
         return all(w in settled for w in self._spawned_local - self.retired)
 
     def poll(self, max_items: int = 64, timeout: float = 0.0,
-             max_bytes: Optional[int] = None) -> List[tuple]:
+             max_bytes: Optional[int] = None, with_meta: bool = False) -> List[tuple]:
         """One batched sweep over the control queues and every live channel
         (a few records per channel per pass, so one hot worker cannot
         starve the sweep), bounded by ``max_items`` chunks and the byte
-        budget; returns [(priorities, transitions), ...].  The arrays are
+        budget; returns [(priorities, transitions), ...], or with
+        ``with_meta`` [(priorities, transitions, meta), ...] where meta is
+        the envelope's ``wid``, ``sent_t`` and ``trace_id``.  The arrays are
         read-only views over each record's own copy: a sink that keeps rows
         copies them.  On tcp each poll first accepts new connections and
-        routes their hellos."""
+        routes their hellos; the stats blocks' sweep rides the poll."""
         self._transport.pump()
+        self.worker_stats()
         out = list(self._salvaged)
         self._salvaged.clear()
         budget = max_bytes if max_bytes is not None else self._drain_budget
@@ -958,15 +1101,17 @@ class ProcessActorPool:
                     time.sleep(min(0.01, timeout))
                     continue
                 break
-        return out
+        if with_meta:
+            return out
+        return [(prio, trans) for prio, trans, _ in out]
 
     def _decode_record(self, wid: int, payload: bytes) -> tuple:
-        """One record → (priorities, transitions) + pool accounting; the
-        transitions are a ``DedupChunk`` for a ``DXP`` record."""
+        """One record → (priorities, transitions, meta) + pool accounting;
+        the transitions are a ``DedupChunk`` for a ``DXP`` record."""
         from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
 
         (kind, version, sent_t, steps, source, chunk_seq, prev_frames,
-         _, arrays) = decode_chunk(payload)
+         trace_id, arrays) = decode_chunk(payload)
         self.last_versions[wid] = version
         self.chunks_by_worker[wid] = self.chunks_by_worker.get(wid, 0) + 1
         self.actor_steps += steps
@@ -977,11 +1122,12 @@ class ProcessActorPool:
             self._steps_by_worker.get(wid, 0) + steps // max(hi - lo, 1)
         )
         self.transport.record_chunk(len(payload), time.monotonic() - sent_t, steps)
+        meta = {"wid": wid, "sent_t": sent_t, "trace_id": trace_id}
         prio = arrays.pop("prio")
         if kind == DXP:
             return prio, DedupChunk(source=source, chunk_seq=chunk_seq,
-                                    prev_frames=prev_frames, **arrays)
-        return prio, NStepTransition(**arrays)
+                                    prev_frames=prev_frames, **arrays), meta
+        return prio, NStepTransition(**arrays), meta
 
     def transport_stats(self) -> dict:
         """The JSONL ``xp_transport`` section: chunks, bytes, latency,
@@ -1040,6 +1186,10 @@ class ProcessActorPool:
                 self._transport.drop_channel(wid, ring)
             for wid in list(self._queues):
                 self._queues.pop(wid).close()
+            for wid in list(self._stats_blocks):
+                blk = self._stats_blocks.pop(wid)
+                blk.close()
+                blk.unlink()
             self._transport.close()
             if self.buffer is not None:
                 self.buffer.close()
@@ -1054,12 +1204,16 @@ class ProcessActorWorker:
     staging)."""
 
     def __init__(self, pool: ProcessActorPool, sink, logger=None, fps=None,
-                 stop_event: Optional[threading.Event] = None):
+                 stop_event: Optional[threading.Event] = None, lineage=None):
         from ape_x_dqn_tpu_torch.actors.pool import EpisodeStat
 
         self._EpisodeStat = EpisodeStat
         self.pool = pool
         self._sink = sink
+        # The lineage tracker (host replay): fed the slots each chunk landed
+        # in (the host replay's sink returns them; a fused sink returns
+        # None) with the envelope's send time and trace id.
+        self._lineage = lineage
         self._logger = logger
         self._fps = fps
         self._stop = threading.Event()
@@ -1106,11 +1260,14 @@ class ProcessActorWorker:
         try:
             while not self._stop.is_set():
                 self.pool.supervise()
-                items = self.pool.poll(max_items=64, timeout=0.05)
-                for prio, trans in items:
-                    self._sink(prio, trans)
+                items = self.pool.poll(max_items=64, timeout=0.05, with_meta=True)
+                for prio, trans, meta in items:
+                    idx = self._sink(prio, trans)
                     if self._fps is not None:
                         self._fps.add(len(prio))
+                    if self._lineage is not None and idx is not None:
+                        self._lineage.on_ingest(idx, t_act=meta["sent_t"],
+                                                trace_id=meta["trace_id"], wid=meta["wid"])
                 if items:
                     self.heartbeat = time.monotonic()
                 if self.pool.episodes:

@@ -169,6 +169,7 @@ class ShmRing:
         self._ridx = self._get(_OFF_RIDX_A)
         self._rseq = self._get(_OFF_COMMITTED) if not create else 0
         self.records_read = 0
+        self.bytes_read = 0
 
     # -- shared-header accessors ------------------------------------------
 
@@ -192,6 +193,11 @@ class ShmRing:
         """Records whose commit word landed (the counter may lag the commit
         word by one if the writer died between the two stores)."""
         return self._get(_OFF_COMMITTED)
+
+    @property
+    def committed_bytes(self) -> int:
+        """Bytes committed by the writer, record headers included."""
+        return self._get(_OFF_BYTES)
 
     @property
     def full_waits(self) -> int:
@@ -317,6 +323,7 @@ class ShmRing:
         self._ridx += _REC.size + length
         self._rseq += 1
         self.records_read += 1
+        self.bytes_read += _REC.size + length
         self._set(_OFF_RIDX_B, self._ridx)
         self._set(_OFF_RIDX_A, self._ridx)
         return payload

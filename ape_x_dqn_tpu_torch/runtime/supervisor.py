@@ -20,10 +20,13 @@ failure class:
     snapshot lands.
   * ``FleetSupervisor`` (JAX :240-439) — one per run: holds the policies,
     counts respawns, quarantines, degradations and fallback restores
-    (``utils/checkpoint_inc``'s walk-backs), and ticks the watchdog and the
-    staleness policies on a thread of its own.  Its events go to the run's
-    JSONL (``emit``); the JAX package's obs-registry rows and ``/healthz``
-    component wait for the port's observability (ROADMAP item 5).
+    (``utils/checkpoint_inc``'s walk-backs) as the registry's
+    ``supervisor/*`` counters beside a ``supervisor`` provider (JAX
+    :258-285), and ticks the watchdog and the staleness policies on a
+    thread of its own.  With a ``Health`` the watchdog is the
+    ``supervisor`` component of ``/healthz`` (a wedged run reads 503) and
+    each staleness policy a ``serving_params`` one.  Its events go to the
+    run's JSONL (``emit``).
 
 Every method takes an optional ``now`` so tests drive time instead of
 sleeping; the jitter generator is seeded.
@@ -223,21 +226,12 @@ class ServingStalenessPolicy:
         return stale
 
 
-class Counter:
-    """A monotone count (``inc`` / ``value``: the surface of the JAX
-    registry's counters, which the port does not have yet)."""
-
-    def __init__(self):
-        self.value = 0
-
-    def inc(self, n: int = 1) -> None:
-        self.value += n
-
-
 class FleetSupervisor:
     """One supervisor per run: the policies, their counters and the thread
     that ticks the watchdog and the staleness policies.
 
+    Construction registers the four ``supervisor/*`` counters and the
+    ``supervisor`` provider on ``registry`` (a private one when None);
     ``attach_pool(pool)`` installs it as the pool's respawn policy (the pool
     calls ``on_worker_death`` / ``decide_respawn``);
     ``attach_learner(progress_fn, degrade_fn)`` arms the watchdog;
@@ -247,16 +241,27 @@ class FleetSupervisor:
     construction.
     """
 
-    def __init__(self, cfg, emit: Optional[Callable[..., None]] = None, seed: int = 0):
+    def __init__(self, cfg, registry=None, health=None,
+                 emit: Optional[Callable[..., None]] = None, seed: int = 0):
+        from ape_x_dqn_tpu_torch.obs.registry import MetricsRegistry
         from ape_x_dqn_tpu_torch.utils.checkpoint_inc import consume_fallback_events
 
         self.cfg = cfg
+        self._health = health
         self._emit = emit
         self.events: List[dict] = []
-        self.respawns = Counter()
-        self.quarantines = Counter()
-        self.degradations = Counter()
-        self.fallback_restores = Counter()
+        reg = registry if registry is not None else MetricsRegistry()
+        self.registry = reg
+        self.respawns = reg.counter("supervisor/respawns", help="worker respawns ordered")
+        self.quarantines = reg.counter("supervisor/quarantines",
+                                       help="workers quarantined (crash loop)")
+        self.degradations = reg.counter(
+            "supervisor/degradations",
+            help="degraded-mode transitions (pipeline strict, serving shed)")
+        self.fallback_restores = reg.counter(
+            "supervisor/fallback_restores",
+            help="checkpoint restores that walked back a corrupt chain")
+        reg.register_provider("supervisor", self.state)
         self.respawn_policy = RespawnPolicy.from_config(cfg, seed=seed)
         self.watchdog: Optional[LearnerWatchdog] = None
         self.serving_policies: List[ServingStalenessPolicy] = []
@@ -312,6 +317,8 @@ class FleetSupervisor:
                                         stall_deadline_s=self.cfg.stall_deadline_s,
                                         wedge_deadline_s=self.cfg.wedge_deadline_s,
                                         on_event=self._event)
+        if self._health is not None:
+            self._health.register("supervisor", self.watchdog.age_s)
         return self
 
     # -- serving staleness ---------------------------------------------------
@@ -324,6 +331,9 @@ class FleetSupervisor:
 
         policy = ServingStalenessPolicy(server, stale_after_s, on_event=on_event)
         self.serving_policies.append(policy)
+        if self._health is not None:
+            self._health.register("serving_params", policy.age_s,
+                                  stale_after_s=stale_after_s)
         return policy
 
     # -- checkpoint fallback -------------------------------------------------

@@ -6,7 +6,8 @@ Port of ``ape_x_dqn_tpu/serve.py`` for its one-server modes:
         --param-hub HOST:PORT:TOKEN:RID:ATTEMPT | --param-tail DIR) \\
         [--listen [HOST:]PORT] [--run-token T] [--params-file F] \\
         [--set section.field=value ...] [--duration S] [--clients N] \\
-        [--steps N] [--metrics-file F] [--metrics-every S] [--device cuda|cpu]
+        [--steps N] [--metrics-file F] [--metrics-every S] [--obs-port PORT] \\
+        [--device cuda|cpu]
 
 ``--attach`` runs the async trainer (``runtime/async_pipeline.py``) in a
 thread of this process and serves its live ``ParamStore`` through a
@@ -28,14 +29,20 @@ lands; under ``--attach`` the trainer's supervisor ticks it, otherwise the
 metrics loop does, every ``--metrics-every`` seconds.  ``--listen`` mounts
 the socket front end (``serving/net_server.py``) and announces the bound port as a
 ``serving_listen`` JSONL event (port 0 = ephemeral); with ``--attach`` the
-trainer's records then carry a ``serving_net`` section.  ``--clients N``
+trainer's records then carry a ``serving_net`` section.  ``--obs-port``
+(or ``obs.export_port``; JAX :369-393) mounts the ``/metrics``, ``/varz``
+and ``/healthz`` exporter (``obs/exporter.py``) over a registry with the
+server's stats as its ``serving`` provider and the batcher's heartbeat as
+the ``serving_batcher`` component; under ``--attach`` that registry and
+health are the trainer's (one scrape covers both halves, and the
+trainer's own exporter gives up the port), and a staleness policy is a
+``serving_params`` component.  ``--clients N``
 runs N built-in closed-loop clients against the server; every
 ``--metrics-every`` seconds a ``serve/`` record is emitted.  ``--device``
 defaults to ``cuda`` and a missing card raises.
 
-The other flags of the JAX CLI exist and raise ``NotPortedError`` by
-name: ``--replicas`` (the replica router, ROADMAP item 1) and
-``--obs-port`` (the observability exporter, ROADMAP item 5).
+The JAX CLI's ``--replicas`` (the replica router, ROADMAP item 1) exists
+and raises ``NotPortedError`` by name.
 """
 
 from __future__ import annotations
@@ -53,7 +60,6 @@ from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 # Flags of the JAX CLI whose feature the port does not run yet.
 _NOT_PORTED_FLAGS = {
     "replicas": "--replicas: the replica fleet behind the router (ROADMAP item 1)",
-    "obs_port": "--obs-port: the /metrics exporter (observability, ROADMAP item 5)",
 }
 
 
@@ -97,7 +103,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-file", default=None, help="also write JSONL here")
     p.add_argument("--metrics-every", type=float, default=2.0)
     p.add_argument("--obs-port", type=int, default=None, metavar="PORT",
-                   help="not part of the port yet")
+                   help="mount the /metrics, /varz, /healthz exporter here (0 = "
+                   "ephemeral; announced as an obs_exporter JSONL event); default "
+                   "obs.export_port")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -222,6 +230,26 @@ def main(argv=None) -> int:
         if pipe is not None:
             # The trainer's records carry the socket plane as a section.
             pipe.register_jsonl_section("serving_net", net_srv.stats)
+    obs_server = None
+    obs_port = args.obs_port if args.obs_port is not None else cfg.obs.export_port
+    if obs_port is not None:
+        from ape_x_dqn_tpu_torch.obs import Health, MetricsRegistry, ObsServer
+
+        if pipe is not None:
+            registry, health = pipe.obs_registry, pipe.health
+            pipe.close_exporter()   # this exporter takes the port
+        else:
+            registry = MetricsRegistry()
+            health = Health(stale_after_s=cfg.obs.heartbeat_stale_s)
+        registry.register_provider("serving", server.stats)
+        health.register("serving_batcher",
+                        lambda: time.monotonic() - server.batcher.heartbeat)
+        if staleness is not None:
+            health.register("serving_params", staleness.age_s, stale_after_s=s.param_stale_s)
+        obs_server = ObsServer(registry, health, port=obs_port,
+                               trace_hook=(pipe.trace_on_demand.trigger
+                                           if pipe is not None else None))
+        logger.event("obs_exporter", port=obs_server.port, url=obs_server.url)
 
     if trainer_thread is not None:
         trainer_thread.start()
@@ -261,6 +289,8 @@ def main(argv=None) -> int:
                 trainer_thread.join(timeout=60.0)
         if net_srv is not None:
             net_srv.close()
+        if obs_server is not None:
+            obs_server.close()
         extra = {"serving_net": net_srv.stats()} if net_srv else {}
         server.emit_metrics(logger, final=True, **extra)
         server.close()

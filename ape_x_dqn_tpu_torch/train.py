@@ -5,7 +5,7 @@ Port of ``ape_x_dqn_tpu/train.py``:
     python -m ape_x_dqn_tpu_torch.train [--params-file F] \\
         [--set section.field=value ...] [--mode async|sync] [--steps N] \\
         [--metrics-file F] [--eval-every N] [--eval-episodes N] \\
-        [--log-every N] [--device cuda|cpu]
+        [--tensorboard-dir D] [--profile-dir D] [--log-every N] [--device cuda|cpu]
 
 ``--mode async`` (the default) runs the actor ∥ replay ∥ learner pipeline:
 the host-replay learner by default, the fused device-replay learner with
@@ -15,16 +15,25 @@ actor.num_workers=W``.  ``--mode sync`` runs the
 deterministic single-process round-robin over the host replay (the golden
 path).  JSONL metrics go to stdout and, with ``--metrics-file``, are
 appended to that file too; the resolved config goes to stderr.
-``--device`` defaults to ``cuda`` and a missing card raises; pass
-``--device cpu`` to run on the CPU.
+``--tensorboard-dir`` also writes each record's scalars as TensorBoard
+events; ``--profile-dir`` traces the whole run with ``torch.profiler``
+(CPU and CUDA activity) into a Chrome trace there
+(``utils/profiling.trace``).  A live learner is traced on demand through
+its exporter's ``/varz?trace=1`` (``--set obs.export_port=0``).  The JAX
+CLI's ``--profile-port`` (``jax.profiler``'s live server) has no torch
+counterpart and raises ``NotPortedError`` by name.  ``--device`` defaults
+to ``cuda`` and a missing card raises; pass ``--device cpu`` to run on
+the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from ape_x_dqn_tpu_torch.config import load_config, to_dict
+from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -48,21 +57,38 @@ def build_argparser() -> argparse.ArgumentParser:
                    "0 disables")
     p.add_argument("--eval-episodes", type=int, default=10,
                    help="episodes per evaluation pass")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="also write scalar metrics as TensorBoard events here")
     p.add_argument("--log-every", type=int, default=500)
+    p.add_argument("--profile-dir", default=None,
+                   help="trace the whole run with torch.profiler (CPU and CUDA "
+                   "activity) into a Chrome trace in this dir")
+    p.add_argument("--profile-port", type=int, default=None,
+                   help="not part of the port: torch.profiler has no live server")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.profile_port is not None:
+        raise NotPortedError("--profile-port: jax.profiler's live server has no "
+                             "torch.profiler counterpart; trace a live learner through "
+                             "/varz?trace=1 (obs.export_port) or the whole run with "
+                             "--profile-dir")
     cfg = load_config(args.params_file, overrides=args.overrides)
     print("config:", to_dict(cfg), file=sys.stderr)
-    logger = MetricLogger(stream=sys.stdout, path=args.metrics_file)
+    logger = MetricLogger(stream=sys.stdout, path=args.metrics_file,
+                          tensorboard_dir=args.tensorboard_dir)
+    from ape_x_dqn_tpu_torch.utils.profiling import trace
+
+    profile = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
     try:
-        if args.mode == "async":
-            _run_async(args, cfg, logger)
-        else:
-            _run_sync(args, cfg, logger)
+        with profile:
+            if args.mode == "async":
+                _run_async(args, cfg, logger)
+            else:
+                _run_sync(args, cfg, logger)
     finally:
         logger.close()
     return 0

@@ -64,6 +64,16 @@ class RateCounter:
         with self._lock:
             return self._total
 
+    def merge(self, other: "RateCounter") -> None:
+        """Fold ``other``'s window in: events interleave by time, totals
+        add."""
+        with other._lock:
+            events, total, born = list(other._events), other._total, other._born
+        with self._lock:
+            self._events = deque(sorted([*self._events, *events]))
+            self._total += total
+            self._born = min(self._born, born)
+
 
 class LatencyHistogram:
     """Log-bucketed latency histogram: percentiles without storing samples.
@@ -313,9 +323,13 @@ class TransportStats:
 
 class MetricLogger:
     """Aggregate scalars between emits; write one JSONL record per emit.
-    Thread-safe; writers share one logger."""
+    Thread-safe; writers share one logger.  With ``tensorboard_dir`` each
+    emit's numeric fields also go to TensorBoard (``torch.utils.
+    tensorboard``, JAX :438-458), stepped by the record's ``step``; where
+    that package is missing the sink is off, with a warning on stderr."""
 
-    def __init__(self, stream: Optional[IO] = None, path: Optional[str] = None):
+    def __init__(self, stream: Optional[IO] = None, path: Optional[str] = None,
+                 tensorboard_dir: Optional[str] = None):
         self._streams: list[IO] = [stream] if stream is not None else []
         self._file = open(path, "a") if path else None
         if self._file:
@@ -326,6 +340,14 @@ class MetricLogger:
         self._lock = threading.Lock()
         self._seq = itertools.count(1)
         self._start = time.monotonic()
+        self._tb = None
+        if tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=tensorboard_dir)
+            except Exception as e:  # noqa: BLE001 — an optional sink
+                print(f"WARNING: TensorBoard sink unavailable ({e})", file=sys.stderr)
 
     def log(self, name: str, value: float) -> None:
         with self._lock:
@@ -365,9 +387,17 @@ class MetricLogger:
             for out in self._streams:
                 out.write(line)
                 out.flush()
+            if self._tb is not None:
+                step = int(record.get("step", 0))
+                for k, v in record.items():
+                    if isinstance(v, (int, float)) and k not in ("step", "final", "seq", "pid"):
+                        self._tb.add_scalar(k, v, global_step=step)
         return record
 
     def close(self) -> None:
-        """Close the file sink (the stream belongs to the caller)."""
+        """Close the file and TensorBoard sinks (the stream belongs to the
+        caller)."""
         if self._file:
             self._file.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -94,6 +94,33 @@ Phases, each printing one JSON line:
                 frame bytes, learner steps/s over the second call, ring
                 bytes, dropped carries, frame/transition ratio, dead slots,
                 workers without CUDA, /dev/shm clean;
+ 13a. obs_train — phase 13's learner (right after it, in the same process)
+                with ``obs.export_port=0``, the supervisor and post-mortems
+                on, driven while it trains: after 4 fused calls ``/metrics``,
+                ``/varz`` and ``/healthz`` scraped (200, every component
+                fresh) and ``tools/obs_top.py --varz URL --once`` run (exit 0,
+                a frame with both workers); then twice ``/varz?trace=1``
+                for 2048 steps until the capture is ``done``: device kernels
+                and graph replays in the trace, its sampler kernels all
+                launched in the window and equal to the wrapper's count over
+                it (one per call captured), ``/healthz`` scraped every half
+                second from the trigger on (each scrape answered; 200 at
+                every scrape from ``done`` to the end of the call after it;
+                the codes during the capture printed), the top device ops,
+                the idle share and the capture's cost printed; then worker
+                1 SIGKILLed: its
+                post-mortem file holds the salvaged block's events, it is
+                respawned and fed again, and ``supervisor/respawns`` reads
+                1 on ``/varz``.  One sampler launch per fused call; learner
+                steps/s over the calls outside the captures and the
+                respawn, and the second call alone, beside phase 13's; no
+                /dev/shm segment left;
+ 13b. obs_train_host — the host-replay path with 2 worker processes, 512
+                steps at phase 7's width, every chunk traced: every lineage
+                span monotone (act, ingest, first sample, trained at the
+                deferred write-back), spans from both workers, the
+                age-at-sample histogram at steps × 32 rows, 0 sampler
+                launches, no /dev/shm segment left;
  14. overlap_train — phase 13 with ``learner.pipeline_depth=2`` and
                 ``learner.sync_every=2048``: the overlapped pipeline
                 (stager thread, ``DispatchPipeline``).  Its ``pipeline``
@@ -185,11 +212,14 @@ Phases, each printing one JSON line:
                 ``ParamTailWriter`` chain (a full, a delta) serves the same
                 versions with the same q;
  25. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (tcp_train) and on each path, error,
+                slice's main path (obs_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
 Every device-replay phase (4, 5, 9, 11–14, 16–23) runs each fused call as
-CUDA-graph replays, the port's only device path.  Checkpoints go under the
-checkout's ``build/ckpt_smoke/``, the join spec under
+CUDA-graph replays, the port's only device path.  Every process phase
+checks that no /dev/shm segment of the run (rings, param buffers, worker
+stats blocks) is left.  Checkpoints go under the checkout's
+``build/ckpt_smoke/``, obs_train's post-mortems and traces under
+``build/obs_smoke/``, the join spec under
 ``build/remote_join_smoke/``, the param tail under
 ``build/param_tail_smoke/``; all are removed at the end.
 The line before the last is nvidia-smi's "name, power limit"; the last is
@@ -1072,7 +1102,8 @@ def phase_graph_parity(sampling):
 def timed_fused_calls():
     """CUDA events around every ``FusedDedupLearner.train`` call: each
     call's span on the learner's stream, from the end of the work queued
-    before it to the end of its own."""
+    before it to the end of its own, and the host monotonic times its
+    dispatch began and returned: (start event, end event, t0, t1)."""
     import torch
 
     from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
@@ -1081,10 +1112,11 @@ def timed_fused_calls():
 
     def timed(self, *args, **kwargs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
         start.record()
         out = train(self, *args, **kwargs)
         end.record()
-        spans.append((start, end))
+        spans.append((start, end, t0, time.monotonic()))
         return out
 
     FusedDedupLearner.train = timed
@@ -1194,7 +1226,7 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
                              f"frame bytes {double_store['frames']}")
     reports, pids = check_workers(phase, pool, apps)
     inference = check_central(phase, pipe, final, reports, warm_rtt) if central else None
-    call_ms = [s.elapsed_time(e) for s, e in spans]
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
     size = fused.size
     stager = fused.stager
     transport = pool.transport_stats()
@@ -1245,6 +1277,350 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
                 "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
                 "fused_call_ms", "peak_mem_bytes", "workers")}
     emit({k: v for k, v in result.items() if not k.startswith("_")})
+    return result
+
+
+OBS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "obs_smoke")
+# /varz?trace=1 captures in obs_train: the first sets CUPTI up, the second
+# starts on the CUPTI that the first kept.
+OBS_CAPTURES = 2
+
+
+def _get(url: str):
+    """(status, body bytes) of one GET; a 503 is a reply, not an error."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class ObsController:
+    """Drives the observability plane of a live ``train.main`` run from a
+    thread: after the fourth fused call, scrape ``/metrics``, ``/varz`` and
+    ``/healthz`` and run ``tools/obs_top.py --varz URL --once``; then
+    ``OBS_CAPTURES`` times ``/varz?trace=1``, each waited for until its
+    ``done`` and one fused call more, with ``/healthz`` scraped every half
+    second all the while; then SIGKILL worker 1 and wait for its
+    post-mortem file, its respawn and its first chunks; then stop the run
+    after four more calls.  The times of these moments (host monotonic) are
+    recorded, so the rate can leave the captures and the respawn out."""
+
+    def __init__(self, seen: list, K: int, pm_dir: str):
+        self.seen, self.K, self.pm_dir = seen, K, pm_dir
+        self.out: dict = {"times": {}}
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(300)
+
+    def _wait(self, cond, what: str, timeout: float = 300.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if self._stop.is_set() or time.monotonic() > deadline:
+                raise AssertionError(f"obs_train: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def _poll_healthz(self, url: str, t0: float, done) -> list:
+        """``/healthz`` every half second until ``done()``: (seconds since
+        ``t0``, status code, the learner's heartbeat age)."""
+        codes = []
+        while not done():
+            if self._stop.is_set():
+                raise AssertionError("obs_train: the run ended during a capture")
+            t = time.monotonic() - t0
+            code, body = _get(f"{url}/healthz")
+            age = json.loads(body)["components"].get("learner", {}).get("age_s")
+            codes.append((round(t, 3), code, age))
+            time.sleep(0.5)
+        return codes
+
+    def _run(self):
+        try:
+            self._drive()
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            self.error = e
+        finally:
+            if self.seen:
+                self.seen[0].stop_event.set()
+
+    def _drive(self):
+        out, t = self.out, self.out["times"]
+        self._wait(lambda: self.seen and self.seen[0].obs_server is not None, "the exporter")
+        pipe = self.seen[0]
+        url = out["url"] = pipe.obs_server.url
+        self._wait(lambda: pipe.learner_step >= 4 * self.K, "four fused calls")
+        t["scrape"] = time.monotonic()
+        out["metrics"] = _get(f"{url}/metrics")
+        out["varz"] = _get(f"{url}/varz")
+        out["healthz"] = _get(f"{url}/healthz")
+        top = subprocess.run([sys.executable, os.path.join(REPO_DIR, "tools", "obs_top.py"),
+                              "--varz", url, "--once"],
+                             capture_output=True, text=True, timeout=120)
+        out["obs_top"] = {"rc": top.returncode, "stdout": top.stdout, "stderr": top.stderr}
+        out["captures"] = []
+        for _ in range(OBS_CAPTURES):
+            cap = {"t_trigger": time.monotonic()}
+            status, body = _get(f"{url}/varz?trace=1")
+            cap["trigger"] = json.loads(body)["trace"] if status == 200 else {"status": status}
+            cap["healthz"] = self._poll_healthz(url, cap["t_trigger"], lambda: pipe.trace_on_demand
+                                                .status()["state"] not in ("idle", "capturing"))
+            cap["t_done"] = time.monotonic()
+            cap["trace"] = pipe.trace_on_demand.status()
+            step = pipe.learner_step
+            cap["healthz_after"] = self._poll_healthz(url, cap["t_trigger"],
+                                                      lambda: pipe.learner_step >= step + self.K)
+            cap["t_after"] = time.monotonic()
+            out["captures"].append(cap)
+        pool = pipe.worker.pool
+        victim = pool._procs[1]
+        chunks = pool.chunks_by_worker.get(1, 0)
+        t["kill"] = time.monotonic()
+        os.kill(victim.pid, signal.SIGKILL)
+        out["killed_pid"] = victim.pid
+        self._wait(lambda: os.path.isdir(self.pm_dir) and any(
+            f.endswith(".json") for f in os.listdir(self.pm_dir)), "the post-mortem file")
+        t["postmortem"] = time.monotonic()
+        self._wait(lambda: pool._procs[1] is not victim and pool._procs[1].is_alive()
+                   and pool.chunks_by_worker.get(1, 0) > chunks + 1, "worker 1 fed again")
+        t["refed"] = time.monotonic()
+        out["varz_after"] = _get(f"{url}/varz")
+        out["healthz_after"] = _get(f"{url}/healthz")
+        step = pipe.learner_step
+        self._wait(lambda: pipe.learner_step >= step + 4 * self.K, "4 calls after the respawn")
+
+
+def phase_obs_train(sampling, card: str, beside: dict) -> dict:
+    """``dedup_train``'s learner (config3's, the same cuts) with the
+    observability plane driven while it trains (``ObsController``):
+    ``obs.export_port=0``, the supervisor, post-mortems and traces under
+    ``build/obs_smoke/``.  Checks: every endpoint answers and ``/healthz``
+    is 200 with every component fresh; ``obs_top --once`` exits 0 with a
+    frame; each ``/varz?trace=1`` capture is ``done``, holds device
+    kernels and graph replays, and its sampler kernels, all launched in the
+    window, equal the wrapper's count over it (one per call captured);
+    ``/healthz`` answers every scrape from each trigger on and is 200 from
+    its ``done`` to the end of the call after it; the
+    SIGKILLed worker's post-mortem holds its salvaged events, it is
+    respawned and ``supervisor/respawns`` reads 1 on ``/varz``; one sampler
+    launch per fused call; no /dev/shm segment left.  Reports the top
+    device ops and idle share of the first capture, each capture's cost
+    (the learner's stalls, the export, the summary, the call after it), and
+    learner steps/s over the calls outside the captures and the respawn,
+    beside ``dedup_train``'s."""
+    import shutil
+
+    import torch
+
+    K = DEDUP_K
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    pm_dir = os.path.join(OBS_ROOT, "postmortem")
+    argv = config3_argv(64 * K) + [
+        "--set", "obs.export_port=0", "--set", "supervisor.enabled=true",
+        "--set", f"obs.postmortem_dir={pm_dir}",
+        "--set", f"obs.trace_dir={os.path.join(OBS_ROOT, 'traces')}",
+        "--set", f"obs.trace_steps={K}"]
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, timed_fused_calls() as spans, \
+            ObsController(seen, K, pm_dir) as ctl:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    torch.cuda.synchronize()
+    if ctl.error is not None:
+        raise AssertionError(f"obs_train: {ctl.error}") from ctl.error
+    out, t = ctl.out, ctl.out["times"]
+    pipe = seen[0]
+    fused, pool = pipe.fused, pipe.worker.pool
+    calls = len(spans)
+    if launches != calls or final["step"] != calls * K:
+        raise AssertionError(f"obs_train: {launches} sampler launches, {final['step']} steps "
+                             f"in {calls} fused calls")
+    # The endpoints while it trained.
+    for name in ("metrics", "varz", "healthz"):
+        if out[name][0] != 200:
+            raise AssertionError(f"obs_train: /{name} answered {out[name][0]}")
+    health = json.loads(out["healthz"][1])
+    if health["status"] != "ok" or not all(c["ok"] for c in health["components"].values()) \
+            or not {"learner", "ingest", "supervisor"} <= set(health["components"]):
+        raise AssertionError(f"obs_train: /healthz {health}")
+    text = out["metrics"][1].decode()
+    for series in ("apex_learner_step ", "apex_supervisor_respawns_total 0",
+                   "apex_workers_0_env_steps ", "apex_host_rss_bytes "):
+        if series not in text:
+            raise AssertionError(f"obs_train: /metrics lacks {series!r}")
+    top = out["obs_top"]
+    if top["rc"] != 0 or not top["stdout"].startswith("== apex-tpu obs_top ==") \
+            or "-- workers (2)" not in top["stdout"]:
+        raise AssertionError(f"obs_train: obs_top {top}")
+    # The captures.
+    for i, cap in enumerate(out["captures"]):
+        trace = cap["trace"]
+        summary = trace.get("summary") or {}
+        if trace.get("state") != "done" or not trace.get("trace_started"):
+            raise AssertionError(f"obs_train: capture {i}: trace {trace}")
+        launched = trace["counters"]["sampler_launches"]
+        if not summary.get("device_events") or not summary.get("graph_replays") \
+                or not launched or summary["sampler_kernels_launched_in_window"] != launched \
+                or summary["sampler_kernels"] != launched:
+            raise AssertionError(f"obs_train: capture {i}: sampler kernels against "
+                                 f"{trace['counters']} launched, summary "
+                                 f"{ {k: v for k, v in summary.items() if k != 'top_device_ms'} }")
+        # Every scrape answered (a timeout raises in the controller); from
+        # done to the end of the next call every component is fresh again.
+        # During the capture torch's stop and export hold the GIL, and a
+        # component whose thread waits that long reads stale: reported.
+        if not cap["healthz_after"] or any(code != 200 for _, code, _ in cap["healthz_after"]):
+            raise AssertionError(f"obs_train: capture {i}: /healthz after done "
+                                 f"{cap['healthz_after']}, during {cap['healthz']}")
+    # The kill.
+    files = sorted(f for f in os.listdir(pm_dir) if f.endswith(".json"))
+    if len(files) != 1 or not files[0].startswith("worker1-salvage-"):
+        raise AssertionError(f"obs_train: post-mortem files {files}")
+    with open(os.path.join(pm_dir, files[0])) as f:
+        pm = json.load(f)
+    if pm["stats"]["pid"] != out["killed_pid"] or not pm["events"] \
+            or pm["events"][0]["kind"] != "spawn" or pm["stats"]["env_steps"] <= 0:
+        raise AssertionError(f"obs_train: post-mortem {pm}")
+    varz_after = json.loads(out["varz_after"][1])
+    if varz_after["supervisor/respawns"]["total"] != 1 or pool.restarts != 1 \
+            or final["supervisor"]["respawns"] != 1:
+        raise AssertionError(f"obs_train: respawns {varz_after['supervisor/respawns']}, "
+                             f"pool {pool.restarts}, final {final['supervisor']}")
+    if any(r["cuda_initialized"] for r in pool.worker_reports.values()):
+        raise AssertionError(f"obs_train: worker reports {pool.worker_reports}")
+    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
+    if leftover:
+        raise AssertionError(f"obs_train: segments left in /dev/shm: {leftover}")
+    # Rates: the calls whose dispatch overlaps neither a capture (trigger to
+    # the end of the call after its done) nor the kill-to-refed interval,
+    # against dedup_train's calls.
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
+    busy = [(c["t_trigger"], c["t_after"]) for c in out["captures"]] + [(t["kill"], t["refed"])]
+    quiet = [i for i, (_, _, a, b) in enumerate(spans)
+             if i > 0   # the first call fills the pipeline
+             and all(b < lo - 0.1 or a > hi + 0.1 for lo, hi in busy)]
+
+    def overlapping(lo, hi):
+        return [i for i, (_, _, a, b) in enumerate(spans) if a < hi and b > lo]
+    rate = K * len(quiet) / (sum(call_ms[i] for i in quiet) / 1e3) if quiet else None
+    base_ms = beside["fused_call_ms"]
+    base_rate = K * len(base_ms) / (sum(base_ms) / 1e3)
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    result = {
+        "phase": "obs_train", "card": card, "learner_steps": final["step"],
+        "fused_calls": calls, "sampler_launches": launches, "loss": final["learner/loss"],
+        "learner_steps_per_s_quiet_calls": rate, "quiet_calls": quiet,
+        "learner_steps_per_s_second_call": K / (call_ms[1] / 1e3),
+        "fused_call_ms": call_ms,
+        "beside_dedup_train": {
+            "learner_steps_per_s_calls": base_rate,
+            "learner_steps_per_s_second_call": beside["learner_steps_per_s_second_call"],
+            "learner_steps_per_s": beside["learner_steps_per_s"],
+            "peak_mem_bytes": beside["peak_mem_bytes"]},
+        "quiet_over_dedup_train": rate / base_rate if rate else None,
+        "second_call_over_dedup_train":
+            (K / (call_ms[1] / 1e3)) / beside["learner_steps_per_s_second_call"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "mem_at_start_bytes": mem_at_start,
+        "captures": [{
+            "steps_traced": c["trace"]["steps_traced"], "window_s": c["trace"]["window_s"],
+            "counters": c["trace"]["counters"], "cost": c["trace"]["cost"],
+            "trigger_to_done_s": c["t_done"] - c["t_trigger"],
+            "calls_ms": {i: call_ms[i] for i in overlapping(c["t_trigger"], c["t_after"])},
+            "healthz": {"scrapes": len(c["healthz"]),
+                        "not_200": [(t, code) for t, code, _ in c["healthz"] if code != 200],
+                        "longest_answer_gap_s": max(b[0] - a[0] for a, b in zip(
+                            c["healthz"], c["healthz"][1:])) if len(c["healthz"]) > 1 else None,
+                        "max_learner_age_s": max(a for *_, a in c["healthz"]),
+                        "scrapes_after_done": len(c["healthz_after"])},
+            **{k: c["trace"]["summary"][k] for k in (
+                "device_events", "device_busy_ms", "device_span_ms", "idle_share",
+                "sampler_kernels", "sampler_kernels_launched_in_window", "graph_replays",
+                "device_clock_lead_ms")},
+            **({"top_device_ms": c["trace"]["summary"]["top_device_ms"]} if not n else {}),
+        } for n, c in enumerate(out["captures"])],
+        "healthz": health, "obs_top_lines": top["stdout"].splitlines()[:3],
+        "postmortem": {"file": files[0], "events": len(pm["events"]),
+                       "events_torn": pm["events_torn"], "env_steps": pm["stats"]["env_steps"],
+                       "ring": pm["ring"]},
+        "respawn_s": {"kill_to_postmortem": t["postmortem"] - t["kill"],
+                      "kill_to_refed": t["refed"] - t["kill"]},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
+def phase_obs_host(sampling, card: str, steps: int = 512) -> dict:
+    """The host-replay path with 2 worker processes and every chunk traced
+    (``obs.trace_sample_rate=1.0``), ``steps`` learner steps at full width:
+    every finished lineage span is monotone (``t_act <= t_ingest <=
+    t_first_sample <= t_trained``, the last stamped at the card's deferred
+    priority write-back), spans come from both workers, and the
+    age-at-sample histogram counts every sampled row (steps × B); no
+    sampler launch (the host path samples on the CPU); no /dev/shm segment
+    left."""
+    import torch
+
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "128",
+            "--set", "actor.mode=process", "--set", "actor.num_workers=2",
+            "--set", "obs.trace_sample_rate=1.0", *FULL_WIDTH]
+    torch.cuda.synchronize()
+    sampling.sample_indices.launches = 0
+    out = io.StringIO()
+    from ape_x_dqn_tpu_torch import train
+
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    wall = time.monotonic() - t0
+    launches = sampling.sample_indices.launches
+    records = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    final = records[-1]
+    spans = [r for r in records if r.get("event") == "lineage_span"]
+    if rc != 0 or not final.get("final") or final["step"] != steps or launches:
+        raise AssertionError(f"obs_train_host: rc {rc}, {final.get('step')} steps, "
+                             f"{launches} sampler launches")
+    bad = [s for s in spans if not (s["t_act"] <= s["t_ingest"] <= s["t_first_sample"]
+                                    <= s["t_trained"])]
+    lineage = final.get("lineage") or {}
+    B = 32
+    if not spans or bad or {s["wid"] for s in spans} != {0, 1} \
+            or lineage.get("age_at_sample", {}).get("count") != steps * B \
+            or lineage.get("traces_completed") != len(spans):
+        raise AssertionError(f"obs_train_host: {len(spans)} spans, {len(bad)} not monotone "
+                             f"(first {bad[:1]}), workers {sorted({s['wid'] for s in spans})}, "
+                             f"lineage {lineage}")
+    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
+    if leftover:
+        raise AssertionError(f"obs_train_host: segments left in /dev/shm: {leftover}")
+    ms = {k: [s[k] for s in spans] for k in ("act_to_ingest_ms", "ingest_to_first_sample_ms",
+                                             "first_sample_to_trained_ms", "act_to_trained_ms")}
+    result = {"phase": "obs_train_host", "card": card, "learner_steps": final["step"],
+              "sampler_launches": launches, "spans": len(spans), "spans_not_monotone": 0,
+              "traces_open": lineage["traces_open"],
+              "traces_abandoned": lineage["traces_abandoned"],
+              "age_at_sample": {k: v for k, v in lineage["age_at_sample"].items()
+                                if k != "buckets_s"},
+              "span_ms_p50": {k: float(np.percentile(v, 50)) for k, v in ms.items()},
+              "span_ms_max": {k: max(v) for k, v in ms.items()},
+              "learner_steps_per_s": final["step"] / final["train_s"], "wall_s": wall}
+    emit(result)
     return result
 
 
@@ -2271,7 +2647,7 @@ def phase_remote_join(sampling, card: str, beside: dict):
                              f"log {ctl.log}")
     if _shm_segments() - shm_before:
         raise AssertionError(f"remote_join: /dev/shm left {_shm_segments() - shm_before}")
-    call_ms = [s.elapsed_time(e) for s, e in spans]
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
     remote = pool.local_capacity
     result = {
         "phase": "remote_join", "card": card, "learner_steps": final["step"],
@@ -2599,6 +2975,8 @@ def main() -> int:
     dedup_parity = phase_dedup_parity(sampling)
     graph_parity = phase_graph_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
+    obs = phase_obs_train(sampling, card=smi, beside=dedup)
+    obs_host = phase_obs_host(sampling, card=smi)
     tcp = phase_dedup_train(sampling, card=smi, tcp=True, beside=dedup, phase="tcp_train")
     remote = phase_remote_join(sampling, card=smi, beside=tcp)
     phase_serve_hub(card=smi, trained=tcp)
@@ -2618,15 +2996,15 @@ def main() -> int:
     del ckpt_state
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
-    # This slice's main path: config3's learner fed by workers over tcp, one
-    # sample-ahead launch per fused call.
+    # This slice's main path: config3's learner with the observability plane
+    # driven while it trains, one sample-ahead launch per fused call.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": tcp["sampler_launches"],
+        "launches": obs["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
@@ -2635,6 +3013,8 @@ def main() -> int:
                              "dedup_parity": dedup_parity["sampler_launches"],
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],
+                             "process_device_dedup_obs": obs["sampler_launches"],
+                             "process_host_lineage": obs_host["sampler_launches"],
                              "process_device_dedup_tcp": tcp["sampler_launches"],
                              "process_device_dedup_remote_join":
                                  remote["sampler_launches"],

@@ -41,6 +41,11 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.runtime.fused_dedup",
                  "ape_x_dqn_tpu_torch.runtime.net",
                  "ape_x_dqn_tpu_torch.obs.lineage",
+                 "ape_x_dqn_tpu_torch.obs.registry",
+                 "ape_x_dqn_tpu_torch.obs.exporter",
+                 "ape_x_dqn_tpu_torch.obs.shm_stats",
+                 "ape_x_dqn_tpu_torch.obs.recorder",
+                 "ape_x_dqn_tpu_torch.obs.trace",
                  "ape_x_dqn_tpu_torch.serving",
                  "ape_x_dqn_tpu_torch.serving.batcher",
                  "ape_x_dqn_tpu_torch.serving.server",
@@ -103,6 +108,28 @@ def test_serving_wire_modules_load_no_torch():
         "import ape_x_dqn_tpu_torch.serving\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_obs_worker_modules_load_neither_torch_nor_jax():
+    """A worker writes its stats block and flight recorder before it
+    imports torch, and the registry is plain Python: the three load the
+    standard library only (the lazy ``obs`` package pulls in no exporter
+    or trace)."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.obs.shm_stats\n"
+        "import ape_x_dqn_tpu_torch.obs.recorder\n"
+        "import ape_x_dqn_tpu_torch.obs.registry\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'numpy')!r}\n"
+        "             or n in ('ape_x_dqn_tpu_torch.obs.exporter',\n"
+        "                      'ape_x_dqn_tpu_torch.obs.trace'))\n"
         "print(json.dumps(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

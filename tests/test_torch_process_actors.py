@@ -300,7 +300,7 @@ def test_transport_delivers_the_fleet_chunks_exactly():
                 want += fleet.collect(min(8, T - fleet.step_count))[0]
             got = by_worker[w]
             assert len(got) == len(want) > 0
-            for (prio, trans), chunk in zip(got, want):
+            for (prio, trans, _meta), chunk in zip(got, want):
                 np.testing.assert_array_equal(prio, chunk.priorities)
                 for f in ("obs", "action", "reward", "discount", "next_obs"):
                     np.testing.assert_array_equal(getattr(trans, f),

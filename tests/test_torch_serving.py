@@ -397,7 +397,6 @@ class TestServeCLI:
     @pytest.mark.parametrize("flags,name", [
         (["--checkpoint", "/nonexistent", "--replicas", "2"], "--replicas"),
         (["--attach", "--replicas", "2"], "--replicas"),
-        (["--attach", "--obs-port", "0"], "--obs-port"),
     ])
     def test_unported_flags_raise_by_name(self, flags, name):
         from ape_x_dqn_tpu_torch import serve

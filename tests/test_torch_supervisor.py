@@ -91,6 +91,15 @@ def test_unreadable_progress_counts_as_stalled():
 
 
 def _sup(mod_cfg, mod, **over):
+    """A supervisor of ``mod``'s package.  Each package counts, at
+    construction, the fallback restores its process recorded so far; an
+    earlier test in this worker process may have left some behind, so both
+    packages' records are drained first."""
+    from ape_x_dqn_tpu.utils.checkpoint_inc import consume_fallback_events as jconsume
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import consume_fallback_events as tconsume
+
+    jconsume()
+    tconsume()
     return mod.FleetSupervisor(mod_cfg(**over), emit=None, seed=0)
 
 
