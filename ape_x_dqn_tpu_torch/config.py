@@ -1,13 +1,13 @@
 """Typed configuration — the port's own copy of ``ape_x_dqn_tpu/config.py``.
 
 The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
-sections, plus ``supervisor``, ``serving`` and ``obs``, reference-format
+sections, plus ``supervisor``, ``serving``, ``obs`` and ``fleet``, reference-format
 ``parameters.json`` files, ``--set section.field=value`` overrides), cut
 down to the fields the port runs.  A key the port does not run raises
 rather than loading as a dead setting, so a config written for the JAX
-package's other paths (the serving router, chaos, data parallel, the host
-dedup replay, the tiered store, the replay service, the fleet aggregator
-and the timeline store) fails loudly here
+package's other paths (chaos, data parallel, the host dedup replay, the
+tiered store, the replay service, the fleet aggregator, the timeline store
+and the autopilot) fails loudly here
 instead of running something else; the keys of those paths that the JAX
 configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -206,6 +206,38 @@ class ReplayConfig:
 
 
 @dataclasses.dataclass
+class FleetConfig:
+    """The fleet's discovery plane (``fleet/registry.py``; JAX
+    config.py:555-590): the run-token-scoped membership registry that the
+    trainer hosts under ``discovery="registry"`` and that serving replicas
+    (``serving/router.ServingFleet`` with a registry address) announce
+    themselves to over ``F_FANN``/``F_FREP``."""
+
+    # "registry": the trainer hosts the registry (a fleet_registry_listen
+    # event carries its port and token); "endpoints": no registry.
+    discovery: str = "endpoints"
+    # Where the trainer hosts it; port 0 = ephemeral.
+    registry_host: str = "127.0.0.1"
+    registry_port: int = 0
+    # A member's announce cadence; the lease sweep expires a member not
+    # heard from within ttl_s (member_lost, reason ttl).
+    heartbeat_s: float = 1.0
+    ttl_s: float = 5.0
+
+    def validate_section(self) -> list:
+        return [
+            (self.discovery in ("registry", "endpoints"),
+             f"unknown fleet.discovery: {self.discovery}"),
+            (0 <= self.registry_port <= 65535,
+             "fleet.registry_port must be in [0, 65535]"),
+            (self.heartbeat_s > 0.0, "fleet.heartbeat_s must be > 0"),
+            (self.ttl_s >= self.heartbeat_s,
+             "fleet.ttl_s must be >= fleet.heartbeat_s (a member must "
+             "get at least one beat per lease)"),
+        ]
+
+
+@dataclasses.dataclass
 class SupervisorConfig:
     """The supervision tier (runtime/supervisor.py).  Worker respawn: an
     exponential backoff (base doubling per death in the crash-loop window,
@@ -245,14 +277,13 @@ class ServingConfig:
     # ephemeral, announced as a serving_listen JSONL event.
     listen_host: str = "127.0.0.1"
     listen_port: int = 0
-    # Fleet width of serve --replicas (the router: not part of the port).
+    # Fleet width of serve --replicas (serving/router.ServingFleet).
     replicas: int = 2
     # Length-prefix cap on the request plane.
     max_request_bytes: int = 8 << 20
-    # Router probe cadence and replica spawn budget (the router and the
-    # fleet are not part of the port; the fields load and validate as in
-    # the JAX package), and the param tail's full-snapshot cadence
-    # (serving/sources.ParamTailWriter).
+    # The router's /healthz probe cadence, the fleet's budget for a
+    # replica to announce its ports, and the param tail's full-snapshot
+    # cadence (serving/sources.ParamTailWriter).
     probe_interval_s: float = 0.5
     replica_spawn_timeout_s: float = 240.0
     param_tail_base_every: int = 16
@@ -292,6 +323,7 @@ class ApexConfig:
     supervisor: SupervisorConfig = dataclasses.field(default_factory=SupervisorConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
 
@@ -449,7 +481,7 @@ class ApexConfig:
             (not (l.second_moment_dtype is not None and l.optimizer == "adam"),
              "second_moment_dtype is only supported for rmsprop"),
         ]
-        for ok, msg in checks:
+        for ok, msg in checks + self.fleet.validate_section():
             if not ok:
                 raise ValueError(msg)
         return self
@@ -562,9 +594,22 @@ _NOT_PORTED = {
 }
 
 
+# Whole sections of the JAX package's config whose feature the port does
+# not run yet: every key under them is refused by name.
+_NOT_PORTED_SECTIONS = {
+    "autopilot": "the autopilot (autopilot/: the elastic controller over the "
+                 "actor pool, the ServingFleet and the replay fleet, ROADMAP item 7)",
+}
+
+
+def _not_ported(path: str) -> Optional[str]:
+    return _NOT_PORTED.get(path) or _NOT_PORTED_SECTIONS.get(path.split(".", 1)[0])
+
+
 def _unknown_key(path: str) -> ValueError:
-    if path in _NOT_PORTED:
-        return ValueError(f"{path}: {_NOT_PORTED[path]} is not part of the port yet")
+    what = _not_ported(path)
+    if what is not None:
+        return ValueError(f"{path}: {what} is not part of the port yet")
     return ValueError(f"unknown config field: {path}")
 
 
@@ -575,7 +620,7 @@ def apply_overrides(cfg: ApexConfig, overrides: Sequence[str]) -> ApexConfig:
         if "=" not in item:
             raise ValueError(f"override must be key=value, got: {item}")
         path, raw = item.split("=", 1)
-        if path in _NOT_PORTED:
+        if _not_ported(path) is not None:
             raise _unknown_key(path)
         parts = path.split(".")
         obj = cfg
@@ -608,6 +653,7 @@ _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
     "supervisor": SupervisorConfig, "serving": ServingConfig, "obs": ObsConfig,
+    "fleet": FleetConfig,
 }
 
 
@@ -628,6 +674,8 @@ def _from_native_json(data: dict) -> ApexConfig:
             setattr(cfg, key, _SECTIONS[key](**value))
         elif key in ("network", "seed"):
             setattr(cfg, key, data[key])
+        elif key in _NOT_PORTED_SECTIONS:
+            raise _unknown_key(key)
         elif isinstance(value, dict) and any(f"{key}.{f}" in _NOT_PORTED for f in value):
             raise _unknown_key(next(f"{key}.{f}" for f in value
                                     if f"{key}.{f}" in _NOT_PORTED))

@@ -4,14 +4,19 @@
 Port of ``ape_x_dqn_tpu/obs/trace.py`` (``TraceOnDemand``, :49): one
 capture at a time; ``trigger()`` returns at once with a status dict (the
 ``/varz`` reply's ``trace``).  The learner thread calls ``tick(step)`` at
-each step or fused-call boundary: the first tick after a trigger starts
-the profiler (``utils/profiling.start_trace``: the device synchronized,
-then CPU and CUDA activity), the first tick ``obs.trace_steps`` steps
-later stops it, so a window of a fused call's K steps holds exactly one
-call and no work launched before it.  Start and stop run on the thread
-that launches the learner's CUDA graphs, between its launches: stopping
-the profiler from another thread while the learner replayed CUDA graphs
-hung an H100 (``cudaGraphLaunch`` against the profiler's stop).
+each host step and, on the fused path, between the graph replays of a
+call (``runtime/graphed_call.GraphedCall``'s ``on_replay``, with the step
+the replays reached): the first tick after a trigger starts the profiler
+(``utils/profiling.start_trace``: the device synchronized, then CPU and
+CUDA activity), the first tick ``obs.trace_steps`` steps later stops it.
+So a window holds exactly the steps it was asked for, inside a K-step
+call or across a call boundary, and no work launched before it; armed
+between two calls, it starts at the next call's first replay (the
+prologue's, which holds the sampler on the sample-ahead path).  Start and
+stop run on the thread that launches the learner's CUDA graphs, between
+its launches: stopping the profiler from another thread while the
+learner replayed CUDA graphs hung an H100 (``cudaGraphLaunch`` against
+the profiler's stop).
 ``beat_fn`` (the runtime's: the learner's heartbeat) is called before and
 after each start and stop, so the learner's heartbeat ages by the stall
 itself and not by the stall plus the call before it.
@@ -39,7 +44,10 @@ time:
   * ``device_clock_lead_ms`` — how far a device record's start lies before
     its own launch at most (a kernel cannot start before it is launched:
     a positive value is the card's clock running ahead of the host's, which
-    ``utils/profiling.EDGE_MARGIN_S`` must exceed).
+    ``utils/profiling.EDGE_MARGIN_S`` must exceed), ``device_clock_lead``
+    the record that sets it (its name, category, stream, correlation id and
+    start) and the launch it was matched to (name, thread, start, length),
+    and ``device_records_before_launch`` how many correlations lead at all.
 
 CUPTI's device records cover the whole process, the CPU operators only the
 learner thread, so the summary reads the device timeline.  Starting and
@@ -108,8 +116,8 @@ def summarize_events(events) -> dict:
     by_name: Dict[str, list] = {}
     spans = []
     sampler_corr = []
-    device_start: Dict[object, float] = {}   # correlation → earliest device start
-    launch_ts: Dict[object, float] = {}
+    first_record: Dict[object, dict] = {}   # correlation → its earliest device record
+    launches: Dict[object, dict] = {}
     graph_replays = 0
     for e in events:
         cat, name = e.get("cat"), e.get("name", "")
@@ -120,16 +128,19 @@ def summarize_events(events) -> dict:
             acc = by_name.setdefault(name, [0.0, 0])
             acc[0] += dur
             acc[1] += 1
-            device_start[corr] = min(s, device_start.get(corr, s))
+            if corr not in first_record or s < float(first_record[corr]["ts"]):
+                first_record[corr] = e
             if SAMPLER_KERNEL in name:
                 sampler_corr.append(corr)
         elif cat in HOST_API_CATS and name.startswith(LAUNCHES):
-            launch_ts[corr] = float(e["ts"])
+            launches[corr] = e
             graph_replays += name.startswith(GRAPH_LAUNCH)
-    leads = [launch_ts[c] - s for c, s in device_start.items() if c in launch_ts]
+    leads = [(float(launches[c]["ts"]) - float(r["ts"]), c)
+             for c, r in first_record.items() if c in launches]
     busy = union_of_spans(spans)
     span = (max(e for _, e in spans) - min(s for s, _ in spans)) if spans else 0.0
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:TOP_OPS]
+    lead_us, lead_corr = max(leads, key=lambda lc: lc[0]) if leads else (None, None)
     return {
         "device_events": len(spans),
         "device_busy_ms": busy / 1e3,
@@ -137,10 +148,23 @@ def summarize_events(events) -> dict:
         "idle_share": (1.0 - busy / span) if span else None,
         "top_device_ms": [{"name": n, "ms": us / 1e3, "count": c} for n, (us, c) in top],
         "sampler_kernels": len(sampler_corr),
-        "sampler_kernels_launched_in_window": sum(c in launch_ts for c in sampler_corr),
+        "sampler_kernels_launched_in_window": sum(c in launches for c in sampler_corr),
         "graph_replays": graph_replays,
-        "device_clock_lead_ms": max(leads) / 1e3 if leads else None,
+        "device_clock_lead_ms": lead_us / 1e3 if leads else None,
+        "device_clock_lead": _lead_record(first_record[lead_corr], launches[lead_corr],
+                                          lead_us) if leads else None,
+        "device_records_before_launch": sum(lead > 0 for lead, _ in leads),
     }
+
+
+def _lead_record(record: dict, launch: dict, lead_us: float) -> dict:
+    """The device record that leads its launch most, and that launch."""
+    args = record.get("args", {})
+    return {"ms": lead_us / 1e3, "name": record.get("name"), "cat": record.get("cat"),
+            "stream": args.get("stream"), "correlation": args.get("correlation"),
+            "ts_us": record.get("ts"), "dur_us": record.get("dur"),
+            "launch": {"name": launch.get("name"), "tid": launch.get("tid"),
+                       "ts_us": launch.get("ts"), "dur_us": launch.get("dur")}}
 
 
 def summarize(path: str) -> dict:

@@ -330,14 +330,24 @@ class FusedBody:
 
 
 def run_eager(body: FusedBody, beta: float, u: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> StepMetrics:
+              generator: Optional[torch.Generator] = None,
+              on_replay: Optional[Callable[[int], None]] = None,
+              step: int = 0) -> StepMetrics:
     """The body's pieces in order, step by step: the call on the CPU, and
-    the reference a graphed call is held against on the card."""
+    the reference a graphed call is held against on the card.
+    ``on_replay``, where given, is called before each piece and after the
+    last with the step reached (``step`` plus the steps run), as the graph
+    runner calls it between replays."""
+    hook = on_replay or (lambda _step: None)
     body.load(beta, u, generator)
+    hook(step)
     body.prologue()
-    for _ in range(body.steps_per_call):
+    for k in range(body.steps_per_call):
+        hook(step + k)
         body.step()
+    hook(step + body.steps_per_call)
     body.epilogue()
+    hook(step + body.steps_per_call)
     return body.read_metrics()
 
 

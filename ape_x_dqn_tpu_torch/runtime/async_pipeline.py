@@ -472,6 +472,7 @@ class AsyncPipeline:
         self._next_eval = self._eval_every
         self._evaluator = None
         self.eval_scores: List[float] = []
+        self.fleet_registry = self._host_fleet_registry()
         self._start_exporter()
 
     # -- observability -------------------------------------------------------
@@ -528,15 +529,48 @@ class AsyncPipeline:
         ocfg = self.cfg.obs
         self.trace_on_demand = TraceOnDemand(
             steps=ocfg.trace_steps, out_dir=ocfg.trace_dir,
-            counters_fn=lambda: {"learner_steps": self._learner_step,
-                                 "sampler_launches": sampling.sample_indices.launches},
-            beat_fn=lambda: self.health.beat("learner"))
+            counters_fn=self._trace_counters, beat_fn=lambda: self.health.beat("learner"))
         if ocfg.export_port is not None:
             self.obs_server = ObsServer(self.obs_registry, self.health,
                                         port=ocfg.export_port,
                                         trace_hook=self.trace_on_demand.trigger)
             self.obs_port = self.obs_server.port
             self.logger.event("obs_exporter", port=self.obs_port, url=self.obs_server.url)
+
+    def _host_fleet_registry(self):
+        """Under ``fleet.discovery=registry`` the trainer hosts the run's
+        membership registry (JAX :905-935): serving replicas and other
+        members join over the announce wire.  Its port and token ride a
+        ``fleet_registry_listen`` event; the membership snapshot is the
+        ``fleet_membership`` provider.  The autopilot's binding to it is
+        ROADMAP item 7 (its config keys are refused by name)."""
+        f = self.cfg.fleet
+        if f.discovery != "registry":
+            return None
+        import secrets
+
+        from ape_x_dqn_tpu_torch.fleet.registry import FleetRegistry
+
+        reg = FleetRegistry(token=secrets.randbits(63) or 1, host=f.registry_host,
+                            port=f.registry_port, ttl_s=f.ttl_s,
+                            on_event=self.logger.event).serve()
+        self.logger.event("fleet_registry_listen", host=f.registry_host, port=reg.port,
+                          token=reg.token)
+        self.obs_registry.register_provider("fleet_membership", reg.snapshot)
+        return reg
+
+    def _trace_counters(self) -> dict:
+        """What a capture's record holds as ``counters`` (deltas over its
+        window): the sampler's launches and, on the fused path, the graph
+        runner's replays; on the host path the learner's steps (the fused
+        path's ``_learner_step`` moves only after a call, and its window
+        starts and stops inside one: its steps are ``steps_traced``)."""
+        out = {"sampler_launches": sampling.sample_indices.launches}
+        if self.fused is None:
+            out["learner_steps"] = self._learner_step
+        else:
+            out["graph_replays"] = self.fused.graphed_call.replays
+        return out
 
     def close_exporter(self) -> None:
         """Close the exporter (``serve --obs-port`` mounts its own over this
@@ -563,10 +597,14 @@ class AsyncPipeline:
 
     def _close_obs(self) -> None:
         """End of a run (learner thread): a capture in flight stops, the
-        exporter closes and the SIGTERM handler this run installed gives way
-        to the one before it (it holds this runtime)."""
+        exporter and the fleet registry close and the SIGTERM handler this
+        run installed gives way to the one before it (it holds this
+        runtime)."""
         self.trace_on_demand.close()
         self.close_exporter()
+        if self.fleet_registry is not None:
+            self.fleet_registry.close()
+            self.fleet_registry = None
         if self._sigterm:
             self.recorder.restore_sigterm()
             self._sigterm = False
@@ -1023,14 +1061,15 @@ class AsyncPipeline:
                 fused.ingest_staged(drain=self.worker.finished)
                 beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
                                      cfg.replay.is_exponent)
-                last_metrics = fused.train(beta)
+                # The tracer ticks between the call's replays: a capture
+                # starts and stops inside a call.
+                last_metrics = fused.train(beta, on_replay=self.trace_on_demand.tick)
                 inflight.append(last_metrics)
                 if len(inflight) >= self._fused_inflight:
                     self._force_fused(inflight.pop(0))
                     while drain_all and inflight:
                         self._force_fused(inflight.pop(0))
                 self._learner_step += fused.steps_per_call
-                self.trace_on_demand.tick(self._learner_step)
                 # Publish at most once per fused call.
                 if self._learner_step % max(
                     cfg.learner.publish_every, fused.steps_per_call
@@ -1117,16 +1156,16 @@ class AsyncPipeline:
                         fused.add_block(*blk)
                 beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
                                      cfg.replay.is_exponent)
+                tick = self.trace_on_demand.tick   # between the call's replays
                 with self.timers.stage("fused_dispatch"):
                     if fold is not None:
                         last_metrics = pipeline.dispatch(
-                            lambda: fused.train_with_ingest(beta, *fold),
+                            lambda: fused.train_with_ingest(beta, *fold, on_replay=tick),
                             fused.steps_per_call)
                     else:
-                        last_metrics = pipeline.dispatch(lambda: fused.train(beta),
-                                                         fused.steps_per_call)
+                        last_metrics = pipeline.dispatch(
+                            lambda: fused.train(beta, on_replay=tick), fused.steps_per_call)
                 self._learner_step += fused.steps_per_call
-                self.trace_on_demand.tick(self._learner_step)
                 if next_sync is not None and self._learner_step >= next_sync:
                     # Cadence: bound how far the host-visible metrics and
                     # flow control trail the dispatch edge.

@@ -39,7 +39,7 @@ Not part of the port yet, and refused by name: the sharded ring (``mesh``,
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -406,12 +406,14 @@ class FusedDedupLearner:
         transitions that reference them): no single-call fold."""
         return False
 
-    def train(self, beta: float, u: Optional[torch.Tensor] = None):
+    def train(self, beta: float, u: Optional[torch.Tensor] = None,
+              on_replay: Optional[Callable[[int], None]] = None):
         """One fused call: K steps of sample/train/restamp.  Returns the
-        call's metrics [K, ...], still on the device."""
+        call's metrics [K, ...], still on the device.  ``on_replay(step)``
+        runs between the call's graph replays (``GraphedCall``)."""
         self._state, self._replay, metrics = self._call(
-            self._state, self._replay, beta, u=u, generator=self._generator
-        )
+            self._state, self._replay, beta, u=u, generator=self._generator,
+            on_replay=on_replay)
         return metrics
 
     # ------------------------------------------------------------ snapshots

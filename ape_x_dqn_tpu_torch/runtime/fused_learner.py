@@ -32,7 +32,7 @@ no delta protocol, as in JAX: ``utils/checkpoint_inc`` writes full bases.
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -196,16 +196,20 @@ class FusedDeviceLearner:
         self.prepare_staged(drain=drain)
         return sum(self.add_block(p, t) for p, t in self.pop_prepared())
 
-    def train(self, beta: float, u: Optional[torch.Tensor] = None):
+    def train(self, beta: float, u: Optional[torch.Tensor] = None,
+              on_replay: Optional[Callable[[int], None]] = None):
         """One fused call: K steps of sample/train/restamp.  Returns the
-        call's metrics [K, ...], still on the device (read them lazily)."""
+        call's metrics [K, ...], still on the device (read them lazily).
+        ``on_replay(step)`` runs between the call's graph replays
+        (``GraphedCall``)."""
         self._state, self._replay, metrics = self._call(
-            self._state, self._replay, beta, u=u, generator=self._generator
-        )
+            self._state, self._replay, beta, u=u, generator=self._generator,
+            on_replay=on_replay)
         return metrics
 
     def train_with_ingest(self, beta: float, priorities: np.ndarray,
-                          transitions, u: Optional[torch.Tensor] = None):
+                          transitions, u: Optional[torch.Tensor] = None,
+                          on_replay: Optional[Callable[[int], None]] = None):
         """Ingest one full ``ingest_block``, then the K-step call, queued
         back to back with no host sync between them (the JAX learner's
         single-dispatch fold); the same result as ``add_block`` followed by
@@ -216,7 +220,7 @@ class FusedDeviceLearner:
                 f"({self._ingest_block} rows), got {len(priorities)}"
             )
         self.add_block(priorities, transitions)
-        return self.train(beta, u)
+        return self.train(beta, u, on_replay)
 
 
     # ------------------------------------------------------------ snapshots

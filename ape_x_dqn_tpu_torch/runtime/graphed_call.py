@@ -58,8 +58,16 @@ How it meets the traps of capturing a training step:
 * **Launch counting.**  ``sample_indices.launches`` counts on the host
   when a launch is issued; a capture issues none and a replay issues one
   per captured launch.  So the runner undoes the counts of its warm-up and
-  capture (set-up, rolled back with the state they touched) and adds each
-  graph's captured launches once per replay.
+  capture (set-up, rolled back with the state they touched) and adds a
+  graph's captured launches right after each of its replays; ``replays``
+  counts the replays issued.  A count read between two replays is exact.
+* **Replay boundaries.**  ``on_replay(step)``, where given, is called on
+  the calling thread before each replay and once after the last, with the
+  learner step reached so far: the call's first step (``train_state.step``)
+  plus the steps replayed.  The runtime passes its on-demand tracer's tick
+  (``obs/trace.TraceOnDemand``), so a trace window starts and stops between
+  two replays, inside a call; on the CPU ``run_eager`` calls it between
+  the body's pieces.
 """
 
 from __future__ import annotations
@@ -147,7 +155,8 @@ class GraphedCall:
         self.steps_per_call = steps_per_call
         self.target_sync_freq = target_sync_freq
         self.body: Optional[FusedBody] = None
-        self._graphs: list = []      # (graph, sampler launches captured, replays per call)
+        # (graph, sampler launches captured, steps per replay, replays per call)
+        self._graphs: list = []
         self._signature: Optional[tuple] = None
         self.captures = 0
         # Pacing: one event per replay slot (blocking: the learner thread
@@ -155,6 +164,7 @@ class GraphedCall:
         # of replays issued.
         self._paced: list = []
         self._replayed = 0
+        self.replays = 0
 
     def bind(self, train_state, replay_state) -> FusedBody:
         """The body over these states; on a card, captured for their
@@ -174,33 +184,48 @@ class GraphedCall:
 
     def __call__(self, train_state, replay_state, beta: float,
                  u: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 on_replay: Optional[Callable[[int], None]] = None):
         body = self.bind(train_state, replay_state)
         if body.device.type == "cuda":
             body.load(beta, u, generator)
-            stream = torch.cuda.current_stream(body.device)
-            ahead = MAX_REPLAYS_AHEAD
+            self._replay(body.device, train_state.step, on_replay)
+            metrics = body.read_metrics()
+        else:
+            metrics = run_eager(body, beta, u, generator, on_replay, train_state.step)
+        finish_call(train_state, self.steps_per_call, self.target_sync_freq)
+        return train_state, replay_state, metrics
+
+    def _replay(self, device: torch.device, step: int,
+                on_replay: Optional[Callable[[int], None]]) -> None:
+        """Every graph of one call, in order, paced (see the module
+        docstring); ``on_replay`` at each replay boundary."""
+        ahead = MAX_REPLAYS_AHEAD
+        stream = None
+        if ahead:
+            stream = torch.cuda.current_stream(device)
             if len(self._paced) != ahead:
                 self._paced = [torch.cuda.Event(blocking=True) for _ in range(ahead)]
                 self._replayed = 0
-            for graph, launches, replays in self._graphs:
-                for _ in range(replays):
-                    if ahead:
-                        # The ring's slot holds the event of the replay
-                        # ``ahead`` back: wait for it, then reuse it.
-                        ev = self._paced[self._replayed % ahead]
-                        if self._replayed >= ahead:
-                            ev.synchronize()
-                    graph.replay()
-                    if ahead:
-                        ev.record(stream)
-                        self._replayed += 1
-                sampling.sample_indices.launches += launches * replays
-            metrics = body.read_metrics()
-        else:
-            metrics = run_eager(body, beta, u, generator)
-        finish_call(train_state, self.steps_per_call, self.target_sync_freq)
-        return train_state, replay_state, metrics
+        for graph, launches, steps, replays in self._graphs:
+            for _ in range(replays):
+                if on_replay is not None:
+                    on_replay(step)
+                if ahead:
+                    # The ring's slot holds the event of the replay
+                    # ``ahead`` back: wait for it, then reuse it.
+                    ev = self._paced[self._replayed % ahead]
+                    if self._replayed >= ahead:
+                        ev.synchronize()
+                graph.replay()
+                if ahead:
+                    ev.record(stream)
+                    self._replayed += 1
+                self.replays += 1
+                sampling.sample_indices.launches += launches
+                step += steps
+        if on_replay is not None:
+            on_replay(step)
 
     def _capture(self, body: FusedBody) -> None:
         dev = body.device
@@ -228,23 +253,23 @@ class GraphedCall:
             return lambda: [body.step() for _ in range(n)]
 
         full, tail = divmod(K, STEPS_PER_GRAPH)
-        pieces = []
+        pieces = []   # (fn, steps per replay, replays)
         if body.sample_ahead:
-            pieces.append((body.prologue, 1))
+            pieces.append((body.prologue, 0, 1))
         if full:
-            pieces.append((steps(STEPS_PER_GRAPH), full))
+            pieces.append((steps(STEPS_PER_GRAPH), STEPS_PER_GRAPH, full))
         if tail:
-            pieces.append((steps(tail), 1))
+            pieces.append((steps(tail), tail, 1))
         if body.sample_ahead:
-            pieces.append((body.epilogue, 1))
+            pieces.append((body.epilogue, 0, 1))
         pool = torch.cuda.graph_pool_handle()
         graphs = []
-        for fn, replays in pieces:
+        for fn, n, replays in pieces:
             graph = torch.cuda.CUDAGraph()
             before = sampling.sample_indices.launches
             with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                 fn()
-            graphs.append((graph, sampling.sample_indices.launches - before, replays))
+            graphs.append((graph, sampling.sample_indices.launches - before, n, replays))
         sampling.sample_indices.launches = launches
         self._graphs = graphs
         self._signature = _signature(body)

@@ -1,10 +1,10 @@
 """CLI serving mode: ``python -m ape_x_dqn_tpu_torch.serve``.
 
-Port of ``ape_x_dqn_tpu/serve.py`` for its one-server modes:
+Port of ``ape_x_dqn_tpu/serve.py``:
 
     python -m ape_x_dqn_tpu_torch.serve (--attach | --checkpoint DIR |
         --param-hub HOST:PORT:TOKEN:RID:ATTEMPT | --param-tail DIR) \\
-        [--listen [HOST:]PORT] [--run-token T] [--params-file F] \\
+        [--replicas N] [--listen [HOST:]PORT] [--run-token T] [--params-file F] \\
         [--set section.field=value ...] [--duration S] [--clients N] \\
         [--steps N] [--metrics-file F] [--metrics-every S] [--obs-port PORT] \\
         [--device cuda|cpu]
@@ -41,8 +41,19 @@ runs N built-in closed-loop clients against the server; every
 ``--metrics-every`` seconds a ``serve/`` record is emitted.  ``--device``
 defaults to ``cuda`` and a missing card raises.
 
-The JAX CLI's ``--replicas`` (the replica router, ROADMAP item 1) exists
-and raises ``NotPortedError`` by name.
+``--replicas N`` with ``--checkpoint DIR`` is fleet mode (JAX :150-260,
+``serving/router.ServingFleet``): N replica children (``serve --param-hub
+... --listen HOST:0 --obs-port 0 --duration 0`` with this command's config
+and ``--device``) behind the health-aware router on ``--listen`` (default
+``serving.listen_host``/``listen_port``), fed by the fleet's param hub.
+This process reads only the checkpoint root, on the CPU: every newer step
+(polled every ``serving.reload_poll_s``) fans out to every replica as a
+page-delta (a ``fleet_param_push`` event), the first in full.  The
+router's bound port is a ``serving_listen`` event (mode ``router``);
+``--obs-port`` mounts the exporter with the ``serving_router`` and
+``serving_fleet`` providers and a ``router`` component that is stale
+while no replica is healthy.  ``--replicas`` without ``--checkpoint``, or
+over an empty root, exits with 2; a fleet that does not come up, with 3.
 """
 
 from __future__ import annotations
@@ -54,20 +65,14 @@ import threading
 import time
 
 from ape_x_dqn_tpu_torch.config import load_config, to_dict
-from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
-
-# Flags of the JAX CLI whose feature the port does not run yet.
-_NOT_PORTED_FLAGS = {
-    "replicas": "--replicas: the replica fleet behind the router (ROADMAP item 1)",
-}
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ape_x_dqn_tpu_torch.serve",
-        description="Batched Q-network policy serving with hot param reload and "
-        "a socket front end, PyTorch/CUDA port",
+        description="Batched Q-network policy serving with hot param reload, "
+        "a socket front end and an N-replica routed fleet, PyTorch/CUDA port",
     )
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--attach", action="store_true",
@@ -85,7 +90,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    "ephemeral; the bound port is announced as a serving_listen "
                    "JSONL event)")
     p.add_argument("--replicas", type=int, default=None, metavar="N",
-                   help="not part of the port yet")
+                   help="fleet mode: N replica children behind the health-aware "
+                   "router, fed from --checkpoint (0 = serving.replicas)")
     p.add_argument("--run-token", type=int, default=0, metavar="TOKEN",
                    help="v2 hellos (central-inference workers) must carry it or "
                    "are rejected at the handshake; 0 accepts any hello")
@@ -144,14 +150,106 @@ def _client_loop(server, obs_shape, stop, errors, seed):
             errors.append(1)
 
 
+def _fleet_sections(fleet) -> dict:
+    st = fleet.stats()
+    return {"serving_router": st["router"],
+            "serving_fleet": {k: st[k] for k in ("param", "respawns", "spawned", "retires",
+                                                 "retired", "param_version", "replicas")}}
+
+
+def _run_fleet(args, cfg, logger) -> int:
+    """--replicas N: the router, the param hub and N replica children,
+    watching the checkpoint root and fanning new steps out as deltas."""
+    from ape_x_dqn_tpu_torch.runtime.process_actors import network_and_template
+    from ape_x_dqn_tpu_torch.serving.router import ServingFleet
+    from ape_x_dqn_tpu_torch.serving.sources import CheckpointParamSource
+    from ape_x_dqn_tpu_torch.utils.checkpoint import latest_step
+
+    if not args.checkpoint:
+        print("--replicas requires --checkpoint (the fleet's param feed)", file=sys.stderr)
+        logger.close()
+        return 2
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but no CUDA device is available "
+                               "(pass --device cpu to serve on the CPU)")
+    if latest_step(args.checkpoint) is None:
+        print(f"no checkpoint under {args.checkpoint}", file=sys.stderr)
+        logger.close()
+        return 2
+    s = cfg.serving
+    n = args.replicas if args.replicas > 0 else s.replicas
+    source = CheckpointParamSource(args.checkpoint, network_and_template(cfg)[2])
+    params, have_step = source.get(-1)
+    host, port = s.listen_host, s.listen_port
+    if args.listen is not None:
+        host, port = _parse_listen(args.listen, s.listen_host)
+    replica_args = ["--device", args.device]
+    if args.params_file:
+        replica_args += ["--params-file", args.params_file]
+    for ov in args.overrides:
+        replica_args += ["--set", ov]
+    fleet = ServingFleet(replicas=n, listen_host=host, listen_port=port,
+                         probe_interval_s=s.probe_interval_s, replica_args=replica_args,
+                         on_event=logger.event)
+    logger.event("fleet_param_push", step=have_step, **fleet.publish(params))
+    try:
+        fleet.start(timeout=s.replica_spawn_timeout_s)
+    except Exception as e:  # noqa: BLE001 — a fleet that does not come up is terminal
+        print(f"fleet start failed: {e}", file=sys.stderr)
+        fleet.stop()
+        logger.close()
+        return 3
+    logger.event("serving_listen", port=fleet.port, host=host, replicas=n, mode="router")
+    obs_server = None
+    obs_port = args.obs_port if args.obs_port is not None else cfg.obs.export_port
+    if obs_port is not None:
+        from ape_x_dqn_tpu_torch.obs import Health, MetricsRegistry, ObsServer
+
+        registry = MetricsRegistry()
+        health = Health(stale_after_s=cfg.obs.heartbeat_stale_s)
+        registry.register_provider("serving_router", fleet.router.stats)
+        registry.register_provider("serving_fleet", fleet.stats)
+        health.register("router",
+                        lambda: 0.0 if fleet.router.stats()["healthy"] > 0 else 1e9,
+                        stale_after_s=1.0)
+        obs_server = ObsServer(registry, health, port=obs_port)
+        logger.event("obs_exporter", port=obs_server.port, url=obs_server.url)
+    stop = threading.Event()
+    _install_stop_handlers(stop)
+    try:
+        deadline = time.monotonic() + args.duration if args.duration > 0 else None
+        next_emit = time.monotonic() + args.metrics_every
+        while not stop.is_set():
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            # Poll the root at the reload cadence; emit at the metrics one.
+            stop.wait(min(args.metrics_every, s.reload_poll_s))
+            got = source.get(have_step)
+            if got is not None:
+                params, have_step = got[0], int(got[1])
+                logger.event("fleet_param_push", step=have_step, **fleet.publish(params))
+            if time.monotonic() >= next_emit:
+                next_emit = time.monotonic() + args.metrics_every
+                logger.emit(**_fleet_sections(fleet))
+    finally:
+        logger.emit(**_fleet_sections(fleet), final=True)
+        fleet.stop()
+        if obs_server is not None:
+            obs_server.close()
+        logger.close()
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    for flag, what in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise NotPortedError(f"{what} is not part of the port yet")
     cfg = load_config(args.params_file, overrides=args.overrides)
     print("serving config:", to_dict(cfg), file=sys.stderr)
     logger = MetricLogger(stream=sys.stdout, path=args.metrics_file)
+    if args.replicas is not None:
+        return _run_fleet(args, cfg, logger)
 
     from ape_x_dqn_tpu_torch.serving.net_server import ServingNetServer
     from ape_x_dqn_tpu_torch.serving.server import PolicyServer

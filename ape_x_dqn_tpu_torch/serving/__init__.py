@@ -13,15 +13,18 @@ front end and central inference):
   * :class:`CentralInferenceClient` / :class:`CentralSelector` (+ the
     typed :class:`InferenceUnavailable`) — paramless actors
     (``central.py``);
+  * :class:`ServingRouter` / :class:`ReplicaProcess` / :class:`ServingFleet`
+    — the health-aware router, a replica child and N replicas behind one
+    router with their param hub (``router.py``; ``serve --replicas``);
   * typed errors: :class:`ServingError`, :class:`ServerOverloaded`,
     :class:`ServerClosed`.
 
-``sources.CheckpointParamSource`` serves a checkpoint root (``serve
---checkpoint``).  The router and replica fleet, the param hub and the
-param tail (``router.py``, the rest of ``sources.py``) are not part of the
-port yet (ROADMAP item 1).  ``server.py`` and ``sources.py`` import torch;
-the other modules import only the standard library and numpy, so this
-package imports ``server`` lazily.
+``sources.py`` holds the param sources a server reads from: a checkpoint
+root (``serve --checkpoint``), a param hub's socket (``--param-hub``, what
+a fleet's replica runs) and a param tail (``--param-tail``).
+``server.py`` and ``sources.py`` import torch; the other modules import
+only the standard library and numpy, so this package imports ``server``
+lazily.
 """
 
 from ape_x_dqn_tpu_torch.serving.batcher import (
@@ -41,6 +44,7 @@ from ape_x_dqn_tpu_torch.serving.central import (
     split_groups,
 )
 from ape_x_dqn_tpu_torch.serving.net_server import ServingClient, ServingNetServer
+from ape_x_dqn_tpu_torch.serving.router import ReplicaProcess, ServingFleet, ServingRouter
 
 __all__ = [
     "CentralInferenceClient",
@@ -48,12 +52,15 @@ __all__ = [
     "InferenceUnavailable",
     "MicroBatcher",
     "PolicyServer",
+    "ReplicaProcess",
     "ServedAction",
     "ServerClosed",
     "ServerOverloaded",
     "ServingClient",
     "ServingError",
+    "ServingFleet",
     "ServingNetServer",
+    "ServingRouter",
     "aggregate_inference_stats",
     "bucket_for",
     "bucket_sizes",

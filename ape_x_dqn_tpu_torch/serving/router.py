@@ -1,0 +1,858 @@
+"""The replica fleet and its health-aware connection router.
+
+Port of ``ape_x_dqn_tpu/serving/router.py``.  Three pieces, each usable
+alone:
+
+  * :class:`ServingRouter` (JAX :60-336) — a TCP front door that balances
+    client connections round robin over the healthy replica endpoints.  A
+    prober reads each replica's ``/healthz`` (``serve --obs-port``: 503 on
+    a wedged batcher or stale params) and a replica that fails a probe, or
+    refuses a connect, drains from rotation at once: no new connections,
+    while the splices it holds ride on; it re-enters when a probe passes.
+    The router splices bytes and never parses a frame, so the protocol
+    stays end to end between client and replica (a corrupted byte fails
+    the frame's crc at the far end).
+  * :class:`ReplicaProcess` (JAX :339-486) — one replica child,
+    ``python -m ape_x_dqn_tpu_torch.serve --param-hub ... --listen HOST:0
+    --obs-port 0 --duration 0``, its ports read from its own JSONL events
+    (``serving_listen``, ``obs_exporter``).  The child runs on the device
+    its ``--device`` names (``replica_args``; ``serve.py`` passes its own):
+    nothing here hides the card from it.
+  * :class:`ServingFleet` (JAX :489-831) — N replicas behind one router,
+    plus the **param hub**: a ``runtime/net.NetTransport`` each replica
+    subscribes to (``serving/sources.SocketParamSource``), so ``publish``
+    fans a version out as a page-delta against the version a replica holds,
+    or in full on connect, with bytes and fan-out time per push.  A
+    supervisor thread pumps the hub, drains a dead replica at once,
+    respawns it on a jittered backoff (a fresh hub channel, a full sync on
+    connect) and re-registers it on its new ports; ``spawn``/``retire``
+    grow and shrink a running fleet; with ``registry_addr`` every replica
+    in rotation is announced as a ``serving_replica`` member
+    (``fleet/registry.py``).
+
+A SIGKILLed replica's in-flight requests die with it.  Nothing beyond them
+is lost: the broken splice closes the client's connection, the client
+reconnects (the router routes it to a live replica) and sends the request
+again whole (``serving/net_server.ServingClient.act``).
+
+Standard library only at module scope: ``publish`` serializes with
+``utils/serialization`` (which loads torch only for tensor leaves), so the
+bytes equal the JAX hub's for equal params.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ape_x_dqn_tpu_torch.fleet.registry import (
+    FleetAnnouncer,
+    member_doc,
+    member_id_for,
+)
+from ape_x_dqn_tpu_torch.runtime.net import Backoff, NetTransport
+
+_SPLICE_CHUNK = 1 << 16
+STDERR_TAIL = 50     # stderr lines a ReplicaProcess keeps
+
+
+class _Endpoint:
+    __slots__ = ("rid", "host", "port", "health_url", "alive_fn",
+                 "healthy", "routed_total", "active", "last_error")
+
+    def __init__(self, rid: int, host: str, port: int,
+                 health_url: Optional[str], alive_fn: Optional[Callable]):
+        self.rid = int(rid)
+        self.host = host
+        self.port = int(port)
+        self.health_url = health_url
+        self.alive_fn = alive_fn
+        self.healthy = True
+        self.routed_total = 0
+        self.active = 0
+        self.last_error: Optional[str] = None
+
+
+class ServingRouter:
+    """Health-aware TCP connection balancer over replica endpoints.
+
+    Balancing is at CONNECTION granularity (round-robin over healthy
+    endpoints): the serving protocol multiplexes requests per
+    connection already, and connection-level routing keeps the router
+    out of the framing entirely.  ``stats()`` is the ``serving_router``
+    JSONL and ``/varz`` section, the JAX package's key set (pinned by
+    ``tests/test_torch_router.py``).
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
+                 probe_interval_s: float = 1.0,
+                 probe_timeout_s: float = 1.0,
+                 on_event: Optional[Callable] = None):
+        self._probe_interval = float(probe_interval_s)
+        self._probe_timeout = float(probe_timeout_s)
+        self._on_event = on_event
+        self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._lsock.bind((host, int(port)))
+        self._lsock.listen(256)
+        self._lsock.settimeout(0.25)
+        self.host = host
+        self.port = self._lsock.getsockname()[1]
+        self._lock = threading.Lock()
+        self._eps: Dict[int, _Endpoint] = {}
+        self._rr = 0                      # round-robin cursor
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._started = False
+        self.routed_total = 0
+        self.route_fails = 0
+        self.active = 0
+        self.splices_broken = 0
+        self.probe_failures = 0
+
+    # -- endpoint registry -------------------------------------------------
+
+    def set_endpoint(self, rid: int, host: str, port: int, *,
+                     health_url: Optional[str] = None,
+                     alive_fn: Optional[Callable] = None) -> None:
+        """Register (or replace — respawn) one replica endpoint; it
+        enters rotation healthy and the next probe settles the truth."""
+        with self._lock:
+            self._eps[int(rid)] = _Endpoint(rid, host, port, health_url,
+                                            alive_fn)
+
+    def remove_endpoint(self, rid: int) -> None:
+        with self._lock:
+            self._eps.pop(int(rid), None)
+
+    def set_healthy(self, rid: int, healthy: bool,
+                    reason: str = "") -> None:
+        """Flip one endpoint's rotation state (the prober's setter; the
+        fleet also calls it directly the instant a replica process
+        dies — faster than the next probe tick)."""
+        with self._lock:
+            ep = self._eps.get(int(rid))
+            if ep is None or ep.healthy == bool(healthy):
+                return
+            ep.healthy = bool(healthy)
+            ep.last_error = reason or None
+        self._event("replica_recovered" if healthy else "replica_drained",
+                    rid=int(rid), reason=reason)
+
+    def _event(self, kind: str, **fields) -> None:
+        if self._on_event is not None:
+            try:
+                self._on_event(kind, **fields)
+            except Exception:  # noqa: BLE001 — observer must not kill routing
+                pass
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ServingRouter":
+        if not self._started:
+            self._started = True
+            for target, name in ((self._accept_loop, "router-accept"),
+                                 (self._probe_loop, "router-probe")):
+                t = threading.Thread(target=target, name=name, daemon=True)
+                t.start()
+                self._threads.append(t)
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            self._lsock.close()
+        except OSError:
+            pass
+        for t in self._threads:
+            t.join(timeout=5.0)
+
+    def __enter__(self) -> "ServingRouter":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- routing -----------------------------------------------------------
+
+    def _pick_order(self) -> List[_Endpoint]:
+        """Healthy endpoints in round-robin order (cursor advances per
+        pick so consecutive connections spread)."""
+        with self._lock:
+            eps = [e for e in self._eps.values() if e.healthy]
+            if not eps:
+                return []
+            eps.sort(key=lambda e: e.rid)
+            self._rr = (self._rr + 1) % len(eps)
+            return eps[self._rr:] + eps[:self._rr]
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                client, _addr = self._lsock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._route_conn, args=(client,),
+                                 name="router-splice", daemon=True)
+            t.start()
+
+    def _route_conn(self, client: socket.socket) -> None:
+        try:
+            client.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            pass
+        upstream = None
+        ep = None
+        for cand in self._pick_order():
+            try:
+                upstream = socket.create_connection(
+                    (cand.host, cand.port), timeout=2.0
+                )
+                upstream.setsockopt(socket.IPPROTO_TCP,
+                                    socket.TCP_NODELAY, 1)
+                ep = cand
+                break
+            except OSError as e:
+                # Connect refused/reset: the replica is gone RIGHT NOW —
+                # drain it without waiting for the prober's next tick.
+                self.set_healthy(cand.rid, False, f"connect: {e}")
+        if upstream is None:
+            self.route_fails += 1
+            try:
+                client.close()
+            except OSError:
+                pass
+            return
+        with self._lock:
+            self.routed_total += 1
+            self.active += 1
+            ep.routed_total += 1
+            ep.active += 1
+        done = threading.Event()
+        t = threading.Thread(
+            target=self._splice, args=(upstream, client, done),
+            name="router-splice-up", daemon=True,
+        )
+        t.start()
+        self._splice(client, upstream, done)
+        t.join(timeout=5.0)
+        with self._lock:
+            self.active -= 1
+            ep.active -= 1
+        for s in (client, upstream):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def _splice(self, src: socket.socket, dst: socket.socket,
+                done: threading.Event) -> None:
+        """One direction of a byte splice.  On EOF/error both sockets
+        shut down, so the twin direction unblocks — a dead replica
+        surfaces to the client as a closed connection within one recv."""
+        broken = False
+        try:
+            while not self._stop.is_set():
+                data = src.recv(_SPLICE_CHUNK)
+                if not data:
+                    break
+                dst.sendall(data)
+        except OSError:
+            broken = True
+        if broken and not done.is_set():
+            self.splices_broken += 1
+        done.set()
+        for s in (src, dst):
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    # -- health probing ----------------------------------------------------
+
+    def probe_once(self) -> None:
+        """One probe sweep (the prober thread's body; tests drive it
+        directly for determinism)."""
+        with self._lock:
+            eps = list(self._eps.values())
+        for ep in eps:
+            healthy = True
+            reason = ""
+            if ep.alive_fn is not None:
+                try:
+                    healthy = bool(ep.alive_fn())
+                    reason = "process dead" if not healthy else ""
+                except Exception as e:  # noqa: BLE001
+                    healthy, reason = False, f"alive_fn: {e}"
+            if healthy and ep.health_url:
+                try:
+                    with urllib.request.urlopen(
+                        ep.health_url, timeout=self._probe_timeout
+                    ) as resp:
+                        healthy = resp.status == 200
+                        reason = f"healthz {resp.status}" if not healthy \
+                            else ""
+                except Exception as e:  # noqa: BLE001 — conn refused, 503…
+                    code = getattr(e, "code", None)
+                    healthy = False
+                    reason = f"healthz {code}" if code else f"probe: {e}"
+            if not healthy:
+                self.probe_failures += 1
+            self.set_healthy(ep.rid, healthy, reason)
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(self._probe_interval):
+            self.probe_once()
+
+    # -- observability -----------------------------------------------------
+
+    def stats(self) -> dict:
+        """The ``serving_router`` section (the JAX package's key set)."""
+        with self._lock:
+            eps = list(self._eps.values())
+            return {
+                "port": self.port,
+                "replicas": len(eps),
+                "healthy": sum(1 for e in eps if e.healthy),
+                "active": self.active,
+                "routed_total": self.routed_total,
+                "route_fails": self.route_fails,
+                "splices_broken": self.splices_broken,
+                "probe_failures": self.probe_failures,
+                "endpoints": {
+                    str(e.rid): {
+                        "port": e.port,
+                        "healthy": e.healthy,
+                        "active": e.active,
+                        "routed_total": e.routed_total,
+                        "last_error": e.last_error,
+                    }
+                    for e in eps
+                },
+            }
+
+
+class ReplicaProcess:
+    """One serving replica subprocess and its announced ports.
+
+    The child is ``python -m ape_x_dqn_tpu_torch.serve --param-hub SPEC
+    --listen HOST:0 --obs-port 0 --duration 0`` plus ``extra_args`` (its
+    config and ``--device``; duration 0 = serve until signaled); it
+    announces its bound ports as JSONL events on stdout (``serving_listen``,
+    ``obs_exporter``) which a reader thread parses: no port races, no
+    fixed-port collisions across replicas.  The last ``STDERR_TAIL`` lines
+    of its stderr are kept (``stderr_tail()``): what a replica that died
+    while booting said.
+    """
+
+    def __init__(self, rid: int, *, hub_host: str, hub_port: int,
+                 hub_token: int, listen_host: str = "127.0.0.1",
+                 extra_args: Optional[List[str]] = None,
+                 env: Optional[dict] = None):
+        self.rid = int(rid)
+        self.attempt = 0
+        self._hub = (hub_host, int(hub_port), int(hub_token))
+        self._listen_host = listen_host
+        self._extra = list(extra_args or [])
+        self._env = env
+        self.proc: Optional[subprocess.Popen] = None
+        self.port: Optional[int] = None
+        self.obs_port: Optional[int] = None
+        self.respawns = 0
+        self._events: List[dict] = []
+        self._stderr: collections.deque = collections.deque(maxlen=STDERR_TAIL)
+        self._reader: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def hub_spec(self) -> str:
+        host, port, token = self._hub
+        return f"{host}:{port}:{token}:{self.rid}:{self.attempt}"
+
+    def spawn(self) -> "ReplicaProcess":
+        assert self.proc is None or self.proc.poll() is not None
+        if self.proc is not None:
+            self.respawns += 1
+            self.attempt += 1
+        self.port = self.obs_port = None
+        with self._lock:
+            self._events = []
+            self._stderr = collections.deque(maxlen=STDERR_TAIL)
+        repo = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))
+        ))
+        env = dict(self._env if self._env is not None else os.environ)
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [
+            sys.executable, "-m", "ape_x_dqn_tpu_torch.serve",
+            "--param-hub", self.hub_spec(),
+            "--listen", f"{self._listen_host}:0",
+            "--obs-port", "0",
+            "--duration", "0",
+            *self._extra,
+        ]
+        self.proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=repo,
+        )
+        self._reader = threading.Thread(
+            target=self._read_stdout, name=f"replica{self.rid}-stdout",
+            daemon=True,
+        )
+        self._reader.start()
+        threading.Thread(target=self._read_stderr, args=(self.proc, self._stderr),
+                         name=f"replica{self.rid}-stderr", daemon=True).start()
+        return self
+
+    @staticmethod
+    def _read_stderr(proc: subprocess.Popen, tail: collections.deque) -> None:
+        try:
+            for line in proc.stderr:
+                tail.append(line.rstrip()[:2000])
+        except (ValueError, OSError):
+            pass
+
+    def stderr_tail(self) -> List[str]:
+        return list(self._stderr)
+
+    def _read_stdout(self) -> None:
+        proc = self.proc
+        try:
+            for line in proc.stdout:
+                line = line.strip()
+                if not line.startswith("{"):
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                with self._lock:
+                    self._events.append(rec)
+                    if len(self._events) > 256:
+                        del self._events[:-128]
+                if rec.get("event") == "serving_listen":
+                    self.port = int(rec["port"])
+                elif rec.get("event") == "obs_exporter":
+                    self.obs_port = int(rec["port"])
+        except (ValueError, OSError):
+            pass
+
+    def events(self) -> List[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def wait_ready(self, timeout: float = 180.0) -> "ReplicaProcess":
+        """Block until the child announced both ports (or died)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.port is not None and self.obs_port is not None:
+                return self
+            if self.proc.poll() is not None:
+                raise RuntimeError(
+                    f"replica {self.rid} exited rc={self.proc.returncode} "
+                    f"before announcing its ports; stderr: {self.stderr_tail()[-5:]}"
+                )
+            time.sleep(0.05)
+        raise TimeoutError(f"replica {self.rid} not ready in {timeout:.0f}s")
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self.proc.pid if self.proc is not None else None
+
+    def kill(self) -> None:
+        if self.alive():
+            os.kill(self.proc.pid, signal.SIGKILL)
+
+    def terminate(self, timeout: float = 10.0) -> None:
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            try:
+                self.proc.send_signal(signal.SIGTERM)
+            except OSError:
+                pass
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=5.0)
+        for stream in (self.proc.stdout, self.proc.stderr):
+            if stream is not None:
+                stream.close()
+
+    def health_url(self) -> Optional[str]:
+        if self.obs_port is None:
+            return None
+        return f"http://{self._listen_host}:{self.obs_port}/healthz"
+
+    def varz(self, timeout: float = 2.0) -> Optional[dict]:
+        """Scrape the replica's /varz (serving + serving_net sections) —
+        how the fleet reads per-replica served counts and param_version."""
+        if self.obs_port is None:
+            return None
+        url = f"http://{self._listen_host}:{self.obs_port}/varz"
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as resp:
+                return json.loads(resp.read())
+        except Exception:  # noqa: BLE001 — a dead replica scrapes as None
+            return None
+
+
+class ServingFleet:
+    """N replica subprocesses + router + delta param hub, supervised.
+
+    The hub is a ``runtime/net.NetTransport``: each replica holds one
+    subscription connection (``--param-hub host:port:token:rid:attempt``),
+    ``publish()`` serializes once and fans out page-deltas against the
+    version each replica holds (full on first connect / after
+    reconnect), with per-push bytes and fan-out latency recorded —
+    ``NetTransport.set_params``, the exact machinery the actor fleet
+    uses, pointed at serving replicas.
+
+    A dead replica is drained from the router the moment the supervisor
+    sees it (``poll()``), respawned on a jittered backoff, re-registered
+    on its fresh ports, and full-synced by the hub on connect.
+    """
+
+    def __init__(self, *, replicas: int = 2, listen_host: str = "127.0.0.1",
+                 listen_port: int = 0, probe_interval_s: float = 0.5,
+                 replica_args: Optional[List[str]] = None,
+                 respawn: bool = True, on_event: Optional[Callable] = None,
+                 env: Optional[dict] = None,
+                 registry_addr: Optional[Tuple[str, int]] = None,
+                 registry_token: int = 0, heartbeat_s: float = 1.0):
+        if replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        self._on_event = on_event
+        self._listen_host = listen_host
+        self._replica_args = list(replica_args or [])
+        self._env = env
+        self.hub = NetTransport(host="127.0.0.1", port=0)
+        self.router = ServingRouter(
+            host=listen_host, port=listen_port,
+            probe_interval_s=probe_interval_s, on_event=on_event,
+        )
+        self.replicas: Dict[int, ReplicaProcess] = {
+            rid: ReplicaProcess(
+                rid, hub_host="127.0.0.1", hub_port=self.hub.port,
+                hub_token=self.hub.token, listen_host=listen_host,
+                extra_args=replica_args, env=env,
+            )
+            for rid in range(int(replicas))
+        }
+        self._respawn = bool(respawn)
+        self._backoffs = {rid: Backoff(base_s=0.5, max_s=10.0, seed=rid)
+                          for rid in self.replicas}
+        self._version = 0
+        self._stop = threading.Event()
+        self._super: Optional[threading.Thread] = None
+        self.respawns = 0
+        # Elastic state (spawn/retire — the autopilot's serving
+        # actuators).  _lock guards replicas-dict mutation against the
+        # supervisor thread; _spawning holds booting replicas the
+        # supervisor registers once their ports announce; a retired rid
+        # drains from rotation first, then SIGTERMs after its grace.
+        self._lock = threading.Lock()
+        self._spawning: Dict[int, ReplicaProcess] = {}
+        self.retired: set = set()
+        self._retiring: Dict[int, tuple] = {}   # rid -> (t0, grace_s)
+        self.spawned = 0
+        self.retires = 0
+        # Fleet discovery plane (optional): when a registry address is
+        # given, every replica that reaches rotation is ANNOUNCED as a
+        # serving_replica member (varz_url carried in the doc), so the
+        # aggregator adopts it from membership — no launching script
+        # hand-carries obs ports, and an autopilot-spawned replica is
+        # discovered the same way the seed ones are.
+        self._announcer: Optional[FleetAnnouncer] = None
+        if registry_addr is not None:
+            self._announcer = FleetAnnouncer(
+                registry_addr[0], int(registry_addr[1]),
+                token=int(registry_token),
+                member_id=member_id_for(f"serving-fleet-{os.getpid()}"),
+                heartbeat_s=float(heartbeat_s), on_event=on_event,
+            )
+
+    @property
+    def port(self) -> int:
+        return self.router.port
+
+    @property
+    def param_version(self) -> int:
+        return self._version
+
+    def _event(self, kind: str, **fields) -> None:
+        if self._on_event is not None:
+            try:
+                self._on_event(kind, **fields)
+            except Exception:  # noqa: BLE001 — observer callback must not kill routing
+                pass
+
+    # -- param distribution ------------------------------------------------
+
+    def publish_payload(self, payload: bytes) -> dict:
+        """Fan one serialized snapshot out to every connected replica
+        (delta where it holds the previous version, full otherwise);
+        returns the per-push cost record."""
+        self._version += 1
+        return self.hub.set_params(payload, self._version)
+
+    def publish(self, params) -> dict:
+        """``publish_payload`` of ``params`` (a dict of tensors on any
+        device, or of numpy arrays) as ``utils/serialization`` writes it:
+        byte for byte the JAX hub's payload for equal params."""
+        from ape_x_dqn_tpu_torch.utils.serialization import tree_to_bytes
+
+        return self.publish_payload(tree_to_bytes(params))
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self, timeout: float = 240.0) -> "ServingFleet":
+        """Spawn every replica (in parallel: the torch import, the device's
+        set-up and the warm-up dominate), wait for their ports, register
+        them, start routing.
+
+        The supervisor thread starts the moment the children are
+        spawned: it pumps the hub's accept loop, and a booting replica
+        BLOCKS on its first param sync — the hub must be answering
+        hellos while we wait for ports, not after."""
+        for rid, rep in self.replicas.items():
+            self.hub.make_channel(rid, rep.attempt)
+            rep.spawn()
+        self._super = threading.Thread(target=self._supervise,
+                                       name="fleet-supervisor", daemon=True)
+        self._super.start()
+        deadline = time.monotonic() + timeout
+        for rep in self.replicas.values():
+            rep.wait_ready(timeout=max(1.0, deadline - time.monotonic()))
+            self._register(rep)
+        self.router.start()
+        if self._announcer is not None:
+            self._announcer.start()
+        return self
+
+    def _register(self, rep: ReplicaProcess) -> None:
+        self.router.set_endpoint(
+            rep.rid, "127.0.0.1", rep.port,
+            health_url=rep.health_url(), alive_fn=rep.alive,
+        )
+        self._announce_replica(rep)
+
+    def _announce_replica(self, rep: ReplicaProcess) -> None:
+        if self._announcer is None or rep.port is None:
+            return
+        varz = "" if rep.obs_port is None else \
+            f"http://{self._listen_host}:{rep.obs_port}/varz"
+        self._announcer.set_member(member_doc(
+            f"serving/replica{rep.rid}", "serving_replica",
+            host=self._listen_host, port=int(rep.port),
+            incarnation=rep.attempt + 1, varz_url=varz,
+        ))
+        self._announcer.poke()
+
+    def _supervise(self) -> None:
+        """Pump the hub's accept loop, respawn dead replicas (drain-now
+        on death, re-enter on recovery), register autopilot-spawned
+        replicas once their ports announce, and walk retiring replicas
+        through drain → SIGTERM → reap."""
+        while not self._stop.wait(0.05):
+            self.hub.pump()
+            now = time.monotonic()
+            with self._lock:
+                items = list(self.replicas.items())
+            for rid, rep in items:
+                if rid in self.retired:
+                    # Retirement ladder: the endpoint already left the
+                    # router (zero NEW routes); after the grace that lets
+                    # in-flight requests finish, SIGTERM the child
+                    # (serve.py's drain handler closes its sockets), then
+                    # reap and retire the hub channel.
+                    t0, grace, signaled = self._retiring.get(
+                        rid, (now, 0.0, True)
+                    )
+                    if rep.alive():
+                        if not signaled and now - t0 >= grace:
+                            try:
+                                rep.proc.send_signal(signal.SIGTERM)
+                            except OSError:
+                                pass
+                            self._retiring[rid] = (t0, grace, True)
+                    elif rid in self._retiring:
+                        del self._retiring[rid]
+                        ch = self.hub._channels.get(rid)
+                        if ch is not None:
+                            self.hub.drop_channel(rid, ch)
+                        self._event("replica_retired_done", rid=rid)
+                    continue
+                if rep.alive():
+                    if rid in self._spawning and rep.port is not None \
+                            and rep.obs_port is not None:
+                        # Boot (spawn or respawn) came up: fresh ports,
+                        # into rotation.
+                        self._register(rep)
+                        del self._spawning[rid]
+                        self._backoffs[rid].reset()
+                        self._event(
+                            "replica_respawned" if rep.respawns
+                            else "replica_ready",
+                            rid=rid, port=rep.port, attempt=rep.attempt,
+                        )
+                    continue
+                self.router.set_healthy(rid, False, "process dead")
+                self._spawning.pop(rid, None)  # died mid-boot: backoff retry
+                if not self._respawn:
+                    continue
+                b = self._backoffs[rid]
+                if not b.ready():
+                    continue
+                self._event("replica_death", rid=rid,
+                            rc=rep.proc.returncode if rep.proc else None)
+                b.fail()
+                self.respawns += 1
+                # Fresh incarnation: new attempt ⇒ new hub channel (the
+                # old one's stats fold into the transport's base).  The
+                # channel lands before the child can possibly dial in
+                # (the torch import dominates), and a premature hello would
+                # only bounce into the writer's reconnect backoff.
+                old = self.hub._channels.get(rid)
+                if old is not None:
+                    self.hub.drop_channel(rid, old)
+                rep.spawn()
+                self.hub.make_channel(rid, rep.attempt)
+                self._spawning[rid] = rep
+
+    # -- elastic spawn/retire (the autopilot's serving actuators) ----------
+
+    def active_replicas(self) -> List[int]:
+        """rids currently contributing capacity (booting counts — its
+        slot is claimed); retired rids are out whatever their process
+        state."""
+        with self._lock:
+            return sorted(r for r in self.replicas if r not in self.retired)
+
+    def booting(self) -> List[int]:
+        """rids spawned but not yet registered in rotation — the
+        autopilot holds further scale-ups while one is in flight."""
+        with self._lock:
+            return sorted(self._spawning)
+
+    def spawn(self) -> int:
+        """Add one replica to a RUNNING fleet (autopilot scale-up):
+        fresh rid above every rid ever used, hub channel registered
+        before the child can dial in, child spawned NON-blocking — the
+        supervisor thread registers it on the router the moment its
+        ports announce (``replica_ready``)."""
+        with self._lock:
+            rid = max(self.replicas) + 1 if self.replicas else 0
+            rep = ReplicaProcess(
+                rid, hub_host="127.0.0.1", hub_port=self.hub.port,
+                hub_token=self.hub.token, listen_host=self._listen_host,
+                extra_args=self._replica_args, env=self._env,
+            )
+            self._backoffs[rid] = Backoff(base_s=0.5, max_s=10.0, seed=rid)
+            self.hub.make_channel(rid, rep.attempt)
+            rep.spawn()
+            self.replicas[rid] = rep
+            self._spawning[rid] = rep
+            self.spawned += 1
+        self._event("replica_spawn", rid=rid)
+        return rid
+
+    def retire(self, rid: Optional[int] = None,
+               drain_grace_s: float = 2.0) -> Optional[int]:
+        """Retire one replica (autopilot scale-down) on the proven
+        zero-drop path: the endpoint leaves the router's rotation FIRST
+        (``remove_endpoint`` — zero new routes; live splices ride on),
+        then after ``drain_grace_s`` the supervisor SIGTERMs the child
+        (serve.py's drain handler closes its sockets cleanly) — clients
+        cut mid-request reconnect through the router to a live replica
+        and retry the request whole.  Default target is the highest
+        active rid.  Never SIGKILL."""
+        with self._lock:
+            candidates = [r for r in self.replicas
+                          if r not in self.retired
+                          and r not in self._spawning]
+            if rid is None:
+                rid = max(candidates) if candidates else None
+            if rid is None or rid not in candidates:
+                return None
+            self.retired.add(rid)
+            self._retiring[rid] = (time.monotonic(),
+                                   float(drain_grace_s), False)
+            self._spawning.pop(rid, None)
+            self.retires += 1
+        self.router.remove_endpoint(rid)
+        if self._announcer is not None:
+            self._announcer.remove_member(f"serving/replica{rid}")
+            self._announcer.poke()
+        self._event("replica_retired", rid=rid)
+        return rid
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._announcer is not None:
+            self._announcer.close(leave=True)
+        if self._super is not None:
+            self._super.join(timeout=5.0)
+        for rep in self.replicas.values():
+            rep.terminate()
+        self.router.close()
+        self.hub.close()
+
+    def __enter__(self) -> "ServingFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- observability -----------------------------------------------------
+
+    def replica_varz(self) -> Dict[int, Optional[dict]]:
+        with self._lock:
+            items = list(self.replicas.items())
+        return {rid: rep.varz() for rid, rep in items}
+
+    def stats(self) -> dict:
+        hub = self.hub.stats()
+        with self._lock:
+            replica_items = list(self.replicas.items())
+        return {
+            "router": self.router.stats(),
+            "param": {
+                k: hub[k]
+                for k in ("connections", "param_pushes", "param_full",
+                          "param_delta", "param_bytes", "param_drops",
+                          "param_fanout_ms_last", "param_fanout_ms_mean",
+                          "param_last_push")
+            },
+            "respawns": self.respawns,
+            "spawned": self.spawned,
+            "retires": self.retires,
+            "retired": sorted(self.retired),
+            "param_version": self._version,
+            "replicas": {
+                str(rid): {
+                    "pid": rep.pid,
+                    "alive": rep.alive(),
+                    "port": rep.port,
+                    "obs_port": rep.obs_port,
+                    "attempt": rep.attempt,
+                    "respawns": rep.respawns,
+                    "retired": rid in self.retired,
+                }
+                for rid, rep in replica_items
+            },
+        }

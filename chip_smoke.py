@@ -99,16 +99,19 @@ Phases, each printing one JSON line:
                 on, driven while it trains: after 4 fused calls ``/metrics``,
                 ``/varz`` and ``/healthz`` scraped (200, every component
                 fresh) and ``tools/obs_top.py --varz URL --once`` run (exit 0,
-                a frame with both workers); then twice ``/varz?trace=1``
-                for 2048 steps until the capture is ``done``: device kernels
-                and graph replays in the trace, its sampler kernels all
-                launched in the window and equal to the wrapper's count over
-                it (one per call captured), ``/healthz`` scraped every half
-                second from the trigger on (each scrape answered; 200 at
-                every scrape from ``done`` to the end of the call after it;
-                the codes during the capture printed), the top device ops,
-                the idle share and the capture's cost printed; then worker
-                1 SIGKILLed: its
+                a frame with both workers); then twice ``/varz?trace=1`` at
+                the default window (512 steps, started and stopped between
+                graph replays inside the 2048-step calls; the first armed
+                between two calls) until the capture is ``done``: exactly
+                512 steps traced, device kernels in the trace, its graph
+                replays equal to the runner's count over the window, its
+                sampler kernels all launched in the window and equal to the
+                wrapper's count (the first capture's 1), ``/healthz``
+                scraped every half second and 200 at every scrape from the
+                trigger to the end of the call after ``done``, the top
+                device ops, the idle share, the capture's cost and records
+                and the device record that leads its launch most printed;
+                then worker 1 SIGKILLed: its
                 post-mortem file holds the salvaged block's events, it is
                 respawned and fed again, and ``supervisor/respawns`` reads
                 1 on ``/varz``.  One sampler launch per fused call; learner
@@ -145,6 +148,17 @@ Phases, each printing one JSON line:
                 server's per-bucket times; checks: no param buffer, no params
                 and no CUDA in any worker, every fleet step's actions from
                 the server, 0 torn frames and replies, 2 sampler launches;
+ 16a. central_fleet — this slice's main path: phase 16's learner (4 fused
+                calls) with the 2 × 8 paramless workers dialing the router of
+                a 2-replica ``serving/router.ServingFleet`` on the card
+                (``serve --param-hub`` children with the run's token), the
+                learner's publishes relayed to the fleet's hub, replica 0
+                SIGKILLed after the first call.  Checks: the step target, one
+                sampler launch per call, 0 worker deaths, 0 torn replies and
+                frames, no fallback, replies at relayed versions ≥ 3, the
+                respawn back in rotation at the newest version, both
+                replicas' pids on the card.  Learner steps/s beside phase
+                16's, the round trips while learning, the relay's pushes;
  17. central_wide — phase 16 with 2 workers × 32 actors, then the same
                 fleet local (``central_wide_local``), in one call;
  18. serve_attach — ``serve.main(["--attach", "--listen", "0", "--clients",
@@ -180,6 +194,17 @@ Phases, each printing one JSON line:
                 the replies, a probe's q within 1e-4 of the CPU forward of
                 its params, the served network in float32), 0 client
                 errors; QPS and latency p50/p99;
+ 21a. serve_fleet — ``python -m ape_x_dqn_tpu_torch.serve --replicas 2
+                --checkpoint`` over phase 21's directory as a child, 4
+                closed-loop clients through its router: each replica's q
+                against a CPU forward of the checkpoint's params at the
+                replicas' bf16 compute (within 2e-2 of the largest |q|), a
+                step committed mid-burst reaching both replicas as a page
+                delta with ``param_version`` 2, replica 0 SIGKILLed (drained
+                within one 0.25 s probe, 0 dropped requests, 0 torn frames,
+                respawned, full-synced, routed to again), both replicas'
+                pids on the card and not the router's, rc 0 after SIGTERM;
+                QPS, round trip p50/p99, push bytes, drain and respawn s;
  22. tcp_train — phase 13 with ``actor.transport=tcp`` (run right after it,
                 in the same process): the 2 workers feed the learner over
                 loopback sockets, 256 KiB coalesced frames with in-window
@@ -212,16 +237,17 @@ Phases, each printing one JSON line:
                 ``ParamTailWriter`` chain (a full, a delta) serves the same
                 versions with the same q;
  25. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (obs_train) and on each path, error,
+                slice's main path (central_fleet) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
-Every device-replay phase (4, 5, 9, 11–14, 16–23) runs each fused call as
+Every device-replay phase (4, 5, 9, 11–14, 16–23, 16a) runs each fused call as
 CUDA-graph replays, the port's only device path.  Every process phase
 checks that no /dev/shm segment of the run (rings, param buffers, worker
 stats blocks) is left.  Checkpoints go under the checkout's
 ``build/ckpt_smoke/``, obs_train's post-mortems and traces under
 ``build/obs_smoke/``, the join spec under
 ``build/remote_join_smoke/``, the param tail under
-``build/param_tail_smoke/``; all are removed at the end.
+``build/param_tail_smoke/``, serve_fleet's stderr under
+``build/fleet_smoke/``; all are removed at the end.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -1281,9 +1307,12 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
 
 
 OBS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "obs_smoke")
-# /varz?trace=1 captures in obs_train: the first sets CUPTI up, the second
-# starts on the CUPTI that the first kept.
+# /varz?trace=1 captures in obs_train, each of the default window
+# (obs.trace_steps): the first armed between two fused calls, so it starts
+# at a call's prologue and holds its sampler kernel; the second armed from
+# the controller's thread, wherever the learner is.
 OBS_CAPTURES = 2
+OBS_TRACE_STEPS = 512
 
 
 def _get(url: str):
@@ -1304,10 +1333,12 @@ class ObsController:
     ``/healthz`` and run ``tools/obs_top.py --varz URL --once``; then
     ``OBS_CAPTURES`` times ``/varz?trace=1``, each waited for until its
     ``done`` and one fused call more, with ``/healthz`` scraped every half
-    second all the while; then SIGKILL worker 1 and wait for its
-    post-mortem file, its respawn and its first chunks; then stop the run
-    after four more calls.  The times of these moments (host monotonic) are
-    recorded, so the rate can leave the captures and the respawn out."""
+    second all the while (the first trigger is sent from the learner's
+    thread just before a fused call begins: armed between two calls); then
+    SIGKILL worker 1 and wait for its post-mortem file, its respawn and its
+    first chunks; then stop the run after three more calls.  The times of
+    these moments (host monotonic) are recorded, so the rate can leave the
+    captures and the respawn out."""
 
     def __init__(self, seen: list, K: int, pm_dir: str):
         self.seen, self.K, self.pm_dir = seen, K, pm_dir
@@ -1315,14 +1346,32 @@ class ObsController:
         self.error = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
+        self._arm_url = None        # set: the learner triggers before its next call
+        self._armed = threading.Event()
 
     def __enter__(self):
+        from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+        train, ctl = FusedDedupLearner.train, self
+        self._train = train
+
+        def arming(learner, *args, **kwargs):
+            if ctl._arm_url is not None:
+                ctl.out["armed_trigger"] = _get(ctl._arm_url)
+                ctl._arm_url = None
+                ctl._armed.set()
+            return train(learner, *args, **kwargs)
+
+        FusedDedupLearner.train = arming
         self._thread.start()
         return self
 
     def __exit__(self, *exc):
+        from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
         self._stop.set()
         self._thread.join(300)
+        FusedDedupLearner.train = self._train
 
     def _wait(self, cond, what: str, timeout: float = 300.0):
         deadline = time.monotonic() + timeout
@@ -1369,9 +1418,14 @@ class ObsController:
                              capture_output=True, text=True, timeout=120)
         out["obs_top"] = {"rc": top.returncode, "stdout": top.stdout, "stderr": top.stderr}
         out["captures"] = []
-        for _ in range(OBS_CAPTURES):
-            cap = {"t_trigger": time.monotonic()}
-            status, body = _get(f"{url}/varz?trace=1")
+        for i in range(OBS_CAPTURES):
+            cap = {"t_trigger": time.monotonic(), "armed_at_call": i == 0}
+            if i == 0:
+                self._arm_url = f"{url}/varz?trace=1"
+                self._wait(self._armed.is_set, "the learner's trigger")
+                status, body = out.pop("armed_trigger")
+            else:
+                status, body = _get(f"{url}/varz?trace=1")
             cap["trigger"] = json.loads(body)["trace"] if status == 200 else {"status": status}
             cap["healthz"] = self._poll_healthz(url, cap["t_trigger"], lambda: pipe.trace_on_demand
                                                 .status()["state"] not in ("idle", "capturing"))
@@ -1397,7 +1451,7 @@ class ObsController:
         out["varz_after"] = _get(f"{url}/varz")
         out["healthz_after"] = _get(f"{url}/healthz")
         step = pipe.learner_step
-        self._wait(lambda: pipe.learner_step >= step + 4 * self.K, "4 calls after the respawn")
+        self._wait(lambda: pipe.learner_step >= step + 3 * self.K, "3 calls after the respawn")
 
 
 def phase_obs_train(sampling, card: str, beside: dict) -> dict:
@@ -1406,16 +1460,19 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
     ``obs.export_port=0``, the supervisor, post-mortems and traces under
     ``build/obs_smoke/``.  Checks: every endpoint answers and ``/healthz``
     is 200 with every component fresh; ``obs_top --once`` exits 0 with a
-    frame; each ``/varz?trace=1`` capture is ``done``, holds device
-    kernels and graph replays, and its sampler kernels, all launched in the
-    window, equal the wrapper's count over it (one per call captured);
-    ``/healthz`` answers every scrape from each trigger on and is 200 from
-    its ``done`` to the end of the call after it; the
-    SIGKILLed worker's post-mortem holds its salvaged events, it is
+    frame; each ``/varz?trace=1`` capture is ``done`` and traced exactly
+    the default window (``OBS_TRACE_STEPS`` steps, inside a 2048-step
+    call), holds device kernels, its graph replays equal the runner's
+    count over the window and its sampler kernels, all launched in the
+    window, the wrapper's count (0 or 1); the capture armed between two
+    calls holds its call's sampler kernel; ``/healthz`` reads 200 at every
+    scrape from each trigger to the end of the call after its ``done``;
+    the SIGKILLed worker's post-mortem holds its salvaged events, it is
     respawned and ``supervisor/respawns`` reads 1 on ``/varz``; one sampler
     launch per fused call; no /dev/shm segment left.  Reports the top
     device ops and idle share of the first capture, each capture's cost
-    (the learner's stalls, the export, the summary, the call after it), and
+    (the learner's stalls, the export, the summary, the records, the call
+    after it) and the device record that leads its launch most, and
     learner steps/s over the calls outside the captures and the respawn,
     beside ``dedup_train``'s."""
     import shutil
@@ -1428,8 +1485,7 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
     argv = config3_argv(64 * K) + [
         "--set", "obs.export_port=0", "--set", "supervisor.enabled=true",
         "--set", f"obs.postmortem_dir={pm_dir}",
-        "--set", f"obs.trace_dir={os.path.join(OBS_ROOT, 'traces')}",
-        "--set", f"obs.trace_steps={K}"]
+        "--set", f"obs.trace_dir={os.path.join(OBS_ROOT, 'traces')}"]
     t0 = time.monotonic()
     gc.collect()
     torch.cuda.synchronize()
@@ -1468,26 +1524,31 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
     if top["rc"] != 0 or not top["stdout"].startswith("== apex-tpu obs_top ==") \
             or "-- workers (2)" not in top["stdout"]:
         raise AssertionError(f"obs_train: obs_top {top}")
-    # The captures.
+    # The captures: the default window, exact, inside a call.
+    if pipe.cfg.obs.trace_steps != OBS_TRACE_STEPS or pipe.cfg.obs.heartbeat_stale_s != 15.0:
+        raise AssertionError(f"obs_train: obs config {pipe.cfg.obs}")
     for i, cap in enumerate(out["captures"]):
         trace = cap["trace"]
         summary = trace.get("summary") or {}
-        if trace.get("state") != "done" or not trace.get("trace_started"):
+        if trace.get("state") != "done" or not trace.get("trace_started") \
+                or trace.get("steps_traced") != OBS_TRACE_STEPS:
             raise AssertionError(f"obs_train: capture {i}: trace {trace}")
         launched = trace["counters"]["sampler_launches"]
-        if not summary.get("device_events") or not summary.get("graph_replays") \
-                or not launched or summary["sampler_kernels_launched_in_window"] != launched \
-                or summary["sampler_kernels"] != launched:
-            raise AssertionError(f"obs_train: capture {i}: sampler kernels against "
-                                 f"{trace['counters']} launched, summary "
+        if not summary.get("device_events") \
+                or summary.get("graph_replays") != trace["counters"]["graph_replays"] \
+                or launched not in (0, 1) \
+                or summary["sampler_kernels_launched_in_window"] != launched \
+                or summary["sampler_kernels"] != launched \
+                or (cap["armed_at_call"] and launched != 1):
+            raise AssertionError(f"obs_train: capture {i}: sampler kernels and replays "
+                                 f"against {trace['counters']} counted, summary "
                                  f"{ {k: v for k, v in summary.items() if k != 'top_device_ms'} }")
-        # Every scrape answered (a timeout raises in the controller); from
-        # done to the end of the next call every component is fresh again.
-        # During the capture torch's stop and export hold the GIL, and a
-        # component whose thread waits that long reads stale: reported.
-        if not cap["healthz_after"] or any(code != 200 for _, code, _ in cap["healthz_after"]):
-            raise AssertionError(f"obs_train: capture {i}: /healthz after done "
-                                 f"{cap['healthz_after']}, during {cap['healthz']}")
+        # Every scrape answered (a timeout raises in the controller) and
+        # read 200, from the trigger to the end of the call after done.
+        scrapes = cap["healthz"] + cap["healthz_after"]
+        if not cap["healthz_after"] or any(code != 200 for _, code, _ in scrapes):
+            raise AssertionError(f"obs_train: capture {i}: /healthz during {cap['healthz']}, "
+                                 f"after done {cap['healthz_after']}")
     # The kill.
     files = sorted(f for f in os.listdir(pm_dir) if f.endswith(".json"))
     if len(files) != 1 or not files[0].startswith("worker1-salvage-"):
@@ -1542,8 +1603,11 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
             "counters": c["trace"]["counters"], "cost": c["trace"]["cost"],
             "trigger_to_done_s": c["t_done"] - c["t_trigger"],
             "calls_ms": {i: call_ms[i] for i in overlapping(c["t_trigger"], c["t_after"])},
+            "armed_at_call": c["armed_at_call"],
+            "records": c["trace"]["summary"]["device_events"],
+            "stop_ms": c["trace"]["cost"]["stop_ms"],
+            "export_ms": c["trace"]["cost"]["export_ms"],
             "healthz": {"scrapes": len(c["healthz"]),
-                        "not_200": [(t, code) for t, code, _ in c["healthz"] if code != 200],
                         "longest_answer_gap_s": max(b[0] - a[0] for a, b in zip(
                             c["healthz"], c["healthz"][1:])) if len(c["healthz"]) > 1 else None,
                         "max_learner_age_s": max(a for *_, a in c["healthz"]),
@@ -1551,7 +1615,7 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
             **{k: c["trace"]["summary"][k] for k in (
                 "device_events", "device_busy_ms", "device_span_ms", "idle_share",
                 "sampler_kernels", "sampler_kernels_launched_in_window", "graph_replays",
-                "device_clock_lead_ms")},
+                "device_clock_lead_ms", "device_clock_lead", "device_records_before_launch")},
             **({"top_device_ms": c["trace"]["summary"]["top_device_ms"]} if not n else {}),
         } for n, c in enumerate(out["captures"])],
         "healthz": health, "obs_top_lines": top["stdout"].splitlines()[:3],
@@ -2744,7 +2808,7 @@ def _probe_until(client, obs, version: int, timeout_s: float = 60.0):
     raise AssertionError(f"serve_hub: version {version} never served")
 
 
-def phase_serve_hub(card: str, trained: dict, duration: float = 12.0):
+def phase_serve_hub(card: str, trained: dict, duration: float = 8.0):
     """The param hub and the param tail on the card.  A ``NetTransport`` in
     this process is the hub: it publishes ``tcp_train``'s trained params
     (version 1, full) and a newer version that changes one head's bias
@@ -2933,6 +2997,529 @@ def phase_serve_hub(card: str, trained: dict, duration: float = 12.0):
     return result
 
 
+FLEET_ROOT = os.path.join(REPO_DIR, "build", "fleet_smoke")
+FLEET_PROBE_S = 0.25          # the router's /healthz cadence in the fleet phases
+# serve_fleet's q check: the replicas compute as ``serve`` builds their
+# network, in bf16 (the default; the CLI has no float32 switch in either
+# package), so a CPU forward at the same compute is the reference, held to
+# the bf16 tolerance of the repo's tests (tests/test_torch_model.py).
+FLEET_Q_RTOL = 2e-2
+
+
+def counting_client(host: str, port: int, seed: int = 0):
+    """A ``ServingClient`` whose torn or unknown reply frames are counted on
+    ``torn`` (the client retires the connection and resends the request
+    whole)."""
+    from ape_x_dqn_tpu_torch.serving.net_server import ServingClient
+
+    class CountingClient(ServingClient):
+        torn = 0
+
+        def _await_reply(self, rid, deadline):
+            got = super()._await_reply(rid, deadline)
+            if got is None:
+                self.torn += 1
+            return got
+
+    return CountingClient(host, port, seed=seed)
+
+
+def _jsonl_reader(proc, lines: list) -> threading.Thread:
+    def read():
+        for ln in proc.stdout:
+            if ln.startswith("{"):
+                try:
+                    lines.append(json.loads(ln))
+                except ValueError:
+                    pass
+    th = threading.Thread(target=read, daemon=True)
+    th.start()
+    return th
+
+
+def _wait_for(cond, what: str, timeout: float, proc=None):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited rc {proc.returncode}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _varz(url: str) -> dict:
+    status, body = _get(f"{url}/varz")
+    if status != 200:
+        raise AssertionError(f"{url}/varz answered {status}")
+    return json.loads(body)
+
+
+def card_contexts() -> int:
+    """How many CUDA contexts the card holds: the rows of nvidia-smi's
+    compute apps.  (Its pids are of the host's namespace: in a container
+    every row can name the same pid, so the fleet phases count rows.)"""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return sum(1 for ln in res.stdout.splitlines() if ln.strip())
+
+
+def device_mappings(pid: int) -> int:
+    """Mappings of the card's device files (``/dev/nvidia*``) in
+    ``/proc/PID/maps``: reported beside ``card_contexts``."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return sum("/dev/nvidia" in ln for ln in f)
+    except OSError:
+        return -1
+
+
+def phase_serve_fleet(card: str, root: str, state, clients: int = 4):
+    """``python -m ape_x_dqn_tpu_torch.serve --replicas 2 --checkpoint
+    ckpt_train's dir --listen 0 --obs-port 0`` as a child (its replicas,
+    ``serve --param-hub``, on this card; ``state`` is the train state whose
+    params the newest step holds).  ``clients`` closed-loop clients
+    drive the router with single observations all through.  Checks: each
+    replica's q (asked directly) equals a CPU forward of the checkpoint's
+    params at the replicas' compute within ``FLEET_Q_RTOL`` of the largest
+    |q|; a step committed mid-burst that changes the heads' biases reaches
+    both replicas as a page delta (push bytes below a tenth of the
+    snapshot) and their ``param_version`` advances to 2, with q to match;
+    replica 0 SIGKILLed: the router drains it within one probe, no request
+    is dropped (every ``act`` answered, retried across reconnects) and no
+    frame torn (clients and replicas), the fleet respawns it, it full-syncs
+    version 2 and takes routes again; the card holds one context more per
+    replica while the fleet serves (nvidia-smi's rows, before the kill and
+    after the respawn), none for the router's process; rc 0 after SIGTERM,
+    every child reaped.  Reports QPS, the round trip p50/p99
+    through the router, the push bytes, the kill's drain and respawn
+    times."""
+    import shutil
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.config import load_config
+    from ape_x_dqn_tpu_torch.runtime.process_actors import network_and_template
+    from ape_x_dqn_tpu_torch.serving.sources import CheckpointParamSource
+    from ape_x_dqn_tpu_torch.types import TrainState
+    from ape_x_dqn_tpu_torch.utils.checkpoint import latest_step, save_checkpoint
+    from ape_x_dqn_tpu_torch.utils.metrics import LatencyHistogram
+    from ape_x_dqn_tpu_torch.utils.serialization import tree_to_bytes
+
+    t0 = time.monotonic()
+    cfg_args = ["network=conv", "env.name=catch:84", f"seed={SEED}",
+                "serving.reload_poll_s=0.25", f"serving.probe_interval_s={FLEET_PROBE_S}"]
+    cfg = load_config(None, cfg_args)
+    obs_shape, net, template = network_and_template(cfg)
+    v0 = latest_step(root)
+    params1, _ = CheckpointParamSource(root, template).get(-1)
+    params2 = {k: v.clone() for k, v in params1.items()}
+    heads = [k for k in params2 if k.endswith("bias") and k.startswith(("value", "advantage"))]
+    for k in heads:
+        params2[k] += 0.25
+    snapshot_bytes = len(tree_to_bytes(params1))
+    probe = np.random.default_rng(SEED + 11).integers(0, 256, (4, *obs_shape), dtype=np.uint8)
+
+    def cpu_q(params, dtype):
+        net.compute_dtype = dtype
+        with torch.no_grad():
+            return net.apply_params(params, torch.from_numpy(probe)).q.float().numpy()
+
+    want = {1: cpu_q(params1, torch.bfloat16), 2: cpu_q(params2, torch.bfloat16)}
+    want32 = {1: cpu_q(params1, torch.float32), 2: cpu_q(params2, torch.float32)}
+    argv = [sys.executable, "-m", "ape_x_dqn_tpu_torch.serve", "--replicas", "2",
+            "--checkpoint", root, "--listen", "0", "--obs-port", "0", "--duration", "0",
+            "--metrics-every", "1", "--device", "cuda",
+            *(a for ov in cfg_args for a in ("--set", ov))]
+    os.makedirs(FLEET_ROOT, exist_ok=True)
+    err_path = os.path.join(FLEET_ROOT, "serve_fleet.err")
+    lines: list = []
+    known_pids: set = set()
+    stop = threading.Event()
+    stats = {"requests": 0, "errors": [], "versions": set()}
+    lat = LatencyHistogram()
+    lock = threading.Lock()
+    workers: list = []
+    conns: list = []
+    contexts = {"before": card_contexts()}
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(argv, cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=err,
+                                 text=True)
+        _jsonl_reader(child, lines)
+        try:
+            router = _wait_for(lambda: next((r for r in lines if r.get("event") == "serving_listen"
+                                             and r.get("mode") == "router"), None),
+                               "the router", 300, child)
+            url = _wait_for(lambda: next((r["url"] for r in lines
+                                          if r.get("event") == "obs_exporter"), None),
+                            "the fleet's exporter", 60, child)
+            t_up = time.monotonic()
+
+            def fleet_varz():
+                return _varz(url)
+
+            def replicas():
+                reps = fleet_varz()["serving_fleet"]["replicas"]
+                known_pids.update(r["pid"] for r in reps.values() if r["pid"])
+                return reps
+
+            def client_loop(i):
+                c = counting_client("127.0.0.1", router["port"], seed=i)
+                conns.append(c)
+                rng = np.random.default_rng(SEED + 100 + i)
+                while not stop.is_set():
+                    obs = rng.integers(0, 256, obs_shape, dtype=np.uint8)
+                    try:
+                        r = c.act(obs, timeout=60.0)
+                    except Exception as e:  # noqa: BLE001 — a dropped request, gated below
+                        with lock:
+                            stats["errors"].append(f"{type(e).__name__}: {e}")
+                        continue
+                    with lock:
+                        stats["requests"] += 1
+                        stats["versions"].add(r.param_version)
+                        lat.record(r.latency_s)
+
+            def replica_q(version):
+                """Each replica's q on the probe, asked on its own port, once
+                it serves ``version``."""
+                out = {}
+                for rid, rep in replicas().items():
+                    c = counting_client("127.0.0.1", rep["port"], seed=50 + int(rid))
+                    deadline = time.monotonic() + 60
+                    try:
+                        while True:
+                            got = [c.act(o, timeout=60.0) for o in probe]
+                            if {r.param_version for r in got} == {version}:
+                                break
+                            if time.monotonic() > deadline:
+                                raise AssertionError(f"serve_fleet: replica {rid} never "
+                                                     f"served version {version}")
+                            time.sleep(0.05)
+                    finally:
+                        c.close()
+                    q = np.stack([r.q_values for r in got])
+                    scale = float(np.abs(want[version]).max())
+                    out[rid] = {"q_err_rel": float(np.abs(q - want[version]).max() / scale),
+                                "q_err_rel_float32": float(
+                                    np.abs(q - want32[version]).max() / scale)}
+                return out
+
+            q1 = replica_q(1)
+            contexts["serving"] = card_contexts()
+            workers = [threading.Thread(target=client_loop, args=(i,), daemon=True)
+                       for i in range(clients)]
+            for w in workers:
+                w.start()
+            time.sleep(3.0)
+            # Mid-burst: a newer step that moves the heads' biases.
+            save_checkpoint(root, TrainState(params=params2, target_params=state.target_params,
+                                             opt_state=state.opt_state, step=v0 + 1,
+                                             seed=state.seed))
+            t_commit = time.monotonic()
+            push = _wait_for(lambda: next((r for r in lines if r.get("event") == "fleet_param_push"
+                                           and r.get("step") == v0 + 1), None),
+                             "the push of the new step", 60, child)
+            q2 = replica_q(2)
+            push_s = time.monotonic() - t_commit
+            time.sleep(3.0)
+            # SIGKILL replica 0.
+            reps = replicas()
+            victim = reps["0"]["pid"]
+            routed_before = fleet_varz()["serving_router"]["endpoints"]["0"]["routed_total"]
+            drains_before = fleet_varz()["serving_router"]["probe_failures"]
+            t_kill = time.monotonic()
+            os.kill(victim, signal.SIGKILL)
+            _wait_for(lambda: not fleet_varz()["serving_router"]["endpoints"]["0"]["healthy"],
+                      "the router to drain replica 0", 30, child)
+            drain_s = time.monotonic() - t_kill
+            _wait_for(lambda: any(r.get("event") == "replica_respawned" for r in lines),
+                      "replica 0's respawn", 300, child)
+            respawn_s = time.monotonic() - t_kill
+            _wait_for(lambda: fleet_varz()["serving_router"]["endpoints"]["0"]["healthy"],
+                      "replica 0 back in rotation", 60, child)
+            q_respawned = replica_q(2)
+            contexts["respawned"] = card_contexts()
+            # Fresh connections spread round robin: the respawned replica (a
+            # new endpoint, its count from 0) takes routes.
+            for i in range(4):
+                c = counting_client("127.0.0.1", router["port"], seed=200 + i)
+                conns.append(c)
+                c.act(probe[0], timeout=60.0)
+            routed_after = fleet_varz()["serving_router"]["endpoints"]["0"]["routed_total"]
+            reps = replicas()
+            mappings = {"replicas": {rid: device_mappings(r["pid"]) for rid, r in reps.items()},
+                        "router": device_mappings(child.pid)}
+            time.sleep(2.0)
+            stop.set()
+            for w in workers:
+                w.join(120)
+            t_end = time.monotonic()
+            varz_by_rid = {rid: _varz(f"http://127.0.0.1:{r['obs_port']}") for rid, r in
+                           reps.items()}
+            fleet_final = fleet_varz()
+        finally:
+            stop.set()
+            for c in conns:
+                c.close()
+            if child.poll() is None:
+                child.send_signal(signal.SIGTERM)
+            try:
+                rc = child.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                rc = child.wait(timeout=30)
+            for pid in known_pids:   # a replica the fleet did not reap
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    alive = [pid for pid in known_pids if os.path.exists(f"/proc/{pid}")
+             and open(f"/proc/{pid}/stat").read().split()[2] != "Z"]
+    pids_now = {r["pid"] for r in reps.values()}
+    torn_clients = sum(c.torn for c in conns)
+    torn_replicas = {rid: v["serving"]["net"]["torn_frames"] for rid, v in varz_by_rid.items()}
+    errs = [max(v["q_err_rel"] for v in q.values()) for q in (q1, q2, q_respawned)]
+    final = [r for r in lines if r.get("final")]
+    fleet_st = fleet_final["serving_fleet"]
+    checks = {
+        "rc_0": rc == 0 and bool(final),
+        "q_within_tolerance": max(errs) <= FLEET_Q_RTOL,
+        "delta_to_both": (push["delta"], push["full"]) == (2, 0)
+                         and push["bytes"] < snapshot_bytes // 10,
+        "versions_advance": all(v["serving"]["param_version"] == 2
+                                for v in varz_by_rid.values())
+                            and fleet_st["param_version"] == 2,
+        "drained_within_one_probe": drain_s <= FLEET_PROBE_S + 0.5,
+        "no_request_dropped": not stats["errors"],
+        "no_frame_torn": torn_clients == 0 and not any(torn_replicas.values()),
+        "respawned_in_rotation": fleet_st["respawns"] == 1
+                                 and fleet_st["replicas"]["0"]["attempt"] == 1
+                                 and routed_after > 0,
+        "a_context_per_replica": contexts["serving"] == contexts["respawned"]
+                                 == contexts["before"] + 2,
+        "children_reaped": not alive,
+    }
+    if not all(checks.values()):
+        with open(err_path) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"serve_fleet: {checks}; q {q1} {q2} {q_respawned}; push {push}; "
+                             f"drain {drain_s}; errors {stats['errors'][:5]}; torn "
+                             f"{torn_clients} {torn_replicas}; contexts {contexts}; "
+                             f"alive {alive}; stderr {tail}")
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    burst_s = t_end - t_up
+    summary = lat.summary()
+    result = {
+        "phase": "serve_fleet", "card": card, "replicas": 2, "clients": clients,
+        "checkpoint_step": v0, "requests": stats["requests"],
+        "qps": stats["requests"] / burst_s, "burst_s": burst_s,
+        "rtt_ms": {k: summary.get(k) for k in ("p50_ms", "p99_ms", "count")},
+        "q_err_rel": {"v1": q1, "v2": q2, "respawned": q_respawned},
+        "q_tolerance": {"rel": FLEET_Q_RTOL, "compute": "bfloat16 (serve's default)"},
+        "push": push, "snapshot_bytes": snapshot_bytes, "changed_leaves": heads,
+        "commit_to_served_s": push_s, "kill_to_drained_s": drain_s,
+        "kill_to_respawned_s": respawn_s, "probe_interval_s": FLEET_PROBE_S,
+        "routed_to_replica0": {"before_kill": routed_before, "after_respawn": routed_after},
+        "probe_failures_before_kill": drains_before,
+        "retries": sum(c.retries for c in conns), "reconnects": sum(c.reconnects for c in conns),
+        "versions_seen": sorted(stats["versions"]), "torn": {"clients": torn_clients,
+                                                             "replicas": torn_replicas},
+        "router": fleet_final["serving_router"],
+        "fleet": {k: fleet_st[k] for k in ("param", "respawns", "param_version")},
+        "replica_pids": sorted(pids_now), "killed_pid": victim, "router_pid": child.pid,
+        "card_contexts": contexts, "device_mappings": mappings,
+        "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
+def phase_central_fleet(sampling, card: str, beside: dict, calls: int = 4):
+    """This slice's main path: config3's learner (``dedup_train``'s cuts,
+    ``calls`` fused calls) fed by 2 workers × 8 paramless central actors
+    (``actor.inference=central``) that dial the router of a 2-replica
+    ``ServingFleet`` on this card (``serve --param-hub`` children with the
+    run's token); the learner's publishes are relayed to the fleet's hub
+    (the replies then carry the fleet's versions).  Replica 0 is SIGKILLed
+    once the learner has run its first call.  Checks: the learner reaches
+    its step target, one sampler launch per fused call, 0 worker deaths, 0
+    torn replies (workers) and 0 torn frames (the live replicas), every
+    fleet step's actions from the replicas (no fallback), replies at a
+    relayed version ≥ 3, the respawn observed (back in rotation, full-synced
+    to the newest version), the card holding one context more per replica
+    (nvidia-smi's rows) with the fleet up and after the respawn.
+    Reports learner steps/s beside ``central_train``'s from the same run,
+    the workers' round trips while the learner replays, the relay's
+    pushes."""
+    import secrets
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.config import load_config
+    from ape_x_dqn_tpu_torch.runtime.process_actors import network_and_template
+    from ape_x_dqn_tpu_torch.serving.router import ServingFleet
+
+    K = DEDUP_K
+    steps = calls * K
+    t0 = time.monotonic()
+    token = secrets.randbits(63) or 1
+    net_args = ["network=conv", "env.name=catch:84", f"seed={SEED}"]
+    events: list = []
+    fleet = ServingFleet(replicas=2, probe_interval_s=FLEET_PROBE_S,
+                         replica_args=["--device", "cuda", "--run-token", str(token),
+                                       *(a for ov in net_args for a in ("--set", ov))],
+                         on_event=lambda kind, **f: events.append(
+                             {"event": kind, "t": time.monotonic(), **f}))
+    # The replicas serve the learner's initial params until its first
+    # publish (the same config and seed build the same ones).
+    fleet.publish(network_and_template(load_config(None, net_args))[2])
+    relay = {"pushes": [], "have": -1, "error": None}
+    stop_relay = threading.Event()
+    kill = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    contexts = {"before": card_contexts()}
+    try:
+        fleet.start(timeout=300)
+        t_fleet = time.monotonic() - t0
+        contexts["fleet_up"] = card_contexts()
+        argv = config3_argv(steps) + [
+            "--set", "actor.inference=central", "--set", "actor.inference_host=127.0.0.1",
+            "--set", f"actor.inference_port={fleet.port}",
+            "--set", f"actor.inference_token={token}"]
+
+        with capture_pipelines() as seen, timed_fused_calls() as spans, \
+                rtt_after_warmup() as warm_rtt:
+            def relay_loop():
+                """The trainer's publishes → the fleet's hub; replica 0
+                SIGKILLed after the first fused call."""
+                try:
+                    while not stop_relay.wait(0.1):
+                        if not seen:
+                            continue
+                        pipe = seen[0]
+                        got = pipe.store.get(relay["have"])
+                        if got is not None:
+                            params, relay["have"] = got
+                            relay["pushes"].append(fleet.publish(params))
+                        if not kill and spans:
+                            kill["pid"] = fleet.replicas[0].pid
+                            kill["t"] = time.monotonic()
+                            kill["step"] = pipe.learner_step
+                            fleet.replicas[0].kill()
+                except BaseException as e:  # noqa: BLE001 — raised by the phase
+                    relay["error"] = e
+
+            relay_thread = threading.Thread(target=relay_loop, daemon=True)
+            relay_thread.start()
+            try:
+                final, wall = run_train(argv)
+            finally:
+                stop_relay.set()
+                relay_thread.join(60)
+        launches = sampling.sample_indices.launches
+        torch.cuda.synchronize()
+        # The respawn, observed even when the learner finished first.
+        t_wait = time.monotonic()
+        respawned = _wait_for(lambda: next((e for e in events
+                                            if e["event"] == "replica_respawned"), None),
+                              "central_fleet: replica 0's respawn", 300)
+        _wait_for(lambda: fleet.router.stats()["endpoints"]["0"]["healthy"],
+                  "central_fleet: replica 0 back in rotation", 60)
+        waited_s = time.monotonic() - t_wait
+        contexts["respawned"] = card_contexts()
+        mappings = {"replicas": {rid: device_mappings(rep.pid)
+                                 for rid, rep in fleet.replicas.items()},
+                    "learner": device_mappings(os.getpid())}
+        varz = fleet.replica_varz()
+        fleet_stats = fleet.stats()
+        pids_now = {rep.pid for rep in fleet.replicas.values()}
+    finally:
+        stop_relay.set()
+        fleet.stop()
+    if relay["error"] is not None:
+        raise AssertionError("central_fleet: the relay failed") from relay["error"]
+    pipe = seen[0]
+    fused, pool = pipe.fused, pipe.worker.pool
+    section = final["inference"]
+    reports = pool.worker_reports
+    torn_replicas = {rid: ((v or {}).get("serving", {}).get("net") or {}).get("torn_frames")
+                     for rid, v in varz.items()}
+    fallback = {w: r["inference"]["fallback_steps"] for w, r in reports.items()}
+    versions = {rid: (v or {}).get("serving", {}).get("param_version") for rid, v in varz.items()}
+    checks = {
+        "steps_reached": final["step"] >= steps and len(spans) == calls,
+        "one_sampler_launch_per_call": launches == len(spans),
+        "no_worker_death": pool.restarts == 0 and not pool.worker_errors
+                           and set(reports) == {0, 1},
+        "paramless_cuda_free_workers": pool.buffer is None and pool.store is None
+                                       and not any(r["param_buffer"] or r["cuda_initialized"]
+                                                   for r in reports.values()),
+        "no_torn": section["torn_replies"] == 0 and section["errors"] == 0
+                   and all(t == 0 for t in torn_replicas.values()),
+        "no_fallback": not any(fallback.values()),
+        "relayed_versions": section["param_version"] >= 3 and len(relay["pushes"]) >= 3,
+        "killed_and_respawned": bool(kill) and fleet_stats["respawns"] >= 1
+                                and fleet_stats["replicas"]["0"]["attempt"] >= 1,
+        "respawn_full_synced": versions.get(0) == fleet_stats["param_version"],
+        "a_context_per_replica": contexts["fleet_up"] == contexts["respawned"]
+                                 == contexts["before"] + 2,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"central_fleet: {checks}; inference {section}; torn "
+                             f"{torn_replicas}; versions {versions}; fleet {fleet_stats}; "
+                             f"contexts {contexts}; kill {kill}; "
+                             f"events {events[-10:]}")
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
+    rate = K * (len(call_ms) - 1) / (sum(call_ms[1:]) / 1e3)
+    base_ms = beside["fused_call_ms"]
+    result = {
+        "phase": "central_fleet", "card": card, "learner_steps": final["step"],
+        "fused_calls": len(spans), "sampler_launches": launches, "loss": final["learner/loss"],
+        "fused_call_ms": call_ms,
+        "learner_steps_per_s_calls_after_first": rate,
+        "learner_steps_per_s": final["step"] / final["train_s"],
+        "beside_central_train": {
+            "learner_steps_per_s": beside["learner_steps_per_s"],
+            "learner_steps_per_s_calls": K * len(base_ms) / (sum(base_ms) / 1e3),
+            "learner_steps_per_s_second_call": beside["learner_steps_per_s_second_call"]},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "actor_fps": final["actor_fps"],
+        "inference": {k: section.get(k) for k in (
+            "selects", "requests", "replies", "retries", "reconnects", "torn_replies",
+            "outages", "stall_ms", "param_version", "version_lag")},
+        "rtt_while_learning": rtt_summary(
+            {w: r["inference"]["rtt_state"] for w, r in reports.items()}, warm_rtt),
+        "relay": {"pushes": len(relay["pushes"]),
+                  "full": sum(p["full"] for p in relay["pushes"]),
+                  "delta": sum(p["delta"] for p in relay["pushes"]),
+                  "bytes": sum(p["bytes"] for p in relay["pushes"])},
+        "kill": {"pid": kill.get("pid"), "at_step": kill.get("step"),
+                 "to_respawned_s": respawned["t"] - kill["t"],
+                 "waited_after_learner_s": waited_s},
+        "fleet": {"start_s": t_fleet, "respawns": fleet_stats["respawns"],
+                  "router": fleet_stats["router"], "param": fleet_stats["param"],
+                  "param_version": fleet_stats["param_version"]},
+        "replica_versions": versions, "replica_torn_frames": torn_replicas,
+        "replica_pids": sorted(pids_now), "card_contexts": contexts,
+        "device_mappings": mappings,
+        "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4", "actors": "2 workers x 8",
+                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "steps": f"{calls} fused calls ({steps} steps) for 2000000",
+                 "replicas": "2 on the learner's card", "data_parallel": "1 for 4"},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     import shutil
 
@@ -2985,6 +3572,7 @@ def main() -> int:
     phase_serve_parity(card=smi)
     central = phase_dedup_train(sampling, card=smi, central=True, beside=dedup,
                                 phase="central_train")
+    central_fleet = phase_central_fleet(sampling, card=smi, beside=central)
     wide = phase_dedup_train(sampling, card=smi, central=True, actors=64,
                              phase="central_wide")
     wide_local = phase_dedup_train(sampling, card=smi, actors=64, beside=wide,
@@ -2993,18 +3581,19 @@ def main() -> int:
     ckpt_parity = phase_ckpt_parity(sampling)
     ckpt_train, ckpt_root, ckpt_state = phase_ckpt_train(sampling, card=smi)
     phase_serve_checkpoint(smi, ckpt_root, ckpt_state)
+    phase_serve_fleet(smi, ckpt_root, ckpt_state)
     del ckpt_state
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
-    # This slice's main path: config3's learner with the observability plane
-    # driven while it trains, one sample-ahead launch per fused call.
+    # This slice's main path: config3's learner fed by central workers
+    # through the replica fleet's router, one sample-ahead launch per call.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": obs["sampler_launches"],
+        "launches": central_fleet["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
@@ -3021,6 +3610,8 @@ def main() -> int:
                              "process_device_dedup_overlapped":
                                  overlap["sampler_launches"],
                              "process_device_dedup_central": central["sampler_launches"],
+                             "process_device_dedup_central_fleet":
+                                 central_fleet["sampler_launches"],
                              "process_device_dedup_central_wide":
                                  wide["sampler_launches"],
                              "process_device_dedup_wide": wide_local["sampler_launches"],

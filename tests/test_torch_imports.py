@@ -56,7 +56,10 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.utils.checkpoint_inc",
                  "ape_x_dqn_tpu_torch.serving.sources",
                  "ape_x_dqn_tpu_torch.profile_checkpoint",
-                 "ape_x_dqn_tpu_torch.host_join"):
+                 "ape_x_dqn_tpu_torch.host_join",
+                 "ape_x_dqn_tpu_torch.fleet",
+                 "ape_x_dqn_tpu_torch.fleet.registry",
+                 "ape_x_dqn_tpu_torch.serving.router"):
         assert want in mods
 
 
@@ -99,12 +102,16 @@ def test_network_plane_loads_no_torch():
 
 def test_serving_wire_modules_load_no_torch():
     """A central worker dials the server through ``serving.central`` (and
-    the wire, batcher, socket server and trace logs beside it): stdlib +
-    numpy only, like the process-actor module."""
+    the wire, batcher, socket server and trace logs beside it), and the
+    fleet's router and registry run in processes that serve no forward:
+    stdlib + numpy only, like the process-actor module."""
     code = (
         "import json, sys\n"
         "import ape_x_dqn_tpu_torch.serving.central\n"
         "import ape_x_dqn_tpu_torch.serving.net_server\n"
+        "import ape_x_dqn_tpu_torch.serving.router\n"
+        "import ape_x_dqn_tpu_torch.fleet.registry\n"
+        "import ape_x_dqn_tpu_torch.fleet\n"
         "import ape_x_dqn_tpu_torch.serving\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"

@@ -358,11 +358,11 @@ def test_learner_failure_releases_every_segment():
     calls = []
     train_call = pipe.fused.train
 
-    def failing_train(beta):
+    def failing_train(beta, **kwargs):   # kwargs: the tracer's per-replay hook
         calls.append(beta)
         if len(calls) == 3:
             raise RuntimeError("learner failure")
-        return train_call(beta)
+        return train_call(beta, **kwargs)
 
     pipe.fused.train = failing_train
     with pytest.raises(RuntimeError, match="learner failure"):

@@ -10,8 +10,8 @@ and a JAX ``PolicyServer`` with the same weights (``weights.py``) give, for
 every bucket 1..8, equal actions and q within atol 1e-5 (float32 compute
 on both sides: the same products in another summation order).  The
 latency histogram, its serialized merges and the trace logs equal JAX's.
-The serve CLI's ``--attach`` runs on the CPU; its unported flags raise by
-name.  The server's two card traps are held by
+The serve CLI's ``--attach`` runs on the CPU; ``--replicas`` without a
+checkpoint to feed it exits with 2, as in the JAX CLI.  The server's two card traps are held by
 ``tests/test_torch_serving_card.py``.
 """
 
@@ -395,11 +395,14 @@ class TestServeCLI:
         assert {"port", "torn_frames", "inference_rows"} <= set(final["serving_net"])
 
     @pytest.mark.parametrize("flags,name", [
-        (["--checkpoint", "/nonexistent", "--replicas", "2"], "--replicas"),
-        (["--attach", "--replicas", "2"], "--replicas"),
+        (["--checkpoint", "/nonexistent", "--replicas", "2"], "no checkpoint under"),
+        (["--attach", "--replicas", "2"], "--replicas requires --checkpoint"),
     ])
-    def test_unported_flags_raise_by_name(self, flags, name):
+    def test_unported_flags_raise_by_name(self, flags, name, capsys):
+        """``--replicas`` is ported (``serve._run_fleet``): as in the JAX CLI,
+        an empty root and a fleet without ``--checkpoint`` exit with 2 and
+        say why."""
         from ape_x_dqn_tpu_torch import serve
 
-        with pytest.raises(NotPortedError, match=name):
-            serve.main([*flags, "--device", "cpu"])
+        assert serve.main([*flags, "--device", "cpu"]) == 2
+        assert name in capsys.readouterr().err
