@@ -1,13 +1,13 @@
 """Typed configuration — the port's own copy of ``ape_x_dqn_tpu/config.py``.
 
 The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
-sections, plus ``supervisor``, ``serving``, ``obs`` and ``fleet``, reference-format
-``parameters.json`` files, ``--set section.field=value`` overrides), cut
-down to the fields the port runs.  A key the port does not run raises
-rather than loading as a dead setting, so a config written for the JAX
-package's other paths (chaos, data parallel, the host dedup replay, the
-tiered store, the replay service, the fleet aggregator, the timeline store
-and the autopilot) fails loudly here
+sections, plus ``supervisor``, ``serving``, ``obs``, ``fleet`` and ``chaos``,
+reference-format ``parameters.json`` files, ``--set section.field=value``
+overrides), cut down to the fields the port runs.  A key the port does not
+run raises rather than loading as a dead setting, so a config written for
+the JAX package's other paths (data parallel, the host dedup replay, the
+tiered store, the replay service and its chaos, the fleet aggregator, the
+timeline store and the autopilot) fails loudly here
 instead of running something else; the keys of those paths that the JAX
 configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -27,6 +27,11 @@ class EnvConfig:
     name: str = "chain:10"
     state_shape: Optional[Sequence[int]] = None   # validated if given
     action_dim: Optional[int] = None              # validated if given
+    # The DQN wrapper stack of fake-atari and Atari envs (envs/atari.wrap_dqn).
+    frame_skip: int = 4
+    frame_stack: int = 1       # reference parity: a single frame
+    episodic_life: bool = True
+    clip_rewards: bool = True
 
 
 @dataclasses.dataclass
@@ -315,6 +320,64 @@ class ObsConfig:
 
 
 @dataclasses.dataclass
+class ChaosConfig:
+    """Deterministic fault injection (obs/chaos.py), JAX config.py:747-830.
+    Default off.
+
+    Every ``*_interval_s`` is the mean seconds between faults of that kind
+    on one seeded schedule (0 disables the kind), so a chaos run
+    reproduces: same seed, same fault sequence.  The monkey attacks only
+    the run it is attached to: its own pool's workers, its own checkpoint
+    dir.  The replay-service keys (``rpc_*``, ``kill_shard_*``) are
+    refused by name until the replay service is ported (ROADMAP item 7).
+    """
+
+    enabled: bool = False
+    seed: int = 0
+    kill_interval_s: float = 0.0          # SIGKILL a random live worker
+    sigstop_interval_s: float = 0.0       # SIGSTOP, SIGCONT after the hold
+    sigstop_hold_s: float = 0.5
+    # SIGKILL a worker and scribble an uncommitted torn record into its
+    # ring before salvage: the deterministic "killed mid-write".
+    torn_record_interval_s: float = 0.0
+    # Damage one committed APXC chunk (the restore fallback's trigger; it
+    # takes effect at the next restore).
+    corrupt_chunk_interval_s: float = 0.0
+    # Hold the overlapped pipeline's ingest stager idle for the hold.
+    stuck_stager_interval_s: float = 0.0
+    stuck_stager_hold_s: float = 1.0
+    # Transient /dev/shm pressure: hold shm_fill_bytes for the hold.
+    shm_fill_interval_s: float = 0.0
+    shm_fill_bytes: int = 64 << 20
+    shm_fill_hold_s: float = 1.0
+    # Mean per-env-step latency inside worker processes (ms, seeded ±50 %).
+    env_latency_ms: float = 0.0
+    # Mean per-batch latency in the PolicyServer's apply path (ms, seeded
+    # ±25 %).
+    serving_delay_ms: float = 0.0
+
+    def validate_section(self) -> list:
+        nonneg = [
+            ("kill_interval_s", self.kill_interval_s),
+            ("sigstop_interval_s", self.sigstop_interval_s),
+            ("sigstop_hold_s", self.sigstop_hold_s),
+            ("torn_record_interval_s", self.torn_record_interval_s),
+            ("corrupt_chunk_interval_s", self.corrupt_chunk_interval_s),
+            ("stuck_stager_interval_s", self.stuck_stager_interval_s),
+            ("stuck_stager_hold_s", self.stuck_stager_hold_s),
+            ("shm_fill_interval_s", self.shm_fill_interval_s),
+            ("shm_fill_hold_s", self.shm_fill_hold_s),
+            ("env_latency_ms", self.env_latency_ms),
+            ("serving_delay_ms", self.serving_delay_ms),
+        ]
+        return [
+            (v >= 0.0, f"chaos.{k} must be >= 0") for k, v in nonneg
+        ] + [
+            (self.shm_fill_bytes >= 0, "chaos.shm_fill_bytes must be >= 0"),
+        ]
+
+
+@dataclasses.dataclass
 class ApexConfig:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     actor: ActorConfig = dataclasses.field(default_factory=ActorConfig)
@@ -324,6 +387,7 @@ class ApexConfig:
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
 
@@ -481,7 +545,8 @@ class ApexConfig:
             (not (l.second_moment_dtype is not None and l.optimizer == "adam"),
              "second_moment_dtype is only supported for rmsprop"),
         ]
-        for ok, msg in checks + self.fleet.validate_section():
+        for ok, msg in (checks + self.fleet.validate_section()
+                        + self.chaos.validate_section()):
             if not ok:
                 raise ValueError(msg)
         return self
@@ -583,7 +648,9 @@ _NOT_PORTED = {
     **{f"obs.{k}": _TIMELINE for k in (
         "timeline_dir", "timeline_max_bytes", "timeline_segment_bytes",
         "timeline_tail_keep_s")},
-    "chaos.serving_delay_ms": "the chaos injector's serving delay (ROADMAP item 6)",
+    **{f"chaos.{k}": "the replay service's chaos (replay/service.py, ROADMAP item 7)"
+       for k in ("rpc_delay_ms", "rpc_drop_rate", "kill_shard_at_step",
+                 "kill_shard_interval_s")},
     "replay.hot_frame_budget_bytes": _TIERED,
     "replay.spill_dir": _TIERED,
     "replay.spill_span_frames": _TIERED,
@@ -653,7 +720,7 @@ _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
     "supervisor": SupervisorConfig, "serving": ServingConfig, "obs": ObsConfig,
-    "fleet": FleetConfig,
+    "fleet": FleetConfig, "chaos": ChaosConfig,
 }
 
 

@@ -6,13 +6,33 @@
   * ``"catch"``     — bsuite-style Catch; ``"catch:S"`` upscales to SxS
   * ``"loop:T"``    — single-state truncation-only env (bootstrap tests)
   * ``"random"`` / ``"random:HxWxC"`` — RandomFrameEnv (throughput)
+  * ``"fake-atari"`` — the full DQN wrapper stack over the ALE-faithful
+    fake emulator (lives counter, sprite flicker — envs/fake_atari.py)
+  * ``"gym:Id"``    — an installed gymnasium env quantized to uint8
+    (e.g. ``"gym:CartPole-v1"``; needs ``gymnasium``)
+  * anything else   — the full Atari preprocessing stack via gymnasium
+    (needs ``gymnasium``, ``ale_py`` and the game's ROM).
 
-``fake-atari``, ``gym:`` and the Atari stack need ``cv2`` or
-``gymnasium`` and are not part of the port yet; they raise here.
+The Atari stack is numpy (no cv2); ``gymnasium`` is imported only when a
+``gym:`` or Atari env is built.
 """
 
 from __future__ import annotations
 
+from ape_x_dqn_tpu_torch.envs.atari import (
+    EpisodicLife,
+    FrameSkip,
+    FrameStack,
+    GymnasiumEnv,
+    ObsPreprocess,
+    QuantizeObs,
+    RewardClip,
+    make_atari_env,
+    make_gym_env,
+    make_local_env,
+    wrap_dqn,
+)
+from ape_x_dqn_tpu_torch.envs.fake_atari import FakeAtariEnv, make_fake_atari_env
 from ape_x_dqn_tpu_torch.envs.core import (
     CatchEnv,
     ChainMDP,
@@ -25,7 +45,7 @@ from ape_x_dqn_tpu_torch.envs.core import (
 from ape_x_dqn_tpu_torch.envs.vector import SyncVectorEnv, VectorStep
 
 
-def make_env(spec: str, seed: int = 0) -> Env:
+def make_env(spec: str, seed: int = 0, **atari_kwargs) -> Env:
     """Build an env from a config string (see module docstring)."""
     if spec.startswith("chain"):
         n = int(spec.split(":")[1]) if ":" in spec else 10
@@ -45,21 +65,35 @@ def make_env(spec: str, seed: int = 0) -> Env:
         else:
             dims = (84, 84, 1)
         return RandomFrameEnv(obs_shape=dims, seed=seed)
-    raise ValueError(
-        f"env {spec!r} is not part of the port yet (it carries chain, catch, "
-        "loop and random)"
-    )
+    if spec.startswith("gym:"):
+        return make_gym_env(spec.split(":", 1)[1])
+    if spec == "fake-atari":
+        return make_fake_atari_env(**atari_kwargs)
+    return make_atari_env(spec, **atari_kwargs)
 
 
 __all__ = [
     "CatchEnv",
     "ChainMDP",
     "Env",
+    "EpisodicLife",
+    "FakeAtariEnv",
     "LoopEnv",
+    "FrameSkip",
+    "FrameStack",
+    "GymnasiumEnv",
+    "ObsPreprocess",
     "PixelUpscale",
+    "QuantizeObs",
     "RandomFrameEnv",
+    "RewardClip",
     "StepResult",
     "SyncVectorEnv",
     "VectorStep",
+    "make_atari_env",
     "make_env",
+    "make_gym_env",
+    "make_fake_atari_env",
+    "make_local_env",
+    "wrap_dqn",
 ]

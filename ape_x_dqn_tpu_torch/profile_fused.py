@@ -56,16 +56,28 @@ def _busy_ms(events) -> float:
 
 def profile_call(fn) -> dict:
     """One call of ``fn`` (which ends in a device read) under the profiler:
-    wall ms, device-busy ms, idle share, sampler kernels, top operators."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    wall ms, device-busy ms, idle share, sampler kernels, top operators.
+    The profiler starts and stops through ``utils/profiling`` (lead kernels
+    and idle edges: a trace after an earlier one in the process otherwise
+    loses its first device records); the lead kernels, which run before the
+    call, are left out of the busy time."""
+    from ape_x_dqn_tpu_torch.utils.profiling import LEAD_KERNELS, start_trace, stop_trace
+
+    prof = start_trace()
+    if prof is None:
+        raise RuntimeError("torch.profiler did not start")
+    try:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         call_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if not stop_trace(prof):
+            raise RuntimeError("torch.profiler did not stop")
     events = prof.events()
-    busy = _busy_ms(events)
+    device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    busy = _busy_ms(device[LEAD_KERNELS:])
     ka = prof.key_averages()
 
     def dev_us(e):

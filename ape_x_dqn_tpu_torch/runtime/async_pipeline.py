@@ -98,8 +98,15 @@ from the actors' sink, sample at each batch, trained at the deferred
 priority write-back); the fused ring never surfaces its sample indices.
 With ``obs.export_port`` set the ``/metrics``, ``/varz`` and ``/healthz``
 exporter starts last, with ``/varz?trace=1`` wired to a ``TraceOnDemand``
-over the learner's steps.  The chaos stall of the stager is not part of
-the port yet.
+over the learner's steps.
+
+Chaos (JAX :816-831, :1418-1421, :1741, :1790; ``obs/chaos.py``): with
+``chaos.enabled`` a ``ChaosMonkey`` is built once the actors exist,
+attached to the process pool and the checkpoint dir, its ``chaos/<kind>``
+counters and ``chaos`` provider on the registry and its faults in the
+JSONL (``chaos_fault``); it starts with the supervisor and stops before it.
+Its stuck-stager gate acts only in the overlapped loop, whose stager idles
+through a stall without beating its heartbeat.
 """
 
 from __future__ import annotations
@@ -229,10 +236,14 @@ class _IngestStagerThread:
     """
 
     def __init__(self, fused, stop_event: threading.Event, drain_fn,
-                 period_s: float = 0.005):
+                 period_s: float = 0.005, stall_fn=None):
         self._fused = fused
         self._stop = stop_event
         self._drain_fn = drain_fn
+        # Chaos gate (obs/chaos.ChaosMonkey.stager_stalled): while it returns
+        # True the stager idles without beating its heartbeat, which is what
+        # a wedged stager looks like to /healthz.
+        self._stall_fn = stall_fn
         self._period = float(period_s)
         self.heartbeat = time.monotonic()
         self.prepared_rows = 0
@@ -252,6 +263,9 @@ class _IngestStagerThread:
     def _loop(self) -> None:
         while not self._stop.is_set() and not self._done.is_set():
             try:
+                if self._stall_fn is not None and self._stall_fn():
+                    self._done.wait(self._period)
+                    continue
                 n = self._fused.prepare_staged(drain=bool(self._drain_fn()))
                 self.prepared_rows += n
                 self.heartbeat = time.monotonic()
@@ -473,6 +487,16 @@ class AsyncPipeline:
         self._evaluator = None
         self.eval_scores: List[float] = []
         self.fleet_registry = self._host_fleet_registry()
+        self._chaos = None
+        if self.cfg.chaos.enabled:
+            # The chaos monkey (obs/chaos): a seeded fault schedule against
+            # this run's own workers and checkpoint chain (JAX :816-831).
+            from ape_x_dqn_tpu_torch.obs.chaos import ChaosMonkey
+
+            self._chaos = ChaosMonkey(self.cfg.chaos, registry=self.obs_registry,
+                                      emit=self.logger.event)
+            self._chaos.attach(pool=getattr(self.worker, "pool", None),
+                               ckpt_dirs=[lc.checkpoint_dir] if lc.checkpoint_every else [])
         self._start_exporter()
 
     # -- observability -------------------------------------------------------
@@ -850,6 +874,8 @@ class AsyncPipeline:
         self._obs_run_start(target)
         if self.supervisor is not None:
             self.supervisor.start()
+        if self._chaos is not None:
+            self._chaos.start()
         try:
             if self.fused is None:
                 return self._run_host(target)
@@ -860,6 +886,8 @@ class AsyncPipeline:
             self._obs_fault(e)
             raise
         finally:
+            if self._chaos is not None:
+                self._chaos.stop()
             if self.supervisor is not None:
                 self.supervisor.close()
             self._close_obs()
@@ -1128,7 +1156,10 @@ class AsyncPipeline:
             sync_counter=self._host_syncs, gap_hist_ms=self._overlap_gap,
         )
         self._dispatch_pipeline = pipeline
-        stager = _IngestStagerThread(fused, self.stop_event, lambda: worker.finished)
+        chaos = self._chaos
+        stager = _IngestStagerThread(
+            fused, self.stop_event, lambda: worker.finished,
+            stall_fn=chaos.stager_stalled if chaos is not None else None)
         try:
             self.worker.start()
             self._wait_for_warmup(WARMUP_TIMEOUT_S)

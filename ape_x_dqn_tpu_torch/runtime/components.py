@@ -167,13 +167,22 @@ def seeded_network(cfg: ApexConfig, num_actions: int, obs_shape) -> torch.nn.Mod
         return build_network(cfg.network, num_actions, obs_shape, **kwargs)
 
 
+def env_kwargs(cfg: ApexConfig) -> dict:
+    """The DQN wrapper knobs ``make_env`` passes to fake-atari and Atari
+    envs (JAX ``runtime/components.py:212-217``)."""
+    e = cfg.env
+    return dict(frame_skip=e.frame_skip, frame_stack=e.frame_stack,
+                episodic_life=e.episodic_life, clip_rewards=e.clip_rewards)
+
+
 def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Components:
     cfg.validate()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available (pass device='cpu' to run on the CPU)")
-    probe = make_env(cfg.env.name, seed=cfg.seed)
+    kwargs = env_kwargs(cfg)
+    probe = make_env(cfg.env.name, seed=cfg.seed, **kwargs)
     obs_shape = tuple(probe.observation_shape)
     num_actions = probe.num_actions
     if cfg.env.state_shape is not None:
@@ -209,7 +218,7 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
         )
     restored_path = _restore(cfg, state, replay)
     env_fns = [
-        (lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i))
+        (lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i, **kwargs))
         for i in range(cfg.actor.num_actors)
     ]
     return Components(

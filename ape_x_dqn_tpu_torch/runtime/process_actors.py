@@ -78,7 +78,10 @@ package's:
     worker's client traces at the same rate into its recorder.  Remote
     workers have no block.
 
-Not ported yet: chaos ``SlowEnv``.
+  * **Chaos** (JAX :363-371): with ``chaos.enabled`` and
+    ``chaos.env_latency_ms`` > 0 each worker env is wrapped in
+    ``obs/chaos.SlowEnv``, seeded ``chaos.seed + 71·i`` for the worker's
+    i-th actor, as in the JAX package.
 
 This module imports only the standard library and numpy at module scope:
 a spawned child imports it before the worker target runs, and pays for
@@ -267,6 +270,7 @@ def _cfg_from_dict(cfg_dict: dict):
     from ape_x_dqn_tpu_torch.config import (
         ActorConfig,
         ApexConfig,
+        ChaosConfig,
         EnvConfig,
         LearnerConfig,
         ObsConfig,
@@ -283,6 +287,7 @@ def _cfg_from_dict(cfg_dict: dict):
         supervisor=SupervisorConfig(**cfg_dict["supervisor"]),
         serving=ServingConfig(**cfg_dict["serving"]),
         obs=ObsConfig(**cfg_dict["obs"]),
+        chaos=ChaosConfig(**cfg_dict.get("chaos", {})),
         network=cfg_dict["network"],
         seed=cfg_dict["seed"],
     )
@@ -294,9 +299,9 @@ def network_and_template(cfg):
     param names, shapes and dtypes match the learner's, which come from the
     same ``seeded_network``; the template's values are never used."""
     from ape_x_dqn_tpu_torch.envs import make_env
-    from ape_x_dqn_tpu_torch.runtime.components import seeded_network
+    from ape_x_dqn_tpu_torch.runtime.components import env_kwargs, seeded_network
 
-    probe = make_env(cfg.env.name, seed=cfg.seed)
+    probe = make_env(cfg.env.name, seed=cfg.seed, **env_kwargs(cfg))
     obs_shape = tuple(probe.observation_shape)
     network = seeded_network(cfg, probe.num_actions, obs_shape)
     template = {k: v.detach().clone() for k, v in network.state_dict().items()}
@@ -409,7 +414,7 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
         from ape_x_dqn_tpu_torch.actors.pool import ActorFleet
         from ape_x_dqn_tpu_torch.serving.central import InferenceUnavailable
         from ape_x_dqn_tpu_torch.envs import make_env
-        from ape_x_dqn_tpu_torch.runtime.components import dedup_groups
+        from ape_x_dqn_tpu_torch.runtime.components import dedup_groups, env_kwargs
         from ape_x_dqn_tpu_torch.utils.memory import trim_malloc
 
         threads = worker_threads(num_workers)
@@ -421,9 +426,20 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             ctl_queue.put(("done", worker_id, 0))
             return
         _, network, template = network_and_template(cfg)
+        kwargs = env_kwargs(cfg)
+        env_fns = [(lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i, **kwargs))
+                   for i in range(lo, hi)]
+        slow_env = cfg.chaos.enabled and cfg.chaos.env_latency_ms > 0
+        if slow_env:
+            # Slow-env chaos, seeded per actor so the latency stream
+            # reproduces with the run.
+            from ape_x_dqn_tpu_torch.obs.chaos import SlowEnv
+
+            lat_s = cfg.chaos.env_latency_ms / 1e3
+            env_fns = [(lambda fn=fn, i=i: SlowEnv(fn(), lat_s, seed=cfg.chaos.seed + 71 * i))
+                       for i, fn in enumerate(env_fns)]
         fleet = ActorFleet(
-            [(lambda i=i: make_env(cfg.env.name, seed=cfg.seed + 1000 + i))
-             for i in range(lo, hi)],
+            env_fns,
             network,
             n_step=cfg.actor.num_steps,
             gamma=cfg.actor.gamma,
@@ -547,6 +563,8 @@ def _worker_main(worker_id: int, cfg_dict: dict, num_workers: int,
             "pid": os.getpid(),
             "env_steps": fleet.step_count * (hi - lo),
             "collect_s": collect_s,
+            # The chaos SlowEnv's mean latency, 0 when the envs are not wrapped.
+            "env_latency_ms": cfg.chaos.env_latency_ms if slow_env else 0.0,
         }
         if selector is not None:
             report["inference"] = selector.stats(include_hist=True)

@@ -299,6 +299,9 @@ def main(argv=None) -> int:
             queue_capacity=s.queue_capacity, reload_poll_s=s.reload_poll_s,
             # A replica may come up before the hub's first publish reaches it.
             source_timeout_s=s.replica_spawn_timeout_s if args.param_hub else 30.0,
+            # Chaos: a seeded per-batch service delay.
+            apply_delay_ms=cfg.chaos.serving_delay_ms if cfg.chaos.enabled else 0.0,
+            delay_seed=cfg.chaos.seed,
             device=comps.device,
         )
     except BaseException:

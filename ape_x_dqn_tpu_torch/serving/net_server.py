@@ -291,6 +291,13 @@ class ServingNetServer:
                 self._retire(conn)
                 return
             if not data:
+                # The peer's FIN: frames it sent whole before it are not
+                # torn (no one is left to answer them, so they are dropped);
+                # only a partial frame or a parser fault is.  The JAX copy
+                # counts whole frames read in the same wakeup as the FIN.
+                if conn.hello_done:
+                    while conn.parser.next() is not None:
+                        pass
                 self._retire(conn)
                 return
             conn.bytes_in += len(data)

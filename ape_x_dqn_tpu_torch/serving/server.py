@@ -30,12 +30,15 @@ run seconds of CUDA-graph replays on its own stream.  So:
 Forwards run eagerly; each bucket's host and device time per batch is
 kept (``forward_times``).  A failed forward reaches every waiter of the
 batch as its exception: nothing is served from the CPU in its place.
-The chaos injector's per-batch delay (``apply_delay_ms``) is not part of
-the port yet.
+The chaos injector's per-batch delay (``apply_delay_ms``, config
+``chaos.serving_delay_ms``) sleeps before each batch's forward, the mean
+with a seeded ±25 % jitter: the same stream as the JAX package's for the
+same ``delay_seed`` (JAX ``serving/server.py:67-75, :174-177``).
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from typing import Any, Optional
@@ -44,7 +47,6 @@ import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.models.dueling import build_greedy_apply
-from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.serving.batcher import (
     MicroBatcher,
     ServedAction,
@@ -81,11 +83,14 @@ class PolicyServer:
         reload_poll_s: float = 0.25,
         source_timeout_s: float = 30.0,
         apply_delay_ms: float = 0.0,
+        delay_seed: int = 0,
         device: str | torch.device = "cuda",
     ):
-        if apply_delay_ms:
-            raise NotPortedError("chaos.serving_delay_ms: the chaos injector is "
-                                 "not part of the port yet (ROADMAP item 6)")
+        # Chaos (chaos.serving_delay_ms): a seeded per-batch sleep that
+        # makes service time sleep-bound.
+        self._apply_delay_s = float(apply_delay_ms) / 1e3
+        self._delay_rng = (random.Random(0xD31A ^ int(delay_seed))
+                           if self._apply_delay_s > 0 else None)
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and not torch.cuda.is_available():
@@ -212,6 +217,9 @@ class PolicyServer:
 
     def _run_batch(self, obs):
         params, ready, version, _ = self._live   # one coherent snapshot
+        if self._delay_rng is not None:
+            # ±25 % seeded jitter, so paced load does not phase-lock.
+            time.sleep(self._apply_delay_s * (0.75 + 0.5 * self._delay_rng.random()))
         t0 = time.monotonic()
         if not self._cuda:
             actions, q = self._apply(params, torch.as_tensor(obs))

@@ -24,6 +24,11 @@ Phases, each printing one JSON line:
                 the plain version (``bench_sampler``: warm = CUDA-graph
                 replay, cold = profiler spans after an L2 flush) and the
                 host time of one wrapper call;
+  3a. atari_golden — the port's numpy ``ObsPreprocess`` (cv2's fixed-point
+                luminance and area resize, no cv2) against
+                ``tests/fixtures/atari_golden.npz``, byte for byte; host µs
+                per agent step of ``make_env("fake-atari")`` and per
+                preprocess;
   4. parity   — one small fused learner run twice, on the card and on the
                 CPU, with the same weights, chunks and uniforms (float32
                 compute, TF32 off): the parameter updates must agree;
@@ -130,6 +135,22 @@ Phases, each printing one JSON line:
                 section (inflight 0, host syncs within steps/sync_every +
                 calls/depth + 2), the staged rows left beside phase 13's,
                 learner steps/s;
+ 14a. atari_train — this slice's main path: phase 14's learner fed by 2
+                workers × 8 actors on the full DQN stack over fake-atari
+                (frame skip 4, episodic life, reward clip; 84×84×1), under
+                the seeded chaos schedule (``ATARI_CHAOS``: kills, torn
+                kills, SIGSTOPs, stager stalls, /dev/shm fills, ``SlowEnv``
+                in the workers), the supervisor and the exporter on; a
+                ``ChaosController`` forces a kill (timed to fed again), tops
+                up the kinds the schedule has not reached and stalls the
+                stager once, sampling the ingest lag.  Checks: every kind
+                executed, none failed; every torn record detected, none
+                delivered; respawns ≥ kills, 0 quarantines; the step
+                increasing across calls; ``chaos/<kind>`` on ``/metrics``
+                equal to the monkey's counts; ``/healthz`` answering at
+                every scrape, 503 only for ``ingest_stager`` in a stall;
+                one sampler launch per call; no /dev/shm segment left.
+                Learner steps/s per call and actor fps beside phase 14's;
  15. serve_parity — the card's ``PolicyServer`` (its forwards on a
                 high-priority stream of their own) against the port's plain
                 CPU forward at full width, float32, TF32 off, for every batch
@@ -139,6 +160,10 @@ Phases, each printing one JSON line:
                 every reply's q its claimed version's; each bucket's host and
                 device ms per eager batch at bf16, beside the same forward's
                 device ms as a CUDA-graph replay;
+ 15a. serve_delay — the card's ``PolicyServer`` with the chaos serving delay
+                (5 ms, ±25 % seeded) beside the same server without it and
+                a CPU server with it, one client: the card's delay stream
+                equal to the CPU server's, p50 at least 3.75 ms higher;
  16. central_train — phase 13 with ``actor.inference=central``: the 2
                 workers × 8 actors are paramless and act through the
                 ``PolicyServer`` that the runtime hosts on the card behind a
@@ -148,7 +173,7 @@ Phases, each printing one JSON line:
                 server's per-bucket times; checks: no param buffer, no params
                 and no CUDA in any worker, every fleet step's actions from
                 the server, 0 torn frames and replies, 2 sampler launches;
- 16a. central_fleet — this slice's main path: phase 16's learner (4 fused
+ 16a. central_fleet — the replica fleet's path: phase 16's learner (4 fused
                 calls) with the 2 × 8 paramless workers dialing the router of
                 a 2-replica ``serving/router.ServingFleet`` on the card
                 (``serve --param-hub`` children with the run's token), the
@@ -205,6 +230,15 @@ Phases, each printing one JSON line:
                 respawned, full-synced, routed to again), both replicas'
                 pids on the card and not the router's, rc 0 after SIGTERM;
                 QPS, round trip p50/p99, push bytes, drain and respawn s;
+ 21b. chaos_restore — config3's learner at phase 20's 262 144 slots on
+                fake-atari with 8 thread actors, a save every K steps and a
+                new base after each delta: calls until the chain's second
+                generation is committed and a clean stop, then the chaos
+                monkey's ``corrupt_chunk`` on the live generation, then
+                ``restore_from=true`` through the damaged chain: a
+                ``degraded_restore`` event, ``fallback_restores`` ≥ 1, the
+                resume at the newest committed step, one more call, one
+                sampler launch per call;
  22. tcp_train — phase 13 with ``actor.transport=tcp`` (run right after it,
                 in the same process): the 2 workers feed the learner over
                 loopback sockets, 256 KiB coalesced frames with in-window
@@ -237,9 +271,9 @@ Phases, each printing one JSON line:
                 ``ParamTailWriter`` chain (a full, a delta) serves the same
                 versions with the same q;
  25. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (central_fleet) and on each path, error,
+                slice's main path (atari_train) and on each path, error,
                 times and bound at that path's shape (C = 2M, T = 65 536).
-Every device-replay phase (4, 5, 9, 11–14, 16–23, 16a) runs each fused call as
+Every device-replay phase (4, 5, 9, 11–14, 14a, 16–23, 16a, 21b) runs each fused call as
 CUDA-graph replays, the port's only device path.  Every process phase
 checks that no /dev/shm segment of the run (rings, param buffers, worker
 stats blocks) is left.  Checkpoints go under the checkout's
@@ -3520,6 +3554,583 @@ def phase_central_fleet(sampling, card: str, beside: dict, calls: int = 4):
     return result
 
 
+# --- the Atari stack and chaos (fake-atari, obs/chaos.py) -----------------------------
+
+ATARI_GOLDEN = os.path.join(REPO_DIR, "tests", "fixtures", "atari_golden.npz")
+# The chaos schedule of atari_train: mean seconds between faults of each
+# kind, scaled so every kind fires within the phase's ~minute (config3's
+# run would use its own cadence); one seed, so the fault sequence repeats.
+CHAOS_SEED = 7
+ATARI_CHAOS = {"kill_interval_s": 20.0, "torn_record_interval_s": 30.0,
+               "sigstop_interval_s": 15.0, "sigstop_hold_s": 0.5,
+               "stuck_stager_interval_s": 12.0, "stuck_stager_hold_s": 1.0,
+               "shm_fill_interval_s": 15.0, "shm_fill_hold_s": 1.0,
+               "env_latency_ms": 0.25}
+CHAOS_KINDS = ("kill", "sigstop", "torn_record", "stuck_stager", "shm_fill")
+
+
+def phase_atari_golden(card: str, steps: int = 400) -> dict:
+    """The port's numpy ``ObsPreprocess`` (cv2's luminance and area resize,
+    no cv2 needed) against the committed golden file, byte for
+    byte; then the host time of one agent step of ``make_env("fake-atari")``
+    (4 raw 210×160×3 frames, the 2-frame max-pool, gray and resize) and of
+    the preprocess alone."""
+    from ape_x_dqn_tpu_torch.envs import make_env
+    from ape_x_dqn_tpu_torch.envs.atari import ObsPreprocess
+    from ape_x_dqn_tpu_torch.envs.fake_atari import FakeAtariEnv
+
+    class OneFrame:
+        observation_shape, num_actions = (210, 160, 3), 1
+
+        def __init__(self, frame):
+            self.frame = frame
+
+        def reset(self, seed=None):
+            return self.frame
+
+    t0 = time.monotonic()
+    frames = 0
+    with np.load(ATARI_GOLDEN) as z:
+        while f"in_{frames}" in z.files:
+            got = ObsPreprocess(OneFrame(z[f"in_{frames}"])).reset()
+            if got.shape != (84, 84, 1) or not np.array_equal(got, z[f"out_{frames}"]):
+                raise AssertionError(f"atari_golden: frame {frames} differs from the golden "
+                                     "output")
+            frames += 1
+    if frames < 2:
+        raise AssertionError(f"atari_golden: {frames} golden frames")
+    env = make_env("fake-atari")
+    env.reset()
+    actions = np.random.default_rng(SEED).integers(0, env.num_actions, steps)
+    t1 = time.perf_counter()
+    for a in actions:
+        r = env.step(int(a))
+        if r.terminated or r.truncated:
+            env.reset()
+    step_us = (time.perf_counter() - t1) / steps * 1e6
+    raw = FakeAtariEnv()
+    raw.reset()
+    pre = ObsPreprocess(OneFrame(raw.step(0).obs))
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        pre.reset()
+    pre_us = (time.perf_counter() - t1) / steps * 1e6
+    result = {"phase": "atari_golden", "card": card, "golden_frames": frames,
+              "byte_exact": True, "obs_shape": list(r.obs.shape), "obs_dtype": str(r.obs.dtype),
+              "host_us_per_agent_step": step_us, "host_us_per_preprocess": pre_us,
+              "steps": steps, "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
+class ChaosController:
+    """Drives the chaos of a live ``atari_train`` run from a thread.  Once
+    both workers feed: one ``kill`` timed to the victim's respawn feeding
+    again, then ``torn_record``, ``sigstop`` and ``shm_fill`` wherever the
+    schedule has not reached them yet (``tools/chaos_soak.py``'s top-up);
+    once the stager runs, a ``stuck_stager`` with the stager's heartbeat age
+    and the staged rows sampled through it (the ingest lag); then
+    ``/metrics`` against ``monkey.counts()``; then, after ``min_calls``
+    fused calls and one call after the stall, it stops the run.
+    ``/healthz`` is scraped every half second all through, each scrape with
+    whether a stall was on."""
+
+    def __init__(self, seen: list, K: int, min_calls: int = 3):
+        self.seen, self.K, self.min_calls = seen, K, min_calls
+        self.out: dict = {"healthz": [], "times": {}}
+        self.call_steps: list = []
+        self.error = None
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, daemon=True),
+                         threading.Thread(target=self._poll_healthz, daemon=True)]
+
+    def __enter__(self):
+        from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+        train, ctl = FusedDedupLearner.train, self
+        self._train = train
+
+        def counting(learner, *args, **kwargs):
+            if ctl.seen:
+                ctl.call_steps.append(ctl.seen[0].learner_step)
+            return train(learner, *args, **kwargs)
+
+        FusedDedupLearner.train = counting
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+        self._stop.set()
+        for t in self._threads:
+            t.join(300)
+        FusedDedupLearner.train = self._train
+
+    def _wait(self, cond, what: str, timeout: float = 300.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if self._stop.is_set() or time.monotonic() > deadline:
+                raise AssertionError(f"atari_train: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def _poll_healthz(self):
+        while not self._stop.is_set():
+            pipe = self.seen[0] if self.seen else None
+            server = pipe.obs_server if pipe is not None else None
+            if server is None:
+                time.sleep(0.05)
+                continue
+            if pipe.stop_event.is_set():
+                return   # the run is ending: its exporter closes
+            monkey = pipe._chaos
+            stalled = monkey.stager_stalled()
+            t = time.monotonic()
+            try:
+                code, body = _get(f"{server.url}/healthz")
+                failing = sorted(n for n, c in json.loads(body)["components"].items()
+                                 if not c["ok"])
+            except Exception as e:  # noqa: BLE001 — a scrape that did not answer
+                if self.seen[0].obs_server is None:
+                    return   # the run closed its exporter
+                code, failing = None, [f"{type(e).__name__}: {e}"]
+            self.out["healthz"].append((t, code, failing, stalled or monkey.stager_stalled()))
+            self._stop.wait(0.5)
+
+    def _run(self):
+        try:
+            self._drive()
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            self.error = e
+        finally:
+            if self.seen:
+                self.seen[0].stop_event.set()
+
+    def _drive(self):
+        out, t = self.out, self.out["times"]
+        self._wait(lambda: self.seen and self.seen[0].obs_server is not None, "the exporter")
+        pipe = self.seen[0]
+        url, monkey, pool = pipe.obs_server.url, pipe._chaos, pipe.worker.pool
+        self._wait(lambda: all(pool.chunks_by_worker.get(w, 0) > 0 for w in (0, 1)),
+                   "chunks from both workers")
+        # The forced kill, timed until its respawn feeds again.
+        before = dict(pool.chunks_by_worker)
+        procs = list(pool._procs)
+        t["kill"] = time.monotonic()
+        out["kill"] = rec = monkey.execute("kill")
+        if "worker" not in rec:
+            raise AssertionError(f"atari_train: the forced kill did nothing: {rec}")
+        w = rec["worker"]
+        self._wait(lambda: pool._procs[w] is not procs[w] and pool._procs[w].is_alive()
+                   and pool.chunks_by_worker.get(w, 0) > before.get(w, 0) + 1,
+                   f"worker {w} fed again")
+        t["refed"] = time.monotonic()
+        out["topped_up"] = []
+        for kind in ("torn_record", "sigstop", "shm_fill"):
+            # A torn kill whose ring was already salvaged, or a stop with no
+            # live worker, is recorded as skipped: try again.
+            for _ in range(5):
+                if any(r["fault"] == kind and "skipped" not in r for r in list(monkey.log)):
+                    break
+                out["topped_up"].append(kind)
+                monkey.execute(kind)
+                self._wait(lambda: any(p.is_alive() for p in pool._procs), "a live worker")
+        # The stall, once the stager runs (the learner is past warm-up).
+        self._wait(lambda: "ingest_stager" in pipe.health._age_fns, "the ingest stager")
+        age = pipe.health._age_fns["ingest_stager"]
+        fused = pipe.fused
+        samples = []
+        stall = threading.Thread(target=monkey.execute, args=("stuck_stager",))
+        t["stall"] = time.monotonic()
+        stall.start()
+        while stall.is_alive() or time.monotonic() - t["stall"] < 3.0:
+            # (s since the stall, the stager's heartbeat age, rows staged and
+            # not yet carved into blocks, whether the stall is on)
+            samples.append((time.monotonic() - t["stall"], age(), fused.stager.staged_rows,
+                            monkey.stager_stalled()))
+            time.sleep(0.02)
+        stall.join()
+        out["stall_samples"] = samples
+        # /metrics against the monkey's own counts (read until a fault of the
+        # schedule does not land in between).
+        for _ in range(5):
+            counts = monkey.counts()
+            code, body = _get(f"{url}/metrics")
+            if monkey.counts() == counts:
+                break
+        out["metrics"] = (code, body.decode(), counts)
+        # min_calls calls done, one of them wholly after the stall (a call
+        # has ended when the next one enters).
+        need = max(self.min_calls, len(self.call_steps) + 1) + 1
+        self._wait(lambda: len(self.call_steps) >= need, "the calls after the stall")
+        # No fault after this: every kill so far must be respawned before
+        # the run stops.
+        monkey.stop()
+        kills = sum(1 for r in list(monkey.log)
+                    if r["fault"] in ("kill", "torn_record") and "pid" in r)
+        self._wait(lambda: pipe.supervisor.respawns.value >= kills, f"{kills} respawns", 120)
+        t["stop"] = time.monotonic()
+
+
+def _prom_counter(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics lacks {name}")
+
+
+def atari_argv(steps: int) -> list:
+    """``train.main``'s arguments for atari_train: config3's learner on the
+    overlapped pipeline (``overlap_train``'s), process workers on the full
+    DQN stack over fake-atari, the supervisor, the exporter and the chaos
+    schedule of ``ATARI_CHAOS``."""
+    K = DEDUP_K
+    argv = config3_argv(steps, depth=2, sync_every=K) + [
+        "--set", "env.name=fake-atari", "--set", "env.frame_skip=4",
+        "--set", "env.frame_stack=1", "--set", "env.episodic_life=true",
+        "--set", "env.clip_rewards=true",
+        "--set", "obs.export_port=0", "--set", "supervisor.enabled=true",
+        "--set", "supervisor.crash_loop_window_s=30", "--set", "supervisor.crash_loop_budget=6",
+        "--set", "supervisor.respawn_backoff_base_s=0.2",
+        "--set", "supervisor.respawn_backoff_max_s=3.0",
+        "--set", "chaos.enabled=true", "--set", f"chaos.seed={CHAOS_SEED}"]
+    for k, v in ATARI_CHAOS.items():
+        argv += ["--set", f"chaos.{k}={v}"]
+    return argv
+
+
+def phase_atari_train(sampling, card: str, beside: dict) -> dict:
+    """This slice's main path: config3's learner (``overlap_train``'s:
+    the 2M dedup ring, sample-ahead K = 2048, bf16 ν and target, depth 2,
+    a sync every K) fed by 2 process workers × 8 actors on the full DQN
+    stack over fake-atari (frame skip 4, frame stack 1, episodic life,
+    reward clip: 84×84×1 uint8), under the seeded chaos schedule
+    (``ATARI_CHAOS``, the workers' envs in ``SlowEnv``), driven by
+    ``ChaosController``.  Checks: every kind of ``CHAOS_KINDS`` executed at
+    least once and none failed; every injected torn record detected at
+    salvage and never delivered (the transport's torn count covers them and
+    every delivered row was staged); respawns ≥ kills + torn kills, 0
+    quarantines; the learner's step strictly increasing across calls;
+    ``chaos/<kind>`` on ``/metrics`` equal to ``monkey.counts()``;
+    ``/healthz`` answering at every scrape, any 503 naming only
+    ``ingest_stager`` and only during a stall; one sampler launch per fused
+    call; the workers' envs wrapped (``env_latency_ms``); no /dev/shm
+    segment left, the ``ShmFiller``'s included.  Reports learner steps/s
+    per call and actor fps beside ``overlap_train``'s (``beside``),
+    frames per transition, dead slots, the ingest lag across the stall and
+    kill → fed again."""
+    import torch
+
+    K = DEDUP_K
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, timed_fused_calls() as spans, \
+            ChaosController(seen, K) as ctl:
+        final, wall = run_train(atari_argv(64 * K))
+    launches = sampling.sample_indices.launches
+    torch.cuda.synchronize()
+    if ctl.error is not None:
+        raise AssertionError(f"atari_train: {ctl.error}") from ctl.error
+    out, t = ctl.out, ctl.out["times"]
+    pipe = seen[0]
+    fused, pool, monkey = pipe.fused, pipe.worker.pool, pipe._chaos
+    calls = len(spans)
+    if type(fused).__name__ != "FusedDedupLearner" or fused.replay.capacity != DEDUP_SLOTS:
+        raise AssertionError(f"atari_train ran {type(fused).__name__}")
+    if launches != calls or calls < 3 or final["step"] != calls * K:
+        raise AssertionError(f"atari_train: {launches} sampler launches, {final['step']} "
+                             f"steps in {calls} fused calls")
+    steps = ctl.call_steps
+    if len(steps) != calls or any(b <= a for a, b in zip(steps, steps[1:])):
+        raise AssertionError(f"atari_train: learner steps at each call {steps}")
+    obs_shape = tuple(fused.replay.frames.shape[1:])
+    if obs_shape != (84, 84, 1) or pipe.cfg.env.name != "fake-atari":
+        raise AssertionError(f"atari_train: frames {obs_shape} of {pipe.cfg.env.name}")
+    # The faults.
+    log = list(monkey.log)
+    counts = monkey.counts()
+    failed = [r for r in log if "failed" in r]
+    done = {k: sum(1 for r in log if r["fault"] == k and "skipped" not in r) for k in CHAOS_KINDS}
+    if failed or any(done[k] < 1 for k in CHAOS_KINDS):
+        raise AssertionError(f"atari_train: faults {counts}, executed {done}, failed {failed}")
+    torn = [r for r in log if r["fault"] == "torn_record" and "garbage_bytes" in r]
+    kills = [r for r in log if r["fault"] in ("kill", "torn_record") and "pid" in r]
+    xp = pool.transport_stats()
+    stager = fused.stager
+    if not torn or xp["torn_records"] < len(torn) or pool.worker_errors:
+        raise AssertionError(f"atari_train: {len(torn)} torn records injected, "
+                             f"{xp['torn_records']} detected, errors {pool.worker_errors}")
+    # A torn record delivered would have failed its decode in the pump (a
+    # worker error); what the learner staged came from decoded chunks only.
+    if stager.rows_in > xp["transitions"]:
+        raise AssertionError(f"atari_train: {xp['transitions']} transitions delivered, "
+                             f"{stager.rows_in} staged")
+    sup = final["supervisor"]
+    if sup["respawns"] < len(kills) or sup["quarantines"] != 0 or pool.quarantined:
+        raise AssertionError(f"atari_train: {len(kills)} kills, supervisor {sup}")
+    # /metrics against the monkey.
+    code, text, at_scrape = out["metrics"]
+    scraped = {k: _prom_counter(text, f"apex_chaos_{k}_total") for k in monkey.KINDS}
+    want = {k: float(at_scrape.get(k, 0)) for k in monkey.KINDS}
+    if code != 200 or scraped != want:
+        raise AssertionError(f"atari_train: /metrics chaos counters {scraped}, monkey {want}")
+    # /healthz all through.
+    scrapes = out["healthz"]
+    stale = pipe.cfg.obs.heartbeat_stale_s
+    stalls = [(r["t"], r["t"] + r["hold_s"]) for r in log if r["fault"] == "stuck_stager"]
+    bad = [s for s in scrapes if s[1] is None or (s[1] != 200 and not (
+        s[1] == 503 and s[2] == ["ingest_stager"]))]
+    late = [s for s in scrapes if s[1] == 503 and not s[3]]
+    if not scrapes or bad or late:
+        raise AssertionError(f"atari_train: /healthz {bad or late}")
+    reports = pool.worker_reports
+    if not reports or any(r["env_latency_ms"] != ATARI_CHAOS["env_latency_ms"]
+                          or r["cuda_initialized"] for r in reports.values()):
+        raise AssertionError(f"atari_train: worker reports {reports}")
+    leftover = [n for n in os.listdir("/dev/shm") if f"_{os.getpid()}_" in n]
+    if leftover:
+        raise AssertionError(f"atari_train: segments left in /dev/shm: {leftover}")
+    # The numbers.
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
+    samples = out["stall_samples"]
+    in_stall = [s for s in samples if s[3]]
+    base_ms = beside["fused_call_ms"]
+    size = fused.size
+    result = {
+        "phase": "atari_train", "card": card, "learner_steps": final["step"],
+        "fused_calls": calls, "sampler_launches": launches, "loss": final["learner/loss"],
+        "fused_call_ms": call_ms,
+        "learner_steps_per_s_per_call": [K / (ms / 1e3) for ms in call_ms],
+        "learner_steps_per_s_calls_2_on": K * (calls - 1) / (sum(call_ms[1:]) / 1e3),
+        "learner_steps_per_s": final["step"] / final["train_s"],
+        "actor_fps": final["actor_fps"], "actor_steps": final["actor_steps"],
+        "workers": {w: {"env_steps_per_s": r["env_steps"] / max(r["collect_s"], 1e-9),
+                        "env_latency_ms": r["env_latency_ms"], "threads": r["threads"]}
+                    for w, r in sorted(reports.items())},
+        "beside_overlap_train": {
+            "learner_steps_per_s_per_call": [K / (ms / 1e3) for ms in base_ms],
+            "learner_steps_per_s_calls_2_on": K * (len(base_ms) - 1) / (sum(base_ms[1:]) / 1e3),
+            "actor_fps": beside["actor_fps"], "workers": beside["workers"]},
+        "frame_per_transition": stager.fseq / max(stager.rows_in, 1),
+        "frames_staged": stager.fseq, "transitions_staged": stager.rows_in,
+        "replay_size": size, "dead_slots": int((fused.replay.mass[:size] == 0).sum()),
+        "dropped_carry": stager.dropped_carry,
+        "faults": counts, "faults_executed": done, "topped_up": out["topped_up"],
+        "schedule_first_60s": [e for e in monkey.schedule if e[0] <= 60.0],
+        "torn_injected": len(torn), "transport": {k: xp[k] for k in (
+            "chunks", "transitions", "salvaged_records", "torn_records", "ring_full_waits")},
+        "supervisor": sup, "respawns_needed": len(kills),
+        "metrics_chaos": scraped,
+        "healthz": {"scrapes": len(scrapes), "not_200": [s for s in scrapes if s[1] != 200],
+                    "stale_after_s": stale},
+        "stager_stall": {"hold_s": ATARI_CHAOS["stuck_stager_hold_s"],
+                         "max_heartbeat_age_s": max(a for _, a, _, _ in samples),
+                         "uncarved_rows_at_start": samples[0][2],
+                         "uncarved_rows_at_end": in_stall[-1][2] if in_stall else None,
+                         # the stager's first beat after the stall ends
+                         "beat_s_after_stall": next(
+                             (x - in_stall[-1][0] for x, a, _, st in samples
+                              if in_stall and x > in_stall[-1][0] and not st and a < 0.05),
+                             None),
+                         "uncarved_rows_3s_after_start": samples[-1][2],
+                         "stalls": len(stalls)},
+        "kill_to_fed_s": t["refed"] - t["kill"], "kill": out["kill"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "cuts": {"env": "Seaquest ROM absent: fake-atari (the full DQN stack over the "
+                        "ALE-faithful fake emulator) for SeaquestNoFrameskip-v4",
+                 "actors": "2 workers x 8 actors for 8 x 32",
+                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "steps": f"{calls} fused calls ({calls * K} steps) for 2000000, stopped "
+                          "once the controller's faults were done",
+                 "data_parallel": "1 for 4",
+                 "chaos": "chaos intervals scaled to the phase (ATARI_CHAOS)"},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
+def phase_chaos_restore(sampling, card: str) -> dict:
+    """An incremental checkpoint chain of config3's learner at
+    ``ckpt_train``'s 262 144 slots on fake-atari (8 thread actors, a save
+    every K steps, a new base after each delta, the supervisor and the
+    chaos monkey on with no schedule): fused calls until generation 1 of
+    the chain is committed, and a clean stop; then
+    ``monkey.execute("corrupt_chunk")`` damages a chunk of the live
+    generation, then ``train.main`` with ``restore_from=true`` restores
+    through the damaged chain, walking back (a delta: to the chain's good
+    prefix; a base: to generation 0).  Checks: a ``degraded_restore`` event,
+    ``supervisor.fallback_restores`` ≥ 1, the resume at the newest committed
+    step, one more call trained past it, one sampler launch per call."""
+    import shutil
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.utils.checkpoint import latest_step
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import inc_dir, read_manifest
+
+    K = DEDUP_K
+    t0 = time.monotonic()
+    root = os.path.join(CKPT_ROOT, "chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shm_before = _shm_segments()
+
+    def argv(steps):
+        return _ckpt_train_argv(root, steps, overlap=False) + [
+            "--set", "env.name=fake-atari", "--set", "learner.checkpoint_base_every=1",
+            "--set", "supervisor.enabled=true", "--set", "chaos.enabled=true",
+            "--set", f"chaos.seed={CHAOS_SEED}"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampling.sample_indices.launches = 0
+    stop = threading.Event()
+
+    def second_generation(seen):
+        # A base of this ring takes longer to write than a call, so saves
+        # in between are skipped: stop once generation 1 is committed.
+        while not stop.wait(0.1):
+            m = read_manifest(inc_dir(root))
+            if seen and m is not None and m["generation"] >= 1:
+                seen[0].stop_event.set()
+                return
+
+    with capture_pipelines() as seen:
+        watcher = threading.Thread(target=second_generation, args=(seen,), daemon=True)
+        watcher.start()
+        try:
+            first, first_wall = run_train(argv(64 * K))
+        finally:
+            stop.set()
+            watcher.join(10)
+    first_launches = sampling.sample_indices.launches
+    committed = latest_step(root)
+    manifest = read_manifest(inc_dir(root))
+    rec = seen[0]._chaos.execute("corrupt_chunk")
+    del seen
+    if committed != first["step"] or manifest["generation"] < 1 or "path" not in rec \
+            or first_launches != first["step"] // K:
+        raise AssertionError(f"chaos_restore: committed {committed} of {first['step']} steps, "
+                             f"{first_launches} launches, manifest {manifest}, corruption {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampling.sample_indices.launches = 0
+    metrics = os.path.join(root, "resumed.jsonl")
+    with observe_resume() as seen:
+        final, wall = run_train(argv(committed + K) + [
+            "--set", "learner.restore_from=true", "--set", "learner.pipeline_depth=2",
+            "--set", f"learner.sync_every={K}", "--metrics-file", metrics])
+    launches = sampling.sample_indices.launches
+    events = [r for r in _jsonl(metrics) if r.get("event") == "degraded_restore"]
+    sup = final["supervisor"]
+    if not events or sup["fallback_restores"] < 1:
+        raise AssertionError(f"chaos_restore: degraded_restore events {events}, "
+                             f"supervisor {sup}")
+    if seen["step"] != committed or final["step"] != committed + K or launches != 1:
+        raise AssertionError(f"chaos_restore: resumed at {seen['step']} (committed "
+                             f"{committed}), ended at {final['step']}, {launches} launches")
+    fused = seen["pipe"].fused
+    if fused.replay.capacity != CKPT_SLOTS or tuple(fused.replay.frames.shape[1:]) != (84, 84, 1):
+        raise AssertionError(f"chaos_restore: ring {fused.replay.capacity} of "
+                             f"{tuple(fused.replay.frames.shape[1:])}")
+    leftover = _shm_segments() - shm_before
+    if leftover:
+        raise AssertionError(f"chaos_restore: segments left in /dev/shm: {sorted(leftover)}")
+    result = {
+        "phase": "chaos_restore", "card": card, "capacity": CKPT_SLOTS, "K": K,
+        "first_run": {"steps": first["step"], "sampler_launches": first_launches,
+                      "wall_s": first_wall, "manifest": manifest},
+        "corruption": rec, "committed_step": committed,
+        "degraded_restore": events, "fallback_restores": sup["fallback_restores"],
+        "resumed": {"step": seen["step"], "ring_size": seen["size"],
+                    "restore_s": seen["restore_s"], "final_step": final["step"],
+                    "loss": final["learner/loss"], "wall_s": wall},
+        "sampler_launches": launches,
+        "cuts": {"capacity": f"{CKPT_SLOTS} for 2000000", "actors": "8 thread actors for 256",
+                 "env": "Seaquest ROM absent: fake-atari",
+                 "min_replay_mem_size": f"{CKPT_WARMUP} for 50000"},
+        "seconds": time.monotonic() - t0,
+    }
+    del seen, fused
+    shutil.rmtree(root, ignore_errors=True)
+    emit(result)
+    return result
+
+
+class _RecordingRandom:
+    """A ``random.Random`` stand-in that records every draw."""
+
+    def __init__(self, rng):
+        self._rng, self.draws = rng, []
+
+    def random(self):
+        x = self._rng.random()
+        self.draws.append(x)
+        return x
+
+
+def phase_serve_delay(card: str, requests: int = 100, delay_ms: float = 5.0) -> dict:
+    """``PolicyServer`` on the card with the chaos serving delay
+    (``apply_delay_ms`` 5, ``delay_seed`` SEED) beside the same server
+    without it and a CPU server with the same delay: one client, one
+    observation per request, ``requests`` each.  Checks: the card's delay
+    stream equals the CPU server's draw for draw; p50 latency at least
+    3.75 ms (the jitter's low end) above the undelayed server's."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.serving.server import PolicyServer
+
+    obs_shape, A = (84, 84, 1), 18
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = build_network("conv", A, obs_shape)
+    params = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    obs = np.random.default_rng(SEED).integers(0, 256, (requests, *obs_shape), dtype=np.uint8)
+    t0 = time.monotonic()
+    out = {}
+    for name, kw in (("plain", dict(device="cuda")),
+                     ("delay", dict(device="cuda", apply_delay_ms=delay_ms, delay_seed=SEED)),
+                     ("cpu_delay", dict(device="cpu", apply_delay_ms=delay_ms,
+                                        delay_seed=SEED))):
+        server = PolicyServer(net, params, max_batch=32, max_wait_ms=0.5, **kw)
+        rec = None
+        if server._delay_rng is not None:
+            rec = server._delay_rng = _RecordingRandom(server._delay_rng)
+        server.warmup(obs_shape)
+        server.start()
+        try:
+            lat = []
+            n = requests if name != "cpu_delay" else requests // 4
+            for o in obs[:n]:
+                t1 = time.perf_counter()
+                server.act(o, timeout=60)
+                lat.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            server.close()
+        out[name] = {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                     "requests": n, "draws": rec.draws if rec is not None else None}
+    gpu, cpu = out["delay"]["draws"], out["cpu_delay"]["draws"]
+    if not cpu or gpu[:len(cpu)] != cpu or len(gpu) < requests:
+        raise AssertionError(f"serve_delay: the card's delay stream {gpu[:4]}... differs from "
+                             f"the CPU server's {cpu[:4]}...")
+    rise = out["delay"]["p50_ms"] - out["plain"]["p50_ms"]
+    if rise < 0.75 * delay_ms:
+        raise AssertionError(f"serve_delay: p50 rose {rise:.3f} ms, want >= {0.75 * delay_ms}")
+    result = {"phase": "serve_delay", "card": card, "delay_ms": delay_ms,
+              "p50_rise_ms": rise, "stream_draws_compared": len(cpu),
+              **{k: {kk: vv for kk, vv in v.items() if kk != "draws"} for k, v in out.items()},
+              "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import shutil
 
@@ -3552,6 +4163,7 @@ def main() -> int:
           "seconds": time.monotonic() - t0, "log": tree_log.strip()})
 
     rows = phase_kernel(sampling)
+    phase_atari_golden(card=smi)
     phase_parity()
     trained = phase_train(sampling, card=smi)
     phase_host_parity()
@@ -3569,7 +4181,9 @@ def main() -> int:
     phase_serve_hub(card=smi, trained=tcp)
     del tcp["_params"]
     overlap = phase_dedup_train(sampling, card=smi, overlap=True, beside=dedup)
+    atari = phase_atari_train(sampling, card=smi, beside=overlap)
     phase_serve_parity(card=smi)
+    phase_serve_delay(card=smi)
     central = phase_dedup_train(sampling, card=smi, central=True, beside=dedup,
                                 phase="central_train")
     central_fleet = phase_central_fleet(sampling, card=smi, beside=central)
@@ -3583,17 +4197,18 @@ def main() -> int:
     phase_serve_checkpoint(smi, ckpt_root, ckpt_state)
     phase_serve_fleet(smi, ckpt_root, ckpt_state)
     del ckpt_state
+    chaos_restore = phase_chaos_restore(sampling, card=smi)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
-    # This slice's main path: config3's learner fed by central workers
-    # through the replica fleet's router, one sample-ahead launch per call.
+    # This slice's main path: config3's learner on the fake-atari stack under
+    # the chaos schedule, one sample-ahead launch per call.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
         "source": "ape_x_dqn_tpu_torch/ops/csrc/sampling.cu",
         "replaces": "ape_x_dqn_tpu/ops/pallas/sampling.py:118",
-        "launches": central_fleet["sampler_launches"],
+        "launches": atari["sampler_launches"],
         "launches_by_path": {"device_replay": trained["sampler_launches"],
                              "host_replay": host["sampler_launches"],
                              "host_sync": host_sync["sampler_launches"],
@@ -3617,7 +4232,9 @@ def main() -> int:
                              "process_device_dedup_wide": wide_local["sampler_launches"],
                              "serve_attach": attach["sampler_launches"],
                              "ckpt_parity": ckpt_parity["sampler_launches"],
-                             "ckpt_train": ckpt_train["sampler_launches"]},
+                             "ckpt_train": ckpt_train["sampler_launches"],
+                             "process_device_dedup_atari_chaos": atari["sampler_launches"],
+                             "chaos_restore": chaos_restore["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],

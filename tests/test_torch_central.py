@@ -576,16 +576,22 @@ class TestConfig:
         ("serving.queue_capacity=8", "queue_capacity"),
         ("serving.max_request_bytes=1024", "max_request_bytes"),
         ("serving.param_stale_s=-2", "param_stale_s"),
-        ("chaos.serving_delay_ms=5", "serving delay"),
+        # The serving delay is ported: a negative one is refused by name.
+        pytest.param("chaos.serving_delay_ms=-5", "chaos.serving_delay_ms must be >= 0",
+                     id="chaos.serving_delay_ms=5-serving delay"),
     ])
     def test_invalid_or_unported_knobs_raise_by_name(self, override, message):
         with pytest.raises(ValueError, match=message):
             apply_overrides(ApexConfig(), ["serving.max_batch=16", override])
 
     def test_unported_chaos_section_refused_in_json(self, tmp_path):
+        """The chaos section loads; its replay-service keys are the part
+        not ported, refused by name."""
         path = tmp_path / "cfg.json"
         path.write_text(json.dumps({"chaos": {"serving_delay_ms": 5.0}}))
-        with pytest.raises(ValueError, match="serving delay"):
+        assert load_config(str(path)).chaos.serving_delay_ms == 5.0
+        path.write_text(json.dumps({"chaos": {"serving_delay_ms": 5.0, "rpc_drop_rate": 0.1}}))
+        with pytest.raises(ValueError, match=r"chaos\.rpc_drop_rate: .*ROADMAP item 7"):
             load_config(str(path))
 
 

@@ -59,7 +59,11 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.host_join",
                  "ape_x_dqn_tpu_torch.fleet",
                  "ape_x_dqn_tpu_torch.fleet.registry",
-                 "ape_x_dqn_tpu_torch.serving.router"):
+                 "ape_x_dqn_tpu_torch.serving.router",
+                 "ape_x_dqn_tpu_torch.envs.atari",
+                 "ape_x_dqn_tpu_torch.envs.fake_atari",
+                 "ape_x_dqn_tpu_torch.obs.chaos",
+                 "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
 
@@ -137,6 +141,28 @@ def test_obs_worker_modules_load_neither_torch_nor_jax():
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'numpy')!r}\n"
         "             or n in ('ape_x_dqn_tpu_torch.obs.exporter',\n"
         "                      'ape_x_dqn_tpu_torch.obs.trace'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_atari_envs_and_chaos_load_no_torch_cv2_or_gymnasium():
+    """The Atari stack, the fake emulator and the chaos injector run in
+    worker children (``SlowEnv`` wraps their envs) and in the monkey's
+    thread, which never touches the card: stdlib + numpy only, as their
+    JAX twins, and no cv2 or gymnasium until a gym env is built."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.envs.atari\n"
+        "import ape_x_dqn_tpu_torch.envs.fake_atari\n"
+        "import ape_x_dqn_tpu_torch.obs.chaos\n"
+        "from ape_x_dqn_tpu_torch.envs import make_env\n"
+        "make_env('fake-atari').step(0)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'gymnasium')!r})\n"
         "print(json.dumps(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -36,7 +36,6 @@ from ape_x_dqn_tpu.serving import batcher as jbatcher
 from ape_x_dqn_tpu.utils import metrics as jmetrics
 from ape_x_dqn_tpu_torch.models import dueling as tdueling
 from ape_x_dqn_tpu_torch.obs import lineage as tlineage
-from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
 from ape_x_dqn_tpu_torch.serving import (
     MicroBatcher,
@@ -227,9 +226,18 @@ class TestAdmissionControl:
             server.close()
 
     def test_chaos_delay_and_missing_card_refused(self):
+        """The chaos delay is ported (its stream against the JAX package's:
+        ``tests/test_torch_chaos.py``): a 5 ms delay serves, each batch at
+        least the jitter's low end later; a missing card is refused."""
         net, params = make_net_and_params()
-        with pytest.raises(NotPortedError, match="serving_delay_ms"):
-            PolicyServer(net, params, device="cpu", apply_delay_ms=5.0)
+        server = PolicyServer(net, params, device="cpu", apply_delay_ms=5.0, delay_seed=3)
+        server.start()
+        try:
+            t0 = time.monotonic()
+            assert server.act(np.zeros(OBS, np.uint8)).action >= 0
+            assert time.monotonic() - t0 >= 0.00375
+        finally:
+            server.close()
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 PolicyServer(net, params)

@@ -284,6 +284,20 @@ class TestServerAdversarial:
         _wait(lambda: net_server.torn_frames == 1, msg="torn count")
         assert net_server.requests == 0
 
+    def test_whole_frames_before_fin_are_not_torn(self, net_server):
+        """Two whole requests and the FIN in one write (a client that stops
+        with requests in flight): the server may read all of it in one
+        wakeup; no frame was cut, so none counts torn."""
+        s = _raw_conn(net_server.port)
+        s.sendall(self._req_frame(seq=1, rid=1) + self._req_frame(seq=2, rid=2))
+        s.shutdown(socket.SHUT_WR)
+        s.settimeout(5.0)
+        while s.recv(4096):
+            pass
+        s.close()
+        _wait(lambda: net_server.stats()["connections"] == 0, msg="retired")
+        assert net_server.torn_frames == 0
+
     def test_truncation_mid_payload(self, net_server):
         s = _raw_conn(net_server.port)
         s.sendall(self._req_frame()[:FRAME.size + 5])
