@@ -12,7 +12,10 @@ The port so far covers both forms of the learner:
     built with g++ at first use), a prefetch thread that copies sampled
     batches to the device, one train step per batch with deferred priority
     write-back — async (``AsyncPipeline``) or single-process
-    (``SingleProcessDriver``, ``--mode sync``);
+    (``SingleProcessDriver``, ``--mode sync``); with ``replay.dedup=true``
+    the frame-dedup ``DedupReplay`` (C++ twin: ``native_dedup.py``), and
+    with ``replay.hot_frame_budget_bytes`` its frames tiered over a spill
+    file (``replay/tiered.py``);
   * the device-replay learner (``learner.device_replay=true``): an
     actor-fleet thread feeds a fused learner that runs K × [prioritized
     sample → double-Q train → priority restamp] per call, with the

@@ -1,0 +1,801 @@
+// Native frame-dedup prioritized replay core: the paper-scale host path.
+//
+// The port's own copy of ape_x_dqn_tpu/_native/replay_core.cc, unchanged in
+// its arithmetic and ABI: host code, not a device kernel.  Each
+// learner-facing operation is ONE C call (ctypes releases the GIL for the
+// duration):
+//
+//   rc_add:    frame-ring write + transition write + priority set +
+//              liveness sweep (obs_seq aged out -> mass 0), one pass;
+//   rc_sample: stratified inverse-CDF descent + IS weights + BOTH frame
+//              gathers (memcpy per row) into caller buffers;
+//   rc_update: liveness-guarded priority restamp.
+//
+// The sum-tree is STRIPED K ways (slot i -> stripe i % K) with a mutex
+// per stripe: equal rows per stripe, proportional within,
+// q_i = (m_i / M_s) / K, with the IS weights computed for that realized
+// law.  At n_stripes > 1 the Python wrapper fans each sample/update out as
+// one rc_sample_stripe / rc_update_stripe call PER STRIPE through a
+// persistent thread pool, so the stripe calls overlap in wall-clock.
+// Add/import serialize under the wrapper lock (carry-resolver state is
+// Python-side).  n_stripes=1 reduces bit-for-bit to the numpy DedupReplay
+// (replay/dedup.py), which is its oracle.
+//
+// The frame ring is one address-stable mmap with MADV_HUGEPAGE (a 2M x 7 KB
+// ring spans ~17 GB; 2 MB pages cut the page-walk tax of random gathers).
+// The tiered store (replay/tiered.SpanTierIndex) moves bytes, never the
+// mapping: rc_evict_span copies a span out and MADV_DONTNEEDs it, and a
+// ring with a tier attached switches to MADV_NOHUGEPAGE first
+// (rc_nohugepage) so a span drop never splits a huge page.
+//
+// Semantics contract (kept identical to replay/dedup.py; the Python
+// wrapper replay/native_dedup.py shares the numpy twin's ref resolution):
+// frame seqs are int64, obs_seq is each row's oldest ref, dead slots never
+// resurrect.
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 at first use into build/native/
+// (driven by replay/native_dedup.py, named by a hash of source and flags).
+
+#include <sys/mman.h>
+#include <sys/uio.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <vector>
+
+namespace {
+
+struct Stripe {
+  int64_t leaf_base = 1;           // pow2 >= leaf count
+  std::vector<double> tree;        // 2 * leaf_base nodes, tree[1] = total
+  std::mutex mu;
+};
+
+struct Core {
+  int64_t capacity = 0;            // transition slots
+  int64_t frame_capacity = 0;      // frame slots
+  int64_t frame_bytes = 0;         // bytes per frame
+  double alpha = 0.6;
+  int n_stripes = 1;
+
+  uint8_t* frames = nullptr;       // mmap'd, frame_capacity * frame_bytes
+  size_t frames_len = 0;
+  std::vector<int64_t> obs_seq, next_seq;
+  std::vector<int32_t> action;
+  std::vector<float> reward, discount;
+  std::vector<uint8_t> alive;
+
+  int64_t cursor = 0;              // transition ring position
+  int64_t count = 0;               // transitions ever accepted
+  int64_t fcount = 0;              // frames ever written
+  int64_t frame_dead = 0;          // sweep-invalidated rows (stat)
+  std::vector<Stripe> stripes;
+};
+
+int64_t next_pow2(int64_t n) {
+  int64_t p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// ---- striped sum-tree ------------------------------------------------
+
+inline int stripe_of(const Core& c, int64_t slot) {
+  return static_cast<int>(slot % c.n_stripes);
+}
+inline int64_t leaf_of(const Core& c, int64_t slot) {
+  return slot / c.n_stripes;
+}
+
+void tree_set_one(Stripe& s, int64_t leaf, double v) {
+  int64_t node = s.leaf_base + leaf;
+  s.tree[node] = v;
+  for (node >>= 1; node >= 1; node >>= 1)
+    s.tree[node] = s.tree[2 * node] + s.tree[2 * node + 1];
+}
+
+int64_t tree_descend(const Stripe& s, double target) {
+  int64_t node = 1;
+  while (node < s.leaf_base) {
+    double left = s.tree[2 * node];
+    if (target < left) {
+      node = 2 * node;
+    } else {
+      target -= left;
+      node = 2 * node + 1;
+    }
+  }
+  return node - s.leaf_base;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* rc_create(int64_t capacity, int64_t frame_capacity,
+                int64_t frame_bytes, double alpha, int n_stripes) {
+  if (capacity <= 0 || frame_capacity <= 0 || frame_bytes <= 0 ||
+      n_stripes <= 0)
+    return nullptr;
+  Core* c = new (std::nothrow) Core();
+  if (!c) return nullptr;
+  c->capacity = capacity;
+  c->frame_capacity = frame_capacity;
+  c->frame_bytes = frame_bytes;
+  c->alpha = alpha;
+  c->n_stripes = n_stripes;
+  c->frames_len = static_cast<size_t>(frame_capacity) * frame_bytes;
+  void* mem = mmap(nullptr, c->frames_len, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+  if (mem == MAP_FAILED) {
+    delete c;
+    return nullptr;
+  }
+  // 2 MB transparent hugepages for the gather-heavy frame ring.
+  madvise(mem, c->frames_len, MADV_HUGEPAGE);
+  c->frames = static_cast<uint8_t*>(mem);
+  c->obs_seq.assign(capacity, 0);
+  c->next_seq.assign(capacity, 0);
+  c->action.assign(capacity, 0);
+  c->reward.assign(capacity, 0.f);
+  c->discount.assign(capacity, 0.f);
+  c->alive.assign(capacity, 0);
+  c->stripes = std::vector<Stripe>(n_stripes);
+  for (int s = 0; s < n_stripes; ++s) {
+    int64_t leaves = (capacity - s + n_stripes - 1) / n_stripes;
+    c->stripes[s].leaf_base = next_pow2(std::max<int64_t>(leaves, 1));
+    c->stripes[s].tree.assign(2 * c->stripes[s].leaf_base, 0.0);
+  }
+  return c;
+}
+
+void rc_destroy(void* h) {
+  Core* c = static_cast<Core*>(h);
+  if (!c) return;
+  if (c->frames) munmap(c->frames, c->frames_len);
+  delete c;
+}
+
+int64_t rc_size(void* h) {
+  Core* c = static_cast<Core*>(h);
+  return std::min(c->count, c->capacity);
+}
+int64_t rc_count(void* h) { return static_cast<Core*>(h)->count; }
+int64_t rc_fcount(void* h) { return static_cast<Core*>(h)->fcount; }
+int64_t rc_cursor(void* h) { return static_cast<Core*>(h)->cursor; }
+int64_t rc_frame_dead(void* h) { return static_cast<Core*>(h)->frame_dead; }
+
+double rc_total(void* h) {
+  Core* c = static_cast<Core*>(h);
+  double t = 0;
+  for (auto& s : c->stripes) t += s.tree[1];
+  return t;
+}
+
+double rc_max(void* h) {
+  Core* c = static_cast<Core*>(h);
+  double m = 0;
+  for (auto& s : c->stripes)
+    for (int64_t i = s.leaf_base; i < 2 * s.leaf_base; ++i)
+      m = std::max(m, s.tree[i]);
+  return m;
+}
+
+// Ingest one chunk: U frames + M transitions with pre-resolved absolute
+// refs, then the liveness sweep.  Returns the first transition slot
+// written (ring order), or -1 on a size violation.
+int64_t rc_add(void* h, int64_t U, const uint8_t* frames, int64_t M,
+               const int64_t* obs_seq, const int64_t* next_seq,
+               const int32_t* action, const float* reward,
+               const float* discount, const float* prio) {
+  Core* c = static_cast<Core*>(h);
+  if (U > c->frame_capacity || M > c->capacity) return -1;
+  // Frame-ring write (seq-addressed slots; U <= Cf so at most one wrap).
+  int64_t fslot = c->fcount % c->frame_capacity;
+  int64_t first = std::min(U, c->frame_capacity - fslot);
+  std::memcpy(c->frames + fslot * c->frame_bytes, frames,
+              static_cast<size_t>(first) * c->frame_bytes);
+  if (first < U)
+    std::memcpy(c->frames, frames + first * c->frame_bytes,
+                static_cast<size_t>(U - first) * c->frame_bytes);
+  c->fcount += U;
+  // Transition ring write + priority set (stripe-locked per row batch).
+  int64_t base = c->cursor;
+  for (int64_t i = 0; i < M; ++i) {
+    int64_t slot = (base + i) % c->capacity;
+    c->obs_seq[slot] = obs_seq[i];
+    c->next_seq[slot] = next_seq[i];
+    c->action[slot] = action[i];
+    c->reward[slot] = reward[i];
+    c->discount[slot] = discount[i];
+    c->alive[slot] = 1;
+    double p = std::pow(std::max(static_cast<double>(prio[i]), 1e-12),
+                        c->alpha);
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    std::lock_guard<std::mutex> g(s.mu);
+    tree_set_one(s, leaf_of(*c, slot), p);
+  }
+  c->cursor = (base + M) % c->capacity;
+  c->count += M;
+  // Liveness sweep: rows whose obs frame was overwritten lose their mass.
+  int64_t fmin = c->fcount - c->frame_capacity;
+  if (fmin > 0) {
+    int64_t size = std::min(c->count, c->capacity);
+    for (int64_t slot = 0; slot < size; ++slot) {
+      if (c->alive[slot] && c->obs_seq[slot] < fmin) {
+        c->alive[slot] = 0;
+        ++c->frame_dead;
+        Stripe& s = c->stripes[stripe_of(*c, slot)];
+        std::lock_guard<std::mutex> g(s.mu);
+        tree_set_one(s, leaf_of(*c, slot), 0.0);
+      }
+    }
+  }
+  return base;
+}
+
+// Stratified PER sample: B rows (B % n_stripes == 0; B/K per stripe, the
+// striped law), gathering both frames and computing IS weights in one
+// GIL-released call.  `u` supplies B uniforms (RNG stays in Python so the
+// numpy twin is a bit-exact oracle at n_stripes=1).
+// Returns 0 ok, -1 empty, -2 B not divisible by stripes.
+int32_t rc_sample(void* h, int64_t B, double beta, const double* u,
+                  int64_t* out_idx, double* out_weights, uint8_t* out_obs,
+                  uint8_t* out_next, int32_t* out_action, float* out_reward,
+                  float* out_discount) {
+  Core* c = static_cast<Core*>(h);
+  if (B % c->n_stripes) return -2;
+  int64_t size = std::min(c->count, c->capacity);
+  if (size == 0) return -1;
+  int64_t Bk = B / c->n_stripes;
+  double wmax = 0.0;
+  for (int s_i = 0; s_i < c->n_stripes; ++s_i) {
+    Stripe& s = c->stripes[s_i];
+    std::lock_guard<std::mutex> g(s.mu);
+    double total = s.tree[1];
+    if (total <= 0) return -1;  // a populated core never has an empty stripe
+    double bounds = total / Bk;
+    double clip = std::nextafter(total, 0.0);
+    for (int64_t j = 0; j < Bk; ++j) {
+      double target = (j + u[s_i * Bk + j]) * bounds;
+      target = std::min(std::max(target, 0.0), clip);
+      int64_t leaf = tree_descend(s, target);
+      int64_t slot = leaf * c->n_stripes + s_i;
+      if (slot >= c->capacity) slot = c->capacity - 1 - ((c->capacity - 1 - s_i) % c->n_stripes);
+      int64_t k = s_i * Bk + j;
+      out_idx[k] = slot;
+      double mass = s.tree[s.leaf_base + leaf_of(*c, slot)];
+      // Realized law: equal rows per stripe, proportional within —
+      // q = (mass / total_s) / K; w = (N * q)^-beta.  The guard sits on
+      // the within-stripe probability so n_stripes=1 is BIT-exact with
+      // the numpy twin's size * max(probs, 1e-12) spelling.
+      double q0 = std::max(mass / total, 1e-12);
+      double w = std::pow(static_cast<double>(size) * q0 / c->n_stripes,
+                          -beta);
+      out_weights[k] = w;
+      if (w > wmax) wmax = w;
+    }
+  }
+  for (int64_t k = 0; k < B; ++k) {
+    out_weights[k] /= wmax;
+    int64_t slot = out_idx[k];
+    int64_t of = c->obs_seq[slot] % c->frame_capacity;
+    int64_t nf = c->next_seq[slot] % c->frame_capacity;
+    std::memcpy(out_obs + k * c->frame_bytes,
+                c->frames + of * c->frame_bytes, c->frame_bytes);
+    std::memcpy(out_next + k * c->frame_bytes,
+                c->frames + nf * c->frame_bytes, c->frame_bytes);
+    out_action[k] = c->action[slot];
+    out_reward[k] = c->reward[slot];
+    out_discount[k] = c->discount[slot];
+  }
+  return 0;
+}
+
+// Liveness-guarded priority restamp (last write wins within the batch).
+void rc_update(void* h, int64_t n, const int64_t* idx, const float* prio) {
+  Core* c = static_cast<Core*>(h);
+  int64_t fmin = c->fcount - c->frame_capacity;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = idx[i];
+    if (slot < 0 || slot >= c->capacity) continue;
+    if (!c->alive[slot] || c->obs_seq[slot] < fmin) continue;
+    double p = std::pow(std::max(static_cast<double>(prio[i]), 1e-12),
+                        c->alpha);
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    std::lock_guard<std::mutex> g(s.mu);
+    tree_set_one(s, leaf_of(*c, slot), p);
+  }
+}
+
+// Per-stripe half of rc_sample, for the wrapper's PARALLEL fan-out
+// (replay/native_dedup.py dispatches one call per stripe through a
+// persistent thread pool; ctypes releases the GIL so stripe calls overlap
+// in wall-clock — the BENCH_r06 "striped4 wrapper serializes calls"
+// defect, fixed).  Samples Bk rows from stripe `s_i` using u[0..Bk) and
+// writes RAW (unnormalized) IS weights — the caller normalizes by the max
+// across ALL stripes, reproducing rc_sample's arithmetic bit-for-bit.
+// The gather runs outside the stripe lock, like rc_sample's (the Python
+// wrapper's lock excludes add/import during sampling).
+// Returns 0 ok, -1 empty stripe, -3 bad stripe id.
+int32_t rc_sample_stripe(void* h, int32_t s_i, int64_t Bk, double beta,
+                         const double* u, int64_t* out_idx,
+                         double* out_weights, uint8_t* out_obs,
+                         uint8_t* out_next, int32_t* out_action,
+                         float* out_reward, float* out_discount) {
+  Core* c = static_cast<Core*>(h);
+  if (s_i < 0 || s_i >= c->n_stripes) return -3;
+  int64_t size = std::min(c->count, c->capacity);
+  if (size == 0) return -1;
+  Stripe& s = c->stripes[s_i];
+  {
+    std::lock_guard<std::mutex> g(s.mu);
+    double total = s.tree[1];
+    if (total <= 0) return -1;
+    double bounds = total / Bk;
+    double clip = std::nextafter(total, 0.0);
+    for (int64_t j = 0; j < Bk; ++j) {
+      double target = (j + u[j]) * bounds;
+      target = std::min(std::max(target, 0.0), clip);
+      int64_t leaf = tree_descend(s, target);
+      int64_t slot = leaf * c->n_stripes + s_i;
+      if (slot >= c->capacity)
+        slot = c->capacity - 1 - ((c->capacity - 1 - s_i) % c->n_stripes);
+      out_idx[j] = slot;
+      double mass = s.tree[s.leaf_base + leaf_of(*c, slot)];
+      double q0 = std::max(mass / total, 1e-12);
+      out_weights[j] = std::pow(static_cast<double>(size) * q0 /
+                                    c->n_stripes,
+                                -beta);
+    }
+  }
+  for (int64_t j = 0; j < Bk; ++j) {
+    int64_t slot = out_idx[j];
+    int64_t of = c->obs_seq[slot] % c->frame_capacity;
+    int64_t nf = c->next_seq[slot] % c->frame_capacity;
+    std::memcpy(out_obs + j * c->frame_bytes,
+                c->frames + of * c->frame_bytes, c->frame_bytes);
+    std::memcpy(out_next + j * c->frame_bytes,
+                c->frames + nf * c->frame_bytes, c->frame_bytes);
+    out_action[j] = c->action[slot];
+    out_reward[j] = c->reward[slot];
+    out_discount[j] = c->discount[slot];
+  }
+  return 0;
+}
+
+// Per-stripe half of rc_update: scans the full batch but touches only the
+// slots belonging to `s_i` — each pool worker owns one stripe's tree, so
+// the fan-out has zero cross-stripe lock contention and preserves
+// rc_update's in-order last-write-wins within the stripe.
+void rc_update_stripe(void* h, int32_t s_i, int64_t n, const int64_t* idx,
+                      const float* prio) {
+  Core* c = static_cast<Core*>(h);
+  if (s_i < 0 || s_i >= c->n_stripes) return;
+  int64_t fmin = c->fcount - c->frame_capacity;
+  Stripe& s = c->stripes[s_i];
+  std::lock_guard<std::mutex> g(s.mu);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = idx[i];
+    if (slot < 0 || slot >= c->capacity) continue;
+    if (stripe_of(*c, slot) != s_i) continue;
+    if (!c->alive[slot] || c->obs_seq[slot] < fmin) continue;
+    double p = std::pow(std::max(static_cast<double>(prio[i]), 1e-12),
+                        c->alpha);
+    tree_set_one(s, leaf_of(*c, slot), p);
+  }
+}
+
+// ---- tiered frame store (replay/tiered.py SpanTierIndex) -------------
+// The cold tier keeps the frame mmap address-stable and moves BYTES only:
+// rc_evict_span copies a span out for the python-side cold write and
+// MADV_DONTNEEDs its pages (RSS released, reads become zero-fill);
+// rc_fault_span copies verified cold bytes back in.  Sampling splits in
+// two GIL-released calls — rc_sample_idx (descent + weights + metadata,
+// bit-identical law to rc_sample) so the wrapper can fault the spans the
+// batch actually needs, then rc_gather_frames for the two frame gathers.
+
+namespace {
+
+// zlib-compatible CRC-32 (reflected 0xEDB88320), slice-by-8 — the fault
+// batch verifies ~60 KB spans at memory speed instead of paying
+// python-side zlib calls per span.
+uint32_t crc_tab[8][256];
+bool crc_ready = false;
+
+void crc_init() {
+  if (crc_ready) return;
+  for (uint32_t i = 0; i < 256; ++i) {
+    uint32_t x = i;
+    for (int k = 0; k < 8; ++k)
+      x = (x & 1) ? 0xEDB88320u ^ (x >> 1) : x >> 1;
+    crc_tab[0][i] = x;
+  }
+  for (uint32_t i = 0; i < 256; ++i)
+    for (int s = 1; s < 8; ++s)
+      crc_tab[s][i] =
+          (crc_tab[s - 1][i] >> 8) ^ crc_tab[0][crc_tab[s - 1][i] & 0xFF];
+  crc_ready = true;
+}
+
+uint32_t crc32z(const uint8_t* p, size_t n) {
+  crc_init();
+  uint32_t crc = 0xFFFFFFFFu;
+  while (n && (reinterpret_cast<uintptr_t>(p) & 7)) {
+    crc = crc_tab[0][(crc ^ *p++) & 0xFF] ^ (crc >> 8);
+    --n;
+  }
+  while (n >= 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, p, 4);
+    std::memcpy(&hi, p + 4, 4);
+    crc ^= lo;
+    crc = crc_tab[7][crc & 0xFF] ^ crc_tab[6][(crc >> 8) & 0xFF] ^
+          crc_tab[5][(crc >> 16) & 0xFF] ^ crc_tab[4][crc >> 24] ^
+          crc_tab[3][hi & 0xFF] ^ crc_tab[2][(hi >> 8) & 0xFF] ^
+          crc_tab[1][(hi >> 16) & 0xFF] ^ crc_tab[0][hi >> 24];
+    p += 8;
+    n -= 8;
+  }
+  while (n--) crc = crc_tab[0][(crc ^ *p++) & 0xFF] ^ (crc >> 8);
+  return ~crc;
+}
+
+void drop_pages(Core* c, int64_t slot, int64_t n) {
+  static const uintptr_t page = 4096;
+  uint8_t* lo = c->frames + slot * c->frame_bytes;
+  uint8_t* hi = lo + n * c->frame_bytes;
+  uint8_t* alo = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(lo) + page - 1) & ~(page - 1));
+  uint8_t* ahi = reinterpret_cast<uint8_t*>(
+      reinterpret_cast<uintptr_t>(hi) & ~(page - 1));
+  // Inner-aligned only: edge pages shared with neighbor spans keep their
+  // bytes (the copy-out above covered this span's own content).
+  if (ahi > alo) madvise(alo, ahi - alo, MADV_DONTNEED);
+}
+}  // namespace
+
+// Copy n frame slots starting at ring slot fstart (wrap-aware) into out,
+// then release the copied region's pages back to the OS.  The span's
+// content lives only in the caller's buffer afterwards — write it to the
+// cold store before dropping the reference.
+void rc_evict_span(void* h, int64_t fstart, int64_t n, uint8_t* out) {
+  Core* c = static_cast<Core*>(h);
+  int64_t slot = fstart % c->frame_capacity;
+  int64_t first = std::min(n, c->frame_capacity - slot);
+  std::memcpy(out, c->frames + slot * c->frame_bytes,
+              static_cast<size_t>(first) * c->frame_bytes);
+  drop_pages(c, slot, first);
+  if (first < n) {
+    std::memcpy(out + first * c->frame_bytes, c->frames,
+                static_cast<size_t>(n - first) * c->frame_bytes);
+    drop_pages(c, 0, n - first);
+  }
+}
+
+// Copy verified cold bytes back into the ring (the fault half).  Body is
+// rc_import_frames_span's; the separate export names the tier contract.
+void rc_fault_span(void* h, int64_t fstart, int64_t n,
+                   const uint8_t* frames) {
+  Core* c = static_cast<Core*>(h);
+  int64_t slot = fstart % c->frame_capacity;
+  int64_t first = std::min(n, c->frame_capacity - slot);
+  std::memcpy(c->frames + slot * c->frame_bytes, frames,
+              static_cast<size_t>(first) * c->frame_bytes);
+  if (first < n)
+    std::memcpy(c->frames, frames + first * c->frame_bytes,
+                static_cast<size_t>(n - first) * c->frame_bytes);
+}
+
+// Tiered rings opt OUT of transparent hugepages: the eviction cycle
+// MADV_DONTNEEDs sub-hugepage ranges, and every such drop on a THP
+// region splits a 2 MB page (measured ~10x the cost of a 4 KB-page
+// drop) — the gather's TLB win is repaid many times over in page-table
+// surgery.  Called once by the wrapper when a tier is attached.
+void rc_nohugepage(void* h) {
+  Core* c = static_cast<Core*>(h);
+  madvise(c->frames, c->frames_len, MADV_NOHUGEPAGE);
+}
+
+// Release a span's pages WITHOUT copying it out first — the clean-drop
+// eviction (disk record already current; rc_evict_span's copy would be
+// wasted work on the evictor thread).
+void rc_drop_span(void* h, int64_t fstart, int64_t n) {
+  Core* c = static_cast<Core*>(h);
+  int64_t slot = fstart % c->frame_capacity;
+  int64_t first = std::min(n, c->frame_capacity - slot);
+  drop_pages(c, slot, first);
+  if (first < n) drop_pages(c, 0, n - first);
+}
+
+// Batched cold fault, entirely GIL-released: for each span, pread the
+// record at `offsets[i]` from the spill file's fd straight into the ring
+// (span regions are span-aligned, so they never wrap), then verify
+// framing + self-CRC + the caller's expected content CRC over the landed
+// bytes.  Returns -1 when every span verified, else the index of the
+// first failing span (its ring bytes may be partial, but the caller only
+// marks spans resident on success, so a failed fault is retried — and
+// fails typed — on the next access).  Record layout must match
+// replay/tiered.py ColdSpanStore: "APXS" | u32 version | u64 span_id |
+// u64 payload_len | u32 crc32.
+int64_t rc_fault_batch(void* h, int32_t fd, int64_t n,
+                       const int64_t* offsets, const int64_t* fstarts,
+                       const int64_t* nframes, const int64_t* span_ids,
+                       const int64_t* want_crcs) {
+  Core* c = static_cast<Core*>(h);
+  uint8_t hdr[28];
+  for (int64_t i = 0; i < n; ++i) {
+    uint64_t want_len = static_cast<uint64_t>(nframes[i]) * c->frame_bytes;
+    uint8_t* dst =
+        c->frames + (fstarts[i] % c->frame_capacity) * c->frame_bytes;
+    // One syscall per span: header scatters into hdr, payload lands
+    // straight in the ring (span regions are span-aligned — no wrap).
+    struct iovec iov[2];
+    iov[0].iov_base = hdr;
+    iov[0].iov_len = 28;
+    iov[1].iov_base = dst;
+    iov[1].iov_len = want_len;
+    if (preadv(fd, iov, 2, offsets[i]) !=
+        static_cast<ssize_t>(28 + want_len))
+      return i;
+    if (std::memcmp(hdr, "APXS", 4) != 0) return i;
+    uint32_t version, crc;
+    uint64_t sid, plen;
+    std::memcpy(&version, hdr + 4, 4);
+    std::memcpy(&sid, hdr + 8, 8);
+    std::memcpy(&plen, hdr + 16, 8);
+    std::memcpy(&crc, hdr + 24, 4);
+    if (version != 1) return i;
+    if (static_cast<int64_t>(sid) != span_ids[i]) return i;
+    if (plen != want_len) return i;
+    uint32_t actual = crc32z(dst, plen);
+    if (actual != crc) return i;
+    if (want_crcs[i] >= 0 && actual != static_cast<uint32_t>(want_crcs[i]))
+      return i;
+  }
+  return -1;
+}
+
+// rc_sample minus the frame memcpys, plus each row's frame seqs so the
+// wrapper knows which spans to fault.  Same striped descent, same
+// uniforms, same weight arithmetic — rc_sample_idx + rc_gather_frames on
+// an all-hot ring is bit-identical to one rc_sample call (tests pin it).
+int32_t rc_sample_idx(void* h, int64_t B, double beta, const double* u,
+                      int64_t* out_idx, double* out_weights,
+                      int64_t* out_obs_seq, int64_t* out_next_seq,
+                      int32_t* out_action, float* out_reward,
+                      float* out_discount) {
+  Core* c = static_cast<Core*>(h);
+  if (B % c->n_stripes) return -2;
+  int64_t size = std::min(c->count, c->capacity);
+  if (size == 0) return -1;
+  int64_t Bk = B / c->n_stripes;
+  double wmax = 0.0;
+  for (int s_i = 0; s_i < c->n_stripes; ++s_i) {
+    Stripe& s = c->stripes[s_i];
+    std::lock_guard<std::mutex> g(s.mu);
+    double total = s.tree[1];
+    if (total <= 0) return -1;
+    double bounds = total / Bk;
+    double clip = std::nextafter(total, 0.0);
+    for (int64_t j = 0; j < Bk; ++j) {
+      double target = (j + u[s_i * Bk + j]) * bounds;
+      target = std::min(std::max(target, 0.0), clip);
+      int64_t leaf = tree_descend(s, target);
+      int64_t slot = leaf * c->n_stripes + s_i;
+      if (slot >= c->capacity)
+        slot = c->capacity - 1 - ((c->capacity - 1 - s_i) % c->n_stripes);
+      int64_t k = s_i * Bk + j;
+      out_idx[k] = slot;
+      double mass = s.tree[s.leaf_base + leaf_of(*c, slot)];
+      double q0 = std::max(mass / total, 1e-12);
+      double w = std::pow(static_cast<double>(size) * q0 / c->n_stripes,
+                          -beta);
+      out_weights[k] = w;
+      if (w > wmax) wmax = w;
+    }
+  }
+  for (int64_t k = 0; k < B; ++k) {
+    out_weights[k] /= wmax;
+    int64_t slot = out_idx[k];
+    out_obs_seq[k] = c->obs_seq[slot];
+    out_next_seq[k] = c->next_seq[slot];
+    out_action[k] = c->action[slot];
+    out_reward[k] = c->reward[slot];
+    out_discount[k] = c->discount[slot];
+  }
+  return 0;
+}
+
+// Second half of the two-phase sample: both frame gathers for the given
+// transition slots (the wrapper faulted their spans hot first).
+void rc_gather_frames(void* h, int64_t B, const int64_t* idx,
+                      uint8_t* out_obs, uint8_t* out_next) {
+  Core* c = static_cast<Core*>(h);
+  for (int64_t k = 0; k < B; ++k) {
+    int64_t slot = idx[k];
+    int64_t of = c->obs_seq[slot] % c->frame_capacity;
+    int64_t nf = c->next_seq[slot] % c->frame_capacity;
+    std::memcpy(out_obs + k * c->frame_bytes,
+                c->frames + of * c->frame_bytes, c->frame_bytes);
+    std::memcpy(out_next + k * c->frame_bytes,
+                c->frames + nf * c->frame_bytes, c->frame_bytes);
+  }
+}
+
+double rc_get_mass(void* h, int64_t slot) {
+  Core* c = static_cast<Core*>(h);
+  if (slot < 0 || slot >= c->capacity) return -1.0;
+  Stripe& s = c->stripes[stripe_of(*c, slot)];
+  return s.tree[s.leaf_base + leaf_of(*c, slot)];
+}
+
+// ---- snapshot (checkpointing) ---------------------------------------
+
+// Copy state into caller-provided buffers sized by the counters above:
+// frames [min(fcount, Cf) * frame_bytes] slot-ordered, per-slot arrays
+// [size], masses [size].
+void rc_export(void* h, uint8_t* frames, int64_t* obs_seq,
+               int64_t* next_seq, int32_t* action, float* reward,
+               float* discount, uint8_t* alive, double* mass) {
+  Core* c = static_cast<Core*>(h);
+  int64_t nf = std::min(c->fcount, c->frame_capacity);
+  std::memcpy(frames, c->frames, static_cast<size_t>(nf) * c->frame_bytes);
+  int64_t size = std::min(c->count, c->capacity);
+  std::memcpy(obs_seq, c->obs_seq.data(), size * sizeof(int64_t));
+  std::memcpy(next_seq, c->next_seq.data(), size * sizeof(int64_t));
+  std::memcpy(action, c->action.data(), size * sizeof(int32_t));
+  std::memcpy(reward, c->reward.data(), size * sizeof(float));
+  std::memcpy(discount, c->discount.data(), size * sizeof(float));
+  std::memcpy(alive, c->alive.data(), size * sizeof(uint8_t));
+  for (int64_t slot = 0; slot < size; ++slot)
+    mass[slot] = rc_get_mass(h, slot);
+}
+
+// Restore from a snapshot (sizes must match the live core's config).
+// Returns 0 ok, -1 on size violation.
+int32_t rc_import(void* h, int64_t nf, const uint8_t* frames, int64_t size,
+                  const int64_t* obs_seq, const int64_t* next_seq,
+                  const int32_t* action, const float* reward,
+                  const float* discount, const uint8_t* alive,
+                  const double* mass, int64_t cursor, int64_t count,
+                  int64_t fcount) {
+  Core* c = static_cast<Core*>(h);
+  if (nf > c->frame_capacity || size > c->capacity) return -1;
+  std::memcpy(c->frames, frames, static_cast<size_t>(nf) * c->frame_bytes);
+  for (auto& s : c->stripes)
+    std::fill(s.tree.begin(), s.tree.end(), 0.0);
+  std::fill(c->alive.begin(), c->alive.end(), 0);
+  std::memcpy(c->obs_seq.data(), obs_seq, size * sizeof(int64_t));
+  std::memcpy(c->next_seq.data(), next_seq, size * sizeof(int64_t));
+  std::memcpy(c->action.data(), action, size * sizeof(int32_t));
+  std::memcpy(c->reward.data(), reward, size * sizeof(float));
+  std::memcpy(c->discount.data(), discount, size * sizeof(float));
+  std::memcpy(c->alive.data(), alive, size * sizeof(uint8_t));
+  for (int64_t slot = 0; slot < size; ++slot) {
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    tree_set_one(s, leaf_of(*c, slot), mass[slot]);
+  }
+  c->cursor = cursor % c->capacity;
+  c->count = count;
+  c->fcount = fcount;
+  return 0;
+}
+
+// ---- incremental snapshot (dirty spans + sparse; utils/checkpoint_inc) --
+// The rings write sequentially at cursors, so a delta is the frame span +
+// transition span written since the last snapshot plus the sparse slots
+// whose priority/liveness changed.  These exports/imports are the C-core
+// halves of NativeDedupReplay.delta_state_dict / apply_delta_state_dict;
+// row order matches the python twin's fancy-indexed spans exactly.
+
+// Full liveness vector [capacity] — the wrapper diffs it against the
+// previous snapshot's copy to find sweep-invalidated slots (the sweep
+// runs inside rc_add, so python never sees the indices directly).
+void rc_export_alive(void* h, uint8_t* out) {
+  Core* c = static_cast<Core*>(h);
+  std::memcpy(out, c->alive.data(), static_cast<size_t>(c->capacity));
+}
+
+// Wrap-aware copy of n frame slots starting at seq fstart (n <= Cf).
+void rc_export_frames_span(void* h, int64_t fstart, int64_t n,
+                           uint8_t* out) {
+  Core* c = static_cast<Core*>(h);
+  int64_t slot = fstart % c->frame_capacity;
+  int64_t first = std::min(n, c->frame_capacity - slot);
+  std::memcpy(out, c->frames + slot * c->frame_bytes,
+              static_cast<size_t>(first) * c->frame_bytes);
+  if (first < n)
+    std::memcpy(out + first * c->frame_bytes, c->frames,
+                static_cast<size_t>(n - first) * c->frame_bytes);
+}
+
+void rc_import_frames_span(void* h, int64_t fstart, int64_t n,
+                           const uint8_t* frames) {
+  Core* c = static_cast<Core*>(h);
+  int64_t slot = fstart % c->frame_capacity;
+  int64_t first = std::min(n, c->frame_capacity - slot);
+  std::memcpy(c->frames + slot * c->frame_bytes, frames,
+              static_cast<size_t>(first) * c->frame_bytes);
+  if (first < n)
+    std::memcpy(c->frames, frames + first * c->frame_bytes,
+                static_cast<size_t>(n - first) * c->frame_bytes);
+}
+
+// n transition rows from ring slot `start` (wrap-aware), with liveness
+// and tree mass — the full dirty span of one delta.
+void rc_export_rows(void* h, int64_t start, int64_t n, int64_t* obs_seq,
+                    int64_t* next_seq, int32_t* action, float* reward,
+                    float* discount, uint8_t* alive, double* mass) {
+  Core* c = static_cast<Core*>(h);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = (start + i) % c->capacity;
+    obs_seq[i] = c->obs_seq[slot];
+    next_seq[i] = c->next_seq[slot];
+    action[i] = c->action[slot];
+    reward[i] = c->reward[slot];
+    discount[i] = c->discount[slot];
+    alive[i] = c->alive[slot];
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    mass[i] = s.tree[s.leaf_base + leaf_of(*c, slot)];
+  }
+}
+
+void rc_import_rows(void* h, int64_t start, int64_t n,
+                    const int64_t* obs_seq, const int64_t* next_seq,
+                    const int32_t* action, const float* reward,
+                    const float* discount, const uint8_t* alive,
+                    const double* mass) {
+  Core* c = static_cast<Core*>(h);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = (start + i) % c->capacity;
+    c->obs_seq[slot] = obs_seq[i];
+    c->next_seq[slot] = next_seq[i];
+    c->action[slot] = action[i];
+    c->reward[slot] = reward[i];
+    c->discount[slot] = discount[i];
+    c->alive[slot] = alive[i];
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    tree_set_one(s, leaf_of(*c, slot), mass[i]);
+  }
+}
+
+void rc_export_mass(void* h, int64_t n, const int64_t* idx, double* out) {
+  Core* c = static_cast<Core*>(h);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = idx[i];
+    if (slot < 0 || slot >= c->capacity) { out[i] = 0.0; continue; }
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    out[i] = s.tree[s.leaf_base + leaf_of(*c, slot)];
+  }
+}
+
+// Restore-side sparse apply: exact (alive, mass) values captured at
+// snapshot time (no liveness re-derivation — bit-for-bit restores).
+void rc_apply_sparse(void* h, int64_t n, const int64_t* idx,
+                     const uint8_t* alive, const double* mass) {
+  Core* c = static_cast<Core*>(h);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t slot = idx[i];
+    if (slot < 0 || slot >= c->capacity) continue;
+    c->alive[slot] = alive[i];
+    Stripe& s = c->stripes[stripe_of(*c, slot)];
+    tree_set_one(s, leaf_of(*c, slot), mass[i]);
+  }
+}
+
+void rc_set_counters(void* h, int64_t cursor, int64_t count,
+                     int64_t fcount, int64_t frame_dead) {
+  Core* c = static_cast<Core*>(h);
+  c->cursor = cursor % c->capacity;
+  c->count = count;
+  c->fcount = fcount;
+  c->frame_dead = frame_dead;
+}
+
+}  // extern "C"

@@ -5,9 +5,8 @@ sections, plus ``supervisor``, ``serving``, ``obs``, ``fleet`` and ``chaos``,
 reference-format ``parameters.json`` files, ``--set section.field=value``
 overrides), cut down to the fields the port runs.  A key the port does not
 run raises rather than loading as a dead setting, so a config written for
-the JAX package's other paths (data parallel, the host dedup replay, the
-tiered store, the replay service and its chaos, the fleet aggregator, the
-timeline store and the autopilot) fails loudly here
+the JAX package's other paths (data parallel, the replay service and its
+chaos, the fleet aggregator, the timeline store and the autopilot) fails loudly here
 instead of running something else; the keys of those paths that the JAX
 configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
 imports the JAX package's module.
@@ -202,12 +201,29 @@ class ReplayConfig:
     # zlib-compress stored frames in the host replay (a memory/CPU trade).
     frame_compression: bool = False
     # Frame-dedup storage (types.DedupChunk): actors ship each frame once and
-    # the device ring stores one frame ring + per-transition refs.
+    # the replay (the host DedupReplay, or the device ring with
+    # learner.device_replay) stores one frame ring + per-transition refs.
     # frame_ratio sizes the frame ring per transition slot; it must cover the
     # emission's arrival ratio (≈ (flush_every + n) / flush_every plus
     # truncation extras) or the oldest transitions become unsampleable early.
     dedup: bool = False
     frame_ratio: float = 1.25
+    # Tiered frame store (replay/tiered.py): > 0 caps the frame bytes the
+    # host replay holds in DRAM; least-recently-sampled frame spans spill to
+    # a CRC-framed cold file and fault back on sample, while the sum-tree and
+    # every transition column stay hot (the sampling law is untouched).
+    # 0 disables.  Host replay only (the device ring is its own tier).
+    hot_frame_budget_bytes: int = 0
+    # Spill-file directory.  "auto": <learner.checkpoint_dir>/replay_spill
+    # when checkpointing is on (incremental bases then reference cold spans
+    # by offset into a directory the run owns), else a per-pid temp dir.
+    spill_dir: str = "auto"
+    # Frames per spill span (the eviction and fault granule); 0: ~64 KiB.
+    spill_span_frames: int = 0
+    # Eviction hysteresis, as fractions of the hot budget: the evictor
+    # thread wakes past high × budget and trims to low × budget.
+    spill_watermark_high: float = 1.0
+    spill_watermark_low: float = 0.9
 
 
 @dataclasses.dataclass
@@ -527,15 +543,28 @@ class ApexConfig:
              f"learner.data_parallel={l.data_parallel}: the multi-GPU learner "
              "(parallel/dp.py, replay/device_dp.py, replay/device_dedup_dp.py) "
              "is not part of the port yet (ROADMAP item 8)"),
-            (not r.dedup or l.device_replay,
-             "replay.dedup with learner.device_replay=false: the host "
-             "DedupReplay (replay/dedup.py, native_dedup.py) is not part of "
-             "the port yet (ROADMAP item 4); the device dedup ring is "
-             "(learner.device_replay=true)"),
             (not r.dedup or a.flush_every >= a.num_steps,
              "replay.dedup requires actor.flush_every >= actor.num_steps "
              "(carry refs reach at most one chunk back)"),
+            (not (r.dedup and r.frame_compression),
+             "replay.dedup and replay.frame_compression are mutually "
+             "exclusive (the dedup frame ring stores raw uint8)"),
             (r.frame_ratio > 0, "replay.frame_ratio must be positive"),
+            (r.hot_frame_budget_bytes >= 0,
+             "replay.hot_frame_budget_bytes must be >= 0"),
+            (not (r.hot_frame_budget_bytes and r.frame_compression),
+             "replay.hot_frame_budget_bytes and replay.frame_compression "
+             "are mutually exclusive (the cold tier spans raw frame "
+             "bytes; compressed slots are per-slot python objects)"),
+            (not (r.hot_frame_budget_bytes and l.device_replay),
+             "replay.hot_frame_budget_bytes requires device_replay=False "
+             "(the tier spills the HOST frame ring; the HBM ring is its "
+             "own tier)"),
+            (r.spill_span_frames >= 0,
+             "replay.spill_span_frames must be >= 0"),
+            (0.0 < r.spill_watermark_low <= r.spill_watermark_high <= 1.0,
+             "replay spill watermarks must satisfy "
+             "0 < low <= high <= 1"),
             (l.second_moment_dtype in (None, "bfloat16", "float32"),
              f"unknown second_moment_dtype: {l.second_moment_dtype}"),
             (l.target_dtype in (None, "bfloat16", "float32"),
@@ -633,7 +662,6 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 
 # Keys of the JAX package's config whose feature the port does not run yet,
 # refused by name (any other unknown key is refused as unknown).
-_TIERED = "the tiered frame store (replay/tiered.py, ROADMAP item 4)"
 _FLEET = "the fleet aggregator (obs/fleet.py, ROADMAP item 7)"
 _TIMELINE = "the timeline store (obs/timeline.py, ROADMAP item 7)"
 _NOT_PORTED = {
@@ -651,13 +679,8 @@ _NOT_PORTED = {
     **{f"chaos.{k}": "the replay service's chaos (replay/service.py, ROADMAP item 7)"
        for k in ("rpc_delay_ms", "rpc_drop_rate", "kill_shard_at_step",
                  "kill_shard_interval_s")},
-    "replay.hot_frame_budget_bytes": _TIERED,
-    "replay.spill_dir": _TIERED,
-    "replay.spill_span_frames": _TIERED,
-    "replay.spill_watermark_high": _TIERED,
-    "replay.spill_watermark_low": _TIERED,
     "replay.service_dedup": "the replay service and its frame dedup "
-                            "(replay/service.py, ROADMAP item 4)",
+                            "(replay/service.py, ROADMAP item 7)",
 }
 
 

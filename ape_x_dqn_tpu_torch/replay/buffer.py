@@ -18,12 +18,15 @@ JAX :531-628: the span written since the last mark, the restamped slots
 since then, ``chain_prev`` / ``chain_mark``) keep the JAX replay's keys and
 dtypes (masses float64), so either package loads the other's.
 
-Not ported yet, and refused by name (``NotPortedError``): the tiered frame
-store (``hot_frame_budget_bytes``, ROADMAP item 4).
+With ``hot_frame_budget_bytes > 0`` both frame stores are a
+``TieredFrameStore`` (``replay/tiered.py``): each holds half the hot budget
+and spills least-recently-sampled spans to its own file (``obs.cold``,
+``next_obs.cold``) under ``spill_dir``; the sampling law is untouched.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import threading
 import zlib
@@ -67,6 +70,45 @@ class RawFrameStore:
 
     def nbytes(self) -> int:
         return self._arr.nbytes
+
+
+class TieredFrameStore:
+    """Frame store over a ``TieredFrameRing`` (``replay/tiered.py``): the
+    double-store's answer to ``replay.hot_frame_budget_bytes``.  Slot
+    indices map 1:1 onto ring slots; least-recently-sampled spans spill to
+    the CRC-framed cold file and fault back on ``get``.  Snapshots
+    materialize through ``get``: the cold-ref checkpoint leg lives on the
+    dedup replays, where the paper-scale rings are."""
+
+    compressed = False
+
+    def __init__(self, capacity: int, frame_shape, *, hot_budget_bytes: int,
+                 spill_path: str, span_frames: int = 0,
+                 watermark_high: float = 1.0, watermark_low: float = 0.9):
+        from ape_x_dqn_tpu_torch.replay.tiered import TieredFrameRing
+
+        self.ring = TieredFrameRing(
+            capacity, frame_shape, dtype=np.uint8,
+            hot_budget_bytes=hot_budget_bytes, spill_path=spill_path,
+            span_frames=span_frames, watermark_high=watermark_high,
+            watermark_low=watermark_low,
+        )
+        self.shape = self.ring.frame_shape
+
+    def encode(self, frames: np.ndarray):
+        return frames
+
+    def put_encoded(self, idx: np.ndarray, encoded) -> None:
+        self.ring.put(np.asarray(idx, np.int64), encoded)
+
+    def put(self, idx: np.ndarray, frames: np.ndarray) -> None:
+        self.put_encoded(idx, self.encode(frames))
+
+    def get(self, idx: np.ndarray) -> np.ndarray:
+        return self.ring.get(np.asarray(idx, np.int64))
+
+    def nbytes(self) -> int:
+        return self.ring.hot_bytes
 
 
 class CompressedFrameStore:
@@ -145,8 +187,11 @@ class PrioritizedReplay:
       sum_tree_cls: injectable tree implementation; the default is the
         native C++ tree, which raises if it cannot be built.
       frame_compression: zlib-compress stored frames (``CompressedFrameStore``).
-      hot_frame_budget_bytes: the tiered frame store's DRAM cap; any
-        positive value raises ``NotPortedError``.
+      hot_frame_budget_bytes: > 0 caps the resident frame bytes
+        (``TieredFrameStore``, half the budget for each of obs and
+        next_obs); needs ``spill_dir``; exclusive with frame_compression.
+      spill_span_frames, spill_watermark_high, spill_watermark_low: the
+        tier's span size (0: ~64 KiB) and eviction hysteresis.
     """
 
     def __init__(
@@ -157,12 +202,11 @@ class PrioritizedReplay:
         sum_tree_cls=None,
         frame_compression: bool = False,
         hot_frame_budget_bytes: int = 0,
+        spill_dir: Optional[str] = None,
+        spill_span_frames: int = 0,
+        spill_watermark_high: float = 1.0,
+        spill_watermark_low: float = 0.9,
     ):
-        if hot_frame_budget_bytes > 0:
-            raise NotPortedError(
-                "the tiered frame store (hot_frame_budget_bytes, ROADMAP item "
-                "4) is not part of the port yet"
-            )
         if sum_tree_cls is None:
             from ape_x_dqn_tpu_torch.replay.native import default_sum_tree_cls
 
@@ -171,9 +215,27 @@ class PrioritizedReplay:
             raise ValueError("capacity must be positive")
         self.capacity = int(capacity)
         self.alpha = float(priority_exponent)
-        store_cls = CompressedFrameStore if frame_compression else RawFrameStore
-        self._obs = store_cls(capacity, obs_shape)
-        self._next_obs = store_cls(capacity, obs_shape)
+        if hot_frame_budget_bytes > 0:
+            # Tiered double-store: obs and next_obs each get half the hot
+            # budget and their own spill file (JAX :229-256).
+            if frame_compression:
+                raise ValueError("hot_frame_budget_bytes and frame_compression are "
+                                 "mutually exclusive")
+            if spill_dir is None:
+                raise ValueError("tiered replay needs a spill_dir")
+            tier_kw = dict(hot_budget_bytes=max(1, int(hot_frame_budget_bytes) // 2),
+                           span_frames=spill_span_frames,
+                           watermark_high=spill_watermark_high,
+                           watermark_low=spill_watermark_low)
+            self._obs = TieredFrameStore(
+                capacity, obs_shape, spill_path=os.path.join(spill_dir, "obs.cold"), **tier_kw)
+            self._next_obs = TieredFrameStore(
+                capacity, obs_shape, spill_path=os.path.join(spill_dir, "next_obs.cold"),
+                **tier_kw)
+        else:
+            store_cls = CompressedFrameStore if frame_compression else RawFrameStore
+            self._obs = store_cls(capacity, obs_shape)
+            self._next_obs = store_cls(capacity, obs_shape)
         self._action = np.zeros((capacity,), dtype=np.int32)
         self._reward = np.zeros((capacity,), dtype=np.float32)
         self._discount = np.zeros((capacity,), dtype=np.float32)
@@ -297,6 +359,57 @@ class PrioritizedReplay:
             # The sparse record would rival a full snapshot: drop it, and
             # the next delta becomes a base.
             self._dirty, self._dirty_rows, self._ckpt = [], 0, None
+
+    # -- cold tier surface (replay/tiered.py; no-ops when the tier is off) --
+
+    @property
+    def tier(self):
+        """The obs store's ``TieredFrameRing`` (None when untiered); the
+        observability gauges read its counters."""
+        return getattr(self._obs, "ring", None)
+
+    def _rings(self) -> tuple:
+        ring = getattr(self._obs, "ring", None)
+        return () if ring is None else (ring, self._next_obs.ring)
+
+    def tier_over_watermark(self) -> bool:
+        """Lock-free evictor poll: a stale read only delays one batch."""
+        return any(r.over_high_watermark() for r in self._rings())
+
+    def spill_cold(self, max_spans: int = 0) -> tuple:
+        """Evict least-recently-sampled spans in both stores down to their
+        low watermarks (``TierEvictor``'s entry point).  Returns (spans,
+        bytes written)."""
+        rings = self._rings()
+        if not rings:
+            return 0, 0
+        with self._lock:
+            out = [r.spill(max_spans=max_spans) for r in rings]
+        return sum(s for s, _ in out), sum(b for _, b in out)
+
+    def tier_flush_dirty(self) -> int:
+        """Write back every dirty hot span of both stores (residency kept)."""
+        rings = self._rings()
+        with self._lock:
+            return sum(r.flush_dirty() for r in rings)
+
+    def tier_stats(self) -> Optional[dict]:
+        """Both stores' tier counters summed (``fault_ms``: the obs store's
+        summary, or next_obs's when obs never faulted)."""
+        rings = self._rings()
+        if not rings:
+            return None
+        with self._lock:
+            a, b = (r.tier_stats() for r in rings)
+        out = {}
+        for k in a:
+            if k == "fault_ms":
+                out[k] = a[k] if a[k]["count"] else b[k]
+            elif k == "span_frames":
+                out[k] = a[k]
+            else:
+                out[k] = a[k] + b[k]
+        return out
 
     # -- misc ------------------------------------------------------------
 

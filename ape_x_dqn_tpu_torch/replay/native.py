@@ -41,22 +41,30 @@ def build_library() -> tuple[Path, str]:
     """Compile ``SOURCE`` with ``CXX`` unless this source's library exists.
     Returns the library path and the compiler's output ("" when cached).
     Raises ``RuntimeError`` if the compiler is missing or fails."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join((CXX, *CXX_FLAGS)).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libapex_sum_tree_{tag}.so"
+    return compile_shared(SOURCE, "libapex_sum_tree", CXX, CXX_FLAGS, BUILD_DIR)
+
+
+def compile_shared(source: Path, stem: str, cxx: str, flags, build_dir: Path
+                   ) -> tuple[Path, str]:
+    """Build ``source`` into ``build_dir/<stem>_<hash>.so`` (hash of source,
+    compiler and flags) unless it exists: a private temporary file renamed
+    into place.  Shared by every native core of the port."""
+    src = source.read_bytes()
+    tag = hashlib.sha256(src + " ".join((cxx, *flags)).encode()).hexdigest()[:16]
+    lib = build_dir / f"{stem}_{tag}.so"
     if lib.exists():
         return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        res = subprocess.run([CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
                              capture_output=True, text=True)
     except OSError as e:  # no compiler at all
-        raise RuntimeError(f"cannot build {SOURCE.name}: {e}") from e
+        raise RuntimeError(f"cannot build {source.name}: {e}") from e
     try:
         if res.returncode != 0:
             raise RuntimeError(
-                f"{CXX} failed ({res.returncode}) building {SOURCE.name}:\n"
+                f"{cxx} failed ({res.returncode}) building {source.name}:\n"
                 f"{res.stdout}{res.stderr}"
             )
         os.replace(tmp, lib)  # atomic within the directory

@@ -1,0 +1,874 @@
+"""ctypes bindings for the native frame-dedup replay core.
+
+Port of ``ape_x_dqn_tpu/replay/native_dedup.py``.  ``NativeDedupReplay`` is
+a drop-in for ``replay.dedup.DedupReplay`` (same constructor surface plus
+``n_stripes``; add / sample / update_priorities / size / the snapshot
+surface), with every learner-facing operation fused into ONE GIL-released C
+call (``_native/replay_core.cc``, the port's own copy): tree descent + IS
+weights + both frame gathers in ``rc_sample``; ring writes + priority set +
+liveness sweep in ``rc_add``.  The sum-tree is striped ``n_stripes`` ways
+with per-stripe locks (equal rows per stripe, IS-corrected); at
+``n_stripes > 1`` sample and update fan out as one GIL-released call PER
+STRIPE (``rc_sample_stripe`` / ``rc_update_stripe``) through a persistent
+thread pool.  Ingest (``add``) serializes under the wrapper lock
+(carry-resolver state is Python-side).  ``n_stripes=1`` is bit-exact with
+the numpy ``DedupReplay``.
+
+With ``hot_frame_budget_bytes > 0`` a ``replay/tiered.SpanTierIndex``
+decides which frame spans stay resident in the core's address-stable mmap:
+``rc_evict_span`` copies a span out and drops its pages, ``rc_fault_batch``
+preads and CRC-checks a batch of spans back without the GIL, and sampling
+splits into ``rc_sample_idx`` + ``rc_gather_frames`` so the spans a batch
+needs fault in between.
+
+Built as ``replay/native.py`` builds the sum-tree: ``g++`` at first use
+into ``build/native/``, named by a hash of source and flags.  A missing
+compiler or a failed build raises; nothing falls back to the numpy replay.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ape_x_dqn_tpu_torch.replay import native
+from ape_x_dqn_tpu_torch.replay.dedup import CarryResolver
+from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition, PrioritizedBatch
+
+SOURCE = Path(__file__).resolve().parents[1] / "_native" / "replay_core.cc"
+BUILD_DIR = native.BUILD_DIR
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_f32p = ctypes.POINTER(ctypes.c_float)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile ``SOURCE`` with ``CXX`` unless this source's library exists.
+    Returns the library path and the compiler's output ("" when cached).
+    Raises ``RuntimeError`` if the compiler is missing or fails."""
+    return native.compile_shared(SOURCE, "libapex_replay_core", CXX, CXX_FLAGS,
+                                 BUILD_DIR)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    lib.rc_create.restype = ctypes.c_void_p
+    lib.rc_create.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_int32,
+    ]
+    lib.rc_destroy.argtypes = [ctypes.c_void_p]
+    for name in ("rc_size", "rc_count", "rc_fcount", "rc_cursor",
+                 "rc_frame_dead"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p]
+    for name in ("rc_total", "rc_max"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_double
+        fn.argtypes = [ctypes.c_void_p]
+    lib.rc_get_mass.restype = ctypes.c_double
+    lib.rc_get_mass.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.rc_add.restype = ctypes.c_int64
+    lib.rc_add.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _u8p, ctypes.c_int64,
+        _i64p, _i64p, _i32p, _f32p, _f32p, _f32p,
+    ]
+    lib.rc_sample.restype = ctypes.c_int32
+    lib.rc_sample.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, _f64p,
+        _i64p, _f64p, _u8p, _u8p, _i32p, _f32p, _f32p,
+    ]
+    lib.rc_sample_stripe.restype = ctypes.c_int32
+    lib.rc_sample_stripe.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_double, _f64p,
+        _i64p, _f64p, _u8p, _u8p, _i32p, _f32p, _f32p,
+    ]
+    lib.rc_update.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _i64p, _f32p,
+    ]
+    lib.rc_update_stripe.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+        _i64p, _f32p,
+    ]
+    lib.rc_export.argtypes = [
+        ctypes.c_void_p, _u8p, _i64p, _i64p, _i32p, _f32p, _f32p,
+        _u8p, _f64p,
+    ]
+    lib.rc_import.restype = ctypes.c_int32
+    lib.rc_import.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _u8p, ctypes.c_int64,
+        _i64p, _i64p, _i32p, _f32p, _f32p, _u8p, _f64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    ]
+    # Incremental-snapshot surface (dirty spans + sparse).
+    lib.rc_export_alive.argtypes = [ctypes.c_void_p, _u8p]
+    lib.rc_export_frames_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, _u8p,
+    ]
+    lib.rc_import_frames_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, _u8p,
+    ]
+    lib.rc_export_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p, _i32p, _f32p, _f32p, _u8p, _f64p,
+    ]
+    lib.rc_import_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        _i64p, _i64p, _i32p, _f32p, _f32p, _u8p, _f64p,
+    ]
+    lib.rc_export_mass.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _i64p, _f64p,
+    ]
+    lib.rc_apply_sparse.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _i64p, _u8p, _f64p,
+    ]
+    lib.rc_set_counters.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    # Tiered frame store surface (replay/tiered.SpanTierIndex):
+    # evict/fault move span bytes without the GIL; the two-phase
+    # sample splits descent from the frame gathers so cold spans
+    # can fault in between.
+    lib.rc_evict_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, _u8p,
+    ]
+    lib.rc_fault_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, _u8p,
+    ]
+    lib.rc_sample_idx.restype = ctypes.c_int32
+    lib.rc_sample_idx.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, _f64p,
+        _i64p, _f64p, _i64p, _i64p, _i32p, _f32p, _f32p,
+    ]
+    lib.rc_gather_frames.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _i64p, _u8p, _u8p,
+    ]
+    lib.rc_drop_span.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.rc_nohugepage.argtypes = [ctypes.c_void_p]
+    lib.rc_fault_batch.restype = ctypes.c_int64
+    lib.rc_fault_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+        _i64p, _i64p, _i64p, _i64p, _i64p,
+    ]
+    return lib
+
+
+def _p(a: np.ndarray, ptr_t):
+    return a.ctypes.data_as(ptr_t)
+
+
+class NativeDedupReplay:
+    """C++-core frame-dedup prioritized replay (interface of DedupReplay)."""
+
+    def __init__(
+        self,
+        capacity: int,
+        obs_shape,
+        priority_exponent: float = 0.6,
+        obs_dtype=np.uint8,
+        frame_ratio: float = 1.25,
+        n_stripes: int = 1,
+        hot_frame_budget_bytes: int = 0,
+        spill_dir: Optional[str] = None,
+        spill_span_frames: int = 0,
+        spill_watermark_high: float = 1.0,
+        spill_watermark_low: float = 0.9,
+    ):
+        lib = _library()
+        if np.dtype(obs_dtype) != np.uint8:
+            raise ValueError("native dedup core stores uint8 frames")
+        self._lib = lib
+        self.capacity = int(capacity)
+        self.frame_capacity = max(1, int(round(capacity * frame_ratio)))
+        self.obs_shape = tuple(obs_shape)
+        self.frame_bytes = int(np.prod(self.obs_shape))
+        self.alpha = float(priority_exponent)
+        self.n_stripes = int(n_stripes)
+        self._handle = lib.rc_create(
+            self.capacity, self.frame_capacity, self.frame_bytes,
+            self.alpha, self.n_stripes,
+        )
+        if not self._handle:
+            raise MemoryError("rc_create failed")
+        self._resolver = CarryResolver()
+        self._lock = threading.Lock()
+        # Tiered frame store (replay/tiered.py): the C mmap stays the
+        # address-stable hot storage; SpanTierIndex decides which spans are
+        # resident, spilling least-recently-sampled ones through
+        # rc_evict_span (copy out + MADV_DONTNEED — RSS actually drops)
+        # and faulting them back through rc_fault_span, all GIL-released.
+        # Sampling switches to the two-phase rc_sample_idx +
+        # rc_gather_frames so the needed spans fault between descent and
+        # gather; off (the default) every call below is byte-identical to
+        # the untiered build — zero cost when disabled.
+        self._tier = None
+        if hot_frame_budget_bytes > 0:
+            from ape_x_dqn_tpu_torch.replay.tiered import SpanTierIndex
+
+            if spill_dir is None:
+                raise ValueError("tiered replay needs a spill_dir")
+            # THP off for tiered rings: span drops would split 2 MB pages
+            # on every eviction (see rc_nohugepage).
+            lib.rc_nohugepage(self._handle)
+            self._tier = SpanTierIndex(
+                self.frame_capacity, self.obs_shape, np.uint8,
+                hot_budget_bytes=hot_frame_budget_bytes,
+                spill_path=os.path.join(spill_dir, "frames.cold"),
+                read_fn=self._tier_read_span,
+                evict_fn=self._tier_evict_span,
+                fault_fn=self._tier_fault_span,
+                fault_batch_fn=self._tier_fault_batch,
+                drop_fn=self._tier_drop_span,
+                span_frames=spill_span_frames,
+                watermark_high=spill_watermark_high,
+                watermark_low=spill_watermark_low,
+            )
+        # Persistent per-stripe fan-out pool (n_stripes > 1): one
+        # GIL-released C call per stripe, dispatched concurrently — see
+        # _sample_with_uniforms / update_priorities.  Lazy would race the
+        # first sample; built here, it costs n idle threads.
+        self._pool = None
+        if self.n_stripes > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.n_stripes,
+                thread_name_prefix="dedup-stripe",
+            )
+        # (t_start, t_end) wall-clock spans of the last fan-out's stripe
+        # calls — the concurrency test asserts they overlap.
+        self.last_stripe_spans: list = []
+        # Incremental-checkpoint dirty tracking (utils/checkpoint_inc):
+        # (count, cursor, fcount, alive copy) at the last snapshot; the
+        # liveness sweep runs inside rc_add, so swept slots are recovered
+        # by diffing the alive vector instead of recording indices.
+        self._ckpt = None
+        self._dirty: list = []
+        self._dirty_rows = 0
+
+    def __del__(self):
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+        tier = getattr(self, "_tier", None)
+        if tier is not None:
+            tier.close()
+        h = getattr(self, "_handle", None)
+        if h:
+            self._lib.rc_destroy(h)
+            self._handle = None
+
+    # -- cold tier plumbing (SpanTierIndex callables + public surface) ----
+
+    def _tier_read_span(self, start: int, n: int) -> np.ndarray:
+        out = np.empty((n, *self.obs_shape), np.uint8)
+        self._lib.rc_export_frames_span(self._handle, int(start), int(n),
+                                        _p(out, _u8p))
+        return out
+
+    def _tier_evict_span(self, start: int, n: int) -> np.ndarray:
+        out = np.empty((n, *self.obs_shape), np.uint8)
+        self._lib.rc_evict_span(self._handle, int(start), int(n),
+                                _p(out, _u8p))
+        return out
+
+    def _tier_fault_span(self, start: int, n: int, frames) -> None:
+        blk = np.ascontiguousarray(frames, np.uint8)
+        self._lib.rc_fault_span(self._handle, int(start), int(n),
+                                _p(blk, _u8p))
+
+    def _tier_drop_span(self, start: int, n: int) -> None:
+        self._lib.rc_drop_span(self._handle, int(start), int(n))
+
+    def _tier_fault_batch(self, fd, offsets, fstarts, lens, sids,
+                          want_crcs) -> int:
+        return int(self._lib.rc_fault_batch(
+            self._handle, int(fd), offsets.shape[0],
+            _p(offsets, _i64p), _p(fstarts, _i64p), _p(lens, _i64p),
+            _p(sids, _i64p), _p(want_crcs, _i64p),
+        ))
+
+    @property
+    def tier(self):
+        return self._tier
+
+    def tier_over_watermark(self) -> bool:
+        return self._tier is not None and self._tier.over_high_watermark()
+
+    def spill_cold(self, max_spans: int = 0, target_bytes=None) -> tuple:
+        if self._tier is None:
+            return 0, 0
+        with self._lock:
+            return self._tier.spill(max_spans=max_spans,
+                                    target_bytes=target_bytes)
+
+    def tier_flush_dirty(self) -> int:
+        """Write-back every dirty hot span's cold record (residency kept)
+        under the replay lock — pre-trim/pre-bench hygiene."""
+        if self._tier is None:
+            return 0
+        with self._lock:
+            return self._tier.flush_dirty()
+
+    def tier_stats(self) -> Optional[dict]:
+        if self._tier is None:
+            return None
+        with self._lock:
+            return self._tier.tier_stats()
+
+    def _ensure_hot_all_locked(self) -> None:
+        """Materialize the full written frame region (public full
+        snapshots and legacy whole-ring exports)."""
+        nf = min(int(self._lib.rc_fcount(self._handle)),
+                 self.frame_capacity)
+        if nf:
+            self._tier.ensure_hot(self._tier.spans_of_run(0, nf))
+
+    # -- write path ------------------------------------------------------
+
+    def add(self, priorities: np.ndarray, chunk: DedupChunk) -> np.ndarray:
+        prio = np.ascontiguousarray(priorities, np.float32)
+        frames = np.ascontiguousarray(chunk.frames, np.uint8)
+        U, M = frames.shape[0], prio.shape[0]
+        if M > self.capacity or U > self.frame_capacity:
+            raise ValueError("chunk exceeds ring capacity")
+        with self._lock:
+            base = int(self._lib.rc_fcount(self._handle))
+            if self._tier is not None:
+                # Cold spans the write only PARTIALLY covers fault first
+                # (rc_add memcpys into the mmap; a dropped span's other
+                # slots live only in the cold record).
+                self._tier.note_write(base % self.frame_capacity, U)
+            obs_seq, next_seq, keep = self._resolver.resolve(chunk, base)
+            obs_seq = np.ascontiguousarray(obs_seq[keep])
+            next_seq = np.ascontiguousarray(next_seq[keep])
+            action = np.ascontiguousarray(chunk.action, np.int32)[keep]
+            reward = np.ascontiguousarray(chunk.reward, np.float32)[keep]
+            discount = np.ascontiguousarray(chunk.discount, np.float32)[keep]
+            pk = np.ascontiguousarray(prio[keep])
+            m = obs_seq.shape[0]
+            first = self._lib.rc_add(
+                self._handle, U, _p(frames, _u8p), m,
+                _p(obs_seq, _i64p), _p(next_seq, _i64p),
+                _p(action, _i32p), _p(reward, _f32p),
+                _p(discount, _f32p), _p(pk, _f32p),
+            )
+            if first < 0:
+                raise ValueError("rc_add rejected the chunk (size violation)")
+            return (first + np.arange(m, dtype=np.int64)) % self.capacity
+
+    # -- read path -------------------------------------------------------
+
+    def sample(
+        self,
+        batch_size: int,
+        beta: float = 0.4,
+        rng: Optional[np.random.Generator] = None,
+    ) -> PrioritizedBatch:
+        rng = rng or np.random.default_rng()
+        u = np.ascontiguousarray(rng.random(int(batch_size)))
+        return self._sample_with_uniforms(u, beta)
+
+    def _sample_with_uniforms(self, u: np.ndarray,
+                              beta: float) -> PrioritizedBatch:
+        """Sample with caller-supplied uniforms (RNG stays in Python so
+        the numpy twin is a bit-exact oracle; tests also inject uniforms
+        to pin the parallel fan-out against the serial C spelling).
+
+        n_stripes == 1 takes the single fused ``rc_sample`` call (the
+        oracle path); n_stripes > 1 fans one ``rc_sample_stripe`` call
+        per stripe out through the persistent pool — each call releases
+        the GIL, descends only its own tree, and gathers its own rows
+        into disjoint slices of the output buffers, so the stripes run
+        concurrently in wall-clock.  Raw per-stripe weights are
+        normalized here by the global max, reproducing ``rc_sample``'s
+        arithmetic bit-for-bit.
+        """
+        B = int(u.shape[0])
+        idx = np.empty(B, np.int64)
+        weights = np.empty(B, np.float64)
+        obs = np.empty((B, *self.obs_shape), np.uint8)
+        next_obs = np.empty((B, *self.obs_shape), np.uint8)
+        action = np.empty(B, np.int32)
+        reward = np.empty(B, np.float32)
+        discount = np.empty(B, np.float32)
+        if B % self.n_stripes:
+            raise ValueError(
+                f"batch_size {B} must divide by n_stripes {self.n_stripes}"
+            )
+        with self._lock:
+            if self._tier is not None:
+                # Two-phase tiered sample: descend + weights + metadata in
+                # one GIL-released call (bit-identical law to rc_sample,
+                # stripes included), fault the spans this batch actually
+                # references, then gather.  The stripe fan-out pool is
+                # bypassed — the fault step is inherently serial.
+                obs_seq = np.empty(B, np.int64)
+                next_seq = np.empty(B, np.int64)
+                rc = self._lib.rc_sample_idx(
+                    self._handle, B, float(beta), _p(u, _f64p),
+                    _p(idx, _i64p), _p(weights, _f64p),
+                    _p(obs_seq, _i64p), _p(next_seq, _i64p),
+                    _p(action, _i32p), _p(reward, _f32p),
+                    _p(discount, _f32p),
+                )
+                if rc == -1:
+                    raise ValueError("cannot sample from an empty replay")
+                slots = np.concatenate([obs_seq, next_seq]) \
+                    % self.frame_capacity
+                self._tier.ensure_hot(self._tier.spans_of_slots(slots))
+                self._lib.rc_gather_frames(
+                    self._handle, B, _p(idx, _i64p),
+                    _p(obs, _u8p), _p(next_obs, _u8p),
+                )
+            elif self.n_stripes == 1:
+                rc = self._lib.rc_sample(
+                    self._handle, B, float(beta), _p(u, _f64p),
+                    _p(idx, _i64p), _p(weights, _f64p), _p(obs, _u8p),
+                    _p(next_obs, _u8p), _p(action, _i32p),
+                    _p(reward, _f32p), _p(discount, _f32p),
+                )
+                if rc == -1:
+                    raise ValueError("cannot sample from an empty replay")
+            else:
+                Bk = B // self.n_stripes
+
+                def one(s: int):
+                    sl = slice(s * Bk, (s + 1) * Bk)
+                    t0 = time.monotonic()
+                    rc = self._lib.rc_sample_stripe(
+                        self._handle, s, Bk, float(beta),
+                        _p(u[sl], _f64p), _p(idx[sl], _i64p),
+                        _p(weights[sl], _f64p), _p(obs[sl], _u8p),
+                        _p(next_obs[sl], _u8p), _p(action[sl], _i32p),
+                        _p(reward[sl], _f32p), _p(discount[sl], _f32p),
+                    )
+                    return rc, (t0, time.monotonic())
+
+                futs = [
+                    self._pool.submit(one, s)
+                    for s in range(self.n_stripes)
+                ]
+                results = [f.result() for f in futs]
+                self.last_stripe_spans = [span for _, span in results]
+                if any(rc == -1 for rc, _ in results):
+                    raise ValueError("cannot sample from an empty replay")
+                weights /= weights.max()
+        return PrioritizedBatch(
+            transition=NStepTransition(
+                obs=obs, action=action, reward=reward,
+                discount=discount, next_obs=next_obs,
+            ),
+            indices=idx.astype(np.int32),
+            is_weights=weights.astype(np.float32),
+        )
+
+    def update_priorities(self, indices, priorities) -> None:
+        idx = np.ascontiguousarray(indices, np.int64)
+        prio = np.ascontiguousarray(priorities, np.float32)
+        if idx.size == 0:
+            return
+        with self._lock:
+            if self.n_stripes == 1:
+                self._lib.rc_update(
+                    self._handle, idx.shape[0], _p(idx, _i64p),
+                    _p(prio, _f32p)
+                )
+            else:
+                # Fan-out: each stripe worker scans the batch and applies
+                # only its own slots — no cross-stripe lock contention,
+                # in-order last-write-wins preserved within each stripe
+                # (slot -> stripe is a partition, so across-stripe order
+                # cannot matter).
+                futs = [
+                    self._pool.submit(
+                        self._lib.rc_update_stripe, self._handle, s,
+                        idx.shape[0], _p(idx, _i64p), _p(prio, _f32p),
+                    )
+                    for s in range(self.n_stripes)
+                ]
+                for f in futs:
+                    f.result()
+            if self._ckpt is not None:
+                self._dirty.append(idx.copy())
+                self._dirty_rows += idx.shape[0]
+                if self._dirty_rows > 4 * self.capacity:
+                    # Sparse record rivals a base — retrack from scratch.
+                    self._dirty, self._dirty_rows = [], 0
+                    self._ckpt = None
+
+    # -- misc ------------------------------------------------------------
+
+    def size(self) -> int:
+        return int(self._lib.rc_size(self._handle))
+
+    @property
+    def total_added(self) -> int:
+        return int(self._lib.rc_count(self._handle))
+
+    @property
+    def stats(self) -> dict:
+        return {
+            "frame_dead": int(self._lib.rc_frame_dead(self._handle)),
+            "dropped_carry": self._resolver.dropped_carry,
+        }
+
+    def frames_nbytes(self) -> int:
+        return self.frame_capacity * self.frame_bytes
+
+    def max_priority(self) -> float:
+        m = float(self._lib.rc_max(self._handle))
+        return float(m ** (1.0 / self.alpha)) if m > 0 else 1.0
+
+    # -- snapshot --------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        with self._lock:
+            return self._state_dict_locked()
+
+    def _state_dict_locked(self, cold_refs: bool = False) -> dict:
+        size = self.size()
+        nf = min(int(self._lib.rc_fcount(self._handle)),
+                 self.frame_capacity)
+        # Frame leg first: cold_refs=True on a tiered ring references cold
+        # spans by (offset, len, crc) into the spill file — a mostly-cold
+        # base must not page the whole ring back in just to checkpoint.
+        refs = None
+        if cold_refs and self._tier is not None:
+            refs = self._tier.cold_refs(nf)
+        if refs is None:
+            if self._tier is not None:
+                self._ensure_hot_all_locked()
+            frames = np.empty((nf, *self.obs_shape), np.uint8)
+            frames_p = _p(frames, _u8p)
+        else:
+            frames = None
+            # rc_export still wants a destination; rows come from
+            # rc_export_rows below instead, so skip it entirely.
+        obs_seq = np.empty(size, np.int64)
+        next_seq = np.empty(size, np.int64)
+        action = np.empty(size, np.int32)
+        reward = np.empty(size, np.float32)
+        discount = np.empty(size, np.float32)
+        alive = np.empty(size, np.uint8)
+        mass = np.empty(size, np.float64)
+        if refs is None:
+            self._lib.rc_export(
+                self._handle, frames_p, _p(obs_seq, _i64p),
+                _p(next_seq, _i64p), _p(action, _i32p), _p(reward, _f32p),
+                _p(discount, _f32p), _p(alive, _u8p), _p(mass, _f64p),
+            )
+        else:
+            self._lib.rc_export_rows(
+                self._handle, 0, size, _p(obs_seq, _i64p),
+                _p(next_seq, _i64p), _p(action, _i32p), _p(reward, _f32p),
+                _p(discount, _f32p), _p(alive, _u8p), _p(mass, _f64p),
+            )
+        src_ids, src_state = self._resolver.state_arrays()
+        out = {
+            "dedup": np.asarray(True),
+            "obs_seq": obs_seq, "next_seq": next_seq,
+            "action": action, "reward": reward, "discount": discount,
+            "alive": alive.astype(bool),
+            "tree_priorities": mass,
+            "cursor": int(self._lib.rc_cursor(self._handle)),
+            "count": self.total_added,
+            "fcount": int(self._lib.rc_fcount(self._handle)),
+            "frame_dead": int(self._lib.rc_frame_dead(self._handle)),
+            "dropped_carry": self._resolver.dropped_carry,
+            "frame_capacity": self.frame_capacity,
+            "src_ids": src_ids, "src_state": src_state,
+        }
+        if refs is None:
+            out["frames"] = frames
+        else:
+            out.update(refs)
+        return out
+
+    # -- incremental snapshot (utils/checkpoint_inc delta protocol) -------
+    # Dict format is IDENTICAL to DedupReplay's delta — chains written by
+    # either implementation restore into the other (the numpy twin stays
+    # the native core's oracle all the way through checkpointing).
+
+    def delta_state_dict(self, force_base: bool = False) -> dict:
+        with self._lock:
+            count = self.total_added
+            fcount = int(self._lib.rc_fcount(self._handle))
+            cursor = int(self._lib.rc_cursor(self._handle))
+            prev = self._ckpt
+            n_new = count - (prev[0] if prev else 0)
+            f_new = fcount - (prev[2] if prev else 0)
+            if (force_base or prev is None or n_new >= self.capacity
+                    or f_new >= self.frame_capacity):
+                out = self._state_dict_locked(cold_refs=True)
+                out["chain_mark"] = np.asarray([count, fcount], np.int64)
+                self._mark_locked(count, cursor, fcount)
+                return out
+            prev_count, prev_cursor, prev_fcount, alive_mark = prev
+            span = (prev_cursor + np.arange(n_new)) % self.capacity
+            obs_seq = np.empty(n_new, np.int64)
+            next_seq = np.empty(n_new, np.int64)
+            action = np.empty(n_new, np.int32)
+            reward = np.empty(n_new, np.float32)
+            discount = np.empty(n_new, np.float32)
+            alive = np.empty(n_new, np.uint8)
+            mass = np.empty(n_new, np.float64)
+            self._lib.rc_export_rows(
+                self._handle, prev_cursor, n_new, _p(obs_seq, _i64p),
+                _p(next_seq, _i64p), _p(action, _i32p), _p(reward, _f32p),
+                _p(discount, _f32p), _p(alive, _u8p), _p(mass, _f64p),
+            )
+            fspan = (prev_fcount + np.arange(f_new)) % self.frame_capacity
+            frames = np.empty((f_new, *self.obs_shape), np.uint8)
+            if self._tier is not None and f_new:
+                # The freshly written span may already have been evicted
+                # (tiny hot budgets) — fault it for the export.
+                self._tier.ensure_hot(self._tier.spans_of_run(
+                    prev_fcount % self.frame_capacity, f_new
+                ))
+            self._lib.rc_export_frames_span(
+                self._handle, prev_fcount, f_new, _p(frames, _u8p)
+            )
+            # Sparse: recorded restamps ∪ sweep-invalidated (alive diff —
+            # the sweep runs inside rc_add, C-side).
+            alive_now = np.empty(self.capacity, np.uint8)
+            self._lib.rc_export_alive(self._handle, _p(alive_now, _u8p))
+            parts = [np.nonzero(alive_mark != alive_now)[0]]
+            if self._dirty:
+                parts.append(np.concatenate(self._dirty))
+            dirty = np.unique(np.concatenate(parts))
+            dirty = np.ascontiguousarray(
+                dirty[(dirty >= 0) & (dirty < self.capacity)]
+            )
+            dmass = np.empty(dirty.shape[0], np.float64)
+            self._lib.rc_export_mass(
+                self._handle, dirty.shape[0], _p(dirty, _i64p),
+                _p(dmass, _f64p),
+            )
+            src_ids, src_state = self._resolver.state_arrays()
+            out = {
+                "delta": np.asarray(True),
+                "dedup": np.asarray(True),
+                "chain_prev": np.asarray([prev_count, prev_fcount], np.int64),
+                "chain_mark": np.asarray([count, fcount], np.int64),
+                "span_idx": span,
+                "span_obs_seq": obs_seq,
+                "span_next_seq": next_seq,
+                "span_action": action,
+                "span_reward": reward,
+                "span_discount": discount,
+                "span_alive": alive.astype(bool),
+                "span_tree": mass,
+                "fspan_idx": fspan,
+                "fspan_frames": frames,
+                "prio_idx": dirty,
+                "prio_mass": dmass,
+                "prio_alive": alive_now[dirty].astype(bool),
+                "cursor": cursor,
+                "count": count,
+                "fcount": fcount,
+                "frame_dead": int(self._lib.rc_frame_dead(self._handle)),
+                "dropped_carry": self._resolver.dropped_carry,
+                "frame_capacity": self.frame_capacity,
+                "src_ids": src_ids,
+                "src_state": src_state,
+            }
+            self._mark_locked(count, cursor, fcount, alive_now)
+            return out
+
+    def _mark_locked(self, count, cursor, fcount, alive_now=None) -> None:
+        if alive_now is None:
+            alive_now = np.empty(self.capacity, np.uint8)
+            self._lib.rc_export_alive(self._handle, _p(alive_now, _u8p))
+        self._ckpt = (count, cursor, fcount, alive_now)
+        self._dirty, self._dirty_rows = [], 0
+
+    def apply_delta_state_dict(self, delta: dict) -> None:
+        with self._lock:
+            if "delta" not in delta:
+                raise ValueError("not a delta snapshot (missing 'delta' key)")
+            if int(delta["frame_capacity"]) != self.frame_capacity:
+                raise ValueError(
+                    f"delta frame ring {int(delta['frame_capacity'])} != "
+                    f"configured {self.frame_capacity}"
+                )
+            prev = np.asarray(delta["chain_prev"]).reshape(-1)
+            count, fcount = self.total_added, int(
+                self._lib.rc_fcount(self._handle)
+            )
+            if int(prev[0]) != count or int(prev[1]) != fcount:
+                raise ValueError(
+                    f"delta chain discontinuity: delta continues "
+                    f"(count, fcount)=({int(prev[0])}, {int(prev[1])}), "
+                    f"replay is at ({count}, {fcount})"
+                )
+            n_new = int(delta["count"]) - int(prev[0])
+            f_new = int(delta["fcount"]) - int(prev[1])
+            start = (int(delta["cursor"]) - n_new) % self.capacity
+            self._lib.rc_import_rows(
+                self._handle, start, n_new,
+                _p(np.ascontiguousarray(delta["span_obs_seq"], np.int64), _i64p),
+                _p(np.ascontiguousarray(delta["span_next_seq"], np.int64), _i64p),
+                _p(np.ascontiguousarray(delta["span_action"], np.int32), _i32p),
+                _p(np.ascontiguousarray(delta["span_reward"], np.float32), _f32p),
+                _p(np.ascontiguousarray(delta["span_discount"], np.float32), _f32p),
+                _p(np.ascontiguousarray(delta["span_alive"], np.uint8), _u8p),
+                _p(np.ascontiguousarray(delta["span_tree"], np.float64), _f64p),
+            )
+            if self._tier is not None and f_new:
+                self._tier.note_write(
+                    int(prev[1]) % self.frame_capacity, f_new
+                )
+            self._lib.rc_import_frames_span(
+                self._handle, int(prev[1]), f_new,
+                _p(np.ascontiguousarray(delta["fspan_frames"], np.uint8), _u8p),
+            )
+            pidx = np.ascontiguousarray(delta["prio_idx"], np.int64)
+            self._lib.rc_apply_sparse(
+                self._handle, pidx.shape[0], _p(pidx, _i64p),
+                _p(np.ascontiguousarray(delta["prio_alive"], np.uint8), _u8p),
+                _p(np.ascontiguousarray(delta["prio_mass"], np.float64), _f64p),
+            )
+            self._lib.rc_set_counters(
+                self._handle, int(delta["cursor"]), int(delta["count"]),
+                int(delta["fcount"]), int(delta["frame_dead"]),
+            )
+            self._resolver.dropped_carry = int(delta["dropped_carry"])
+            self._resolver.load_state_arrays(
+                delta["src_ids"], delta["src_state"]
+            )
+            self._mark_locked(
+                int(delta["count"]), int(delta["cursor"]),
+                int(delta["fcount"]),
+            )
+
+    def load_state_dict(self, state: dict) -> None:
+        if "dedup" not in state:
+            raise ValueError("snapshot is not a dedup-replay snapshot")
+        if int(state["frame_capacity"]) != self.frame_capacity:
+            raise ValueError(
+                f"snapshot frame ring {int(state['frame_capacity'])} != "
+                f"configured {self.frame_capacity}"
+            )
+        size = state["obs_seq"].shape[0]
+        if size > self.capacity:
+            raise ValueError("snapshot larger than capacity")
+        with self._lock:
+            nf = min(int(state["fcount"]), self.frame_capacity)
+            tiered_base = "tier_hot_sids" in state
+            adopt = False
+            if tiered_base:
+                from ape_x_dqn_tpu_torch.replay.tiered import read_cold_refs_dense
+
+                span_frames = int(
+                    np.asarray(state["tier_span_frames"]).reshape(-1)[0]
+                )
+                tier_cap = int(
+                    np.asarray(state["tier_capacity"]).reshape(-1)[0]
+                )
+                adopt = (self._tier is not None
+                         and self._tier.span_frames == span_frames
+                         and self._tier.capacity == tier_cap)
+                if adopt:
+                    # O(hot) restore: rows import with an empty frame leg;
+                    # spans land below (hot inline, cold verified+adopted
+                    # in place — the spill file IS the restored data).
+                    frames = np.zeros((0, *self.obs_shape), np.uint8)
+                else:
+                    # Incompatible/no tier: materialize every referenced
+                    # span (CRC- and content-verified) into a dense leg.
+                    frames = np.ascontiguousarray(
+                        read_cold_refs_dense(state)[:nf], np.uint8
+                    )
+            else:
+                frames = np.ascontiguousarray(state["frames"], np.uint8)
+            rc = self._lib.rc_import(
+                self._handle, frames.shape[0], _p(frames, _u8p), size,
+                _p(np.ascontiguousarray(state["obs_seq"], np.int64), _i64p),
+                _p(np.ascontiguousarray(state["next_seq"], np.int64), _i64p),
+                _p(np.ascontiguousarray(state["action"], np.int32), _i32p),
+                _p(np.ascontiguousarray(state["reward"], np.float32), _f32p),
+                _p(np.ascontiguousarray(state["discount"], np.float32), _f32p),
+                _p(np.ascontiguousarray(
+                    state["alive"], np.uint8), _u8p),
+                _p(np.ascontiguousarray(
+                    state["tree_priorities"], np.float64), _f64p),
+                int(state["cursor"]), int(state["count"]),
+                int(state["fcount"]),
+            )
+            if rc != 0:
+                raise ValueError("rc_import rejected the snapshot")
+            # Accounting parity with the numpy twin: dropped_carry /
+            # frame_dead survive resume (pre-incremental snapshots lack
+            # the keys — degrade to 0).
+            self._lib.rc_set_counters(
+                self._handle, int(state["cursor"]), int(state["count"]),
+                int(state["fcount"]), int(state.get("frame_dead", 0)),
+            )
+            self._resolver.dropped_carry = int(state.get("dropped_carry", 0))
+            self._resolver.load_state_arrays(
+                state["src_ids"], state["src_state"]
+            )
+            if self._tier is not None:
+                self._tier.drop_all()
+                if adopt:
+                    from ape_x_dqn_tpu_torch.replay.tiered import ColdSpanStore
+
+                    tier = self._tier
+                    path = bytes(np.asarray(
+                        state["tier_spill_path"], np.uint8)).decode()
+                    same = (os.path.realpath(path)
+                            == os.path.realpath(tier.store.path))
+                    src = tier.store if same else ColdSpanStore(
+                        path, tier.n_spans, tier.span_bytes
+                    )
+                    try:
+                        hot_sids = np.asarray(
+                            state["tier_hot_sids"], np.int64)
+                        hot_frames = np.asarray(state["tier_hot_frames"])
+                        off = 0
+                        for sid in hot_sids:
+                            n = tier._span_len(int(sid))
+                            tier.install_hot(
+                                int(sid), hot_frames[off:off + n]
+                            )
+                            off += n
+                        for sid, offset, length, crc in zip(
+                            np.asarray(state["tier_cold_sids"], np.int64),
+                            np.asarray(state["tier_cold_offsets"],
+                                       np.int64),
+                            np.asarray(state["tier_cold_lens"], np.int64),
+                            np.asarray(state["tier_cold_crcs"], np.int64),
+                        ):
+                            tier.adopt_cold_ref(
+                                int(sid), int(offset), int(length),
+                                int(crc), src,
+                            )
+                    finally:
+                        if not same:
+                            src.close()
+                elif nf:
+                    # Dense restore into a tiered ring: the whole written
+                    # region just landed hot; the evictor trims it back
+                    # under budget.
+                    self._tier.note_write(0, nf)
+            self._ckpt, self._dirty, self._dirty_rows = None, [], 0

@@ -533,6 +533,28 @@ class AsyncPipeline:
         self.trace_on_demand = None
         self.obs_server = None
         self.obs_port = None
+        self._build_tier_obs()
+
+    def _build_tier_obs(self) -> None:
+        """The tiered replay's instruments (JAX :508-537), only when the host
+        replay runs with a hot frame budget: three gauges on the registry
+        (``/metrics``), the tier dict as the ``replay_tier`` ``/varz``
+        provider and JSONL section; the host loop runs a ``TierEvictor``
+        thread beside it (spills never ride the learner thread)."""
+        self._tier_evictor = None
+        replay = self.comps.replay
+        tier = getattr(replay, "tier", None)
+        if tier is None:
+            return
+        reg = self.obs_registry
+        reg.gauge("replay/spilled_bytes", help="bytes written to the replay cold tier"
+                  ).set_fn(lambda: tier.spilled_bytes)
+        reg.gauge("replay/fault_reads", help="cold-span fault reads on the sample path"
+                  ).set_fn(lambda: tier.fault_reads)
+        reg.gauge("replay/hot_bytes", help="resident frame bytes in the replay hot tier"
+                  ).set_fn(lambda: tier.hot_bytes)
+        reg.register_provider("replay_tier", replay.tier_stats)
+        self.register_jsonl_section("replay_tier", replay.tier_stats)
 
     def _resolve_postmortem_dir(self) -> Optional[str]:
         """``obs.postmortem_dir``: a path is used as given; "auto" is
@@ -916,8 +938,17 @@ class AsyncPipeline:
     def _run_host(self, target: int) -> dict:
         cfg = self.cfg
         metrics = None
+        evictor = None
+        if getattr(self.comps.replay, "tier", None) is not None:
+            from ape_x_dqn_tpu_torch.replay.tiered import TierEvictor
+
+            evictor = self._tier_evictor = TierEvictor(self.comps.replay)
         try:
             self.worker.start()
+            if evictor is not None:
+                evictor.start()
+                self.health.register("tier_evictor",
+                                     lambda: time.monotonic() - evictor.heartbeat)
             self._wait_for_warmup(WARMUP_TIMEOUT_S)
             t0 = time.monotonic()
             with PrefetchQueue(self._sample, place_fn=self._place,
@@ -960,11 +991,15 @@ class AsyncPipeline:
         finally:
             self.stop_event.set()
             self.worker.join()
+            if evictor is not None and evictor.is_alive():
+                evictor.stop()
             self._publisher.close()
             self._close_checkpoints()
             self._close_central()
         if self.worker.error is not None:
             raise RuntimeError("actor worker died") from self.worker.error
+        if evictor is not None and evictor.error is not None:
+            raise RuntimeError("tier evictor died") from evictor.error
         # The final emit carries the last step's metrics (one host read), so
         # the returned record always has learner/loss.
         return self._emit(metrics, final=True)

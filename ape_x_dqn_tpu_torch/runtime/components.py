@@ -3,7 +3,10 @@
 Port of ``ape_x_dqn_tpu/runtime/components.build_components``: both
 runtimes — the single-process driver and the async pipeline — wire the same
 objects here.  With ``learner.device_replay=false`` (the default) the
-replay is the host ``PrioritizedReplay`` (numpy, native sum-tree); with
+replay is the host ``PrioritizedReplay`` (numpy, native sum-tree), or with
+``replay.dedup=true`` the host ``DedupReplay`` (one frame ring, fed by
+fleets that emit ``DedupChunk``s); ``replay.hot_frame_budget_bytes > 0``
+tiers either's frames over a spill file (``resolve_spill_dir``).  With
 ``true`` it is ``None`` and the fused learner owns a device ring, the
 frame-dedup ring with ``replay.dedup=true`` (``FusedDedupLearner``, fed by
 fleets that emit ``DedupChunk``s).  The network, train state and actors
@@ -23,7 +26,9 @@ warns and starts from scratch, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
+import tempfile
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -52,7 +57,7 @@ class Components:
     network: torch.nn.Module
     optimizer: Optimizer
     state: TrainState
-    replay: Optional[PrioritizedReplay]   # None in device-replay mode
+    replay: Optional[PrioritizedReplay]   # or a DedupReplay; None in device-replay mode
     env_fns: List[Callable]
     device: torch.device
     restored_path: Optional[str] = None   # the checkpoint resumed from, if any
@@ -151,6 +156,19 @@ def dedup_groups(cfg: ApexConfig) -> int:
     return 1
 
 
+def resolve_spill_dir(cfg: ApexConfig) -> str:
+    """Where the cold tier's spill files live (JAX :192-207).  "auto": a
+    checkpointed run's ``<checkpoint_dir>/replay_spill`` (incremental bases
+    reference cold spans by offset into the same tree), else a per-pid
+    directory under the temp dir."""
+    d = cfg.replay.spill_dir
+    if d != "auto":
+        return d
+    if cfg.learner.checkpoint_every:
+        return os.path.join(cfg.learner.checkpoint_dir, "replay_spill")
+    return os.path.join(tempfile.gettempdir(), f"apex-spill-{os.getpid()}")
+
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
 
 
@@ -206,15 +224,36 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
     )
     state = init_train_state(network, optimizer, seed=cfg.seed, device=device,
                              target_dtype=_DTYPES[cfg.learner.target_dtype])
+    # Tiered frame store (replay/tiered.py): a positive hot budget caps the
+    # host replay's resident frame bytes (JAX :254-311).
+    tier_kwargs = {}
+    if cfg.replay.hot_frame_budget_bytes > 0:
+        tier_kwargs = dict(
+            hot_frame_budget_bytes=cfg.replay.hot_frame_budget_bytes,
+            spill_dir=resolve_spill_dir(cfg),
+            spill_span_frames=cfg.replay.spill_span_frames,
+            spill_watermark_high=cfg.replay.spill_watermark_high,
+            spill_watermark_low=cfg.replay.spill_watermark_low,
+        )
     if cfg.learner.device_replay:
         # The fused learner keeps the ring on the device; a host replay here
         # would be ~capacity × 2 frames of dead host memory.
         replay = None
+    elif cfg.replay.dedup:
+        from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
+
+        replay = DedupReplay(
+            cfg.replay.capacity, obs_shape,
+            priority_exponent=cfg.replay.priority_exponent,
+            frame_ratio=cfg.replay.frame_ratio,
+            **tier_kwargs,
+        )
     else:
         replay = PrioritizedReplay(
             cfg.replay.capacity, obs_shape,
             priority_exponent=cfg.replay.priority_exponent,
             frame_compression=cfg.replay.frame_compression,
+            **tier_kwargs,
         )
     restored_path = _restore(cfg, state, replay)
     env_fns = [

@@ -36,10 +36,14 @@ Layout under ``<root>/replay_inc<suffix>/``:
     chunk_<G>_<k>.ckpt    — k-th delta after base G (k >= 1)
     MANIFEST.json         — atomic commit marker, written LAST
 
-The tiered store's cold-span refs (``tier_cold_*`` arrays) are not part of
-the port yet: restoring such a chunk raises ``NotPortedError`` by name.
-Replays without the delta protocol write a full base at every save, still
-off the learner thread.
+A tiered replay's base (``replay/tiered.py``) embeds its hot frames and
+references every cold span by (offset, length, crc) into the spill file
+(``tier_cold_*`` arrays) instead of reading the cold tier back in; the
+restore verifies each referenced record, and a torn or drifted one is a
+typed ``ColdSpanCorrupt`` (a ``ChunkCorrupt``), which the fallback walk
+treats like a torn chunk.  The manifest carries ``cold_ref_bytes`` and the
+``spill_file``.  Replays without the delta protocol write a full base at
+every save, still off the learner thread.
 """
 
 from __future__ import annotations
@@ -280,7 +284,6 @@ def _apply_chain(directory: str, replay, chunks: list) -> None:
             f"{chunks[0]}: generation head is a delta, not a base",
             path=head,
         )
-    _refuse_cold_refs(head, base)
     replay.load_state_dict(base)
     for name in chunks[1:]:
         path = os.path.join(directory, name)
@@ -289,19 +292,7 @@ def _apply_chain(directory: str, replay, chunks: list) -> None:
         except FileNotFoundError as e:
             raise ChunkCorrupt(f"{path}: referenced chunk missing",
                                path=path) from e
-        _refuse_cold_refs(path, delta)
         replay.apply_delta_state_dict(delta)
-
-
-def _refuse_cold_refs(path: str, arrays: dict) -> None:
-    if any(k.startswith("tier_cold_") for k in arrays):
-        from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
-
-        raise NotPortedError(
-            f"{path}: cold-span refs into a spill file (the tiered frame "
-            "store, replay/tiered.py, ROADMAP item 4) are not part of the "
-            "port yet"
-        )
 
 
 def load_incremental_replay(root: str, replay, suffix: str = "",
@@ -596,6 +587,22 @@ class IncrementalCheckpointer:
                            if mark is not None else None),
             "bytes": nbytes,
         }
+        if "tier_cold_lens" in arrays:
+            # Tiered base: how much replay data lives only as cold-span refs
+            # (the restore needs the spill file for it).
+            hot = arrays.get("tier_hot_frames")
+            frame_bytes = (int(np.prod(hot.shape[1:])) * hot.dtype.itemsize
+                           if hot is not None and hot.ndim > 1 else 0)
+            cold_frames = int(np.asarray(arrays["tier_cold_lens"]).sum())
+            manifest["cold_ref_bytes"] = cold_frames * frame_bytes
+            manifest["spill_file"] = bytes(np.asarray(
+                arrays["tier_spill_path"], np.uint8)).decode()
+        elif not is_base and self._manifest is not None \
+                and "cold_ref_bytes" in self._manifest:
+            # A delta rewrites the manifest; the generation's base still
+            # references its cold spans, so the accounting carries.
+            manifest["cold_ref_bytes"] = self._manifest["cold_ref_bytes"]
+            manifest["spill_file"] = self._manifest.get("spill_file")
         _write_manifest(self._dir, manifest)  # the commit
         self._manifest = manifest
         if is_base:

@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
   1. device   — the card's name and count, and nvidia-smi's name and
                 power limit;
   2. build    — compile the sampling kernel (``ops/csrc/sampling.cu``) from
-                the checkout with nvcc, and the host replay's native
-                sum-tree (``_native/sum_tree.cc``) with g++, timed;
+                the checkout with nvcc, and the host replays' C++ cores
+                (``_native/sum_tree.cc``, ``_native/replay_core.cc``) with
+                g++, timed;
   3. kernel   — hold the kernel against its plain PyTorch version at
                 C = 100 000 and 2 000 000, B = 32 and 4096, and at the dedup
                 path's C = 2 000 000, B = 65 536 (plain, and with 20 % of
@@ -69,6 +70,40 @@ Phases, each printing one JSON line:
  10. proc_host_train — the same on the host-replay path (phase 7's), with
                 ``stage_us``, the replay's frame bytes and 0 sampler
                 launches;
+ 10a. host_dedup_parity — the host frame-dedup replay on this machine's
+                host: the numpy ``DedupReplay`` and the C++
+                ``NativeDedupReplay`` (n_stripes 1) over one seeded stream of
+                84×84 chunks (C = 4 096, frame ratio 0.75: wraps, frame
+                death, a carry gap): identical slots, indices and frame
+                bytes, IS weights within rtol 2e-7; a tiered twin of each
+                (a fifth of the ring hot) byte-identical to its dense twin
+                with spills and fault reads > 0 (``tools/spill_smoke.py``
+                gate 1 on the port); 0 sampler launches;
+ 10b. host_dedup_train — this slice's main path: config3's learner on host
+                replay: ``proc_host_train``'s run with the host
+                ``DedupReplay`` at 2 000 000 slots (frame ratio 1.25, a
+                lazily touched 17.64 GB ring), bf16 ν and target.  Checks:
+                the steps, the train state on the card, 0 sampler launches,
+                0 frame-dead slots, the workers' checks.  Learner steps/s,
+                actor fps, frames and frame bytes per transition beside
+                ``proc_host_train``'s; RSS and ``MemAvailable`` before and
+                after;
+ 10c. tier_train — phase 10b with ``replay.hot_frame_budget_bytes`` 32 MiB
+                under an 8 192-row warm-up, the exporter on and incremental
+                checkpoints: hot bytes within the budget (plus the prefetch
+                queue's samples' and one chunk's spans) at every JSONL
+                record, spills and faults > 0, ``/healthz`` 200 at every
+                scrape with the ``tier_evictor`` heartbeat; then a fresh
+                ``train.main`` restores the chain (cold spans adopted by
+                ref): size, total_added and a fixed-generator sample equal
+                to the saved replay's, and 64 more steps.  Base bytes
+                against a dense base, restore s, fault ms;
+ 10d. host_dedup_2m — host only: ``bench.py``'s ``host_dedup_2m`` on the
+                port's ``NativeDedupReplay`` at 2 000 000 slots half full,
+                n_stripes 1 and 4 (pairs/s, adds/s, frame GB), and its
+                ``replay_tiered`` point at 200 000 slots (in core against
+                tiered, spills and faults); ``MemAvailable`` and free disk
+                first;
  11. dedup_parity — the frame-dedup ring (C = 4 096, Cf = 5 120, catch:84
                 frames from a seeded fleet, > 3 frame-ring wraps) on the card
                 against the same ring on the CPU: mass, refs and counters
@@ -270,9 +305,11 @@ Phases, each printing one JSON line:
                 version 3; ``serve --param-tail`` over a
                 ``ParamTailWriter`` chain (a full, a delta) serves the same
                 versions with the same q;
- 25. kernels  — one JSON object per ported kernel with its launches on this
-                slice's main path (atari_train) and on each path, error,
-                times and bound at that path's shape (C = 2M, T = 65 536).
+ 25. kernels  — one JSON object per ported kernel with its launches on
+                atari_train (the sampler's main path) and on each path (the
+                host paths' 0 each), error, times and bound at that path's
+                shape (C = 2M, T = 65 536), after a line with the whole
+                smoke's seconds.
 Every device-replay phase (4, 5, 9, 11–14, 14a, 16–23, 16a, 21b) runs each fused call as
 CUDA-graph replays, the port's only device path.  Every process phase
 checks that no /dev/shm segment of the run (rings, param buffers, worker
@@ -281,7 +318,8 @@ stats blocks) is left.  Checkpoints go under the checkout's
 ``build/obs_smoke/``, the join spec under
 ``build/remote_join_smoke/``, the param tail under
 ``build/param_tail_smoke/``, serve_fleet's stderr under
-``build/fleet_smoke/``; all are removed at the end.
+``build/fleet_smoke/``, the spill files and tier_train's chain under
+``build/spill_smoke/``; all are removed at the end.
 The line before the last is nvidia-smi's "name, power limit"; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, the kernel does not build, or any check fails.
@@ -307,7 +345,11 @@ SEED = 0
 # slots, warm-up rows (cut from 50 000).
 DEDUP_K = 2048
 DEDUP_SLOTS = 2_000_000
-DEDUP_WARMUP = 16_384
+# Warm-up rows of the dedup phases (config3: 50 000), cut to 4 096 to make
+# room in the smoke's time; atari_train, this smoke's longest-standing main
+# path, keeps 16 384.
+DEDUP_WARMUP = 4_096
+ATARI_WARMUP = 16_384
 
 
 def emit(obj) -> None:
@@ -676,7 +718,9 @@ def capture_pipelines():
         AsyncPipeline.run = run
 
 
-def run_train(argv):
+def run_train(argv, records: list | None = None):
+    """``train.main(argv)`` with its stdout captured: (final record, wall s).
+    ``records``, when given, receives every JSONL record of the run."""
     from ape_x_dqn_tpu_torch import train
 
     out = io.StringIO()
@@ -684,8 +728,9 @@ def run_train(argv):
     with contextlib.redirect_stdout(out):
         rc = train.main(argv)
     wall = time.monotonic() - t0
-    records = [json.loads(line) for line in out.getvalue().splitlines()
-               if line.startswith("{")]
+    records = records if records is not None else []
+    records += [json.loads(line) for line in out.getvalue().splitlines()
+                if line.startswith("{")]
     final = records[-1] if records else {}
     if rc != 0 or not final.get("final"):
         raise AssertionError(f"train.main returned {rc} without a final record")
@@ -1187,7 +1232,7 @@ def timed_fused_calls():
 
 
 def config3_argv(steps: int, actors: int = 16, workers: int = 2, depth: int = 1,
-                 sync_every: int = 0) -> list:
+                 sync_every: int = 0, warmup: int = DEDUP_WARMUP) -> list:
     """``train.main``'s arguments for config3's learner on one card (the
     dedup phases' configuration; their docstrings list the cuts)."""
     K = DEDUP_K
@@ -1202,7 +1247,7 @@ def config3_argv(steps: int, actors: int = 16, workers: int = 2, depth: int = 1,
             "--set", "learner.target_dtype=bfloat16",
             "--set", "learner.q_target_sync_freq=2500", "--set", "learner.publish_every=2500",
             "--set", "learner.replay_sample_size=32",
-            "--set", f"learner.min_replay_mem_size={DEDUP_WARMUP}",
+            "--set", f"learner.min_replay_mem_size={warmup}",
             "--set", "actor.mode=process", "--set", f"actor.num_workers={workers}",
             "--set", f"actor.num_actors={actors}", "--set", "actor.num_steps=3",
             "--set", "actor.flush_every=16", "--set", "actor.sync_every=500",
@@ -1222,7 +1267,7 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
     256actors_2m.json``) on one card: the frame-dedup ring at 2 000 000
     slots, sample-ahead K = 2048, bf16 second moment and target, process
     actors.  Cut, each listed in the output: catch:84 for Seaquest, 2
-    workers × ``actors`` / 2 actors for 8 × 32, warm-up 16 384 for 50 000,
+    workers × ``actors`` / 2 actors for 8 × 32, warm-up 4 096 for 50 000,
     ``calls`` fused calls, data_parallel 1 for 4.  ``overlap``: the
     overlapped pipeline (``overlap_train``: depth 2, a sync every K steps),
     reported beside ``beside`` (``dedup_train``'s result).  ``central``:
@@ -3786,7 +3831,7 @@ def atari_argv(steps: int) -> list:
     DQN stack over fake-atari, the supervisor, the exporter and the chaos
     schedule of ``ATARI_CHAOS``."""
     K = DEDUP_K
-    argv = config3_argv(steps, depth=2, sync_every=K) + [
+    argv = config3_argv(steps, depth=2, sync_every=K, warmup=ATARI_WARMUP) + [
         "--set", "env.name=fake-atari", "--set", "env.frame_skip=4",
         "--set", "env.frame_stack=1", "--set", "env.episodic_life=true",
         "--set", "env.clip_rewards=true",
@@ -3944,7 +3989,7 @@ def phase_atari_train(sampling, card: str, beside: dict) -> dict:
         "cuts": {"env": "Seaquest ROM absent: fake-atari (the full DQN stack over the "
                         "ALE-faithful fake emulator) for SeaquestNoFrameskip-v4",
                  "actors": "2 workers x 8 actors for 8 x 32",
-                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "min_replay_mem_size": f"{ATARI_WARMUP} for 50000",
                  "steps": f"{calls} fused calls ({calls * K} steps) for 2000000, stopped "
                           "once the controller's faults were done",
                  "data_parallel": "1 for 4",
@@ -4131,6 +4176,639 @@ def phase_serve_delay(card: str, requests: int = 100, delay_ms: float = 5.0) -> 
     return result
 
 
+# -- host frame-dedup replay and the tiered store ------------------------------
+
+SPILL_ROOT = os.path.join(REPO_DIR, "build", "spill_smoke")
+ATARI_OBS = (84, 84, 1)
+HOST_DEDUP_STEPS = 512
+# tier_train: a 32 MiB hot budget (~4 750 frames) under a warm-up that
+# outgrows it, so the tier spills and faults inside the phase.
+TIER_BUDGET = 32 << 20
+TIER_WARMUP = 8_192
+TIER_CKPT_EVERY = 128
+
+
+def mem_info() -> dict:
+    """``MemAvailable`` from /proc/meminfo and this process's ``VmRSS``, bytes."""
+    out = {}
+    for path, key in (("/proc/meminfo", "MemAvailable"), ("/proc/self/status", "VmRSS")):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    out[key] = int(line.split()[1]) * 1024
+    return out
+
+
+def dedup_stream(sources=(1, 2), chunks=60, rows=64, gap=(2, 30), seed=SEED):
+    """A seeded interleaved dedup chunk stream at the Atari frame shape: each
+    source's chunks carry 2 rows into its previous chunk's frames; source
+    ``gap[0]`` skips chunk_seq ``gap[1]`` (its carried rows must drop).
+    Yields (priorities, DedupChunk)."""
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    rng = np.random.default_rng(seed)
+    seq = {s: 0 for s in sources}
+    prev_u = {s: 0 for s in sources}
+    for _ in range(chunks):
+        for src in sources:
+            if (src, seq[src]) == gap:
+                seq[src] += 1
+            carry = 2 if prev_u[src] else 0
+            U = rows + 1
+            m = rows + carry
+            chunk = DedupChunk(
+                frames=rng.integers(0, 256, (U, *ATARI_OBS), dtype=np.uint8),
+                obs_ref=np.concatenate([-np.arange(carry, 0, -1, dtype=np.int32),
+                                        np.arange(rows, dtype=np.int32)]),
+                next_ref=np.concatenate([np.zeros(carry, np.int32),
+                                         np.arange(1, rows + 1, dtype=np.int32)]),
+                action=rng.integers(0, 18, m).astype(np.int32),
+                reward=rng.normal(size=m).astype(np.float32),
+                discount=np.full(m, 0.97, np.float32),
+                source=src, chunk_seq=seq[src], prev_frames=prev_u[src])
+            yield (np.abs(rng.normal(size=m)) + 0.1).astype(np.float32), chunk
+            seq[src] += 1
+            prev_u[src] = U
+
+
+def phase_host_dedup_parity(sampling) -> dict:
+    """``tools/spill_smoke.py`` gate 1 on the port, on this machine's host:
+    the numpy ``DedupReplay`` and the C++ ``NativeDedupReplay``
+    (``n_stripes=1``) take one seeded stream of 84×84 chunks (C = 4 096,
+    frame ratio 0.75: > 2 frame-ring wraps, frame death, a carry gap):
+    identical slots after every add, identical stats, and for 24 samples
+    identical indices and frame bytes, IS weights within rtol 2e-7 (libm's
+    ``pow`` against numpy's), the same restamps applied to both.  A tiered
+    twin of each (hot budget a fifth of the ring, ~64 KiB spans, spills
+    forced between operations) gives byte-identical batches to its dense
+    twin, with spills and fault reads > 0.  No sampler kernel launches."""
+    import shutil
+    import tempfile
+
+    from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
+    from ape_x_dqn_tpu_torch.replay.native_dedup import NativeDedupReplay
+
+    t0 = time.monotonic()
+    C, ratio = 4096, 0.75
+    sampling.sample_indices.launches = 0
+    os.makedirs(os.path.dirname(SPILL_ROOT), exist_ok=True)
+    spill = tempfile.mkdtemp(prefix="host_dedup_parity_", dir=os.path.dirname(SPILL_ROOT))
+    try:
+        ring_bytes = int(round(C * ratio)) * int(np.prod(ATARI_OBS))
+        budget = ring_bytes // 5
+        reps = {
+            "numpy": DedupReplay(C, ATARI_OBS, frame_ratio=ratio),
+            "native": NativeDedupReplay(C, ATARI_OBS, frame_ratio=ratio),
+            "numpy_tiered": DedupReplay(C, ATARI_OBS, frame_ratio=ratio,
+                                        hot_frame_budget_bytes=budget,
+                                        spill_dir=os.path.join(spill, "numpy")),
+            "native_tiered": NativeDedupReplay(C, ATARI_OBS, frame_ratio=ratio,
+                                               hot_frame_budget_bytes=budget,
+                                               spill_dir=os.path.join(spill, "native")),
+        }
+        tiered = ("numpy_tiered", "native_tiered")
+        rows = 0
+        for p, chunk in dedup_stream():
+            slots = {k: r.add(p, chunk) for k, r in reps.items()}
+            for k, v in slots.items():
+                if not np.array_equal(v, slots["numpy"]):
+                    raise AssertionError(f"host_dedup_parity: {k} wrote other slots")
+            for k in tiered:
+                reps[k].spill_cold()
+            rows += len(slots["numpy"])
+        stats = {k: r.stats for k, r in reps.items()}
+        if any(v != stats["numpy"] for v in stats.values()):
+            raise AssertionError(f"host_dedup_parity: stats differ {stats}")
+        if stats["numpy"]["frame_dead"] == 0 or stats["numpy"]["dropped_carry"] == 0:
+            raise AssertionError(f"host_dedup_parity: the stream reached no frame death or "
+                                 f"carry gap: {stats['numpy']}")
+        # Each replay against its reference: the C core against the numpy
+        # replay (IS weights to rtol 2e-7), each tiered twin against its
+        # dense twin (everything byte-identical).
+        ref_of = {"numpy": "numpy", "native": "numpy", "numpy_tiered": "numpy",
+                  "native_tiered": "native"}
+        w_rel = 0.0
+        for t in range(24):
+            b = {k: r.sample(32, beta=0.4, rng=np.random.default_rng(100 + t))
+                 for k, r in reps.items()}
+            for k, v in b.items():
+                ref = b[ref_of[k]]
+                same = (np.array_equal(v.indices, ref.indices)
+                        and all(np.array_equal(getattr(v.transition, f), getattr(ref.transition, f))
+                                for f in ("obs", "next_obs", "action", "reward", "discount")))
+                if not same:
+                    raise AssertionError(f"host_dedup_parity: sample {t} of {k} differs "
+                                         f"from {ref_of[k]}'s")
+                rel = float(np.max(np.abs(v.is_weights - ref.is_weights) / ref.is_weights))
+                w_rel = max(w_rel, rel)
+                if rel > (2e-7 if k == "native" else 0.0):
+                    raise AssertionError(f"host_dedup_parity: IS weights of {k} off by {rel}")
+            upd = np.abs(np.random.default_rng(500 + t).normal(size=32)) + 0.05
+            for k, r in reps.items():
+                r.update_priorities(b["numpy"].indices, upd)
+                if k in tiered:
+                    r.spill_cold()
+        tier_stats = {k: reps[k].tier_stats() for k in tiered}
+        for k, st in tier_stats.items():
+            if st["spill_writes"] <= 0 or st["fault_reads"] <= 0:
+                raise AssertionError(f"host_dedup_parity: {k} spilled {st['spill_writes']} and "
+                                     f"faulted {st['fault_reads']}, want both > 0")
+        for r in reps.values():
+            tier = getattr(r, "tier", None)
+            if tier is not None:
+                tier.close()
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    launches = sampling.sample_indices.launches
+    if launches != 0:
+        raise AssertionError(f"host_dedup_parity: {launches} sampler launches, want 0")
+    result = {"phase": "host_dedup_parity", "capacity": C, "frame_ratio": ratio,
+              "frame_capacity": reps["numpy"].frame_capacity, "rows_added": rows,
+              "stats": stats["numpy"], "samples_compared": 24,
+              "is_weight_max_rel_diff": w_rel, "is_weight_rtol": 2e-7,
+              "hot_budget_bytes": budget, "ring_bytes": ring_bytes,
+              "tier": {k: {kk: st[kk] for kk in ("span_frames", "spill_writes", "spilled_bytes",
+                                                 "fault_reads", "fault_bytes", "fault_ms")}
+                       for k, st in tier_stats.items()},
+              "sampler_launches": launches, "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
+def host_dedup_argv(steps: int, warmup: int) -> list:
+    """``proc_host_train``'s run (phase 7's width, 2 worker processes × 4
+    actors on catch:84, B = 32) with config3's host-side replay: the frame
+    dedup ring at 2 000 000 slots, frame ratio 1.25, bf16 ν and target."""
+    return ["--device", "cuda", "--steps", str(steps), "--log-every", "64",
+            "--set", "actor.mode=process", "--set", "actor.num_workers=2",
+            "--set", "actor.sync_every=100", *FULL_WIDTH,
+            "--set", "replay.capacity=2000000", "--set", "replay.dedup=true",
+            "--set", "replay.frame_ratio=1.25",
+            "--set", "learner.second_moment_dtype=bfloat16",
+            "--set", "learner.target_dtype=bfloat16",
+            "--set", f"learner.min_replay_mem_size={warmup}"]
+
+
+def check_state_on_card(phase: str, pipe) -> str:
+    """The host loop's train state (params, target, ν) all on the card."""
+    state = pipe.comps.state
+    tensors = [*state.params.values(), *state.target_params.values(),
+               *state.opt_state["nu"].values()]
+    if pipe.fused is not None or not all(t.is_cuda for t in tensors):
+        raise AssertionError(f"{phase}: the train state is not on the card")
+    return str(tensors[0].device)
+
+
+def host_dedup_cuts(steps: int, warmup: int) -> dict:
+    return {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine)",
+            "actors": "2 workers x 4 actors for 8 x 32 (proc_host_train's)",
+            "min_replay_mem_size": f"{warmup} for 50000",
+            "steps": f"{steps} for 2000000", "data_parallel": "1 for 4"}
+
+
+def host_replay_rates(phase: str, final: dict, pipe, launches: int, card: str) -> dict:
+    """The gates and rates shared by host_dedup_train and tier_train: the
+    train state on the card, 0 sampler launches, 0 frame-dead slots."""
+    state = pipe.comps.state
+    device = check_state_on_card(phase, pipe)
+    if launches != 0:
+        raise AssertionError(f"{phase}: {launches} sampler launches on the host path")
+    replay = pipe.comps.replay
+    if type(replay).__name__ != "DedupReplay":
+        raise AssertionError(f"{phase}: the replay is a {type(replay).__name__}")
+    if replay.stats["frame_dead"] != 0:
+        raise AssertionError(f"{phase}: {replay.stats['frame_dead']} frame-dead slots")
+    frame_bytes = int(np.prod(pipe.comps.obs_shape))
+    fcount, count = replay._fcount, replay.total_added
+    return {
+        "phase": phase, "card": card, "learner_steps": final["step"],
+        "loss": final["learner/loss"], "sampler_launches": launches,
+        "train_state_on": device,
+        "nu_dtype": str(next(iter(state.opt_state["nu"].values())).dtype),
+        "target_dtype": str(next(iter(state.target_params.values())).dtype),
+        "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
+        "actor_fps": final["actor_fps"], "stage_us": final["stage_us"],
+        "replay": {"capacity": replay.capacity, "frame_capacity": replay.frame_capacity,
+                   "size": replay.size(), "transitions": count, "frames": fcount,
+                   "frames_per_transition": fcount / max(count, 1),
+                   "frame_bytes_per_transition": fcount * frame_bytes / max(count, 1),
+                   "ring_bytes_per_slot": replay.frame_capacity * frame_bytes / replay.capacity,
+                   "frames_nbytes": replay.frames_nbytes(), **replay.stats},
+    }
+
+
+def phase_host_dedup_train(sampling, card: str, beside: dict,
+                           steps: int = HOST_DEDUP_STEPS) -> dict:
+    """This slice's main path: config3's learner on host replay
+    (``learner.device_replay=false``, ``replay.dedup=true``): the host
+    ``DedupReplay`` at 2 000 000 slots (a lazily touched 17.64 GB frame
+    ring), frame ratio 1.25, bf16 ν and target, B = 32, fed by
+    ``proc_host_train``'s 2 worker processes on catch:84.  Checks: the step
+    count, the train state on the card, 0 sampler launches (the host path
+    samples on the CPU), 0 frame-dead slots, no CUDA in the workers, no
+    /dev/shm segment left.  Reports learner steps/s, actor fps, frames and
+    frame bytes per transition from the replay's own counters, and the
+    process's RSS beside ``MemAvailable`` before and after, beside
+    ``proc_host_train`` (the double-store at 100 000 slots)."""
+    import torch
+
+    t0 = time.monotonic()
+    mem_before = mem_info()
+    torch.cuda.synchronize()
+    sampling.sample_indices.launches = 0
+    with capture_pipelines() as seen, compute_apps() as apps:
+        final, wall = run_train(host_dedup_argv(steps, warmup=2048))
+    launches = sampling.sample_indices.launches
+    pipe = seen[0]
+    if final["step"] < steps:
+        raise AssertionError(f"host_dedup_train: reached {final['step']} of {steps} steps")
+    result = host_replay_rates("host_dedup_train", final, pipe, launches, card)
+    check_workers("host_dedup_train", pipe.worker.pool, apps)
+    mem_after = mem_info()
+    frame_bytes = int(np.prod(ATARI_OBS))
+    result.update({
+        "mem_before": mem_before, "mem_after": mem_after,
+        "rss_growth_bytes": mem_after["VmRSS"] - mem_before["VmRSS"],
+        "rss_growth_per_written_frame": (mem_after["VmRSS"] - mem_before["VmRSS"])
+        / max(result["replay"]["frames"], 1),
+        f"beside_{beside['phase']}": {
+            "learner_steps_per_s": beside["learner_steps_per_s"],
+            "actor_fps": beside["actor_fps"], "frames_per_transition": 2.0,
+            "frame_bytes_per_transition": 2 * frame_bytes,
+            "ring_bytes_per_slot": 2 * frame_bytes,
+            "replay_frames_nbytes": beside["replay_frames_nbytes"]},
+        "cuts": host_dedup_cuts(steps, 2048),
+        "wall_s": wall, "seconds": time.monotonic() - t0})
+    emit(result)
+    return result
+
+
+@contextlib.contextmanager
+def healthz_watch(seen, period_s: float = 0.5):
+    """Scrape ``/healthz`` of the observed run every ``period_s`` once its
+    exporter is up: a list of (status, body dict)."""
+    out: list = []
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(period_s):
+            pipe = seen[0] if seen else None
+            port = getattr(pipe, "obs_port", None)
+            if not port:
+                continue
+            try:
+                code, body = _get(f"http://127.0.0.1:{port}/healthz")
+                out.append((code, json.loads(body)))
+            except OSError:
+                pass
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(60)
+
+
+@contextlib.contextmanager
+def observe_restore(seen):
+    """Record the restored replay at the moment the observed run starts (its
+    actors not yet draining into it) and the seconds the replay leg's
+    restore took."""
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+    from ape_x_dqn_tpu_torch.utils import checkpoint_inc
+
+    load, run = checkpoint_inc.load_incremental_replay, AsyncPipeline.run
+    info: dict = {}
+
+    def timed_load(*args, **kwargs):
+        t1 = time.monotonic()
+        try:
+            return load(*args, **kwargs)
+        finally:
+            info["restore_s"] = time.monotonic() - t1
+
+    def observed(self, *args, **kwargs):
+        seen.append(self)
+        r = self.comps.replay
+        info.update(size=r.size(), total_added=r.total_added,
+                    batch=r.sample(32, beta=0.4, rng=np.random.default_rng(SEED)),
+                    tier=r.tier_stats())
+        return run(self, *args, **kwargs)
+
+    checkpoint_inc.load_incremental_replay = timed_load
+    AsyncPipeline.run = observed
+    try:
+        yield info
+    finally:
+        checkpoint_inc.load_incremental_replay = load
+        AsyncPipeline.run = run
+
+
+def phase_tier_train(sampling, card: str, beside: dict, steps: int = HOST_DEDUP_STEPS) -> dict:
+    """``host_dedup_train``'s learner with the tiered store:
+    ``replay.hot_frame_budget_bytes`` 32 MiB (~4 750 frames) under a warm-up
+    of ``TIER_WARMUP`` rows, the spill file and an incremental checkpoint
+    chain (a save every ``TIER_CKPT_EVERY`` steps) under ``SPILL_ROOT``,
+    the exporter on.  Checks: at every JSONL record hot bytes ≤ budget ×
+    ``spill_watermark_high`` plus the spans the prefetch queue's samples
+    and one drained chunk can fault or write before the evictor thread's
+    next pass; spilled bytes
+    and fault reads > 0; ``/healthz`` 200 at every scrape with the
+    ``tier_evictor`` heartbeat registered; 0 sampler launches, 0 frame-dead
+    slots.  Then, the run stopped, a last delta of the quiescent replay is
+    committed; the manifest's ``cold_ref_bytes`` > 0; a fresh
+    ``train.main`` with ``learner.restore_from=true`` over the same spill
+    file restores it (cold spans adopted by ref): its replay's size,
+    total_added and a 32-row sample from a fixed generator equal the saved
+    replay's, and it trains 64 more steps.  Reports the base's bytes
+    against a dense base at the same fill, the restore's seconds and the
+    fault ms p50/p99."""
+    import shutil
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import (
+        IncrementalCheckpointer,
+        inc_dir,
+        read_manifest,
+    )
+
+    t0 = time.monotonic()
+    shutil.rmtree(SPILL_ROOT, ignore_errors=True)
+    spill, root = os.path.join(SPILL_ROOT, "spill"), os.path.join(SPILL_ROOT, "ckpt")
+    tier_args = ["--set", f"replay.hot_frame_budget_bytes={TIER_BUDGET}",
+                 "--set", f"replay.spill_dir={spill}",
+                 "--set", f"learner.checkpoint_every={TIER_CKPT_EVERY}",
+                 "--set", f"learner.checkpoint_dir={root}",
+                 "--set", "learner.checkpoint_incremental=true",
+                 "--set", "obs.export_port=0"]
+    try:
+        torch.cuda.synchronize()
+        sampling.sample_indices.launches = 0
+        records: list = []
+        with capture_pipelines() as seen, compute_apps() as apps, healthz_watch(seen) as health:
+            final, wall = run_train(host_dedup_argv(steps, warmup=TIER_WARMUP) + tier_args,
+                                    records)
+        launches = sampling.sample_indices.launches
+        pipe = seen[0]
+        if final["step"] < steps:
+            raise AssertionError(f"tier_train: reached {final['step']} of {steps} steps")
+        result = host_replay_rates("tier_train", final, pipe, launches, card)
+        check_workers("tier_train", pipe.worker.pool, apps)
+        replay = pipe.comps.replay
+        tier = replay.tier
+        # The evictor is a thread: between two of its passes the prefetch
+        # queue's samples (PREFETCH_DEPTH batches ahead, each faulting up to
+        # 2B spans inline) and one drained chunk (a worker's flush, its
+        # frames' spans and one more at each end) land above the watermark.
+        from ape_x_dqn_tpu_torch.runtime.async_pipeline import PREFETCH_DEPTH
+
+        a = pipe.cfg.actor
+        chunk_frames = a.flush_every * (a.num_actors // a.num_workers) + a.num_actors
+        slack_spans = (PREFETCH_DEPTH * 2 * pipe.cfg.learner.replay_sample_size
+                       + chunk_frames // tier.span_frames + 2)
+        bound = TIER_BUDGET * pipe.cfg.replay.spill_watermark_high + slack_spans * tier.span_bytes
+        hot = [r["replay_tier"]["hot_bytes"] for r in records if "replay_tier" in r]
+        if not hot or max(hot) > bound:
+            raise AssertionError(f"tier_train: hot bytes {max(hot, default=None)} over "
+                                 f"{bound} at a JSONL record ({len(hot)} records)")
+        stats = replay.tier_stats()
+        if stats["spilled_bytes"] <= 0 or stats["fault_reads"] <= 0:
+            raise AssertionError(f"tier_train: spilled {stats['spilled_bytes']} B, "
+                                 f"{stats['fault_reads']} fault reads; want both > 0")
+        with_evictor = [(c, b) for c, b in health if "tier_evictor" in b.get("components", {})]
+        if not with_evictor or any(c != 200 for c, _ in health):
+            raise AssertionError(f"tier_train: /healthz {[c for c, _ in health]}, "
+                                 f"{len(with_evictor)} with tier_evictor; want 200 at every "
+                                 "scrape and the heartbeat registered")
+        # The run is stopped (workers joined): commit the quiescent replay's
+        # last delta onto the chain, and keep what a restore must give back.
+        last = IncrementalCheckpointer(root, replay, sync=True)
+        last.save(final["step"])
+        last.close()
+        manifest = read_manifest(inc_dir(root))
+        if not manifest or manifest.get("cold_ref_bytes", 0) <= 0:
+            raise AssertionError(f"tier_train: manifest {manifest} holds no cold-span refs")
+        want = {"size": replay.size(), "total_added": replay.total_added,
+                "batch": replay.sample(32, beta=0.4, rng=np.random.default_rng(SEED))}
+        base_file = os.path.join(inc_dir(root), manifest["chunks"][0])
+        nf = min(replay._fcount, replay.frame_capacity)
+        dense_base = nf * tier.frame_bytes + replay.size() * (8 + 8 + 4 + 4 + 4 + 1 + 8)
+        hot_at_end = [r["replay_tier"]["hot_bytes"] for r in records if "replay_tier" in r]
+        del seen[:], pipe, replay, tier, last
+        gc.collect()
+        # A fresh learner from the chain: restore_from=true over the same root.
+        target = final["step"] + 64
+        seen2: list = []
+        with observe_restore(seen2) as restored:
+            final2, wall2 = run_train(host_dedup_argv(target, warmup=TIER_WARMUP) + tier_args
+                                      + ["--set", "learner.restore_from=true"])
+        got = restored
+        same = (got["size"] == want["size"] and got["total_added"] == want["total_added"]
+                and np.array_equal(got["batch"].indices, want["batch"].indices)
+                and np.array_equal(got["batch"].is_weights, want["batch"].is_weights)
+                and all(np.array_equal(getattr(got["batch"].transition, f),
+                                       getattr(want["batch"].transition, f))
+                        for f in ("obs", "next_obs", "action", "reward", "discount")))
+        if not same:
+            raise AssertionError(f"tier_train: the restored replay (size {got['size']}, "
+                                 f"added {got['total_added']}) is not the saved one "
+                                 f"(size {want['size']}, added {want['total_added']})")
+        if final2["step"] < target or not np.isfinite(final2["learner/loss"]):
+            raise AssertionError(f"tier_train: the resumed run reached {final2['step']} "
+                                 f"of {target}")
+        result.update({
+            "hot_budget_bytes": TIER_BUDGET, "hot_bytes_bound": bound,
+            "hot_bytes_at_records": {"max": max(hot_at_end), "last": hot_at_end[-1],
+                                     "records": len(hot_at_end)},
+            "tier": {k: stats[k] for k in ("span_frames", "hot_bytes", "hot_spans",
+                                           "cold_spans", "spilled_bytes", "spill_writes",
+                                           "fault_reads", "fault_bytes", "fault_ms")},
+            "healthz": {"scrapes": len(health), "with_tier_evictor": len(with_evictor),
+                        "codes": sorted({c for c, _ in health})},
+            "checkpoint": {"manifest_step": manifest["step"], "chunks": manifest["chunks"],
+                           "cold_ref_bytes": manifest["cold_ref_bytes"],
+                           "base_bytes": os.path.getsize(base_file),
+                           "dense_base_bytes_at_fill": dense_base,
+                           "ckpt": final.get("ckpt")},
+            "restore": {"restore_s": restored["restore_s"], "size": got["size"],
+                        "total_added": got["total_added"],
+                        "fault_reads_at_restore": got["tier"]["fault_reads"],
+                        "resumed_to": final2["step"], "loss": final2["learner/loss"],
+                        "wall_s": wall2},
+            "cuts": {**host_dedup_cuts(steps, TIER_WARMUP),
+                     "hot_frame_budget_bytes": "32 MiB: the warm-up outgrows it"},
+            "wall_s": wall, "seconds": time.monotonic() - t0})
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(SPILL_ROOT, ignore_errors=True)
+
+
+def host_dedup_point(capacity: int = 2_000_000, n_stripes: int = 1, iters: int = 2000) -> dict:
+    """JAX ``bench.py`` ``_host_dedup_bench`` on the port's
+    ``NativeDedupReplay``: prefilled to half its slots from chunks of 4 096
+    transitions over 4 097 fresh frames, then ``iters`` sample(32) +
+    update pairs and 16 more chunks."""
+    from ape_x_dqn_tpu_torch.replay.native_dedup import NativeDedupReplay
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    rng = np.random.default_rng(0)
+    rep = NativeDedupReplay(capacity, ATARI_OBS, frame_ratio=1.25, n_stripes=n_stripes)
+    M = 4096
+    frames = rng.integers(0, 255, (M + 1, *ATARI_OBS), dtype=np.uint8)
+    proto = dict(obs_ref=np.arange(M, dtype=np.int32),
+                 next_ref=np.arange(1, M + 1, dtype=np.int32),
+                 action=rng.integers(0, 4, M).astype(np.int32),
+                 reward=rng.normal(size=M).astype(np.float32),
+                 discount=np.full(M, 0.97, np.float32), prev_frames=M + 1)
+    prio = (np.abs(rng.normal(size=M)) + 0.1).astype(np.float32)
+    n_prefill = max(1, capacity // (2 * M))
+    t_fill = time.perf_counter()
+    for i in range(n_prefill):
+        rep.add(prio, DedupChunk(frames=frames, source=1, chunk_seq=i, **proto))
+    fill_s = time.perf_counter() - t_fill
+    srng = np.random.default_rng(1)
+    B = 32 - 32 % n_stripes
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        batch = rep.sample(B, rng=srng)
+        rep.update_priorities(batch.indices, np.abs(rng.normal(size=B)) + 0.1)
+    dt = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for i in range(16):
+        rep.add(prio, DedupChunk(frames=frames, source=1, chunk_seq=n_prefill + i, **proto))
+    dt_add = time.perf_counter() - t1
+    out = {"n_stripes": n_stripes, "capacity": capacity,
+           "occupancy": min(n_prefill * M, capacity),
+           "sample_update_pairs_per_sec": iters / dt, "samples_per_sec": iters * B / dt,
+           "add_transitions_per_sec": 16 * M / dt_add, "prefill_s": fill_s,
+           "frames_gb": rep.frames_nbytes() / 1e9, "mem": mem_info()}
+    del rep
+    return out
+
+
+def tiered_point(workdir: str, capacity: int = 200_000, iters: int = 1000,
+                 hot_frac: float = 0.25) -> dict:
+    """JAX ``bench.py`` ``_replay_tiered_bench`` (:695) on the port's native
+    core: in core, then tiered with the hot budget at ``hot_frac`` of the
+    ring and the ``TierEvictor`` on (2-frame spans), near-uniform then
+    lognormal restamps; sample(32) + update pairs/s, spills and faults."""
+    from ape_x_dqn_tpu_torch.replay.native_dedup import NativeDedupReplay
+    from ape_x_dqn_tpu_torch.replay.tiered import TierEvictor
+    from ape_x_dqn_tpu_torch.types import DedupChunk
+
+    rng = np.random.default_rng(0)
+    frame_bytes = int(np.prod(ATARI_OBS))
+    ring_bytes = int(round(capacity * 1.25)) * frame_bytes
+    hot_budget = int(ring_bytes * hot_frac)
+    M = 4096
+    frames = rng.integers(0, 255, (M + 1, *ATARI_OBS), dtype=np.uint8)
+    proto = dict(obs_ref=np.arange(M, dtype=np.int32),
+                 next_ref=np.arange(1, M + 1, dtype=np.int32),
+                 action=rng.integers(0, 4, M).astype(np.int32),
+                 reward=rng.normal(size=M).astype(np.float32),
+                 discount=np.full(M, 0.97, np.float32), prev_frames=M + 1)
+    prio = (np.abs(rng.normal(size=M)) + 0.1).astype(np.float32)
+    n_prefill = max(1, capacity // (2 * M))
+
+    def prefill(rep):
+        for i in range(n_prefill):
+            rep.add(prio, DedupChunk(frames=frames, source=1, chunk_seq=i, **proto))
+
+    def run_loop(rep, skew=False):
+        if rep.tier is not None:
+            # Steady state: every dirty span written back, the hot tier
+            # trimmed to its cap by clean drops before the timed loop.
+            rep.tier_flush_dirty()
+            while rep.tier_over_watermark():
+                rep.spill_cold(max_spans=1024)
+        srng, urng = np.random.default_rng(1), np.random.default_rng(2)
+
+        def new_prio():
+            if skew:
+                return np.exp(2.0 * urng.normal(size=32)).astype(np.float32)
+            return (np.abs(urng.normal(size=32)) + 0.1).astype(np.float32)
+
+        for _ in range(min(128, iters // 4)):
+            rep.update_priorities(rep.sample(32, rng=srng).indices, new_prio())
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            rep.update_priorities(rep.sample(32, rng=srng).indices, new_prio())
+        return time.perf_counter() - t0
+
+    rep = NativeDedupReplay(capacity, ATARI_OBS, frame_ratio=1.25)
+    prefill(rep)
+    dt_core = run_loop(rep)
+    del rep
+    rep = NativeDedupReplay(capacity, ATARI_OBS, frame_ratio=1.25,
+                            hot_frame_budget_bytes=hot_budget, spill_dir=workdir,
+                            spill_span_frames=2)
+    evictor = TierEvictor(rep, poll_s=0.005)
+    evictor.start()
+    try:
+        prefill(rep)
+        dt_tier = run_loop(rep)
+        stats = rep.tier_stats()
+        dt_skew = run_loop(rep, skew=True)
+        stats_skew = rep.tier_stats()
+    finally:
+        evictor.stop()
+    if evictor.error is not None:
+        raise AssertionError(f"host_dedup_2m: the evictor died: {evictor.error!r}")
+    rep.tier.close()
+    del rep
+    return {"capacity": capacity, "occupancy": min(n_prefill * M, capacity),
+            "ring_gb": ring_bytes / 1e9, "hot_budget_gb": hot_budget / 1e9, "hot_frac": hot_frac,
+            "in_core_pairs_per_sec": iters / dt_core, "tiered_pairs_per_sec": iters / dt_tier,
+            "tiered_pairs_per_sec_skewed": iters / dt_skew,
+            "slowdown_x": dt_tier / dt_core, "slowdown_x_skewed": dt_skew / dt_core,
+            "spill_writes": stats["spill_writes"], "spilled_gb": stats["spilled_bytes"] / 1e9,
+            "fault_reads": stats["fault_reads"], "fault_gb": stats["fault_bytes"] / 1e9,
+            "fault_reads_skewed_phase": stats_skew["fault_reads"] - stats["fault_reads"],
+            "fault_ms": stats["fault_ms"], "hot_bytes_end": stats["hot_bytes"]}
+
+
+def phase_host_dedup_2m(sampling) -> dict:
+    """A host-only point: JAX ``bench.py``'s ``host_dedup_2m`` on the port's
+    ``NativeDedupReplay`` at 2 000 000 slots (a 17.64 GB frame ring
+    prefilled to half: ~7 GB touched), ``n_stripes`` 1 and 4, then its
+    ``replay_tiered`` point at 200 000 slots (hot 25 % of the ring, the
+    evictor on).  ``MemAvailable`` and the free disk under the spill dir
+    first.  Checks: every rate > 0, spills and fault reads > 0 on the
+    tiered point, the evictor alive, no sampler launch."""
+    import shutil
+
+    t0 = time.monotonic()
+    sampling.sample_indices.launches = 0
+    os.makedirs(SPILL_ROOT, exist_ok=True)
+    disk = os.statvfs(SPILL_ROOT)
+    before = {"mem": mem_info(), "disk_free_bytes": disk.f_bavail * disk.f_frsize,
+              "spill_dir": SPILL_ROOT}
+    emit({"phase": "host_dedup_2m_start", **before})
+    try:
+        points = [host_dedup_point(n_stripes=k) for k in (1, 4)]
+        gc.collect()
+        tiered = tiered_point(os.path.join(SPILL_ROOT, "tiered"))
+    finally:
+        shutil.rmtree(SPILL_ROOT, ignore_errors=True)
+    for pt in points:
+        if min(pt["sample_update_pairs_per_sec"], pt["add_transitions_per_sec"]) <= 0:
+            raise AssertionError(f"host_dedup_2m: {pt}")
+    if tiered["spill_writes"] <= 0 or tiered["fault_reads"] <= 0:
+        raise AssertionError(f"host_dedup_2m: the tiered point spilled {tiered['spill_writes']} "
+                             f"and faulted {tiered['fault_reads']}")
+    if sampling.sample_indices.launches != 0:
+        raise AssertionError("host_dedup_2m: sampler launches on a host-only point")
+    result = {"phase": "host_dedup_2m", **before, "points": points, "tiered": tiered,
+              "cpu_count": os.cpu_count(), "usable_cpus": len(os.sched_getaffinity(0)),
+              "sampler_launches": 0, "seconds": time.monotonic() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import shutil
 
@@ -4139,6 +4817,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_smoke = time.monotonic()
     from ape_x_dqn_tpu_torch.ops import sampling
 
     name = torch.cuda.get_device_name(0)
@@ -4161,6 +4840,12 @@ def main() -> int:
     tree_lib, tree_log = native.build_library()
     emit({"phase": "build", "library": tree_lib.name, "compiler": native.CXX,
           "seconds": time.monotonic() - t0, "log": tree_log.strip()})
+    from ape_x_dqn_tpu_torch.replay import native_dedup
+
+    t0 = time.monotonic()
+    core_lib, core_log = native_dedup.build_library()
+    emit({"phase": "build", "library": core_lib.name, "compiler": native_dedup.CXX,
+          "seconds": time.monotonic() - t0, "log": core_log.strip()})
 
     rows = phase_kernel(sampling)
     phase_atari_golden(card=smi)
@@ -4171,6 +4856,10 @@ def main() -> int:
     host_sync = phase_host_sync(sampling)
     proc = phase_process(sampling, card=smi, device_replay=True)
     proc_host = phase_process(sampling, card=smi, device_replay=False)
+    host_dedup_parity = phase_host_dedup_parity(sampling)
+    host_dedup = phase_host_dedup_train(sampling, card=smi, beside=proc_host)
+    tier = phase_tier_train(sampling, card=smi, beside=host_dedup)
+    phase_host_dedup_2m(sampling)
     dedup_parity = phase_dedup_parity(sampling)
     graph_parity = phase_graph_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
@@ -4200,8 +4889,9 @@ def main() -> int:
     chaos_restore = phase_chaos_restore(sampling, card=smi)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
-    # This slice's main path: config3's learner on the fake-atari stack under
-    # the chaos schedule, one sample-ahead launch per call.
+    emit({"phase": "smoke", "seconds": time.monotonic() - t_smoke})
+    # The sampler's main path stays atari_train (one sample-ahead launch per
+    # call); this slice's host paths launch it 0 times, gated in each phase.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
     emit({"kernels": [{
         "name": "sampling",
@@ -4214,6 +4904,9 @@ def main() -> int:
                              "host_sync": host_sync["sampler_launches"],
                              "process_device_replay": proc["sampler_launches"],
                              "process_host_replay": proc_host["sampler_launches"],
+                             "host_dedup_parity": host_dedup_parity["sampler_launches"],
+                             "process_host_dedup": host_dedup["sampler_launches"],
+                             "process_host_tiered": tier["sampler_launches"],
                              "dedup_parity": dedup_parity["sampler_launches"],
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],

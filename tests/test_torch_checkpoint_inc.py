@@ -14,12 +14,17 @@ package's ``tests/test_checkpoint_inc.py``.
   written by either package restores in the other, exactly.
 * The async writer: backpressure, writer failure, full bases for a replay
   without deltas; npz first, then the chain.
-* Restore under corruption: exact prefix recovery or the previous
-  generation, else a typed ``ChunkCorrupt``; pruning keeps one earlier
-  generation; cold-span refs raise ``NotPortedError``.
+* The host dedup replays (``DedupReplay``, ``NativeDedupReplay``) with
+  sweeps, carry gaps and restamps, their chains read across the packages
+  and the two implementations; the tiered base's cold-span refs
+  (``cold_ref_bytes`` in the manifest) restore in place.
+* Restore under corruption, for every flavour (the double-store, both host
+  dedup replays, the tiered dedup replay, the fused dedup learner): exact
+  prefix recovery or the previous generation, else a typed
+  ``ChunkCorrupt``; a torn cold-span record is typed the same way; pruning
+  keeps one earlier generation.
 
-The host-dedup and tiered flavours of the JAX matrix wait for ROADMAP item
-4.  Every comparison here is exact (no tolerance): the chain copies bytes.
+Every comparison here is exact (no tolerance): the chain copies bytes.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from ape_x_dqn_tpu.replay import PrioritizedReplay as JPrioritizedReplay
 from ape_x_dqn_tpu.utils import checkpoint_inc as jci
 from ape_x_dqn_tpu_torch.learner import train_step as ttrain
 from ape_x_dqn_tpu_torch.models import dueling as tdueling
-from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError, PrioritizedReplay
+from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
+from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
+from ape_x_dqn_tpu_torch.replay.native_dedup import NativeDedupReplay
 from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
 from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition
 from ape_x_dqn_tpu_torch.utils import checkpoint_inc as ci
@@ -139,6 +146,36 @@ def _fused_feed(fused, k, cls=DedupChunk):
 def _np_feed(rep, k, cls=NStepTransition):
     rep.add(prio(16, seed=k), np_chunk(16, seed=k, cls=cls))
     churn(rep, seed=k)
+
+
+def _dedup_feed(rep, k, cls=DedupChunk):
+    rep.add(prio(seed=k), dchunk(src=1, seq=k, seed=k, carry=2 if k else 0, cls=cls))
+    churn(rep, seed=k, B=2)
+
+
+def _two_source_feed(rep, cls=DedupChunk):
+    """JAX ``test_dedup_replay_with_sweep_and_carry_accounting``'s feed: two
+    interleaved sources wrapping the 80-slot frame ring (liveness sweeps),
+    one carry gap, restamps; a save after each round.  Yields the steps."""
+    seq = {1: 0, 2: 0}
+    k = 0
+
+    def feed(src, gap=False):
+        nonlocal k
+        if gap:
+            seq[src] += 2      # a skipped chunk_seq: the carry rows drop
+        rep.add(prio(seed=k), dchunk(src=src, seq=seq[src], seed=k, carry=2, cls=cls))
+        seq[src] += 1
+        k += 1
+
+    feed(1)
+    feed(2)
+    yield 1
+    for i in range(6):
+        feed(1, gap=(i == 2))
+        feed(2)
+        churn(rep, seed=i, B=2)
+        yield 2 + i
 
 
 # -- the chunk format ----------------------------------------------------------
@@ -400,6 +437,47 @@ class TestDeltaChainEqualsFull:
         assert_same_state(src.state_dict(), dst.state_dict())
 
 
+    @pytest.mark.parametrize("impl", ["numpy", "native"])
+    def test_dedup_replay_with_sweep_and_carry_accounting(self, tmp_path, impl):
+        """The host dedup replays' chains (JAX :277, :311): sweeps, a carry
+        gap and restamps between saves; the chain restores bit for bit into
+        both implementations of both packages."""
+        from ape_x_dqn_tpu.replay.dedup import DedupReplay as JDedupReplay
+        from ape_x_dqn_tpu.replay.native_dedup import NativeDedupReplay as JNative
+
+        cls = DedupReplay if impl == "numpy" else NativeDedupReplay
+        rep = cls(64, OBS, frame_ratio=1.25)
+        ck = IncrementalCheckpointer(str(tmp_path), rep, sync=True)
+        for step in _two_source_feed(rep):
+            ck.save(step)
+        state = rep.state_dict()
+        assert int(state["frame_dead"]) > 0 and int(state["dropped_carry"]) > 0
+        assert ck.stats()["bases"] == 1 and ck.stats()["deltas"] == 6
+        for dst in (DedupReplay(64, OBS, frame_ratio=1.25),
+                    NativeDedupReplay(64, OBS, frame_ratio=1.25)):
+            assert load_incremental_replay(str(tmp_path), dst) == 7
+            assert_same_state(state, dst.state_dict())
+        for dst in (JDedupReplay(64, OBS, frame_ratio=1.25), JNative(64, OBS, frame_ratio=1.25)):
+            assert jci.load_incremental_replay(str(tmp_path), dst) == 7
+            assert_same_state(state, dst.state_dict())
+
+    @pytest.mark.parametrize("writer", ["jax_numpy", "jax_native"])
+    def test_jax_dedup_chain_restores_in_the_port(self, tmp_path, writer):
+        from ape_x_dqn_tpu.replay.dedup import DedupReplay as JDedupReplay
+        from ape_x_dqn_tpu.replay.native_dedup import NativeDedupReplay as JNative
+        from ape_x_dqn_tpu.types import DedupChunk as JDedupChunk
+
+        rep = (JDedupReplay if writer == "jax_numpy" else JNative)(64, OBS, frame_ratio=1.25)
+        ck = jci.IncrementalCheckpointer(str(tmp_path), rep, sync=True)
+        for step in _two_source_feed(rep, cls=JDedupChunk):
+            ck.save(step)
+        state = rep.state_dict()
+        for dst in (DedupReplay(64, OBS, frame_ratio=1.25),
+                    NativeDedupReplay(64, OBS, frame_ratio=1.25)):
+            assert load_incremental_replay(str(tmp_path), dst) == 7
+            assert_same_state(state, dst.state_dict())
+
+
 # -- the async writer ----------------------------------------------------------
 
 
@@ -483,13 +561,29 @@ class TestAsyncWriter:
 # -- restore under corruption --------------------------------------------------
 
 
-def _flavor(name):
+def _flavor(name, spill=None):
+    """(make, feed) per replay flavour.  The tiered dedup replay's makes share
+    one spill directory (``spill``), so restores adopt it in place, and a
+    tiny hot budget keeps most spans cold through the whole matrix."""
     if name == "prioritized":
         return (lambda: PrioritizedReplay(64, OBS)), _np_feed
+    if name == "dedup":
+        return (lambda: DedupReplay(64, OBS, frame_ratio=1.25)), _dedup_feed
+    if name == "native_dedup":
+        return (lambda: NativeDedupReplay(64, OBS, frame_ratio=1.25)), _dedup_feed
+    if name == "tiered_dedup":
+        def make():
+            return DedupReplay(64, OBS, frame_ratio=1.25, hot_frame_budget_bytes=512,
+                               spill_dir=str(spill), spill_span_frames=4)
+
+        def feed(rep, k):
+            _dedup_feed(rep, k)
+            rep.spill_cold()
+        return make, feed
     return _fused, _fused_feed
 
 
-FLAVORS = ["prioritized", "fused_dedup"]
+FLAVORS = ["prioritized", "dedup", "native_dedup", "tiered_dedup", "fused_dedup"]
 
 
 class TestRestoreUnderCorruption:
@@ -520,7 +614,7 @@ class TestRestoreUnderCorruption:
     @pytest.mark.parametrize("flavor", FLAVORS)
     @pytest.mark.parametrize("mode", ["bitflip", "truncate"])
     def test_corrupt_delta_exact_prefix_recovery_or_typed(self, tmp_path, flavor, mode):
-        make, feed = _flavor(flavor)
+        make, feed = _flavor(flavor, spill=tmp_path / "spill")
         states, manifest = self._chain(tmp_path, make, feed)
         self._corrupt(tmp_path, manifest["chunks"][-1], mode)
         with pytest.raises(ChunkCorrupt) as ei:
@@ -536,7 +630,7 @@ class TestRestoreUnderCorruption:
     @pytest.mark.parametrize("flavor", FLAVORS)
     @pytest.mark.parametrize("mode", ["bitflip", "truncate"])
     def test_corrupt_base_recovers_previous_generation_exactly(self, tmp_path, flavor, mode):
-        make, feed = _flavor(flavor)
+        make, feed = _flavor(flavor, spill=tmp_path / "spill")
         states, manifest = self._chain(tmp_path, make, feed)
         self._corrupt(tmp_path, manifest["chunks"][0], mode)
         with pytest.raises(ChunkCorrupt):
@@ -551,7 +645,7 @@ class TestRestoreUnderCorruption:
 
     @pytest.mark.parametrize("flavor", FLAVORS)
     def test_manifest_missing_is_no_chain_not_wrong_data(self, tmp_path, flavor):
-        make, feed = _flavor(flavor)
+        make, feed = _flavor(flavor, spill=tmp_path / "spill")
         self._chain(tmp_path, make, feed)
         os.unlink(os.path.join(ci.inc_dir(str(tmp_path)), "MANIFEST.json"))
         assert load_incremental_replay(str(tmp_path), make()) is None
@@ -581,15 +675,53 @@ class TestRestoreUnderCorruption:
         assert ci.read_archived_manifest(ci.inc_dir(str(tmp_path)), live - 1)
 
     def test_cold_span_refs_are_refused_by_name(self, tmp_path):
-        """A tiered base (``tier_cold_*`` arrays) needs the spill file of
-        the tiered store, which is not part of the port yet."""
-        rep = PrioritizedReplay(64, OBS)
-        _np_feed(rep, 0)
-        IncrementalCheckpointer(str(tmp_path), rep, sync=True).save(1)
-        d = ci.inc_dir(str(tmp_path))
-        name = read_manifest(d)["chunks"][0]
-        arrays = read_chunk(os.path.join(d, name))
-        arrays["tier_cold_lens"] = np.zeros((1,), np.int64)
-        write_chunk(os.path.join(d, name), arrays)
-        with pytest.raises(NotPortedError, match="tiered frame store"):
-            load_incremental_replay(str(tmp_path), PrioritizedReplay(64, OBS))
+        """Cold-span refs are ported: a tiered base (``tier_cold_*`` arrays,
+        ``cold_ref_bytes`` in the manifest) restores through the replay's
+        ``adopt_cold_ref``, in place over the spill file, bit for bit; the
+        JAX package writes the same chain for the same feed."""
+        from ape_x_dqn_tpu.replay.dedup import DedupReplay as JDedupReplay
+        from ape_x_dqn_tpu.types import DedupChunk as JDedupChunk
+
+        make, feed = _flavor("tiered_dedup", spill=tmp_path / "spill")
+        states, manifest = self._chain(tmp_path / "port", make, feed)
+        d = ci.inc_dir(str(tmp_path / "port"))
+        base = read_chunk(os.path.join(d, manifest["chunks"][0]))
+        assert "tier_cold_offsets" in base and "frames" not in base
+        assert manifest["cold_ref_bytes"] == int(base["tier_cold_lens"].sum()) * 36 > 0
+        rep2 = make()
+        assert load_incremental_replay(str(tmp_path / "port"), rep2) == manifest["step"]
+        # O(hot): only the deltas' partly overwritten boundary spans fault.
+        assert rep2.tier_stats()["fault_reads"] <= 2 * (len(manifest["chunks"]) - 1)
+        assert_same_state(states[manifest["step"]], rep2.state_dict())
+        jrep = JDedupReplay(64, OBS, frame_ratio=1.25, hot_frame_budget_bytes=512,
+                            spill_dir=str(tmp_path / "jspill"), spill_span_frames=4)
+        jck = jci.IncrementalCheckpointer(str(tmp_path / "jax"), jrep, base_every=2, sync=True)
+        for k in range(6):
+            _dedup_feed(jrep, k, cls=JDedupChunk)
+            jrep.spill_cold()
+            jck.save(k + 1)
+        jman = jci.read_manifest(jci.inc_dir(str(tmp_path / "jax")))
+        assert jman["cold_ref_bytes"] == manifest["cold_ref_bytes"]
+        assert jman["chunks"] == manifest["chunks"]
+
+    def test_corrupt_cold_span_record_is_typed_or_fallback(self, tmp_path):
+        """JAX :857: every record of the spill file broken; a restore without
+        the fallback raises the typed ``ChunkCorrupt``, with it lands on a
+        rung whose refs still verify (exact state) or raises typed."""
+        make, feed = _flavor("tiered_dedup", spill=tmp_path / "spill")
+        states, manifest = self._chain(tmp_path / "cold-span", make, feed)
+        assert manifest.get("cold_ref_bytes", 0) > 0
+        with open(manifest["spill_file"], "r+b") as f:
+            for off in range(0, os.fstat(f.fileno()).st_size, 128):
+                f.seek(off)
+                f.write(b"\xde\xad")
+        with pytest.raises(ChunkCorrupt):
+            load_incremental_replay(str(tmp_path / "cold-span"), make())
+        rep2 = make()
+        try:
+            step = load_incremental_replay(str(tmp_path / "cold-span"), rep2, fallback=True)
+        except ChunkCorrupt:
+            ci.consume_fallback_events()
+            return
+        assert step in states
+        assert_same_state(states[step], rep2.state_dict())

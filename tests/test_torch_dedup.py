@@ -1,5 +1,7 @@
 """Frame-dedup emission and carry resolution of the port against the JAX
-package, plus the config refusals of the dedup paths not yet ported.
+package, plus the config checks of the dedup paths (the host ``DedupReplay`` and the
+tiered store with the JAX package's messages; the replay service refused
+by name).
 
 * ``CarryResolver`` (``replay/dedup.py``): the same chunk stream, with
   sequence gaps and source eviction, gives identical absolute seqs, keep
@@ -191,20 +193,63 @@ def test_fleet_dedup_arguments_checked(kw, message):
 
 
 @pytest.mark.parametrize("override,message", [
-    ("replay.dedup=true", "ROADMAP item 4"),                 # host DedupReplay
-    ("replay.hot_frame_budget_bytes=1000000", "tiered frame store.*ROADMAP item 4"),
-    ("replay.spill_dir=/tmp/x", "tiered frame store.*ROADMAP item 4"),
-    ("replay.spill_span_frames=64", "tiered frame store.*ROADMAP item 4"),
-    ("replay.spill_watermark_high=0.9", "tiered frame store.*ROADMAP item 4"),
-    ("replay.spill_watermark_low=0.5", "tiered frame store.*ROADMAP item 4"),
-    ("replay.service_dedup=true", "replay service.*ROADMAP item 4"),
+    # The host dedup replay and the tiered store are ported: their keys are
+    # checked with the JAX package's own messages (the next test holds them
+    # equal to JAX's).
+    ("replay.hot_frame_budget_bytes=-1", "hot_frame_budget_bytes must be >= 0"),
+    ("replay.spill_span_frames=-1", "spill_span_frames must be >= 0"),
+    ("replay.spill_watermark_high=1.5", "0 < low <= high <= 1"),
+    ("replay.spill_watermark_low=0", "0 < low <= high <= 1"),
+    ("replay.spill_watermark_high=0.5", "0 < low <= high <= 1"),   # below low 0.9
+    ("learner.device_replay=true,replay.hot_frame_budget_bytes=1000000",
+     "requires device_replay=False"),
+    ("replay.service_dedup=true", "replay service.*ROADMAP item 7"),
     ("learner.data_parallel=4", "multi-GPU learner.*ROADMAP item 8"),
     ("replay.frame_ratio=0", "frame_ratio must be positive"),
     ("learner.target_dtype=float16", "unknown target_dtype"),
 ])
 def test_dedup_config_refusals_name_their_item(override, message):
     with pytest.raises(ValueError, match=message):
-        apply_overrides(ApexConfig(), [override])
+        apply_overrides(ApexConfig(), override.split(","))
+
+
+@pytest.mark.parametrize("overrides", [
+    ["replay.dedup=true", "replay.frame_compression=true"],
+    ["replay.hot_frame_budget_bytes=-1"],
+    ["replay.hot_frame_budget_bytes=1000000", "replay.frame_compression=true"],
+    ["replay.hot_frame_budget_bytes=1000000", "learner.device_replay=true"],
+    ["replay.spill_span_frames=-1"],
+    ["replay.spill_watermark_high=0.5", "replay.spill_watermark_low=0.9"],
+    ["replay.spill_watermark_low=0"],
+    ["replay.spill_watermark_high=1.5"],
+])
+def test_host_dedup_and_tier_checks_are_the_jax_messages(overrides):
+    from ape_x_dqn_tpu.config import ApexConfig as JApexConfig
+    from ape_x_dqn_tpu.config import apply_overrides as japply
+
+    with pytest.raises(ValueError) as jerr:
+        japply(JApexConfig(), overrides)
+    with pytest.raises(ValueError) as terr:
+        apply_overrides(ApexConfig(), overrides)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_host_dedup_and_tier_keys_load_as_in_jax():
+    from ape_x_dqn_tpu.config import ApexConfig as JApexConfig
+    from ape_x_dqn_tpu.config import apply_overrides as japply
+
+    overrides = ["replay.dedup=true", "replay.hot_frame_budget_bytes=33554432",
+                 "replay.spill_dir=/data/spill", "replay.spill_span_frames=64",
+                 "replay.spill_watermark_high=0.95", "replay.spill_watermark_low=0.5"]
+    t, j = apply_overrides(ApexConfig(), overrides), japply(JApexConfig(), overrides)
+    for key in ("dedup", "hot_frame_budget_bytes", "spill_dir", "spill_span_frames",
+                "spill_watermark_high", "spill_watermark_low"):
+        assert getattr(t.replay, key) == getattr(j.replay, key), key
+    d, jd = ApexConfig().replay, JApexConfig().replay
+    assert (d.hot_frame_budget_bytes, d.spill_dir, d.spill_span_frames,
+            d.spill_watermark_high, d.spill_watermark_low) == (
+        jd.hot_frame_budget_bytes, jd.spill_dir, jd.spill_span_frames,
+        jd.spill_watermark_high, jd.spill_watermark_low)
 
 
 @pytest.mark.parametrize("overrides,message", [
@@ -235,3 +280,34 @@ def test_config3_learner_and_replay_keys_load_except_data_parallel(tmp_path):
     assert cfg.actor.mode == "process" and cfg.replay.capacity == 2_000_000
     none = apply_overrides(cfg, ["learner.target_dtype=none"])
     assert none.learner.target_dtype is None
+
+
+def test_config3_on_host_replay_builds_a_dedup_replay(tmp_path):
+    """Config3 with ``learner.device_replay=false`` (cut to a small ring and
+    a small env here) builds the host ``DedupReplay``, tiered when a hot
+    budget is set, with its spill directory resolved as JAX does."""
+    from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
+    from ape_x_dqn_tpu_torch.replay.tiered import TieredFrameRing
+    from ape_x_dqn_tpu_torch.runtime.components import build_components, resolve_spill_dir
+
+    with open(os.path.join(REPO, "configs", "config3_seaquest_256actors_2m.json")) as f:
+        data = json.load(f)
+    data["learner"].pop("data_parallel")
+    path = tmp_path / "config3.json"
+    path.write_text(json.dumps(data))
+    cfg = apply_overrides(load_config(str(path)), [
+        "learner.device_replay=false", "learner.sample_ahead=false",
+        "env.name=chain:6", "network=mlp", "replay.capacity=4096",
+        "learner.min_replay_mem_size=256", "actor.num_actors=8"])
+    comps = build_components(cfg, device="cpu")
+    assert type(comps.replay) is DedupReplay and comps.replay.tier is None
+    assert comps.replay.frame_capacity == 5120
+    spill = str(tmp_path / "spill")
+    cfg = apply_overrides(cfg, ["replay.hot_frame_budget_bytes=4096", f"replay.spill_dir={spill}"])
+    comps = build_components(cfg, device="cpu")
+    assert isinstance(comps.replay.tier, TieredFrameRing)
+    assert comps.replay.tier.store.path == os.path.join(spill, "frames.cold")
+    cfg.replay.spill_dir = "auto"
+    cfg.learner.checkpoint_every = 64
+    cfg.learner.checkpoint_dir = str(tmp_path / "ck")
+    assert resolve_spill_dir(cfg) == os.path.join(str(tmp_path / "ck"), "replay_spill")

@@ -388,7 +388,8 @@ def test_greedy_evaluator_matches_jax():
     (["learner.pipeline_depth=0"], "pipeline_depth must be >= 1"),
     (["learner.sync_every=64"], "overlapped fused"),
     (["learner.device_replay=true", "replay.frame_compression=true"], "host replay only"),
-    (["replay.spill_dir=/tmp/x"], "tiered frame store"),
+    (["learner.device_replay=true", "replay.hot_frame_budget_bytes=1000000"],
+     "hot_frame_budget_bytes requires device_replay=False"),
 ])
 def test_config_host_knobs_validate(overrides, message):
     from ape_x_dqn_tpu_torch.config import apply_overrides

@@ -138,9 +138,28 @@ def test_partial_fill_and_errors():
     assert len(t.add(np.zeros(0), NStepTransition(**{k: v[:0] for k, v in fields.items()}))) == 0
 
 
-def test_tiered_and_delta_requests_raise_by_name():
-    with pytest.raises(NotPortedError):
+def test_tiered_and_delta_requests_raise_by_name(tmp_path):
+    """The tiered double-store is ported: it needs a spill directory (refused
+    by message without one, as in JAX) and then holds the same slots, frames
+    and digest as the JAX package's tiered replay, with spills and faults."""
+    with pytest.raises(ValueError, match="spill_dir"):
         TReplay(CAP, OBS, sum_tree_cls=tsum.SumTree, hot_frame_budget_bytes=1 << 20)
+    kw = dict(hot_frame_budget_bytes=4 * 64 * int(np.prod(OBS)), spill_span_frames=4)
+    t = TReplay(CAP, OBS, sum_tree_cls=tsum.SumTree, spill_dir=str(tmp_path / "t"), **kw)
+    j = JReplay(CAP, OBS, sum_tree_cls=jsum.SumTree, spill_dir=str(tmp_path / "j"), **kw)
+    for prio, fields in _adds(n=4):
+        np.testing.assert_array_equal(t.add(prio, NStepTransition(**fields)),
+                                      j.add(prio, JTransition(**fields)))
+        assert t.spill_cold() == j.spill_cold()
+    for seed in range(3):
+        a = t.sample(16, rng=np.random.default_rng(seed))
+        b = j.sample(16, rng=np.random.default_rng(seed))
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.transition.obs, b.transition.obs)
+        np.testing.assert_array_equal(a.transition.next_obs, b.transition.next_obs)
+    assert t.digest() == j.digest()
+    stats = t.tier_stats()
+    assert stats["spill_writes"] > 0 and stats["fault_reads"] > 0
     # The delta protocol is ported (tests/test_torch_checkpoint_inc.py): the
     # first request is a full base, and a non-delta is refused by name.
     t = TReplay(CAP, OBS, sum_tree_cls=tsum.SumTree)

@@ -63,6 +63,8 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.envs.atari",
                  "ape_x_dqn_tpu_torch.envs.fake_atari",
                  "ape_x_dqn_tpu_torch.obs.chaos",
+                 "ape_x_dqn_tpu_torch.replay.tiered",
+                 "ape_x_dqn_tpu_torch.replay.native_dedup",
                  "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
@@ -179,6 +181,43 @@ def test_checkpoint_chunk_reader_loads_no_torch():
         "import ape_x_dqn_tpu_torch.utils.checkpoint_inc\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_tiered_store_loads_neither_torch_nor_jax():
+    """The tiered frame store runs in kill-test children and restore tooling,
+    as its JAX twin does: stdlib + numpy only (the lazy ``replay`` package
+    imports no buffer, and so no torch)."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.replay.tiered\n"
+        "from ape_x_dqn_tpu_torch.replay.tiered import ColdSpanStore, TierEvictor\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_host_dedup_replays_load_no_jax():
+    """The host dedup replay and its native core load no jax and nothing of
+    the JAX package (their C++ core is the port's own copy)."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.replay.dedup\n"
+        "import ape_x_dqn_tpu_torch.replay.native_dedup as nd\n"
+        "from ape_x_dqn_tpu_torch.replay import DedupReplay\n"
+        "assert nd.SOURCE.parent.parent.name == 'ape_x_dqn_tpu_torch'\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
