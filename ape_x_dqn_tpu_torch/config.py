@@ -224,6 +224,33 @@ class ReplayConfig:
     # thread wakes past high × budget and trims to low × budget.
     spill_watermark_high: float = 1.0
     spill_watermark_low: float = 0.9
+    # --- replay as a service (replay/service.py; JAX config.py:357-397) ---
+    # "attach" replaces the in-process replay with a retrying RPC client
+    # over a sharded replay fleet (sample / add / update-priorities as
+    # framed RPCs); the learner survives a shard dying (it trains on the
+    # survivors, write-backs to the dead one buffer last-write-wins and
+    # flush on recovery) and the shards own their checkpoint chains.
+    # "off": the replay lives in the learner's address space.
+    service_mode: str = "off"
+    # The fleet's endpoints file (written atomically by ReplayServiceFleet,
+    # re-read by the client when a shard moves).  Required in attach mode.
+    service_endpoints: str = ""
+    # RPC body codec: add/sample bodies are F_XPB-encoded (in-window frame
+    # dedup + zlib negotiated at the hello).  "auto": shard-side sample
+    # replies compress only while the shard's reply path sees blocked sends.
+    service_codec: str = "zlib"
+    service_dedup: bool = True
+    # Per-request deadline across reconnects and whole-request retries;
+    # past it the client raises ReplayShardUnavailable and routes around.
+    service_request_timeout_s: float = 10.0
+    # Down-shard probe cadence (re-resolve, digest probe, write-back flush).
+    service_probe_interval_s: float = 0.5
+    # Fleet width for the service-side launcher (the client takes its shard
+    # map from the endpoints file).
+    service_shards: int = 2
+    # > 0 hosts each shard's replay on the tiered store (spill under
+    # <ckpt_dir>/spill), capping its hot frame bytes.  0: dense shards.
+    service_hot_frame_budget_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -344,8 +371,7 @@ class ChaosConfig:
     on one seeded schedule (0 disables the kind), so a chaos run
     reproduces: same seed, same fault sequence.  The monkey attacks only
     the run it is attached to: its own pool's workers, its own checkpoint
-    dir.  The replay-service keys (``rpc_*``, ``kill_shard_*``) are
-    refused by name until the replay service is ported (ROADMAP item 7).
+    dir, and the replay fleet it is attached to (``kill_shard``).
     """
 
     enabled: bool = False
@@ -371,6 +397,18 @@ class ChaosConfig:
     # Mean per-batch latency in the PolicyServer's apply path (ms, seeded
     # ±25 %).
     serving_delay_ms: float = 0.0
+    # --- RPC-plane chaos (replay/service.py shards; JAX :786-800) ---
+    # Mean per-request delay (ms, seeded ±50 %) injected shard-side before
+    # the request executes.
+    rpc_delay_ms: float = 0.0
+    # Probability a well-framed request is silently dropped shard-side (the
+    # lost reply that forces a whole-request retry).  Seeded.
+    rpc_drop_rate: float = 0.0
+    # SIGKILL one fleet shard (seeded choice) when the learner's step count
+    # first crosses this value (ReplayServiceFleet.maybe_kill_at_step).
+    kill_shard_at_step: int = 0
+    # Scheduled shard kills on the monkey's timeline; 0 disables the kind.
+    kill_shard_interval_s: float = 0.0
 
     def validate_section(self) -> list:
         nonneg = [
@@ -384,12 +422,18 @@ class ChaosConfig:
             ("shm_fill_interval_s", self.shm_fill_interval_s),
             ("shm_fill_hold_s", self.shm_fill_hold_s),
             ("env_latency_ms", self.env_latency_ms),
+            ("rpc_delay_ms", self.rpc_delay_ms),
+            ("kill_shard_interval_s", self.kill_shard_interval_s),
             ("serving_delay_ms", self.serving_delay_ms),
         ]
         return [
             (v >= 0.0, f"chaos.{k} must be >= 0") for k, v in nonneg
         ] + [
             (self.shm_fill_bytes >= 0, "chaos.shm_fill_bytes must be >= 0"),
+            (0.0 <= self.rpc_drop_rate <= 1.0,
+             "chaos.rpc_drop_rate must be in [0, 1]"),
+            (self.kill_shard_at_step >= 0,
+             "chaos.kill_shard_at_step must be >= 0"),
         ]
 
 
@@ -565,6 +609,30 @@ class ApexConfig:
             (0.0 < r.spill_watermark_low <= r.spill_watermark_high <= 1.0,
              "replay spill watermarks must satisfy "
              "0 < low <= high <= 1"),
+            (r.service_mode in ("off", "attach"),
+             f"unknown replay.service_mode: {r.service_mode}"),
+            (r.service_mode == "off" or r.service_endpoints,
+             "replay.service_mode=attach requires replay.service_endpoints "
+             "(the fleet's endpoints file)"),
+            (r.service_codec in ("off", "zlib", "auto"),
+             f"unknown replay.service_codec: {r.service_codec}"),
+            (r.service_request_timeout_s > 0.0,
+             "replay.service_request_timeout_s must be > 0"),
+            (r.service_probe_interval_s > 0.0,
+             "replay.service_probe_interval_s must be > 0"),
+            (r.service_shards >= 1, "replay.service_shards must be >= 1"),
+            (r.service_hot_frame_budget_bytes >= 0,
+             "replay.service_hot_frame_budget_bytes must be >= 0"),
+            (r.service_mode == "off"
+             or not (r.dedup or r.frame_compression
+                     or r.hot_frame_budget_bytes or l.device_replay),
+             "replay.service_mode=attach hosts a plain PrioritizedReplay "
+             "per shard — dedup / frame_compression / hot_frame_budget / "
+             "device_replay stay learner-local features"),
+            (r.service_mode == "off" or not l.checkpoint_incremental,
+             "replay.service_mode=attach is incompatible with "
+             "learner.checkpoint_incremental: the shards own the replay's "
+             "checkpoint chains (the learner's state leg is unaffected)"),
             (l.second_moment_dtype in (None, "bfloat16", "float32"),
              f"unknown second_moment_dtype: {l.second_moment_dtype}"),
             (l.target_dtype in (None, "bfloat16", "float32"),
@@ -676,11 +744,6 @@ _NOT_PORTED = {
     **{f"obs.{k}": _TIMELINE for k in (
         "timeline_dir", "timeline_max_bytes", "timeline_segment_bytes",
         "timeline_tail_keep_s")},
-    **{f"chaos.{k}": "the replay service's chaos (replay/service.py, ROADMAP item 7)"
-       for k in ("rpc_delay_ms", "rpc_drop_rate", "kill_shard_at_step",
-                 "kill_shard_interval_s")},
-    "replay.service_dedup": "the replay service and its frame dedup "
-                            "(replay/service.py, ROADMAP item 7)",
 }
 
 

@@ -6,9 +6,10 @@ the same seeded streams (schedule, victims, jitter: ``random.Random``
 seeded as there), so a chaos run of the port draws the JAX package's fault
 sequence for the same config and seed.  Its targets are the port's: the
 process pool of ``runtime/process_actors``, ``runtime/shm_ring`` rings and
-``utils/checkpoint_inc`` chunks.  The replay service's kind
-(``kill_shard``) records "no replay fleet attached" until that service is
-ported; its config keys are refused (ROADMAP item 7).
+``utils/checkpoint_inc`` chunks, and the ``replay/service.py`` fleet that
+``attach(replay_fleet=...)`` names (``kill_shard``: the same seeded victim
+as the JAX package; without a fleet it records "no replay fleet
+attached").
 
 The supervision tier (runtime/supervisor.py) claims the fleet survives
 any single component dying; this module is how that claim gets TESTED

@@ -359,13 +359,19 @@ class _ActorWorker:
             chunks, stats = fleet.collect(quantum, param_source=source,
                                           selector=selector)
             for chunk in chunks:
-                idx = self._sink(chunk.priorities, chunk.transitions)
+                trace_id = 0
+                if (self._lineage is not None and self._trace_rate
+                        and self._trace_rng.random() < self._trace_rate):
+                    trace_id = self._trace_rng.getrandbits(63) or 1
+                # A remote replay's add is an RPC: it carries the chunk's
+                # trace id, so the hop joins the lineage timeline.
+                if getattr(self._sink, "takes_trace", False):
+                    idx = self._sink(chunk.priorities, chunk.transitions, trace_id)
+                else:
+                    idx = self._sink(chunk.priorities, chunk.transitions)
                 self.actor_steps += chunk.actor_steps
                 self._fps.add(chunk.actor_steps)
                 if self._lineage is not None and idx is not None:
-                    trace_id = 0
-                    if self._trace_rate and self._trace_rng.random() < self._trace_rate:
-                        trace_id = self._trace_rng.getrandbits(63) or 1
                     self._lineage.on_ingest(idx, trace_id=trace_id)
             if stats:
                 with self._ep_lock:
@@ -416,7 +422,14 @@ class AsyncPipeline:
                 self._restore_ring(self.comps.restored_path)
             sink = self.fused.add_chunk
         else:
-            sink = self.comps.replay.add
+            add = sink = self.comps.replay.add
+            if getattr(self.comps.replay, "remote", False):
+                # Replay as a service (JAX :616-622): the add RPC carries the
+                # chunk's trace id.
+                def sink(prio, trans, trace_id=0):
+                    return add(prio, trans, trace_id=trace_id)
+
+                sink.takes_trace = True
             self.train_step = self.comps.make_train_step()
             self._sample = self.comps.make_sampler(lambda: self._learner_step)
             self._place = DevicePlacer(self.comps.device)
@@ -534,6 +547,23 @@ class AsyncPipeline:
         self.obs_server = None
         self.obs_port = None
         self._build_tier_obs()
+        self._build_replay_svc_obs()
+
+    def _build_replay_svc_obs(self) -> None:
+        """A service-attached replay (JAX :539-552, :1032): its stats are the
+        ``replay_svc`` ``/varz`` provider and JSONL section, its age the
+        ``replay_svc`` ``/healthz`` component (a down shard is DEGRADED,
+        never a wedge), and its RPC hop spans the ``trace_spans`` provider."""
+        self._remote_replay = None
+        replay = self.comps.replay
+        if replay is None or not getattr(replay, "remote", False):
+            return
+        self._remote_replay = replay
+        reg = self.obs_registry
+        reg.register_provider("replay_svc", replay.stats)
+        self.health.register("replay_svc", replay.age_s)
+        self.register_jsonl_section("replay_svc", replay.stats)
+        reg.register_provider("trace_spans", replay.spans.snapshot)
 
     def _build_tier_obs(self) -> None:
         """The tiered replay's instruments (JAX :508-537), only when the host
@@ -651,6 +681,14 @@ class AsyncPipeline:
         if self.fleet_registry is not None:
             self.fleet_registry.close()
             self.fleet_registry = None
+        if self._remote_replay is not None:
+            # Stop the probe thread and release the RPC sockets.  Soft: a
+            # later op on the client reconnects; only background recovery
+            # stops.
+            try:
+                self._remote_replay.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
         if self._sigterm:
             self.recorder.restore_sigterm()
             self._sigterm = False
@@ -731,7 +769,9 @@ class AsyncPipeline:
                 fused.add_chunk(prio.copy(), trans.copy() if isinstance(trans, DedupChunk)
                                 else trans.map(np.copy))
         else:
-            process_sink = sink  # replay.add copies into its own arrays
+            # replay.add copies into its own arrays (a remote add encodes
+            # them into its request body).
+            process_sink = sink
         self.worker = ProcessActorWorker(pool, process_sink, logger=self.logger,
                                          fps=self._fps, stop_event=self.stop_event,
                                          lineage=self._lineage)
@@ -964,6 +1004,12 @@ class AsyncPipeline:
                         batch = placed.wait()
                     if self._lineage is not None:
                         self._lineage.on_sample(placed.indices)
+                        if self._remote_replay is not None:
+                            # A traced slot in the batch stamps the parked
+                            # sample-RPC span (JAX :1318-1324).
+                            tids = self._lineage.trace_ids_for(placed.indices)
+                            if tids:
+                                self._remote_replay.tag_sample_span(tids[0])
                     with self.timers.stage("step_dispatch"):
                         state, metrics = self.train_step(state, batch)
                     self.comps.state = state
@@ -1021,6 +1067,8 @@ class AsyncPipeline:
             state, replay, generator = fused.state, fused, fused.generator
         else:
             state, replay, generator = self.comps.state, self.comps.replay, None
+            if self._remote_replay is not None:
+                replay = None   # the shards own their chains
         t0 = time.perf_counter()
         if self._ckpt_inc is not None:
             self._ckpt_inc.save(int(state.step))
@@ -1056,7 +1104,15 @@ class AsyncPipeline:
         with self.timers.stage("priority_writeback"):
             idx = np.concatenate([i for i, _ in pending])
             prio = torch.cat([p for _, p in pending]).cpu().numpy()
-            self.comps.replay.update_priorities(idx, prio)
+            if self._remote_replay is not None:
+                # A traced experience among these slots stamps the
+                # write-back RPC, the timeline's last hop (JAX :1228-1234).
+                tids = (self._lineage.trace_ids_for(idx)
+                        if self._lineage is not None else [])
+                self._remote_replay.update_priorities(
+                    idx, prio, trace_id=tids[0] if tids else 0)
+            else:
+                self.comps.replay.update_priorities(idx, prio)
         if self._lineage is not None:
             # The read above waited for these steps' device work: their
             # slots are trained.
@@ -1310,7 +1366,11 @@ class AsyncPipeline:
             # stacked over its K steps, the last one is logged.
             self.logger.log("learner/loss", float(metrics.loss.reshape(-1)[-1]))
             self.logger.log("learner/mean_q", float(metrics.mean_q.reshape(-1)[-1]))
-        path = {"stage_us": self.timers.us_per_call()}
+        # The sampler kernel's launches in this process (0 on the host path,
+        # which samples on the CPU): a learner run as its own process
+        # reports them here.
+        path = {"stage_us": self.timers.us_per_call(),
+                "sampler_launches": sampling.sample_indices.launches}
         if self.fused is not None:
             path["staged_rows"] = self.fused.staged_rows
         if self._dispatch_pipeline is not None:

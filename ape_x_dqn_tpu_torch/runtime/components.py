@@ -239,6 +239,32 @@ def build_components(cfg: ApexConfig, device: str | torch.device = "cuda") -> Co
         # The fused learner keeps the ring on the device; a host replay here
         # would be ~capacity × 2 frames of dead host memory.
         replay = None
+    elif cfg.replay.service_mode == "attach":
+        # Replay as a service (replay/service.py; JAX :270-296): a retrying
+        # RPC client over the shard fleet named by the endpoints file, with
+        # the host replay's add / sample / update_priorities surface; the
+        # learner survives a shard dying.
+        from ape_x_dqn_tpu_torch.replay.service import ShardedReplayClient
+
+        replay = ShardedReplayClient.from_endpoints_file(
+            cfg.replay.service_endpoints,
+            codec=cfg.replay.service_codec,
+            dedup=cfg.replay.service_dedup,
+            # Cross-tier tracing follows the lineage sample rate: a traced
+            # chunk's add / sample / write-back RPCs carry its id.
+            trace=cfg.obs.trace_sample_rate > 0,
+            request_timeout_s=cfg.replay.service_request_timeout_s,
+            probe_interval_s=cfg.replay.service_probe_interval_s,
+            seed=cfg.seed,
+        )
+        if replay.capacity != cfg.replay.capacity:
+            replay.close()
+            raise ValueError(
+                f"replay.capacity {cfg.replay.capacity} != the service "
+                f"fleet's total {replay.capacity} "
+                f"({cfg.replay.service_endpoints}) — the slot-index "
+                "arithmetic (lineage, priority routing) must agree"
+            )
     elif cfg.replay.dedup:
         from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
 
@@ -276,7 +302,10 @@ def _restore(cfg: ApexConfig, state: TrainState, replay) -> Optional[str]:
     path = (cfg.learner.checkpoint_dir if cfg.learner.restore_from is True
             else str(cfg.learner.restore_from))
     try:
-        _, step = restore_checkpoint(path, state, replay=replay)
+        # A service-attached replay: the shards own their chains, so only
+        # the train-state leg restores here.
+        _, step = restore_checkpoint(
+            path, state, replay=None if getattr(replay, "remote", False) else replay)
     except FileNotFoundError:
         print(f"WARNING: no checkpoint at {path}; starting from scratch", file=sys.stderr)
         return None

@@ -1279,8 +1279,13 @@ class ProcessActorWorker:
             while not self._stop.is_set():
                 self.pool.supervise()
                 items = self.pool.poll(max_items=64, timeout=0.05, with_meta=True)
+                # A remote replay's add carries the record's trace id.
+                sink_trace = getattr(self._sink, "takes_trace", False)
                 for prio, trans, meta in items:
-                    idx = self._sink(prio, trans)
+                    if sink_trace:
+                        idx = self._sink(prio, trans, meta["trace_id"])
+                    else:
+                        idx = self._sink(prio, trans)
                     if self._fps is not None:
                         self._fps.add(len(prio))
                     if self._lineage is not None and idx is not None:

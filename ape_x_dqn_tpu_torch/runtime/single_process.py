@@ -91,7 +91,9 @@ class SingleProcessDriver:
         if every and self._learner_step % every == 0:
             from ape_x_dqn_tpu_torch.utils.checkpoint import save_checkpoint
 
-            save_checkpoint(self.cfg.learner.checkpoint_dir, self.state, replay=self.replay)
+            # A service-attached replay: the shards own their chains.
+            replay = None if getattr(self.replay, "remote", False) else self.replay
+            save_checkpoint(self.cfg.learner.checkpoint_dir, self.state, replay=replay)
         return host_batch, metrics
 
     def run_iteration(self) -> IterationResult:

@@ -105,13 +105,22 @@ def _run_async(args, cfg, logger) -> None:
 
 
 def _run_sync(args, cfg, logger) -> None:
-    from ape_x_dqn_tpu_torch.evaluation import log_result, make_evaluator
     from ape_x_dqn_tpu_torch.runtime.single_process import SingleProcessDriver
 
     if cfg.actor.mode == "process":
         raise ValueError("--mode sync steps its actors in the learner's process; "
                          "actor.mode=process applies to --mode async")
     driver = SingleProcessDriver(cfg, device=args.device)
+    try:
+        _drive_sync(args, cfg, logger, driver)
+    finally:
+        if getattr(driver.replay, "remote", False):
+            driver.replay.close()   # the client's probe thread and sockets
+
+
+def _drive_sync(args, cfg, logger, driver) -> None:
+    from ape_x_dqn_tpu_torch.evaluation import log_result, make_evaluator
+
     evaluator = None
     next_eval = args.eval_every
     target = args.steps if args.steps is not None else cfg.learner.total_steps
@@ -147,6 +156,9 @@ def _run_sync(args, cfg, logger) -> None:
         actor_steps=driver.total_actor_steps,
         replay_size=driver.replay.size(),
         final=True,
+        # A service-attached replay's degradation surface.
+        **({"replay_svc": driver.replay.stats()}
+           if getattr(driver.replay, "remote", False) else {}),
     )
     print("final:", final, file=sys.stderr)
 

@@ -11,10 +11,12 @@ and are cast to the compute dtype inside the network.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:   # annotations only: a replay shard process loads no torch
+    import torch
 
 
 @dataclasses.dataclass

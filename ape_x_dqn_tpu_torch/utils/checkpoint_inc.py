@@ -123,14 +123,22 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _byte_view(part) -> memoryview:
+    """A flat byte view of one packed part.  A zero-size array (an empty
+    delta's index column) has no byte view to cast: it is ``b""``."""
+    if isinstance(part, (bytes, bytearray)):
+        return memoryview(part)
+    arr = np.ascontiguousarray(part)
+    return memoryview(arr).cast("B") if arr.size else memoryview(b"")
+
+
 def write_chunk(path: str, arrays: dict, compress: bool = False) -> int:
     """Serialize a flat str→array dict as one CRC-framed chunk file
     (tmp + fsync + rename — a kill mid-write never leaves a torn file at
     the committed name).  Returns bytes written.  Uncompressed, the parts
     are checksummed and written in place, never joined: a base of the 2M
     dedup ring is 17.64 GB, and a joined copy would double its RAM."""
-    parts = [memoryview(p if isinstance(p, (bytes, bytearray)) else np.ascontiguousarray(p))
-             .cast("B")
+    parts = [_byte_view(p)
              for p in pack_array_parts({k: np.asarray(v) for k, v in arrays.items()})]
     flags = 0
     if compress:

@@ -740,7 +740,19 @@ def run_train(argv, records: list | None = None):
     return final, wall
 
 
-def phase_host_train(sampling, card: str, steps: int = 512):
+# Smoke-time cuts that pay for replay_svc_train (each listed in its phase's
+# output): host_train's, host_dedup_train's, tier_train's and
+# obs_train_host's steps, obs_train's calls after the respawn, and the serve
+# durations of serve_hub, serve_attach and serve_checkpoint.
+HOST_TRAIN_STEPS = 256         # was 512
+OBS_CALLS_AFTER = 1            # was 3
+SERVE_HUB_DURATION_S = 5.0     # was 8.0
+SERVE_DURATION_S = 12.0        # serve_attach, serve_checkpoint; was 20.0
+OBS_HOST_STEPS = 256           # obs_train_host; was 512
+TIER_STEPS = 256               # was 512
+
+
+def phase_host_train(sampling, card: str, steps: int = HOST_TRAIN_STEPS):
     import torch
 
     argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "128",
@@ -772,6 +784,7 @@ def phase_host_train(sampling, card: str, steps: int = 512):
         "actor_steps": final["actor_steps"], "replay_size": final["replay_size"],
         "replay_frames_nbytes": pipe.comps.replay.frames_nbytes(),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "cuts": {"steps": f"{steps} for 512 (smoke time)"},
     }
     emit(result)
     return result
@@ -1415,7 +1428,7 @@ class ObsController:
     second all the while (the first trigger is sent from the learner's
     thread just before a fused call begins: armed between two calls); then
     SIGKILL worker 1 and wait for its post-mortem file, its respawn and its
-    first chunks; then stop the run after three more calls.  The times of
+    first chunks; then stop the run after ``OBS_CALLS_AFTER`` more calls.  The times of
     these moments (host monotonic) are recorded, so the rate can leave the
     captures and the respawn out."""
 
@@ -1530,7 +1543,8 @@ class ObsController:
         out["varz_after"] = _get(f"{url}/varz")
         out["healthz_after"] = _get(f"{url}/healthz")
         step = pipe.learner_step
-        self._wait(lambda: pipe.learner_step >= step + 3 * self.K, "3 calls after the respawn")
+        self._wait(lambda: pipe.learner_step >= step + OBS_CALLS_AFTER * self.K,
+                   f"{OBS_CALLS_AFTER} call after the respawn")
 
 
 def phase_obs_train(sampling, card: str, beside: dict) -> dict:
@@ -1667,6 +1681,7 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
         "fused_calls": calls, "sampler_launches": launches, "loss": final["learner/loss"],
         "learner_steps_per_s_quiet_calls": rate, "quiet_calls": quiet,
         "learner_steps_per_s_second_call": K / (call_ms[1] / 1e3),
+        "cuts": {"calls_after_respawn": f"{OBS_CALLS_AFTER} for 3 (smoke time)"},
         "fused_call_ms": call_ms,
         "beside_dedup_train": {
             "learner_steps_per_s_calls": base_rate,
@@ -1709,7 +1724,7 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
     return result
 
 
-def phase_obs_host(sampling, card: str, steps: int = 512) -> dict:
+def phase_obs_host(sampling, card: str, steps: int = OBS_HOST_STEPS) -> dict:
     """The host-replay path with 2 worker processes and every chunk traced
     (``obs.trace_sample_rate=1.0``), ``steps`` learner steps at full width:
     every finished lineage span is monotone (``t_act <= t_ingest <=
@@ -1755,6 +1770,7 @@ def phase_obs_host(sampling, card: str, steps: int = 512) -> dict:
     ms = {k: [s[k] for s in spans] for k in ("act_to_ingest_ms", "ingest_to_first_sample_ms",
                                              "first_sample_to_trained_ms", "act_to_trained_ms")}
     result = {"phase": "obs_train_host", "card": card, "learner_steps": final["step"],
+              "cuts": {"steps": f"{steps} for 512 (smoke time)"},
               "sampler_launches": launches, "spans": len(spans), "spans_not_monotone": 0,
               "traces_open": lineage["traces_open"],
               "traces_abandoned": lineage["traces_abandoned"],
@@ -2067,7 +2083,7 @@ def graphed_forward_ms(net, params, obs_shape, reps: int) -> dict:
     return out
 
 
-def phase_serve_attach(sampling, card: str, duration: float = 20.0):
+def phase_serve_attach(sampling, card: str, duration: float = SERVE_DURATION_S):
     """``serve.main(["--attach", "--listen", "0", "--clients", "4", ...])``
     on the card: the device-replay learner of phase 5 trains in a thread
     while 4 closed-loop clients act through the server and it hot-reloads
@@ -2095,6 +2111,7 @@ def phase_serve_attach(sampling, card: str, duration: float = 20.0):
             or final["serve/reloads"] < 1:
         raise AssertionError(f"serve_attach: rc {rc}, listen {listen}, final {final}")
     result = {"phase": "serve_attach", "card": card, "duration_s": duration, "wall_s": wall,
+              "cuts": {"duration_s": f"{duration} for 20.0 (smoke time)"},
               "port": listen[0]["port"], "served_total": final["serve/served_total"],
               "qps": final["serve/served_total"] / duration,
               "qps_30s": final["serve/qps"],
@@ -2518,7 +2535,7 @@ def phase_ckpt_train(sampling, card: str):
     return result, root, state
 
 
-def phase_serve_checkpoint(card: str, root: str, state, duration: float = 20.0):
+def phase_serve_checkpoint(card: str, root: str, state, duration: float = SERVE_DURATION_S):
     """``serve.main(["--checkpoint", root, "--listen", "0", "--clients", "4",
     ...])`` on the card over ``ckpt_train``'s directory; mid-run a newer step
     commits (``save_checkpoint``): the server reloads it, the replies carry
@@ -2608,6 +2625,7 @@ def phase_serve_checkpoint(card: str, root: str, state, duration: float = 20.0):
                              f"{first.param_version} (want {v0}), q error {q_err:.3g}, "
                              f"final {final}")
     result = {"phase": "serve_checkpoint", "card": card, "duration_s": duration,
+              "cuts": {"duration_s": f"{duration} for 20.0 (smoke time)"},
               "versions": [v0, v0 + 1], "reload_after_commit_s": reload_s,
               "q_err_rel": q_err, "served_total": final["serve/served_total"],
               "qps": final["serve/served_total"] / duration, "qps_30s": final["serve/qps"],
@@ -2887,7 +2905,7 @@ def _probe_until(client, obs, version: int, timeout_s: float = 60.0):
     raise AssertionError(f"serve_hub: version {version} never served")
 
 
-def phase_serve_hub(card: str, trained: dict, duration: float = 8.0):
+def phase_serve_hub(card: str, trained: dict, duration: float = SERVE_HUB_DURATION_S):
     """The param hub and the param tail on the card.  A ``NetTransport`` in
     this process is the hub: it publishes ``tcp_train``'s trained params
     (version 1, full) and a newer version that changes one head's bias
@@ -2932,7 +2950,8 @@ def phase_serve_hub(card: str, trained: dict, duration: float = 8.0):
         w = want[reply.param_version]
         return float(np.abs(reply.q_values - w).max() / np.abs(w).max())
 
-    result = {"phase": "serve_hub", "card": card, "changed_leaf": head}
+    result = {"phase": "serve_hub", "card": card, "changed_leaf": head,
+              "cuts": {"duration_s": f"{duration} for 8.0 (smoke time)"}}
     hub = NetTransport(port=0)
     for wid in (0, 1):
         hub.make_channel(wid, 0)
@@ -4180,7 +4199,7 @@ def phase_serve_delay(card: str, requests: int = 100, delay_ms: float = 5.0) -> 
 
 SPILL_ROOT = os.path.join(REPO_DIR, "build", "spill_smoke")
 ATARI_OBS = (84, 84, 1)
-HOST_DEDUP_STEPS = 512
+HOST_DEDUP_STEPS = 256         # was 512 (smoke time; host_dedup_cuts lists it)
 # tier_train: a 32 MiB hot budget (~4 750 frames) under a warm-up that
 # outgrows it, so the tier spills and faults inside the phase.
 TIER_BUDGET = 32 << 20
@@ -4506,7 +4525,7 @@ def observe_restore(seen):
         AsyncPipeline.run = run
 
 
-def phase_tier_train(sampling, card: str, beside: dict, steps: int = HOST_DEDUP_STEPS) -> dict:
+def phase_tier_train(sampling, card: str, beside: dict, steps: int = TIER_STEPS) -> dict:
     """``host_dedup_train``'s learner with the tiered store:
     ``replay.hot_frame_budget_bytes`` 32 MiB (~4 750 frames) under a warm-up
     of ``TIER_WARMUP`` rows, the spill file and an incremental checkpoint
@@ -4809,6 +4828,336 @@ def phase_host_dedup_2m(sampling) -> dict:
     return result
 
 
+SVC_ROOT = os.path.join(REPO_DIR, "build", "replay_svc_smoke")
+SVC_SLOTS = 2_000_000          # config3's replay.capacity, 1 000 000 per shard
+SVC_KILL_AT = 120              # learner A's step at which one shard is SIGKILLed
+SVC_STEPS = 400                # each learner's step budget
+SVC_TIMEOUT_S = 2.0            # replay.service_request_timeout_s of both learners
+
+
+def replay_svc_argv(endpoints: str, log: str, seed: int) -> list:
+    """``python -m ape_x_dqn_tpu_torch.train`` arguments for one learner on
+    the card attached to the fleet: config3's learner on host replay (conv
+    dueling at full width, bf16 ν and target, B = 32), catch:84."""
+    return [sys.executable, "-m", "ape_x_dqn_tpu_torch.train", "--device", "cuda",
+            "--steps", str(SVC_STEPS), "--log-every", "16", "--metrics-file", log,
+            *FULL_WIDTH, "--set", f"seed={seed}",
+            "--set", f"replay.capacity={SVC_SLOTS}",
+            "--set", "replay.service_mode=attach",
+            "--set", f"replay.service_endpoints={endpoints}",
+            "--set", f"replay.service_request_timeout_s={SVC_TIMEOUT_S}",
+            "--set", "replay.service_probe_interval_s=0.25",
+            "--set", "learner.second_moment_dtype=bfloat16",
+            "--set", "learner.target_dtype=bfloat16",
+            "--set", f"learner.min_replay_mem_size={DEDUP_WARMUP}",
+            "--set", "actor.mode=process", "--set", "actor.sync_every=100"]
+
+
+def _svc_rates(records: list, t_kill: float, t_up: float) -> dict:
+    """Learner steps/s before the kill, during the outage and after it, from
+    the (t, step) of one learner's periodic records; ``t_kill`` and
+    ``t_up`` are on that learner's own clock (its record ``t``)."""
+    pts = [(r["t"], r["step"]) for r in records if "step" in r and "t" in r and r["step"] > 0]
+
+    def rate(lo, hi):
+        win = [(t, s) for t, s in pts if lo <= t <= hi]
+        if len(win) < 2 or win[-1][0] <= win[0][0]:
+            return None
+        return (win[-1][1] - win[0][1]) / (win[-1][0] - win[0][0])
+
+    return {"before": rate(-1.0, t_kill), "during": rate(t_kill, t_up),
+            "after": rate(t_up, float("inf"))}
+
+
+def _svc_sample_probe(svc, fleet, n: int = 64) -> dict:
+    """Sample RPCs of 32 rows from this process against every live shard,
+    once over a zlib connection and once over a raw one: RTT p50/p99 and
+    reply bytes per sample."""
+    out = {}
+    for codec in ("zlib", "off"):
+        rtts, nbytes = [], []
+        for s in fleet.shards:
+            cli = svc.ShardClient(s.shard_id, "127.0.0.1", s.port, token=fleet.token,
+                                  client_id=7000 + s.shard_id, incarnation=s.incarnation,
+                                  codec=codec)
+            try:
+                for k in range(n):
+                    t0 = time.perf_counter()
+                    _flags, body = cli.request(svc.OP_SAMPLE,
+                                               svc._SAMPLE_REQ.pack(32, 0.4, SEED + k),
+                                               timeout=10.0)
+                    rtts.append((time.perf_counter() - t0) * 1e3)
+                    nbytes.append(len(body))
+            finally:
+                cli.close()
+        out[codec] = {"rtt_ms_p50": float(np.percentile(rtts, 50)),
+                      "rtt_ms_p99": float(np.percentile(rtts, 99)),
+                      "reply_bytes_per_sample": float(np.mean(nbytes)), "samples": len(rtts)}
+    return out
+
+
+def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
+    """Replay as a service on the card: a 2-shard ``ReplayServiceFleet``
+    (CPU processes, ``CUDA_VISIBLE_DEVICES`` empty) holding config3's
+    2 000 000 slots (1 000 000 per shard, 84×84×1 uint8, zlib), each shard
+    with its own checkpoint chain, and two learner processes on the card
+    (``python -m ape_x_dqn_tpu_torch.train --device cuda``, config3's
+    learner on host replay with ``replay.service_mode=attach``): learner A
+    fed by 2 worker processes × 4 actors, learner B by one remote slot over
+    tcp claimed by ``python -m ape_x_dqn_tpu_torch.host_join``.  Once A's
+    step crosses ``SVC_KILL_AT`` the fleet SIGKILLs its seeded victim
+    (``maybe_kill_at_step``): both learners must train on with
+    ``shards_down`` 1 in their ``replay_svc`` sections; the dead shard's
+    frozen chain is digested here, then the shard respawns, and its
+    announced restore digest must equal the chain's (or the restore is a
+    typed ``degraded_restore``); ``shards_down`` returns to 0, every parked
+    write-back is flushed (``writeback_pending`` 0, ``writeback_flushed``
+    > 0 across the learners), both learners train past the outage.  Gates:
+    0 torn frames on every shard and learner, no CUDA context or device
+    mapping in any shard process, 0 sampler launches in either learner, no
+    /dev/shm segment left, every process exits 0."""
+    import shutil
+
+    from ape_x_dqn_tpu_torch.replay import service as svc
+    from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
+    from ape_x_dqn_tpu_torch.utils.checkpoint_inc import load_incremental_replay, read_manifest
+
+    t0 = time.monotonic()
+    shutil.rmtree(SVC_ROOT, ignore_errors=True)
+    os.makedirs(SVC_ROOT)
+    shm_before = _shm_segments()
+    contexts_before = card_contexts()
+    fleet_events: list = []
+    fleet = svc.ReplayServiceFleet(
+        2, SVC_SLOTS, ATARI_OBS, root_dir=os.path.join(SVC_ROOT, "fleet"), codec="zlib",
+        save_every_s=2.0, auto_respawn=False, kill_shard_at_step=SVC_KILL_AT,
+        chaos_seed=SEED, on_event=lambda name, **f: fleet_events.append({"event": name, **f}))
+    logs = {k: os.path.join(SVC_ROOT, f"learner_{k}.jsonl") for k in "ab"}
+    errs = {k: os.path.join(SVC_ROOT, f"learner_{k}.err") for k in "ab"}
+    join_path = os.path.join(SVC_ROOT, "join.json")
+    procs: dict = {}
+    log: dict = {}
+    shard_pids: list = []
+
+    def records(k):
+        return _jsonl(logs[k]) if os.path.exists(logs[k]) else []
+
+    def last(k, key):
+        rec = next((r for r in reversed(records(k)) if key in r), None)
+        return rec[key] if rec is not None else None
+
+    def step(k):
+        return int(last(k, "step") or 0)
+
+    def stats(k):
+        return last(k, "replay_svc") or {}
+
+    def wait_for(cond, what: str, timeout: float = 120.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            for name, p in procs.items():
+                if p.poll() is not None and name != "host_join":
+                    raise AssertionError(f"replay_svc_train: {name} exited rc "
+                                         f"{p.returncode} while waiting for {what}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"replay_svc_train: timed out waiting for {what}")
+            time.sleep(0.1)
+
+    try:
+        marks = log["marks_s"] = {}     # seconds since the phase began
+
+        def mark(name):
+            marks[name] = time.monotonic() - t0
+
+        fleet.start(timeout=120.0)
+        mark("fleet_up")
+        log["shard_spawn_s"] = [s.spawn_s for s in fleet.shards]
+        shard_pids += [s.pid for s in fleet.shards]
+        common = {"cwd": REPO_DIR, "stdout": subprocess.DEVNULL}
+        procs["learner_a"] = subprocess.Popen(
+            replay_svc_argv(fleet.endpoints_path, logs["a"], SEED)
+            + ["--set", "actor.num_workers=2", "--set", "actor.num_actors=8"],
+            stderr=open(errs["a"], "wb"), **common)
+        procs["learner_b"] = subprocess.Popen(
+            replay_svc_argv(fleet.endpoints_path, logs["b"], SEED + 1) + TCP_ARGS
+            + ["--set", "actor.num_workers=1", "--set", "actor.remote_workers=1",
+               "--set", f"actor.remote_join_path={join_path}",
+               "--set", "actor.num_actors=8"],
+            stderr=open(errs["b"], "wb"), **common)
+        wait_for(lambda: os.path.exists(join_path), "learner B's join spec")
+        procs["host_join"] = subprocess.Popen(
+            [sys.executable, "-m", "ape_x_dqn_tpu_torch.host_join", "--join", join_path,
+             "--host", "127.0.0.1"], cwd=REPO_DIR,
+            stdout=open(os.path.join(SVC_ROOT, "host_join.jsonl"), "wb"),
+            stderr=subprocess.DEVNULL)
+        wait_for(lambda: step("a") > 0 and step("b") > 0, "both learners stepping", 240.0)
+        mark("both_stepping")
+        log["contexts_while_training"] = card_contexts()
+        log["shard_device_mappings"] = [device_mappings(p) for p in shard_pids]
+        kill = {}
+
+        def crossed():
+            rec = fleet.maybe_kill_at_step(step("a"))
+            if rec is not None:
+                kill.update(rec, t=time.monotonic())
+            return bool(kill)
+
+        wait_for(crossed, f"learner A's step {SVC_KILL_AT}")
+        mark("kill")
+        victim = kill["shard"]
+        at_kill = {k: step(k) for k in "ab"}
+        t_kill_rec = {k: records(k)[-1]["t"] for k in "ab"}
+        wait_for(lambda: all(stats(k).get("shards_down", 0) == 1 for k in "ab"),
+                 "shards_down 1 on both learners")
+        log["kill_to_down_s"] = time.monotonic() - kill["t"]
+        wait_for(lambda: all(step(k) > at_kill[k] + 20 for k in "ab"),
+                 "both learners training through the outage")
+        # The dead shard's frozen chain, digested here before the respawn.
+        t_ref = time.monotonic()
+        ref = PrioritizedReplay(SVC_SLOTS // 2, ATARI_OBS)
+        ref_dir = fleet.shards[victim].ckpt_dir
+        ref_step = load_incremental_replay(ref_dir, ref, fallback=True)
+        ref_digest = ref.digest(with_crc=True)
+        del ref
+        gc.collect()
+        log["frozen_chain_load_s"] = time.monotonic() - t_ref
+        manifest = read_manifest(os.path.join(ref_dir, "replay_inc"))
+        log["chain"] = {"chunks": len(manifest["chunks"]), "step": manifest["step"],
+                        "base_bytes": os.path.getsize(os.path.join(
+                            ref_dir, "replay_inc", manifest["chunks"][0])),
+                        "chain_bytes": sum(os.path.getsize(os.path.join(
+                            ref_dir, "replay_inc", c)) for c in manifest["chunks"])}
+        mark("digested")
+        fleet.respawn(victim, timeout=120.0)
+        mark("respawned")
+        shard = fleet.shards[victim]
+        shard_pids.append(shard.pid)
+        log["respawn_spawn_s"] = shard.spawn_s
+        log["respawned_device_mappings"] = device_mappings(shard.pid)
+        recovered = [e for e in shard.events if e.get("event") == "replay_shard_recovered"
+                     and e.get("incarnation") == shard.incarnation]
+        degraded = [e for e in shard.events if e.get("event") == "degraded_restore"]
+        bit_exact = bool(recovered) and all(
+            recovered[-1].get(f) == ref_digest[f] for f in ("count", "cursor", "size", "crc"))
+        if not (bit_exact or degraded):
+            raise AssertionError(f"replay_svc_train: restore {recovered} against the frozen "
+                                 f"chain's digest {ref_digest} (step {ref_step}), no "
+                                 "degraded_restore")
+        wait_for(lambda: all(stats(k).get("shards_down", 1) == 0 for k in "ab"),
+                 "shards_down 0 on both learners")
+        t_up = time.monotonic()
+        mark("up")
+        log["kill_to_up_s"] = t_up - kill["t"]
+        t_up_rec = {k: records(k)[-1]["t"] for k in "ab"}
+        wait_for(lambda: all(stats(k).get("writeback_pending", 1) == 0 for k in "ab"),
+                 "every parked write-back flushed")
+        at_up = {k: step(k) for k in "ab"}
+        probe = _svc_sample_probe(svc, fleet)
+        wait_for(lambda: all(step(k) > at_up[k] + 20 for k in "ab"),
+                 "both learners training past the outage")
+        shard_stats = {}
+        for s in fleet.shards:
+            sc = svc.ShardClient(s.shard_id, "127.0.0.1", s.port, token=fleet.token,
+                                 client_id=999, incarnation=s.incarnation)
+            try:
+                shard_stats[s.shard_id] = sc.shard_stats(timeout=10.0)
+            finally:
+                sc.close()
+        mark("past_outage")
+        rcs = {}
+        for k in "ab":
+            rcs[k] = procs[f"learner_{k}"].wait(timeout=600)
+        mark("learners_exited")
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            try:
+                log.setdefault("rcs", {})[name] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log.setdefault("rcs", {})[name] = p.wait(timeout=10)
+        fleet.stop()
+        tails = {}
+        for k in "ab":
+            try:
+                with open(errs[k], "rb") as f:
+                    tails[k] = f.read()[-1500:].decode(errors="replace")
+            except OSError:
+                pass
+        log["stderr_tails"] = tails
+    recs = {k: records(k) for k in "ab"}
+    finals = {k: recs[k][-1] for k in "ab"}
+    shutil.rmtree(SVC_ROOT, ignore_errors=True)
+    if any(rcs[k] != 0 or not finals[k].get("final") for k in "ab"):
+        raise AssertionError(f"replay_svc_train: learner rcs {rcs}, stderr {log['stderr_tails']}")
+    svc_final = {k: finals[k]["replay_svc"] for k in "ab"}
+    launches = {k: finals[k]["sampler_launches"] for k in "ab"}
+    flushed = sum(s["writeback_flushed"] for s in svc_final.values())
+    torn = {"shards": {k: v["torn_frames"] for k, v in shard_stats.items()},
+            "learners": {k: v["rpc_torn"] for k, v in svc_final.items()}}
+    if any(launches.values()):
+        raise AssertionError(f"replay_svc_train: sampler launches {launches} on host replay")
+    if flushed <= 0 or any(s["writeback_pending"] or s["shards_down"]
+                           for s in svc_final.values()):
+        raise AssertionError(f"replay_svc_train: replay_svc at the end {svc_final}")
+    if any(torn["shards"].values()) or any(torn["learners"].values()):
+        raise AssertionError(f"replay_svc_train: torn frames {torn}")
+    if any(log["shard_device_mappings"]) or log["respawned_device_mappings"] \
+            or log["contexts_while_training"] > contexts_before + 2:
+        raise AssertionError(f"replay_svc_train: CUDA in a shard: contexts "
+                             f"{contexts_before} -> {log['contexts_while_training']}, "
+                             f"mappings {log['shard_device_mappings']} "
+                             f"{log['respawned_device_mappings']}")
+    if _shm_segments() - shm_before:
+        raise AssertionError(f"replay_svc_train: /dev/shm left {_shm_segments() - shm_before}")
+    if any(finals[k]["step"] <= at_up[k] for k in "ab"):
+        raise AssertionError(f"replay_svc_train: final steps {[finals[k]['step'] for k in 'ab']}")
+    rates = {k: _svc_rates(recs[k], t_kill_rec[k], t_up_rec[k]) for k in "ab"}
+    op_ms = {k: {q: v["op_ms"].get(q) for q in ("p50_ms", "p99_ms", "count")}
+             for k, v in shard_stats.items()}
+    result = {
+        "phase": "replay_svc_train", "card": card,
+        "learner_steps": {k: finals[k]["step"] for k in "ab"},
+        "loss": {k: finals[k]["learner/loss"] for k in "ab"},
+        "sampler_launches": sum(launches.values()), "sampler_launches_by_learner": launches,
+        "learner_steps_per_s": rates,
+        "learner_steps_per_s_run": {k: finals[k]["step"] / finals[k]["train_s"]
+                                    for k in "ab"},
+        f"beside_{beside['phase']}": beside["learner_steps_per_s"],
+        "actor_fps": {k: finals[k]["actor_fps"] for k in "ab"},
+        "stage_us": {k: finals[k]["stage_us"] for k in "ab"},
+        "kill": {k: v for k, v in kill.items() if k != "t"}, "steps_at_kill": at_kill,
+        "steps_at_recovery": at_up,
+        "restore": {"bit_exact": bit_exact, "degraded_restore": degraded,
+                    "announced": recovered[-1] if recovered else None,
+                    "frozen_chain_digest": ref_digest, "frozen_chain_step": ref_step},
+        "sample_probe": probe, "shard_op_ms": op_ms,
+        "reply_bytes_raw_over_zlib": probe["off"]["reply_bytes_per_sample"]
+        / probe["zlib"]["reply_bytes_per_sample"],
+        "add_dups": sum(v["add_dups"] for v in shard_stats.values()),
+        "shards": {k: {f: v[f] for f in ("incarnation", "requests", "errors", "torn_frames",
+                                         "bad_hellos", "stale_rejects", "add_dups", "size",
+                                         "total_added", "saves", "reply_zlib", "reply_raw",
+                                         "bytes_out", "logical_bytes_in")}
+                   for k, v in shard_stats.items()},
+        "replay_svc": svc_final, "writeback_flushed": flushed, "torn_frames": torn,
+        "fleet": fleet.stats(), "fleet_events": [e["event"] for e in fleet_events],
+        "contexts_before": contexts_before, **{k: v for k, v in log.items()
+                                               if k != "stderr_tails"},
+        "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine)",
+                 "actors": "learner A 2 workers x 4 actors, learner B 1 remote slot x 8 "
+                           "actors, for 8 x 32 per learner",
+                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "steps": f"{SVC_STEPS} per learner for 2000000",
+                 "data_parallel": "1 for 4"},
+        "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     import shutil
 
@@ -4888,6 +5237,9 @@ def main() -> int:
     del ckpt_state
     chaos_restore = phase_chaos_restore(sampling, card=smi)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # Last: its two learner processes are the only other CUDA contexts the
+    # smoke puts on the card before obs_train's profiled captures otherwise.
+    replay_svc = phase_replay_svc_train(sampling, card=smi, beside=proc_host)
 
     emit({"phase": "smoke", "seconds": time.monotonic() - t_smoke})
     # The sampler's main path stays atari_train (one sample-ahead launch per
@@ -4907,6 +5259,7 @@ def main() -> int:
                              "host_dedup_parity": host_dedup_parity["sampler_launches"],
                              "process_host_dedup": host_dedup["sampler_launches"],
                              "process_host_tiered": tier["sampler_launches"],
+                             "replay_service": replay_svc["sampler_launches"],
                              "dedup_parity": dedup_parity["sampler_launches"],
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],

@@ -585,13 +585,18 @@ class TestConfig:
             apply_overrides(ApexConfig(), ["serving.max_batch=16", override])
 
     def test_unported_chaos_section_refused_in_json(self, tmp_path):
-        """The chaos section loads; its replay-service keys are the part
-        not ported, refused by name."""
+        """The chaos section loads whole: its replay-service keys, refused
+        by name until the replay service was ported, load beside
+        serving_delay_ms; an out-of-range one is refused with the JAX
+        package's message."""
         path = tmp_path / "cfg.json"
         path.write_text(json.dumps({"chaos": {"serving_delay_ms": 5.0}}))
         assert load_config(str(path)).chaos.serving_delay_ms == 5.0
         path.write_text(json.dumps({"chaos": {"serving_delay_ms": 5.0, "rpc_drop_rate": 0.1}}))
-        with pytest.raises(ValueError, match=r"chaos\.rpc_drop_rate: .*ROADMAP item 7"):
+        chaos = load_config(str(path)).chaos
+        assert (chaos.serving_delay_ms, chaos.rpc_drop_rate) == (5.0, 0.1)
+        path.write_text(json.dumps({"chaos": {"serving_delay_ms": 5.0, "rpc_drop_rate": 1.5}}))
+        with pytest.raises(ValueError, match=r"chaos\.rpc_drop_rate must be in \[0, 1\]"):
             load_config(str(path))
 
 

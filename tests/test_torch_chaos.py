@@ -19,6 +19,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -339,12 +340,31 @@ class TestConfig:
     @pytest.mark.parametrize("key", ["rpc_delay_ms", "rpc_drop_rate", "kill_shard_at_step",
                                      "kill_shard_interval_s"])
     def test_replay_service_keys_refused_by_name(self, key, tmp_path):
-        with pytest.raises(ValueError, match=rf"chaos\.{key}: .*ROADMAP item 7"):
-            apply_overrides(ApexConfig(), [f"chaos.{key}=1"])
+        """Refused by name until the replay service was ported; now each
+        key is accepted from an override and from JSON and reaches its
+        target: the shard's ``RpcChaos`` flags, the fleet's kill drill,
+        the monkey's schedule."""
+        from ape_x_dqn_tpu_torch.replay.service import ReplayServiceFleet
+
+        cfg = apply_overrides(ApexConfig(), [f"chaos.{key}=0.5" if key == "rpc_drop_rate"
+                                             else f"chaos.{key}=3"])
         path = tmp_path / "cfg.json"
-        path.write_text(json.dumps({"chaos": {"enabled": True, key: 1}}))
-        with pytest.raises(ValueError, match="ROADMAP item 7"):
-            load_config(str(path))
+        path.write_text(json.dumps({"chaos": {"enabled": True, key: getattr(cfg.chaos, key)}}))
+        assert load_config(str(path)).chaos == dataclasses.replace(cfg.chaos, enabled=True)
+        c = cfg.chaos
+        fleet = ReplayServiceFleet(1, 64, (6,), root_dir=str(tmp_path / "fleet"),
+                                   rpc_delay_ms=c.rpc_delay_ms, rpc_drop_rate=c.rpc_drop_rate,
+                                   kill_shard_at_step=c.kill_shard_at_step)
+        shard = fleet.shards[0]
+        assert (shard.rpc_delay_ms, shard.rpc_drop_rate) == (c.rpc_delay_ms, c.rpc_drop_rate)
+        if key == "kill_shard_at_step":
+            fleet.kill_random = lambda rng=None: {"fault": "kill_shard", "shard": 0}
+            assert fleet.maybe_kill_at_step(2) is None
+            assert fleet.maybe_kill_at_step(3) == {"fault": "kill_shard", "shard": 0}
+            assert fleet.maybe_kill_at_step(4) is None       # fires once
+        if key == "kill_shard_interval_s":
+            monkey = tchaos.ChaosMonkey(dataclasses.replace(c, enabled=True), horizon_s=30.0)
+            assert monkey.schedule and {k for _, k in monkey.schedule} == {"kill_shard"}
 
     @pytest.mark.parametrize("over,message", [
         ("chaos.kill_interval_s=-1", "chaos.kill_interval_s must be >= 0"),

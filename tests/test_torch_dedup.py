@@ -1,7 +1,7 @@
 """Frame-dedup emission and carry resolution of the port against the JAX
-package, plus the config checks of the dedup paths (the host ``DedupReplay`` and the
-tiered store with the JAX package's messages; the replay service refused
-by name).
+package, plus the config checks of the dedup paths (the host ``DedupReplay``, the
+tiered store and the replay service's dedup, with the JAX package's
+messages).
 
 * ``CarryResolver`` (``replay/dedup.py``): the same chunk stream, with
   sequence gaps and source eviction, gives identical absolute seqs, keep
@@ -203,7 +203,10 @@ def test_fleet_dedup_arguments_checked(kw, message):
     ("replay.spill_watermark_high=0.5", "0 < low <= high <= 1"),   # below low 0.9
     ("learner.device_replay=true,replay.hot_frame_budget_bytes=1000000",
      "requires device_replay=False"),
-    ("replay.service_dedup=true", "replay service.*ROADMAP item 7"),
+    # The replay service is ported: its frame dedup (service_dedup) is an
+    # accepted key, and attaching to it keeps replay.dedup learner-local.
+    ("replay.service_dedup=true,replay.service_mode=attach,"
+     "replay.service_endpoints=e.json,replay.dedup=true", "stay learner-local features"),
     ("learner.data_parallel=4", "multi-GPU learner.*ROADMAP item 8"),
     ("replay.frame_ratio=0", "frame_ratio must be positive"),
     ("learner.target_dtype=float16", "unknown target_dtype"),

@@ -65,6 +65,7 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.obs.chaos",
                  "ape_x_dqn_tpu_torch.replay.tiered",
                  "ape_x_dqn_tpu_torch.replay.native_dedup",
+                 "ape_x_dqn_tpu_torch.replay.service",
                  "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
@@ -253,3 +254,36 @@ def test_chip_smoke_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_replay_service_and_shard_main_load_no_jax(tmp_path):
+    """``replay/service.py`` imports stdlib + numpy and the port's codecs
+    only, and the shard CLI's whole life (parse, restore, serve under RPC
+    chaos, stop) loads no torch and nothing of JAX or of the JAX package:
+    a shard is a CPU process that spawns in about a second (the JAX shard
+    reaches jax through ``replay/buffer.py`` → ``types.py``)."""
+    code = (
+        "import json, os, signal, sys, threading\n"
+        "from ape_x_dqn_tpu_torch.replay import service\n"
+        "at_import = sorted(n for n in sys.modules\n"
+        f"                   if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "emit = service._emit_line\n"
+        "def line(**f):\n"
+        "    emit(**f)\n"
+        "    if f.get('event') == 'replay_shard_listen':\n"
+        "        threading.Timer(0.3, os.kill, (os.getpid(), signal.SIGTERM)).start()\n"
+        "service._emit_line = line\n"
+        "rc = service.main(['--shard-id', '0', '--capacity', '64', '--obs-shape', '6',\n"
+        f"                   '--ckpt-dir', {str(tmp_path)!r}, '--rpc-drop-rate', '0.1'])\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch')!r})\n"
+        "print(json.dumps({'rc': rc, 'at_import': at_import, 'bad': bad}))\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == {"rc": 0, "at_import": [], "bad": []}
+    events = [json.loads(x)["event"] for x in lines[:-1]]
+    assert events[0] == "replay_shard_listen" and events[-1] == "replay_shard_stopped"

@@ -715,13 +715,15 @@ def _tiny_cfg(**over):
 def tiny_thread_run(tmp_path_factory):
     """A small thread-actor run of the port's host path, scraped while it
     trains: the endpoints, ``obs_top --varz --once`` and a ``/varz?trace=1``
-    capture."""
+    capture.  The run's step budget is open-ended and the fixture stops it
+    once every scrape and the capture are done, so a learner that outruns
+    the ``obs_top`` subprocess under load cannot close the exporter first;
+    ``steps`` is the count the run reached."""
     from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
     from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
     import torch
 
-    steps = 240
     cfg = _tiny_cfg(obs__trace_dir=str(tmp_path_factory.mktemp("traces")),
                     obs__trace_steps=30)
     buf = io.StringIO()
@@ -732,7 +734,7 @@ def tiny_thread_run(tmp_path_factory):
 
     def run():
         try:
-            out["final"] = pipe.run(learner_steps=steps)
+            out["final"] = pipe.run(learner_steps=10**9)
         except BaseException as e:  # noqa: BLE001 — asserted below
             err.append(e)
 
@@ -753,12 +755,13 @@ def tiny_thread_run(tmp_path_factory):
         time.sleep(0.02)
     out["trace"] = pipe.trace_on_demand.status()
     out["varz"] = json.loads(_scrape(f"{url}/varz")[1])
+    pipe.stop_event.set()
     t.join(timeout=120)
     torch.set_num_threads(threads)
     assert not t.is_alive() and not err, err
     out["closed"] = pipe.obs_server is None
     out["lines"] = [json.loads(line) for line in buf.getvalue().splitlines()]
-    out["pipe"], out["steps"] = pipe, steps
+    out["pipe"], out["steps"] = pipe, pipe.learner_step
     return out
 
 
