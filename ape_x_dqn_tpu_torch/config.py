@@ -1,15 +1,14 @@
 """Typed configuration — the port's own copy of ``ape_x_dqn_tpu/config.py``.
 
 The same vocabulary (``env`` / ``actor`` / ``learner`` / ``replay``
-sections, plus ``supervisor``, ``serving``, ``obs``, ``fleet`` and ``chaos``,
-reference-format ``parameters.json`` files, ``--set section.field=value``
-overrides), cut down to the fields the port runs.  A key the port does not
-run raises rather than loading as a dead setting, so a config written for
-the JAX package's other paths (data parallel, the replay service and its
-chaos, the fleet aggregator, the timeline store and the autopilot) fails loudly here
-instead of running something else; the keys of those paths that the JAX
-configs use are refused by name, with their ROADMAP item.  The port owns this copy; it never
-imports the JAX package's module.
+sections, plus ``supervisor``, ``serving``, ``obs``, ``fleet``,
+``autopilot`` and ``chaos``, reference-format ``parameters.json`` files,
+``--set section.field=value`` overrides), with the same defaults and
+validation messages.  A key the JAX config does not have raises rather
+than loading as a dead setting; the one path the port does not run yet,
+the multi-GPU learner (ROADMAP item 8), is refused by its value
+(``learner.data_parallel``).  The port owns this copy; it never imports
+the JAX package's module.
 """
 
 from __future__ import annotations
@@ -339,10 +338,9 @@ class ServingConfig:
 
 @dataclasses.dataclass
 class ObsConfig:
-    """Observability knobs (``obs/``; JAX config.py:445-482).  The fields
-    of the fleet aggregator and the timeline store (``obs.fleet_*``,
-    ``obs.timeline_*``) are refused by name: those modules are not part of
-    the port."""
+    """Observability knobs (``obs/``; JAX config.py:445-551), with the
+    fleet aggregator's and SLO engine's (``obs.fleet_*``, ``obs/fleet.py``)
+    and the timeline store's (``obs.timeline_*``, ``obs/timeline.py``)."""
 
     # Port of the /metrics, /varz, /healthz exporter; None = no exporter,
     # 0 = an ephemeral port (AsyncPipeline.obs_port, an obs_exporter event).
@@ -360,6 +358,118 @@ class ObsConfig:
     # (None = a fresh temporary directory per capture).
     trace_steps: int = 512
     trace_dir: Optional[str] = None
+    # --- the fleet aggregator (obs/fleet.py) ---
+    # Scrape cadence and per-scrape timeout (HTTP and the shard stats RPC
+    # alike); a dead scrape marks that endpoint down, never the sweep.
+    fleet_scrape_interval_s: float = 1.0
+    fleet_scrape_timeout_s: float = 2.0
+    # Rollup exporter port for a tool that mounts the aggregator
+    # (tools/obs_top.py --fleet scrapes it); None = the tool picks, 0 =
+    # ephemeral.
+    fleet_port: Optional[int] = None
+    # --- SLO rules over the rollup (0 = rule off) ---
+    # Ceilings (ms): the fleet-merged age-at-sample p95, the worst
+    # trainer's inference rtt p99, the replica-merged serving p99.
+    fleet_slo_age_p95_ms: float = 0.0
+    fleet_slo_inference_rtt_p99_ms: float = 0.0
+    fleet_slo_serving_p99_ms: float = 0.0
+    # Floor on the summed replica QPS.
+    fleet_slo_serving_qps_min: float = 0.0
+    # Ring-occupancy band, as fractions of actor.xp_ring_bytes; (0, 1]
+    # leaves both ends off.
+    fleet_slo_ring_occupancy_low: float = 0.0
+    fleet_slo_ring_occupancy_high: float = 1.0
+    # Ceiling on the replay fleet's add QPS per live shard (the autopilot's
+    # replay grow signal).
+    fleet_slo_replay_add_qps_high: float = 0.0
+    # Endpoint liveness (on by default): breach while any endpoint fails
+    # its scrapes.
+    fleet_slo_endpoint_alive: bool = True
+    # Burn-rate window; a rule breaches at burn >= burn_threshold and
+    # clears only at burn <= clear_threshold, after min_samples samples.
+    fleet_slo_window_s: float = 30.0
+    fleet_slo_burn_threshold: float = 0.5
+    fleet_slo_clear_threshold: float = 0.1
+    fleet_slo_min_samples: int = 3
+    # --- the flight-data recorder (obs/timeline.py) ---
+    # "auto" = <learner.checkpoint_dir>/timeline when checkpoints are on,
+    # else none; a path = there; None = none.
+    timeline_dir: Optional[str] = "auto"
+    # On-disk budget (oldest committed segments pruned past it), segment
+    # rotation size, and the in-memory tail the sweep path queries.
+    timeline_max_bytes: int = 16 << 20
+    timeline_segment_bytes: int = 1 << 20
+    timeline_tail_keep_s: float = 600.0
+
+
+@dataclasses.dataclass
+class AutopilotConfig:
+    """The elastic capacity controller (``autopilot/``; JAX
+    config.py:648-745).  Default off.  It consumes the SLO engine's
+    ``slo_breach`` / ``slo_clear`` events (``obs.fleet_slo_*``) and the
+    rollup, and grows or retires actor workers, serving replicas and
+    replay shards within guardrails: bounds, per-direction cooldowns and a
+    hold against the opposite direction."""
+
+    enabled: bool = False
+    # Emit every decision as an autopilot_action event without actuating.
+    dry_run: bool = False
+    # Decision cadence (the controller's own thread).
+    poll_s: float = 1.0
+    # Actor floor; the ceiling is the pool's reserved capacity
+    # (max(actor.num_workers, actor.max_workers)).
+    actor_min_workers: int = 1
+    serving_min_replicas: int = 1
+    serving_max_replicas: int = 4
+    # After an action the same direction waits its cooldown; the opposite
+    # direction waits hold_opposite_s.
+    cooldown_up_s: float = 10.0
+    cooldown_down_s: float = 60.0
+    hold_opposite_s: float = 30.0
+    # Idle scale-down of replicas (per-replica QPS under this for the idle
+    # window, every governing rule green); 0 = replicas only scale up.
+    serving_idle_qps_per_replica: float = 0.0
+    # Burn window of the idle rules (the controller's own SloEngine).
+    idle_window_s: float = 30.0
+    # The drain ladder: the pool's drain budget doubles per action up to
+    # this multiple before any worker is retired.
+    drain_tune_max_factor: float = 4.0
+    # Replay fleet bounds and its idle rule (per-shard add QPS); 0 = the
+    # replay fleet only scales up.
+    replay_min_shards: int = 1
+    replay_max_shards: int = 4
+    replay_idle_add_qps_per_shard: float = 0.0
+
+    def validate_section(self) -> list:
+        return [
+            (self.poll_s > 0.0, "autopilot.poll_s must be > 0"),
+            (self.actor_min_workers >= 1,
+             "autopilot.actor_min_workers must be >= 1"),
+            (self.serving_min_replicas >= 1,
+             "autopilot.serving_min_replicas must be >= 1"),
+            (self.serving_max_replicas >= self.serving_min_replicas,
+             "autopilot.serving_max_replicas must be >= "
+             "autopilot.serving_min_replicas"),
+            (self.cooldown_up_s >= 0.0,
+             "autopilot.cooldown_up_s must be >= 0"),
+            (self.cooldown_down_s >= 0.0,
+             "autopilot.cooldown_down_s must be >= 0"),
+            (self.hold_opposite_s >= 0.0,
+             "autopilot.hold_opposite_s must be >= 0"),
+            (self.serving_idle_qps_per_replica >= 0.0,
+             "autopilot.serving_idle_qps_per_replica must be >= 0"),
+            (self.idle_window_s > 0.0,
+             "autopilot.idle_window_s must be > 0"),
+            (self.drain_tune_max_factor >= 1.0,
+             "autopilot.drain_tune_max_factor must be >= 1"),
+            (self.replay_min_shards >= 1,
+             "autopilot.replay_min_shards must be >= 1"),
+            (self.replay_max_shards >= self.replay_min_shards,
+             "autopilot.replay_max_shards must be >= "
+             "autopilot.replay_min_shards"),
+            (self.replay_idle_add_qps_per_shard >= 0.0,
+             "autopilot.replay_idle_add_qps_per_shard must be >= 0"),
+        ]
 
 
 @dataclasses.dataclass
@@ -447,6 +557,7 @@ class ApexConfig:
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+    autopilot: AutopilotConfig = dataclasses.field(default_factory=AutopilotConfig)
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     network: str = "conv"                 # "conv" | "nature" | "mlp"
     seed: int = 0
@@ -461,6 +572,41 @@ class ApexConfig:
             (o.recorder_depth >= 1, "obs.recorder_depth must be >= 1"),
             (o.heartbeat_stale_s > 0.0, "obs.heartbeat_stale_s must be > 0"),
             (o.trace_steps >= 1, "obs.trace_steps must be >= 1"),
+            (o.fleet_scrape_interval_s > 0.0,
+             "obs.fleet_scrape_interval_s must be > 0"),
+            (o.fleet_scrape_timeout_s > 0.0,
+             "obs.fleet_scrape_timeout_s must be > 0"),
+            (o.fleet_port is None or 0 <= o.fleet_port <= 65535,
+             "obs.fleet_port must be None or in [0, 65535]"),
+            (o.fleet_slo_age_p95_ms >= 0.0,
+             "obs.fleet_slo_age_p95_ms must be >= 0"),
+            (o.fleet_slo_inference_rtt_p99_ms >= 0.0,
+             "obs.fleet_slo_inference_rtt_p99_ms must be >= 0"),
+            (o.fleet_slo_serving_p99_ms >= 0.0,
+             "obs.fleet_slo_serving_p99_ms must be >= 0"),
+            (o.fleet_slo_serving_qps_min >= 0.0,
+             "obs.fleet_slo_serving_qps_min must be >= 0"),
+            (0.0 <= o.fleet_slo_ring_occupancy_low
+             <= o.fleet_slo_ring_occupancy_high <= 1.0,
+             "obs.fleet_slo_ring_occupancy band must satisfy "
+             "0 <= low <= high <= 1"),
+            (o.fleet_slo_window_s > 0.0,
+             "obs.fleet_slo_window_s must be > 0"),
+            (0.0 <= o.fleet_slo_clear_threshold
+             <= o.fleet_slo_burn_threshold <= 1.0,
+             "obs.fleet_slo thresholds must satisfy "
+             "0 <= clear <= burn <= 1"),
+            (o.fleet_slo_min_samples >= 1,
+             "obs.fleet_slo_min_samples must be >= 1"),
+            (o.timeline_segment_bytes >= 1 << 12,
+             "obs.timeline_segment_bytes must be >= 4 KiB (a segment "
+             "must hold at least a few records before rotating)"),
+            (o.timeline_max_bytes >= o.timeline_segment_bytes,
+             "obs.timeline_max_bytes must be >= obs.timeline_segment_bytes"),
+            (o.timeline_tail_keep_s > 0.0,
+             "obs.timeline_tail_keep_s must be > 0"),
+            (o.fleet_slo_replay_add_qps_high >= 0.0,
+             "obs.fleet_slo_replay_add_qps_high must be >= 0"),
             (a.inference in ("local", "central"),
              f"unknown actor.inference: {a.inference}"),
             (0 <= a.inference_port <= 65535,
@@ -643,6 +789,7 @@ class ApexConfig:
              "second_moment_dtype is only supported for rmsprop"),
         ]
         for ok, msg in (checks + self.fleet.validate_section()
+                        + self.autopilot.validate_section()
                         + self.chaos.validate_section()):
             if not ok:
                 raise ValueError(msg)
@@ -699,7 +846,7 @@ _PATH_OR_BOOL_FIELDS = {"restore_from"}
 # Optional-typed fields where a CLI "none" legitimately means None.
 _OPTIONAL_FIELDS = {"state_shape", "action_dim", "max_grad_norm",
                     "second_moment_dtype", "target_dtype", "param_dtype",
-                    "export_port", "postmortem_dir", "trace_dir"}
+                    "export_port", "postmortem_dir", "trace_dir", "fleet_port"}
 
 
 def _coerce(current: Any, raw: str, field: str = "") -> Any:
@@ -729,30 +876,16 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 
 
 # Keys of the JAX package's config whose feature the port does not run yet,
-# refused by name (any other unknown key is refused as unknown).
-_FLEET = "the fleet aggregator (obs/fleet.py, ROADMAP item 7)"
-_TIMELINE = "the timeline store (obs/timeline.py, ROADMAP item 7)"
-_NOT_PORTED = {
-    **{f"obs.{k}": _FLEET for k in (
-        "fleet_scrape_interval_s", "fleet_scrape_timeout_s", "fleet_port",
-        "fleet_slo_age_p95_ms", "fleet_slo_inference_rtt_p99_ms",
-        "fleet_slo_serving_p99_ms", "fleet_slo_serving_qps_min",
-        "fleet_slo_ring_occupancy_low", "fleet_slo_ring_occupancy_high",
-        "fleet_slo_replay_add_qps_high", "fleet_slo_endpoint_alive",
-        "fleet_slo_window_s", "fleet_slo_burn_threshold", "fleet_slo_clear_threshold",
-        "fleet_slo_min_samples")},
-    **{f"obs.{k}": _TIMELINE for k in (
-        "timeline_dir", "timeline_max_bytes", "timeline_segment_bytes",
-        "timeline_tail_keep_s")},
-}
+# refused by name with their ROADMAP item (any other unknown key is refused
+# as unknown).  Every key of the JAX config now loads: the multi-GPU learner
+# (item 8) is refused by value, in ``ApexConfig.validate``
+# (``learner.data_parallel`` other than 1).
+_NOT_PORTED: dict = {}
 
 
 # Whole sections of the JAX package's config whose feature the port does
 # not run yet: every key under them is refused by name.
-_NOT_PORTED_SECTIONS = {
-    "autopilot": "the autopilot (autopilot/: the elastic controller over the "
-                 "actor pool, the ServingFleet and the replay fleet, ROADMAP item 7)",
-}
+_NOT_PORTED_SECTIONS: dict = {}
 
 
 def _not_ported(path: str) -> Optional[str]:
@@ -806,7 +939,7 @@ _SECTIONS = {
     "env": EnvConfig, "actor": ActorConfig,
     "learner": LearnerConfig, "replay": ReplayConfig,
     "supervisor": SupervisorConfig, "serving": ServingConfig, "obs": ObsConfig,
-    "fleet": FleetConfig, "chaos": ChaosConfig,
+    "fleet": FleetConfig, "autopilot": AutopilotConfig, "chaos": ChaosConfig,
 }
 
 

@@ -1,5 +1,6 @@
 """Observability: the registry, the exporter, worker stats blocks, the
-flight recorder, experience lineage and on-demand traces.
+flight recorder, experience lineage, on-demand traces, the fleet rollup
+and its timeline.
 
 Port of ``ape_x_dqn_tpu/obs/``:
 
@@ -9,12 +10,13 @@ Port of ``ape_x_dqn_tpu/obs/``:
   * ``recorder``  — flight recorder and post-mortem files
   * ``lineage``   — experience lineage, trace spans, bucket exemplars
   * ``trace``     — ``/varz?trace=1``: an on-demand ``torch.profiler`` capture
+  * ``fleet``     — the fleet aggregator's rollup and the SLO engine
+  * ``timeline``  — the flight-data recorder: the rollup's sweeps on disk
+  * ``chaos``     — seeded fault injection
 
 Lazy (PEP 562): ``import ape_x_dqn_tpu_torch.obs.shm_stats`` in a worker
 runs this file first, so the names below resolve on first access instead
-of importing the exporter, the trace or torch.  The fleet aggregator
-(``obs/fleet.py``), the timeline store (``obs/timeline.py``) and the chaos
-injector (``obs/chaos.py``) are not part of the port yet.
+of importing the exporter, the trace or torch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ _LAZY = {
     "LineageTracker": "ape_x_dqn_tpu_torch.obs.lineage",
     "TraceSpanLog": "ape_x_dqn_tpu_torch.obs.lineage",
     "BucketExemplars": "ape_x_dqn_tpu_torch.obs.lineage",
+    "FleetAggregator": "ape_x_dqn_tpu_torch.obs.fleet",
+    "SloEngine": "ape_x_dqn_tpu_torch.obs.fleet",
+    "SloRule": "ape_x_dqn_tpu_torch.obs.fleet",
     "FlightRecorder": "ape_x_dqn_tpu_torch.obs.recorder",
     "write_postmortem": "ape_x_dqn_tpu_torch.obs.recorder",
     "Counter": "ape_x_dqn_tpu_torch.obs.registry",

@@ -146,7 +146,7 @@ def pick_chunk(inc_dir: str, rng: Optional[random.Random] = None,
 class RpcChaos:
     """Seeded fault injection for the replay-service RPC plane
     (replay/service.py — config ``chaos.rpc_delay_ms`` /
-    ``chaos.rpc_drop_rate``; carried for that service, ROADMAP item 7).
+    ``chaos.rpc_drop_rate``).
 
     Installed shard-side: ``delay_s()`` is consulted before every request
     executes (mean ``delay_ms`` with ±50% seeded jitter — sleeping the
@@ -209,24 +209,32 @@ class ShmFiller:
 
     def __init__(self):
         self._seg = None
+        # The monkey's thread, ``stop`` and a caller's ``execute`` may fill
+        # and release at once: a fill read back a segment another thread
+        # had just released (AttributeError on None; the JAX copy can also
+        # unlink None there).
+        self._lock = threading.Lock()
 
     def fill(self, nbytes: int) -> dict:
-        self.release()
-        try:
-            from ape_x_dqn_tpu_torch.runtime.shm_ring import create_shared_memory
+        with self._lock:
+            self._release_locked()
+            try:
+                from ape_x_dqn_tpu_torch.runtime.shm_ring import create_shared_memory
 
-            self._seg = create_shared_memory("chaosfill", max(1, int(nbytes)))
-            # Touch the pages so tmpfs actually commits them.
-            self._seg.buf[::4096] = b"\xff" * len(self._seg.buf[::4096])
-            return {"fault": "shm_fill", "bytes": int(nbytes),
-                    "name": self._seg.name}
-        except OSError as e:
-            return {"fault": "shm_fill", "bytes": int(nbytes),
-                    "failed": f"{type(e).__name__}: {e}"}
+                seg = create_shared_memory("chaosfill", max(1, int(nbytes)))
+                self._seg = seg
+                # Touch the pages so tmpfs actually commits them.
+                seg.buf[::4096] = b"\xff" * len(seg.buf[::4096])
+                return {"fault": "shm_fill", "bytes": int(nbytes), "name": seg.name}
+            except OSError as e:
+                return {"fault": "shm_fill", "bytes": int(nbytes),
+                        "failed": f"{type(e).__name__}: {e}"}
 
     def release(self) -> None:
-        # Taken before it is freed: the monkey's thread and ``stop`` may
-        # release at once (the JAX copy can unlink None there).
+        with self._lock:
+            self._release_locked()
+
+    def _release_locked(self) -> None:
         seg, self._seg = self._seg, None
         if seg is not None:
             try:

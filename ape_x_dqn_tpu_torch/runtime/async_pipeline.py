@@ -107,6 +107,19 @@ counters and ``chaos`` provider on the registry and its faults in the
 JSONL (``chaos_fault``); it starts with the supervisor and stops before it.
 Its stuck-stager gate acts only in the overlapped loop, whose stager idles
 through a stall without beating its heartbeat.
+
+The autopilot (JAX :832-901, :1743-1745, :1774-1781; ``autopilot/``,
+``obs/fleet.py``, ``obs/timeline.py``): with ``autopilot.enabled`` an
+in-process ``FleetAggregator`` reads this registry's snapshot as its
+``trainer`` endpoint, its ``SloEngine`` (``obs.fleet_slo_*``) feeds an
+``AutopilotController`` with the pool's ``ActorPoolActuator``, and a
+``TimelineStore`` under ``obs.timeline_dir`` ("auto":
+``<checkpoint_dir>/timeline`` when checkpoints are on) records each sweep.
+Both threads start with the supervisor and close with the exporter; the
+controller's state is the ``autopilot`` provider and JSONL section, the
+store's the ``timeline`` provider.  The age of experience comes from the
+``LineageTracker``, so the actor loop's age rule is measurable on the
+host-replay path only.
 """
 
 from __future__ import annotations
@@ -472,6 +485,7 @@ class AsyncPipeline:
             self.register_jsonl_section("inference", self._inference_section)
             self.obs_registry.register_provider("inference", self._inference_section)
         self.obs_registry.register_provider("learner", self._learner_varz)
+        self.obs_registry.register_provider("trace_spans", self._trace_spans)
         self.obs_registry.register_provider("stage_us", self.timers.us_per_call)
         self.health.register("ingest", lambda: time.monotonic() - self.worker.heartbeat)
         self._publisher = _AsyncPublisher(self.store)
@@ -510,6 +524,10 @@ class AsyncPipeline:
                                       emit=self.logger.event)
             self._chaos.attach(pool=getattr(self.worker, "pool", None),
                                ckpt_dirs=[lc.checkpoint_dir] if lc.checkpoint_every else [])
+        self.autopilot = None
+        self.autopilot_aggregator = None
+        if self.cfg.autopilot.enabled:
+            self._build_autopilot()
         self._start_exporter()
 
     # -- observability -------------------------------------------------------
@@ -553,7 +571,7 @@ class AsyncPipeline:
         """A service-attached replay (JAX :539-552, :1032): its stats are the
         ``replay_svc`` ``/varz`` provider and JSONL section, its age the
         ``replay_svc`` ``/healthz`` component (a down shard is DEGRADED,
-        never a wedge), and its RPC hop spans the ``trace_spans`` provider."""
+        never a wedge); its RPC hop spans join the ``trace_spans`` provider."""
         self._remote_replay = None
         replay = self.comps.replay
         if replay is None or not getattr(replay, "remote", False):
@@ -563,7 +581,6 @@ class AsyncPipeline:
         reg.register_provider("replay_svc", replay.stats)
         self.health.register("replay_svc", replay.age_s)
         self.register_jsonl_section("replay_svc", replay.stats)
-        reg.register_provider("trace_spans", replay.spans.snapshot)
 
     def _build_tier_obs(self) -> None:
         """The tiered replay's instruments (JAX :508-537), only when the host
@@ -585,6 +602,66 @@ class AsyncPipeline:
                   ).set_fn(lambda: tier.hot_bytes)
         reg.register_provider("replay_tier", replay.tier_stats)
         self.register_jsonl_section("replay_tier", replay.tier_stats)
+
+    def _build_autopilot(self) -> None:
+        """The elastic autopilot (``autopilot.*``; JAX :832-901, :933-934).
+        Its sensor is an in-process ``FleetAggregator`` whose ``trainer``
+        endpoint is this registry's own snapshot, with the config's SLO
+        rules subscribed into the controller; a ``TimelineStore`` records
+        every sweep (and rebuilds the SLO windows from a previous
+        incarnation's tail).  The actor loop actuates on this run's pool; a
+        caller attaches a serving or replay fleet itself
+        (``autopilot.attach_serving`` / ``attach_replay``, their endpoints on
+        ``autopilot_aggregator``).  Under ``fleet.discovery=registry`` the
+        aggregator adopts the membership registry's members."""
+        from ape_x_dqn_tpu_torch.autopilot import ActorPoolActuator, AutopilotController
+        from ape_x_dqn_tpu_torch.obs.fleet import FleetAggregator, engine_from_config
+
+        ocfg = self.cfg.obs
+        slo = engine_from_config(ocfg, emit=self.logger.event)
+        agg = self.autopilot_aggregator = FleetAggregator(
+            scrape_interval_s=ocfg.fleet_scrape_interval_s,
+            scrape_timeout_s=ocfg.fleet_scrape_timeout_s,
+            window_s=ocfg.fleet_slo_window_s, slo=slo)
+        agg.add_local("trainer", self.obs_registry.snapshot, kind="trainer")
+        tl_dir = self._resolve_timeline_dir()
+        if tl_dir is not None:
+            from ape_x_dqn_tpu_torch.obs.timeline import TimelineStore
+
+            try:
+                agg.attach_timeline(TimelineStore(
+                    tl_dir, max_bytes=ocfg.timeline_max_bytes,
+                    segment_bytes=ocfg.timeline_segment_bytes,
+                    tail_keep_s=ocfg.timeline_tail_keep_s))
+                self.obs_registry.register_provider("timeline", agg.timeline.stats)
+            except OSError as e:
+                # An unwritable directory means no recorder; the sweeps and
+                # the SLO engine still run.
+                self.logger.event("timeline_open_failed", error=str(e))
+        self.autopilot = AutopilotController(self.cfg.autopilot, rollup_fn=agg.rollup,
+                                             emit=self.logger.event)
+        slo.subscribe(self.autopilot.on_slo_event)
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            # Bound late: the overlapped loop builds its pipeline at run time.
+            self.autopilot.attach_actor(ActorPoolActuator(
+                pool, pipeline_fn=lambda: self._dispatch_pipeline))
+        self.obs_registry.register_provider("autopilot", self.autopilot.state)
+        self.register_jsonl_section("autopilot", self.autopilot.state)
+        if self.fleet_registry is not None:
+            agg.bind_registry(self.fleet_registry)
+
+    def _resolve_timeline_dir(self) -> Optional[str]:
+        """``obs.timeline_dir``, by ``_resolve_postmortem_dir``'s policy: a
+        path is used as given; "auto" is ``<checkpoint_dir>/timeline`` when
+        checkpoints are on, else off (JAX :1105-1119)."""
+        import os
+
+        d = self.cfg.obs.timeline_dir
+        if d == "auto":
+            lc = self.cfg.learner
+            return os.path.join(lc.checkpoint_dir, "timeline") if lc.checkpoint_every else None
+        return d
 
     def _resolve_postmortem_dir(self) -> Optional[str]:
         """``obs.postmortem_dir``: a path is used as given; "auto" is
@@ -618,8 +695,8 @@ class AsyncPipeline:
         membership registry (JAX :905-935): serving replicas and other
         members join over the announce wire.  Its port and token ride a
         ``fleet_registry_listen`` event; the membership snapshot is the
-        ``fleet_membership`` provider.  The autopilot's binding to it is
-        ROADMAP item 7 (its config keys are refused by name)."""
+        ``fleet_membership`` provider, and the autopilot's aggregator adopts
+        its members (``_build_autopilot``)."""
         f = self.cfg.fleet
         if f.discovery != "registry":
             return None
@@ -678,6 +755,11 @@ class AsyncPipeline:
         runtime)."""
         self.trace_on_demand.close()
         self.close_exporter()
+        if self.autopilot is not None:
+            # The controller first: it acts on what the aggregator senses.
+            # Closing the aggregator commits the timeline's active segment.
+            self.autopilot.close()
+            self.autopilot_aggregator.close()
         if self.fleet_registry is not None:
             self.fleet_registry.close()
             self.fleet_registry = None
@@ -850,6 +932,31 @@ class AsyncPipeline:
         self._central_selectors = [sel]   # the latest incarnation's
         return sel
 
+    def _trace_spans(self) -> dict:
+        """The ``trace_spans`` provider (JAX :1026-1047): the cross-tier
+        spans of every log this process owns (the replay service client's
+        RPC hops, the central serving tier's server hops, thread fleets'
+        inference clients) and the live workers' (``act`` spans and their
+        inference clients', swept off the stats blocks); the newest 256."""
+        spans: list = []
+        recorded = 0
+        logs = []
+        if self._remote_replay is not None:
+            logs.append(self._remote_replay.spans)
+        if self._central_net is not None:
+            logs.append(self._central_net.spans)
+        logs.extend(sel.client.spans for sel in self._central_selectors)
+        for log in logs:
+            snap = log.snapshot()
+            recorded += snap["recorded"]
+            spans.extend(snap["spans"])
+        pool = getattr(self.worker, "pool", None)
+        if pool is not None:
+            worker_spans = pool.trace_events()
+            recorded += len(worker_spans)
+            spans.extend(worker_spans)
+        return {"recorded": recorded, "spans": spans[-256:]}
+
     def _inference_section(self) -> dict:
         """The JSONL ``inference`` section (JAX :1049-1080): the fleet's
         client aggregate, ``version_lag`` (publishes the newest reply's
@@ -938,6 +1045,9 @@ class AsyncPipeline:
             self.supervisor.start()
         if self._chaos is not None:
             self._chaos.start()
+        if self.autopilot is not None:
+            self.autopilot_aggregator.start()
+            self.autopilot.start()
         try:
             if self.fused is None:
                 return self._run_host(target)

@@ -1147,6 +1147,32 @@ class ProcessActorPool:
                                     prev_frames=prev_frames, **arrays), meta
         return prio, NStepTransition(**arrays), meta
 
+    def trace_events(self, max_per_worker: int = 32) -> List[dict]:
+        """Cross-tier trace spans of the live workers, swept off their
+        stats blocks' event rings (JAX :1414): the flight recorder mirrors
+        every ``trace_chunk`` / ``trace_span`` event there, so they read
+        without more plumbing and survive a SIGKILL.  A ``trace_chunk`` (an
+        actor's flush of a traced chunk) becomes a zero-length ``act`` span,
+        the hop that puts the worker's pid on the timeline."""
+        spans: List[dict] = []
+        for wid, blk in list(self._stats_blocks.items()):
+            try:
+                events, _torn = blk.recent_events(max_per_worker)
+                pid = blk.pid
+            except Exception:  # noqa: BLE001 — a dying block reads as no spans
+                continue
+            for ev in events:
+                tid = ev.get("trace_id")
+                if not tid:
+                    continue
+                if ev.get("kind") == "trace_chunk":
+                    t = float(ev.get("t", 0.0))
+                    spans.append({"trace_id": int(tid), "hop": "act", "pid": pid,
+                                  "t0_s": t, "t1_s": t, "dur_ms": 0.0, "wid": wid})
+                elif ev.get("kind") == "trace_span":
+                    spans.append({k: v for k, v in ev.items() if k != "kind"})
+        return spans
+
     def transport_stats(self) -> dict:
         """The JSONL ``xp_transport`` section: chunks, bytes, latency,
         channel-full waits (live channels and retired incarnations),

@@ -8,10 +8,11 @@ JAX :107-405, same bucket layout, so stats dicts merge across the two
 packages) and ``MetricLogger`` (``log`` accumulates scalars, ``emit``
 writes one record of their mean/min/max/count plus extra fields, ``event``
 one out-of-band record, each stamped with a per-process ``seq`` and the
-``pid``, to a stream and optionally to a file, appended), and the
-loggerless ``emit_event`` (JAX :407-423) for code with no logger in scope:
-the checkpoint restore paths' ``checkpoint_restore_missing_replay`` and
-``degraded_restore``.
+``pid``, to a stream and optionally to a file, appended), the
+loggerless ``emit_event`` (JAX :407-423) for code with no logger in scope
+(the checkpoint restore paths' ``checkpoint_restore_missing_replay`` and
+``degraded_restore``), and ``stamp_record`` (JAX :42), the ``seq``/``pid``
+stamp ``emit_event`` and the fleet aggregator's JSONL lines share.
 """
 
 from __future__ import annotations
@@ -253,16 +254,23 @@ def merge_counter_maps(a: dict, b: dict) -> dict:
     return out
 
 
-_EVENT_SEQ = itertools.count(1)
+_RECORD_SEQ = itertools.count(1)
+
+
+def stamp_record(record: dict) -> dict:
+    """Stamp ``seq`` (one per-process monotone sequence, shared with
+    ``emit_event``) and ``pid`` onto a record in place (JAX :42); values
+    already there win, so a merged stream re-emitted is not restamped."""
+    record.setdefault("seq", next(_RECORD_SEQ))
+    record.setdefault("pid", os.getpid())
+    return record
 
 
 def emit_event(event: str, stream: Optional[IO] = None, **fields) -> dict:
     """One structured ``{"event": ..., ...}`` JSONL line to ``stream``
     (stderr by default: stdout carries the run's metric records), stamped
-    with a per-process ``seq`` and the ``pid``.  Returns the record."""
-    record = {"event": event, **fields}
-    record.setdefault("seq", next(_EVENT_SEQ))
-    record.setdefault("pid", os.getpid())
+    by ``stamp_record``.  Returns the record."""
+    record = stamp_record({"event": event, **fields})
     out = stream if stream is not None else sys.stderr
     try:
         out.write(json.dumps(record) + "\n")

@@ -274,6 +274,22 @@ Phases, each printing one JSON line:
                 ``degraded_restore`` event, ``fallback_restores`` ≥ 1, the
                 resume at the newest committed step, one more call, one
                 sampler launch per call;
+ 21c. autopilot_train — config3's learner in this process on host replay
+                (fake-atari 84x84x4) with the autopilot on: 2 worker
+                processes live and a third reserved, their envs slowed by
+                the chaos ``SlowEnv``; green for one SLO window with no
+                decision, worker 1 SIGKILLed through its respawn into
+                quarantine, ``slo_breach`` on ``age_p95_ms``, one actor
+                ``scale_up`` from 1 to 2 onto the reserved wid, ``slo_clear``;
+                the timeline read back (windowed p95 equal to the live one,
+                ``rebuild_slo``), ``/varz`` with ``autopilot`` and
+                ``timeline``, 0 sampler launches (``autopilot_drill``);
+ 21d. replay_svc_train — last: two config3 learners (processes on the card)
+                over a 2-shard ``ReplayServiceFleet`` through a shard
+                SIGKILL, its frozen chain digested and the shard respawned;
+                a ``FleetAggregator`` here over the fleet's endpoints file
+                and both learners' exporters sees ``shards_alive`` 2 → 1 → 2
+                and ``slo_breach`` then ``slo_clear`` on ``endpoints_alive``;
  22. tcp_train — phase 13 with ``actor.transport=tcp`` (run right after it,
                 in the same process): the 2 workers feed the learner over
                 loopback sockets, 256 KiB coalesced frames with in-window
@@ -740,12 +756,15 @@ def run_train(argv, records: list | None = None):
     return final, wall
 
 
-# Smoke-time cuts that pay for replay_svc_train (each listed in its phase's
-# output): host_train's, host_dedup_train's, tier_train's and
+# Smoke-time cuts (each listed in its phase's output) that pay for
+# replay_svc_train: host_train's, host_dedup_train's, tier_train's and
 # obs_train_host's steps, obs_train's calls after the respawn, and the serve
-# durations of serve_hub, serve_attach and serve_checkpoint.
+# durations of serve_hub, serve_attach and serve_checkpoint; and for
+# autopilot_train: obs_train's respawn backoff, serve_fleet's fixed waits
+# (FLEET_BURST_WAITS_S) and replay_svc_train's warm-up (SVC_WARMUP).
 HOST_TRAIN_STEPS = 256         # was 512
 OBS_CALLS_AFTER = 1            # was 3
+OBS_RESPAWN_BACKOFF_S = 0.1    # obs_train's first respawn backoff; was 0.5 (the default)
 SERVE_HUB_DURATION_S = 5.0     # was 8.0
 SERVE_DURATION_S = 12.0        # serve_attach, serve_checkpoint; was 20.0
 OBS_HOST_STEPS = 256           # obs_train_host; was 512
@@ -1577,6 +1596,7 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
     pm_dir = os.path.join(OBS_ROOT, "postmortem")
     argv = config3_argv(64 * K) + [
         "--set", "obs.export_port=0", "--set", "supervisor.enabled=true",
+        "--set", f"supervisor.respawn_backoff_base_s={OBS_RESPAWN_BACKOFF_S}",
         "--set", f"obs.postmortem_dir={pm_dir}",
         "--set", f"obs.trace_dir={os.path.join(OBS_ROOT, 'traces')}"]
     t0 = time.monotonic()
@@ -1681,7 +1701,8 @@ def phase_obs_train(sampling, card: str, beside: dict) -> dict:
         "fused_calls": calls, "sampler_launches": launches, "loss": final["learner/loss"],
         "learner_steps_per_s_quiet_calls": rate, "quiet_calls": quiet,
         "learner_steps_per_s_second_call": K / (call_ms[1] / 1e3),
-        "cuts": {"calls_after_respawn": f"{OBS_CALLS_AFTER} for 3 (smoke time)"},
+        "cuts": {"calls_after_respawn": f"{OBS_CALLS_AFTER} for 3 (smoke time)",
+                 "respawn_wait": f"backoff {OBS_RESPAWN_BACKOFF_S} s for 0.5 (smoke time)"},
         "fused_call_ms": call_ms,
         "beside_dedup_train": {
             "learner_steps_per_s_calls": base_rate,
@@ -3102,6 +3123,9 @@ FLEET_PROBE_S = 0.25          # the router's /healthz cadence in the fleet phase
 # package), so a CPU forward at the same compute is the reference, held to
 # the bf16 tolerance of the repo's tests (tests/test_torch_model.py).
 FLEET_Q_RTOL = 2e-2
+# serve_fleet's fixed waits in its client burst: before the push, before the
+# kill, after the respawn (were 3.0, 3.0 and 2.0 s; smoke time).
+FLEET_BURST_WAITS_S = (1.5, 1.5, 1.0)
 
 
 def counting_client(host: str, port: int, seed: int = 0):
@@ -3312,7 +3336,7 @@ def phase_serve_fleet(card: str, root: str, state, clients: int = 4):
                        for i in range(clients)]
             for w in workers:
                 w.start()
-            time.sleep(3.0)
+            time.sleep(FLEET_BURST_WAITS_S[0])
             # Mid-burst: a newer step that moves the heads' biases.
             save_checkpoint(root, TrainState(params=params2, target_params=state.target_params,
                                              opt_state=state.opt_state, step=v0 + 1,
@@ -3323,7 +3347,7 @@ def phase_serve_fleet(card: str, root: str, state, clients: int = 4):
                              "the push of the new step", 60, child)
             q2 = replica_q(2)
             push_s = time.monotonic() - t_commit
-            time.sleep(3.0)
+            time.sleep(FLEET_BURST_WAITS_S[1])
             # SIGKILL replica 0.
             reps = replicas()
             victim = reps["0"]["pid"]
@@ -3351,7 +3375,7 @@ def phase_serve_fleet(card: str, root: str, state, clients: int = 4):
             reps = replicas()
             mappings = {"replicas": {rid: device_mappings(r["pid"]) for rid, r in reps.items()},
                         "router": device_mappings(child.pid)}
-            time.sleep(2.0)
+            time.sleep(FLEET_BURST_WAITS_S[2])
             stop.set()
             for w in workers:
                 w.join(120)
@@ -3430,6 +3454,8 @@ def phase_serve_fleet(card: str, root: str, state, clients: int = 4):
         "fleet": {k: fleet_st[k] for k in ("param", "respawns", "param_version")},
         "replica_pids": sorted(pids_now), "killed_pid": victim, "router_pid": child.pid,
         "card_contexts": contexts, "device_mappings": mappings,
+        "cuts": {"burst_waits_s": f"{list(FLEET_BURST_WAITS_S)} for [3.0, 3.0, 2.0] "
+                                  "(smoke time)"},
         "seconds": time.monotonic() - t0,
     }
     emit(result)
@@ -4832,6 +4858,9 @@ SVC_ROOT = os.path.join(REPO_DIR, "build", "replay_svc_smoke")
 SVC_SLOTS = 2_000_000          # config3's replay.capacity, 1 000 000 per shard
 SVC_KILL_AT = 120              # learner A's step at which one shard is SIGKILLed
 SVC_STEPS = 400                # each learner's step budget
+SVC_WARMUP = 1_024             # learner.min_replay_mem_size; was DEDUP_WARMUP (smoke time)
+SVC_AGG_SCRAPE_S = 0.5         # the smoke's aggregator over the fleet and both learners
+SVC_AGG_WINDOW_S = 4.0
 SVC_TIMEOUT_S = 2.0            # replay.service_request_timeout_s of both learners
 
 
@@ -4849,7 +4878,8 @@ def replay_svc_argv(endpoints: str, log: str, seed: int) -> list:
             "--set", "replay.service_probe_interval_s=0.25",
             "--set", "learner.second_moment_dtype=bfloat16",
             "--set", "learner.target_dtype=bfloat16",
-            "--set", f"learner.min_replay_mem_size={DEDUP_WARMUP}",
+            "--set", f"learner.min_replay_mem_size={SVC_WARMUP}",
+            "--set", "obs.export_port=0",
             "--set", "actor.mode=process", "--set", "actor.sync_every=100"]
 
 
@@ -4893,6 +4923,73 @@ def _svc_sample_probe(svc, fleet, n: int = 64) -> dict:
         out[codec] = {"rtt_ms_p50": float(np.percentile(rtts, 50)),
                       "rtt_ms_p99": float(np.percentile(rtts, 99)),
                       "reply_bytes_per_sample": float(np.mean(nbytes)), "samples": len(rtts)}
+    return out
+
+
+def svc_aggregator(endpoints: str, events: list):
+    """A ``FleetAggregator`` in the smoke process over a replay fleet's
+    endpoints file (the learners' exporters join once they announce), with
+    the endpoint-liveness rule on a short window and a timeline, sweeping
+    on its own thread."""
+    from ape_x_dqn_tpu_torch.obs.fleet import FleetAggregator, SloEngine, SloRule
+    from ape_x_dqn_tpu_torch.obs.fleet import _endpoints_down
+    from ape_x_dqn_tpu_torch.obs.timeline import TimelineStore
+
+    slo = SloEngine([SloRule("endpoints_alive", "upper", 0.0, _endpoints_down)],
+                    window_s=SVC_AGG_WINDOW_S, burn_threshold=0.5, clear_threshold=0.25,
+                    min_samples=3)
+    agg = FleetAggregator(scrape_interval_s=SVC_AGG_SCRAPE_S, scrape_timeout_s=2.0,
+                          window_s=SVC_AGG_WINDOW_S, slo=slo,
+                          emit=lambda name, **f: events.append(
+                              {"event": name, "t": time.monotonic(), **f}))
+    agg.attach_timeline(TimelineStore(os.path.join(SVC_ROOT, "timeline")))
+    agg.watch_replay_endpoints(endpoints)
+    return agg.start()
+
+
+def close_svc_aggregator(agg, fleet, events: list) -> dict:
+    """Wait for the liveness rule's clear, stop the aggregator's thread
+    before the learners exit (their exporters' closing is no outage), and
+    gate what it saw: ``shards_alive`` 2 → 1 → 2 over its sweeps (the
+    timeline's records), ``slo_breach`` then ``slo_clear`` on
+    ``endpoints_alive``, the rollup's summed ``total_added`` no lower than
+    the shards' own counts read just before its last sweep, all four
+    endpoints alive then, no torn timeline record."""
+    from ape_x_dqn_tpu_torch.obs.timeline import read_timeline
+    from ape_x_dqn_tpu_torch.replay import service as svc
+
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and not any(e["event"] == "slo_clear" for e in events):
+        time.sleep(0.1)
+    agg._stop.set()
+    agg._thread.join(timeout=10.0)
+    counts = 0
+    for s in fleet.shards:
+        sc = svc.ShardClient(s.shard_id, "127.0.0.1", s.port, token=fleet.token,
+                             client_id=998, incarnation=s.incarnation)
+        try:
+            counts += int(sc.shard_stats(timeout=10.0)["total_added"])
+        finally:
+            sc.close()
+    rollup = agg.scrape_once()
+    sweeps = agg.sweeps
+    agg.close()
+    tl = read_timeline(os.path.join(SVC_ROOT, "timeline"))
+    alive = [r["gauges"]["shards_alive"] for r in tl["records"]]
+    runs = [a for i, a in enumerate(alive) if i == 0 or alive[i - 1] != a]
+    slo = [(e["event"], e["rule"]) for e in events if e["event"] in ("slo_breach",
+                                                                      "slo_clear")]
+    out = {"shards_alive_runs": runs, "slo_events": slo, "sweeps": sweeps,
+           "total_added_rollup": rollup["replay"].get("total_added"),
+           "total_added_shards": counts, "timeline_records": len(tl["records"]),
+           "timeline_torn": tl["torn"], "endpoints": sorted(rollup["endpoints"]),
+           "alive": rollup["alive"], "expected": rollup["expected"]}
+    i2 = runs.index(2) if 2 in runs else -1
+    if i2 < 0 or runs[i2:i2 + 3] != [2, 1, 2] \
+            or slo[:2] != [("slo_breach", "endpoints_alive"), ("slo_clear", "endpoints_alive")] \
+            or (out["total_added_rollup"] or 0) < counts or tl["torn"] \
+            or not out["alive"] == out["expected"] == 4:
+        raise AssertionError(f"replay_svc_train: the aggregator saw {out}")
     return out
 
 
@@ -4963,6 +5060,8 @@ def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
                 raise AssertionError(f"replay_svc_train: timed out waiting for {what}")
             time.sleep(0.1)
 
+    agg_events: list = []
+    agg = None
     try:
         marks = log["marks_s"] = {}     # seconds since the phase began
 
@@ -4971,6 +5070,7 @@ def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
 
         fleet.start(timeout=120.0)
         mark("fleet_up")
+        agg = svc_aggregator(fleet.endpoints_path, agg_events)
         log["shard_spawn_s"] = [s.spawn_s for s in fleet.shards]
         shard_pids += [s.pid for s in fleet.shards]
         common = {"cwd": REPO_DIR, "stdout": subprocess.DEVNULL}
@@ -4992,6 +5092,9 @@ def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
             stderr=subprocess.DEVNULL)
         wait_for(lambda: step("a") > 0 and step("b") > 0, "both learners stepping", 240.0)
         mark("both_stepping")
+        for k in "ab":
+            url = next(r["url"] for r in records(k) if r.get("event") == "obs_exporter")
+            agg.add_varz(f"learner_{k}", url)
         log["contexts_while_training"] = card_contexts()
         log["shard_device_mappings"] = [device_mappings(p) for p in shard_pids]
         kill = {}
@@ -5064,11 +5167,18 @@ def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
             finally:
                 sc.close()
         mark("past_outage")
+        log["aggregator"] = close_svc_aggregator(agg, fleet, agg_events)
+        agg = None
+        log["aggregator"]["kill_to_s"] = {
+            e["event"]: e["t"] - kill["t"] for e in reversed(agg_events)
+            if e["event"] in ("slo_breach", "slo_clear")}
         rcs = {}
         for k in "ab":
             rcs[k] = procs[f"learner_{k}"].wait(timeout=600)
         mark("learners_exited")
     finally:
+        if agg is not None:
+            agg.close()
         for name, p in procs.items():
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
@@ -5149,11 +5259,347 @@ def phase_replay_svc_train(sampling, card: str, beside: dict) -> dict:
         "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine)",
                  "actors": "learner A 2 workers x 4 actors, learner B 1 remote slot x 8 "
                            "actors, for 8 x 32 per learner",
-                 "min_replay_mem_size": f"{DEDUP_WARMUP} for 50000",
+                 "min_replay_mem_size": f"{SVC_WARMUP} for 50000 (was {DEDUP_WARMUP}: "
+                                        "smoke time)",
                  "steps": f"{SVC_STEPS} per learner for 2000000",
                  "data_parallel": "1 for 4"},
         "seconds": time.monotonic() - t0,
     }
+    emit(result)
+    return result
+
+
+AP_ROOT = os.path.join(REPO_DIR, "build", "autopilot_smoke")
+# autopilot_train: config3's learner on host replay, fake-atari 84x84x4,
+# 2 worker processes x 2 actors spawned and a third wid reserved, each env
+# step slept AP_ENV_LATENCY_MS on average (the chaos SlowEnv) so a worker's
+# rate is sleep-bound and the ring's age follows the fleet's width.
+AP_ACTORS = 6
+AP_ENV_LATENCY_MS = 20.0
+AP_CAPACITY = 256              # replay.capacity, cut from 2 000 000
+AP_WARMUP = 128                # learner.min_replay_mem_size, cut from 50 000
+AP_WINDOW_S = 8.0              # obs.fleet_slo_window_s (the JAX drill's)
+AP_SCRAPE_S = 0.5              # obs.fleet_scrape_interval_s, autopilot.poll_s
+# Between the windowed age p95 two live workers give (3 162.3 ms) and one
+# gives (6 309.6 ms) on the card: their geometric mean, from the calibrating
+# run (``python3 chip_smoke.py --autopilot-calibrate``; PERF.md section 6).
+AP_AGE_BOUND_MS = 4466.9
+
+
+class _Lines:
+    """A JSONL sink in memory: the drill's ``MetricLogger`` stream."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lines: list = []
+
+    def write(self, line: str) -> None:
+        with self._lock:
+            self._lines.append(line)
+
+    def flush(self) -> None:
+        pass
+
+    def records(self) -> list:
+        with self._lock:
+            lines = list(self._lines)
+        out = []
+        for line in lines:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+        return out
+
+
+def autopilot_drill(device: str, overrides: list, *, age_bound_ms: float, window_s: float,
+                    scrape_s: float, root: str, min_samples: int = 4,
+                    calibrate: bool = False, contexts_fn=None, wait_s: float = 120.0) -> dict:
+    """The JAX package's actor drill (``tools/autopilot_smoke.py`` step 6)
+    on the port: an in-process ``AsyncPipeline`` on host replay with the
+    autopilot on, 2 live worker processes and one reserved wid, its SLO
+    engine holding ``age_p95_ms`` at ``age_bound_ms``.
+
+    1. Green: every rule measurable and green for one full window, and the
+       controller decides nothing.
+    2. Wid 1 SIGKILLed through its respawn until the supervisor quarantines
+       it (``supervisor.crash_loop_budget=1``).
+    3. ``slo_breach`` on ``age_p95_ms``, then exactly one
+       ``autopilot_action`` ``scale_up`` on fleet ``actor`` naming it, from
+       1 to 2 live workers (the reserved wid 2), then ``slo_clear`` with
+       the windowed age under the bound; no action without a breach that
+       owns it.
+    4. The timeline holds one record per sweep (±1) and no torn record; a
+       reopened store reads the same records, its windowed p95 of
+       ``age_s`` over the last window equals the last live rollup's, and
+       ``rebuild_slo`` gives the rule states the run ended with.
+    5. ``/varz`` carries ``autopilot`` and ``timeline``; the sampler
+       launches 0 times; ``contexts_fn`` (the card's contexts) reads the
+       same during the run as before it; every worker exits; no /dev/shm
+       segment is left.
+
+    ``min_samples`` is the SLO engine's (the JAX drill's 4 on the card); a
+    loaded host, whose workers start slowly, sends the first samples' age
+    up before the ring has turned over, so its twin waits for a full
+    window of samples.
+
+    ``calibrate=True`` runs steps 1 and 2 with ``age_bound_ms`` as given
+    (set it out of reach) and measures the windowed age p95 at two live
+    workers and then, a window after the quarantine, at one."""
+    import shutil
+
+    from ape_x_dqn_tpu_torch.config import ApexConfig, apply_overrides
+    from ape_x_dqn_tpu_torch.obs.fleet import engine_from_config
+    from ape_x_dqn_tpu_torch.obs.timeline import TimelineStore, read_timeline
+    from ape_x_dqn_tpu_torch.ops import sampling
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+    from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
+
+    shutil.rmtree(root, ignore_errors=True)
+    tl_dir = os.path.join(root, "timeline")
+    cfg = apply_overrides(ApexConfig(), [
+        *overrides, "actor.mode=process", "actor.num_workers=2", "actor.max_workers=3",
+        f"actor.num_actors={AP_ACTORS}", "actor.T=1000000000",
+        "learner.total_steps=1000000000",
+        "chaos.enabled=true", f"chaos.seed={CHAOS_SEED}",
+        "supervisor.enabled=true", "supervisor.crash_loop_budget=1",
+        "supervisor.crash_loop_window_s=90", "supervisor.respawn_backoff_base_s=0.2",
+        "obs.export_port=0", f"obs.fleet_scrape_interval_s={scrape_s}",
+        f"obs.fleet_slo_age_p95_ms={age_bound_ms}", "obs.fleet_slo_endpoint_alive=false",
+        f"obs.fleet_slo_window_s={window_s}", "obs.fleet_slo_burn_threshold=0.5",
+        "obs.fleet_slo_clear_threshold=0.25", f"obs.fleet_slo_min_samples={min_samples}",
+        f"obs.timeline_dir={tl_dir}",
+        "autopilot.enabled=true", f"autopilot.poll_s={scrape_s}",
+        "autopilot.actor_min_workers=1", "autopilot.cooldown_up_s=10",
+        "autopilot.cooldown_down_s=8", "autopilot.hold_opposite_s=6"])
+    # This process's segments only (its pool names them by its pid).
+    def own_segments():
+        return {n for n in _shm_segments() if f"_{os.getpid()}_" in n}
+
+    shm_before = own_segments()
+    contexts_before = contexts_fn() if contexts_fn else None
+    lines = _Lines()
+    t0 = time.monotonic()
+    sampling.sample_indices.launches = 0
+    pipe = AsyncPipeline(cfg, logger=MetricLogger(stream=lines), log_every=100,
+                         device=device)
+    pool, agg, ctl = pipe.worker.pool, pipe.autopilot_aggregator, pipe.autopilot
+    out: dict = {}
+    run_err: list = []
+    marks: dict = {}
+
+    def run():
+        try:
+            out["final"] = pipe.run(learner_steps=10 ** 9)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            run_err.append(e)
+
+    def mark(name):
+        marks[name] = round(time.monotonic() - t0, 3)
+
+    def events(kind, rule=None):
+        return [r for r in lines.records() if r.get("event") == kind
+                and (rule is None or r.get("rule") == rule)]
+
+    def wait_for(cond, what, timeout=wait_s):
+        deadline = time.monotonic() + timeout
+        while True:
+            if run_err:
+                raise AssertionError(f"autopilot_train: the learner died ({run_err[0]!r}) "
+                                     f"waiting for {what}")
+            got = cond()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(f"autopilot_train: timed out waiting for {what}: "
+                                     f"{agg.slo.status()['rules']}, {ctl.state()}")
+            time.sleep(0.05)
+
+    def age_rule():
+        return agg.slo.status()["rules"]["age_p95_ms"]
+
+    def age_wait(seconds, what):
+        start = time.monotonic()
+        wait_for(lambda: time.monotonic() - start >= seconds, what, seconds + 30.0)
+
+    thread = threading.Thread(target=run, name="autopilot-learner", daemon=True)
+    thread.start()
+    log: dict = {}
+    try:
+        wait_for(lambda: age_rule()["samples"] >= cfg.obs.fleet_slo_min_samples,
+                 "the age rule measurable")
+        mark("measurable")
+        age_wait(window_s + scrape_s, "one full window at two workers")
+        mark("green")
+        log["green"] = {"decisions": ctl.decisions, "breaches": events("slo_breach"),
+                        "rules": agg.slo.status()["rules"],
+                        "live_workers": pool.live_workers()}
+        log["varz"] = _varz(pipe.obs_server.url)
+        log["contexts_during"] = contexts_fn() if contexts_fn else None
+        victim = 1
+        first, r0 = pool._procs[victim], pool.restarts
+        t_kill = time.monotonic()
+        mark("kill")
+        os.kill(first.pid, signal.SIGKILL)
+        wait_for(lambda: pool.restarts > r0 and pool._procs[victim] is not first,
+                 "wid 1's respawn")
+        log["respawned_pid"] = pool._procs[victim].pid
+        os.kill(log["respawned_pid"], signal.SIGKILL)
+        wait_for(lambda: victim in pool.quarantined, "wid 1 quarantined")
+        t_q = time.monotonic()
+        mark("quarantined")
+        if calibrate:
+            age_wait(2 * window_s + scrape_s, "two full windows at one worker")
+            log["one_worker_rule"] = age_rule()
+        else:
+            wait_for(lambda: events("slo_breach", "age_p95_ms"), "slo_breach on age_p95_ms")
+            t_breach = time.monotonic()
+            mark("breach")
+            wait_for(lambda: events("autopilot_action"), "an autopilot_action")
+            t_action = time.monotonic()
+            mark("action")
+            wait_for(lambda: 2 in pool.last_versions, "the grown wid 2 delivering")
+            mark("grown_fed")
+            wait_for(lambda: events("slo_clear", "age_p95_ms"), "slo_clear on age_p95_ms")
+            t_clear = time.monotonic()
+            mark("clear")
+            log["drill_s"] = {"kill_to_quarantine": t_q - t_kill,
+                              "kill_to_breach": t_breach - t_kill,
+                              "kill_to_action": t_action - t_kill,
+                              "kill_to_clear": t_clear - t_kill}
+        log["live_workers_end"] = pool.live_workers()
+    finally:
+        pipe.stop_event.set()
+        thread.join(180)
+    mark("end")
+    if thread.is_alive() or run_err:
+        raise AssertionError(f"autopilot_train: the learner thread {run_err}")
+    final = out["final"]
+    launches = sampling.sample_indices.launches
+    recs = lines.records()
+    green = log["green"]
+    rules = green["rules"]
+    if green["decisions"] or green["breaches"] \
+            or any(r["value"] is None or r["samples"] < cfg.obs.fleet_slo_min_samples
+                   or r["state"] != "ok" for r in rules.values()) \
+            or green["live_workers"] != [0, 1]:
+        raise AssertionError(f"autopilot_train: the green window {green}")
+    if "autopilot" not in log["varz"] or "timeline" not in log["varz"]:
+        raise AssertionError(f"autopilot_train: /varz sections {sorted(log['varz'])}")
+    result = {"age_p95_ms_two_workers": rules["age_p95_ms"]["value"],
+              "green_decisions": green["decisions"], "marks_s": marks}
+    if calibrate:
+        result["age_p95_ms_one_worker"] = log["one_worker_rule"]["value"]
+    else:
+        actions = [r for r in recs if r.get("event") == "autopilot_action"]
+        breach, clear = events("slo_breach", "age_p95_ms"), events("slo_clear", "age_p95_ms")
+        act = actions[0] if actions else {}
+        if len(actions) != 1 or (act["fleet"], act["action"], act["rule"], act["size_from"],
+                                 act["size_to"], act["detail"], act["dry_run"]) \
+                != ("actor", "scale_up", "age_p95_ms", 1, 2, {"wids": [2]}, False):
+            raise AssertionError(f"autopilot_train: actions {actions}")
+        if not (breach[0]["seq"] < act["seq"] < clear[0]["seq"]) \
+                or clear[0]["value"] >= age_bound_ms:
+            raise AssertionError(f"autopilot_train: breach {breach}, action {act}, "
+                                 f"clear {clear}")
+        for a in actions:    # every action owned by a breach still standing
+            owned = [b for b in recs if b.get("event") == "slo_breach"
+                     and b.get("rule") == a["rule"] and b["seq"] < a["seq"]]
+            cleared = [c for c in recs if c.get("event") == "slo_clear"
+                       and c.get("rule") == a["rule"] and owned
+                       and owned[-1]["seq"] < c["seq"] < a["seq"]]
+            if not owned or cleared:
+                raise AssertionError(f"autopilot_train: a stray action {a}")
+        if log["live_workers_end"] != [0, 2] or victim not in pool.quarantined:
+            raise AssertionError(f"autopilot_train: live workers {log['live_workers_end']}, "
+                                 f"quarantined {pool.quarantined}")
+        result.update({
+            "age_p95_ms_one_worker": breach[0]["value"],
+            "age_p95_ms_after_grow": clear[0]["value"], "age_bound_ms": age_bound_ms,
+            "slo_breach": {k: breach[0][k] for k in ("value", "burn", "samples")},
+            "slo_clear": {k: clear[0][k] for k in ("value", "burn", "samples")},
+            "action": {k: act[k] for k in ("fleet", "action", "rule", "size_from", "size_to",
+                                           "detail")},
+            **log["drill_s"]})
+    # The timeline: one record per sweep, none torn, read back whole.
+    live = agg.timeline.records()
+    disk = read_timeline(tl_dir)
+    store = TimelineStore(tl_dir)
+    try:
+        back = store.records()
+        t_last = back[-1]["t"] if back else None
+        p95_disk = store.percentile("age_s", 95, t_last - window_s, t_last)
+        p95_live = agg.rollup()["age_of_experience"]["window"]["p95_s"]
+        engine = engine_from_config(cfg.obs)
+        store.rebuild_slo(engine, now=t_last)
+        rebuilt = {r.name: r.state for r in engine.rules}
+        ended = {n: r["state"] for n, r in agg.slo.status()["rules"].items()}
+        tl_stats = store.stats()
+    finally:
+        store.close()
+    if abs(len(disk["records"]) - agg.sweeps) > 1 or disk["torn"] or tl_stats["torn_records"] \
+            or back != live or round(p95_disk, 4) != p95_live or rebuilt != ended:
+        raise AssertionError(
+            f"autopilot_train: timeline {len(disk['records'])} records for {agg.sweeps} "
+            f"sweeps, {disk['torn']} torn, equal {back == live}, p95 {p95_disk} against "
+            f"{p95_live}, rebuilt {rebuilt} against {ended}")
+    alive = [w for w, p in enumerate(pool._procs) if p.is_alive()]
+    if launches != 0 or alive or own_segments() - shm_before \
+            or (contexts_fn and log["contexts_during"] != contexts_before):
+        raise AssertionError(f"autopilot_train: sampler {launches}, workers alive {alive}, "
+                             f"/dev/shm {own_segments() - shm_before}, contexts "
+                             f"{contexts_before} -> {log['contexts_during']}")
+    shutil.rmtree(root, ignore_errors=True)
+    run_s = marks["end"]
+    result.update({
+        "sampler_launches": launches, "learner_steps": final["step"],
+        "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
+        "actor_fps": final["actor_fps"], "sweeps": agg.sweeps,
+        "sweeps_per_s": agg.sweeps / run_s,
+        "timeline": {"records": len(disk["records"]), "torn": disk["torn"],
+                     "segments": disk["segments"], "bytes": tl_stats["bytes"],
+                     "window_p95_s_disk": p95_disk, "window_p95_s_live": p95_live,
+                     "rebuilt_states": rebuilt},
+        "autopilot": final.get("autopilot"), "contexts": [contexts_before,
+                                                          log["contexts_during"]],
+        "seconds": run_s})
+    return result
+
+
+def phase_autopilot_train(sampling, card: str, calibrate: bool = False) -> dict:
+    """config3's learner on the card (conv dueling at full width, B = 32,
+    bf16 ν and target) on host replay over fake-atari 84x84x4 under the
+    autopilot: ``autopilot_drill`` with the card's sizes."""
+    import torch
+
+    # This process's own context first: the learner adds none (it is in
+    # process), and the workers none (they stay off the card).
+    torch.zeros(1, device="cuda")
+    overrides = ["network=conv", "env.name=fake-atari", "env.frame_stack=4",
+                 f"seed={SEED}", f"chaos.env_latency_ms={AP_ENV_LATENCY_MS}",
+                 f"replay.capacity={AP_CAPACITY}",
+                 f"learner.min_replay_mem_size={AP_WARMUP}",
+                 "learner.replay_sample_size=32", "learner.second_moment_dtype=bfloat16",
+                 "learner.target_dtype=bfloat16", "actor.num_steps=3",
+                 "actor.flush_every=8", "actor.sync_every=100"]
+    result = autopilot_drill("cuda", overrides, age_bound_ms=1e9 if calibrate
+                             else AP_AGE_BOUND_MS, window_s=AP_WINDOW_S,
+                             scrape_s=AP_SCRAPE_S, root=AP_ROOT, calibrate=calibrate,
+                             contexts_fn=card_contexts)
+    result = {"phase": "autopilot_calibrate" if calibrate else "autopilot_train",
+              "card": card, **result,
+              "cuts": {"env": "fake-atari for SeaquestNoFrameskip-v4 (no Atari on the "
+                              "machine)",
+                       "actors": f"2 live workers + 1 reserved x {AP_ACTORS // 3} actors "
+                                 "for 8 x 32",
+                       "replay.capacity": f"{AP_CAPACITY} for 2000000 (the age must "
+                                          "follow the fleet's width within a window)",
+                       "min_replay_mem_size": f"{AP_WARMUP} for 50000",
+                       "replay": "host PrioritizedReplay for the device dedup ring (the "
+                                 "LineageTracker, and so the age, is host-path only)",
+                       "env_latency_ms": f"{AP_ENV_LATENCY_MS} (chaos SlowEnv: sleep-bound "
+                                         "workers)",
+                       "data_parallel": "1 for 4"}}
     emit(result)
     return result
 
@@ -5237,6 +5683,9 @@ def main() -> int:
     del ckpt_state
     chaos_restore = phase_chaos_restore(sampling, card=smi)
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # After obs_train's captures: the autopilot's learner is in-process, on
+    # host replay (the age of experience is a host-path signal).
+    autopilot = phase_autopilot_train(sampling, card=smi)
     # Last: its two learner processes are the only other CUDA contexts the
     # smoke puts on the card before obs_train's profiled captures otherwise.
     replay_svc = phase_replay_svc_train(sampling, card=smi, beside=proc_host)
@@ -5260,6 +5709,7 @@ def main() -> int:
                              "process_host_dedup": host_dedup["sampler_launches"],
                              "process_host_tiered": tier["sampler_launches"],
                              "replay_service": replay_svc["sampler_launches"],
+                             "autopilot_train": autopilot["sampler_launches"],
                              "dedup_parity": dedup_parity["sampler_launches"],
                              "graph_parity": graph_parity["sampler_launches"],
                              "process_device_dedup": dedup["sampler_launches"],
@@ -5299,7 +5749,31 @@ def main() -> int:
     return 0
 
 
+def autopilot_calibrate() -> int:
+    """``python3 chip_smoke.py --autopilot-calibrate``: autopilot_train's
+    calibrating run alone (where ``AP_AGE_BOUND_MS`` comes from)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from ape_x_dqn_tpu_torch.ops import sampling
+    from ape_x_dqn_tpu_torch.replay import native
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    native.build_library()
+    cal = phase_autopilot_train(sampling, card=smi, calibrate=True)
+    emit({"age_bound_ms": round((cal["age_p95_ms_two_workers"]
+                                 * cal["age_p95_ms_one_worker"]) ** 0.5, 1)})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--autopilot-calibrate"]:
+        raise SystemExit(autopilot_calibrate())
     if sys.argv[1:2] == ["--ckpt-child"]:
         raise SystemExit(ckpt_child(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-child"]:

@@ -66,6 +66,11 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.replay.tiered",
                  "ape_x_dqn_tpu_torch.replay.native_dedup",
                  "ape_x_dqn_tpu_torch.replay.service",
+                 "ape_x_dqn_tpu_torch.obs.fleet",
+                 "ape_x_dqn_tpu_torch.obs.timeline",
+                 "ape_x_dqn_tpu_torch.autopilot",
+                 "ape_x_dqn_tpu_torch.autopilot.controller",
+                 "ape_x_dqn_tpu_torch.autopilot.actuators",
                  "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
@@ -166,6 +171,36 @@ def test_atari_envs_and_chaos_load_no_torch_cv2_or_gymnasium():
         "make_env('fake-atari').step(0)\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'gymnasium')!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_fleet_timeline_and_autopilot_load_neither_torch_nor_jax():
+    """The aggregator, the timeline store and the autopilot are operator
+    tools that come up in milliseconds on any host: stdlib only at import
+    (as their JAX twins), and a sweep over an in-process endpoint, a
+    timeline append and a controller step load no torch, no numpy and
+    nothing of JAX or of the JAX package."""
+    code = (
+        "import json, sys, tempfile\n"
+        "import ape_x_dqn_tpu_torch.obs.fleet as fleet\n"
+        "import ape_x_dqn_tpu_torch.obs.timeline as timeline\n"
+        "import ape_x_dqn_tpu_torch.autopilot as ap\n"
+        "from ape_x_dqn_tpu_torch.autopilot import (ActorPoolActuator, AutopilotController,\n"
+        "    ReplayFleetActuator, ServingFleetActuator)\n"
+        "from ape_x_dqn_tpu_torch.config import AutopilotConfig\n"
+        "agg = fleet.FleetAggregator()\n"
+        "agg.attach_timeline(timeline.TimelineStore(tempfile.mkdtemp()))\n"
+        "agg.add_local('trainer', lambda: {'learner': {'step': 1}})\n"
+        "agg.scrape_once(now=1.0)\n"
+        "AutopilotController(AutopilotConfig(enabled=True), rollup_fn=agg.rollup).step(now=1.0)\n"
+        "agg.close()\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'numpy')!r})\n"
         "print(json.dumps(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

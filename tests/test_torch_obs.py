@@ -508,11 +508,10 @@ def test_obs_config_matches_jax_fields():
 
     port = {f.name: f.default for f in dataclasses.fields(tconfig.ObsConfig)}
     jax_fields = {f.name: f.default for f in dataclasses.fields(jconfig.ObsConfig)}
-    assert port == {k: jax_fields[k] for k in port}
-    refused = set(jax_fields) - set(port)
-    assert refused and all(k.startswith(("fleet_", "timeline_")) for k in refused)
-    for k in refused:
-        assert f"obs.{k}" in tconfig._NOT_PORTED
+    # Every field, the fleet_* and timeline_* ones too, with JAX's default;
+    # none is refused by name any more.
+    assert port == jax_fields
+    assert not any(k.startswith("obs.") for k in tconfig._NOT_PORTED)
     cfg = tconfig.load_config(None, ["obs.export_port=0", "obs.postmortem_dir=none",
                                      "obs.trace_sample_rate=0.5"])
     assert (cfg.obs.export_port, cfg.obs.postmortem_dir) == (0, None)
@@ -521,12 +520,21 @@ def test_obs_config_matches_jax_fields():
 @pytest.mark.parametrize("key", ["obs.fleet_port=1", "obs.timeline_dir=x",
                                  "obs.fleet_slo_age_p95_ms=5"])
 def test_fleet_and_timeline_keys_refused_by_name(key, tmp_path):
-    with pytest.raises(ValueError, match="not part of the port yet"):
-        tconfig.load_config(None, [key])
+    """These keys load now (obs/fleet.py and obs/timeline.py are ported),
+    from an override and from a native JSON file alike, with the value the
+    JAX config gives them; a misspelt neighbour is still refused by its
+    name."""
     name, value = key.split("=")
+    field = name.split(".")[1]
+    want = getattr(jconfig.apply_overrides(jconfig.ApexConfig(), [key]).obs, field)
+    assert getattr(tconfig.load_config(None, [key]).obs, field) == want
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps({"obs": {name.split(".")[1]: value}}))
-    with pytest.raises(ValueError, match=name):
+    path.write_text(json.dumps({"obs": {field: want}}))
+    assert getattr(tconfig.load_config(str(path)).obs, field) == want
+    with pytest.raises(ValueError, match=f"{name}x"):
+        tconfig.load_config(None, [f"{name}x={value}"])
+    path.write_text(json.dumps({"obs": {f"{field}x": want}}))
+    with pytest.raises(ValueError, match=f"{field}x"):
         tconfig.load_config(str(path))
 
 

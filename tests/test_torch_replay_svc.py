@@ -762,9 +762,19 @@ def test_service_keys_accepted_with_jax_defaults():
 
 
 def test_fleet_timeline_and_autopilot_still_refused_by_name():
-    for key in ("obs.fleet_port=1", "obs.timeline_dir=x", "autopilot.enabled=true"):
-        with pytest.raises(ValueError, match="ROADMAP item 7"):
-            apply_overrides(ApexConfig(), [key])
+    """The rest of ROADMAP item 7 is ported: these keys load now, with the
+    JAX config's values, and no refusal cites the item any more."""
+    from ape_x_dqn_tpu.config import apply_overrides as japply
+
+    from ape_x_dqn_tpu_torch import config as tconfig
+
+    keys = ("obs.fleet_port=1", "obs.timeline_dir=x", "autopilot.enabled=true")
+    cfg, jcfg = apply_overrides(ApexConfig(), keys), japply(JApexConfig(), keys)
+    assert (cfg.obs.fleet_port, cfg.obs.timeline_dir, cfg.autopilot.enabled) \
+        == (jcfg.obs.fleet_port, jcfg.obs.timeline_dir, jcfg.autopilot.enabled) \
+        == (1, "x", True)
+    assert not any("item 7" in v for v in (*tconfig._NOT_PORTED.values(),
+                                            *tconfig._NOT_PORTED_SECTIONS.values()))
 
 
 def test_attach_capacity_mismatch_is_value_error(tmp_path):
