@@ -5,9 +5,7 @@ sections, plus ``supervisor``, ``serving``, ``obs``, ``fleet``,
 ``autopilot`` and ``chaos``, reference-format ``parameters.json`` files,
 ``--set section.field=value`` overrides), with the same defaults and
 validation messages.  A key the JAX config does not have raises rather
-than loading as a dead setting; the one path the port does not run yet,
-the multi-GPU learner (ROADMAP item 8), is refused by its value
-(``learner.data_parallel``).  The port owns this copy; it never imports
+than loading as a dead setting.  The port owns this copy; it never imports
 the JAX package's module.
 """
 
@@ -181,8 +179,10 @@ class LearnerConfig:
     # call-entry priorities and restamps once after the K steps; False is
     # strict sequential PER (one sampler launch per step).
     sample_ahead: bool = False
-    # Data-parallel learner over several cards: only 1 is part of the port
-    # (the multi-GPU learner is ROADMAP item 8).
+    # Data-parallel learner over a mesh of this many device slots
+    # (parallel/, replay/device_dp.py).  Requires replay_sample_size %
+    # data_parallel == 0 (and capacity and ingest_block % data_parallel
+    # == 0 with device_replay).
     data_parallel: int = 1
     # Low-precision storage ("bfloat16" | "float32" | None): RMSProp's
     # second moment, the target net, and the network params (bfloat16
@@ -729,10 +729,28 @@ class ApexConfig:
             (not (r.frame_compression and l.device_replay),
              "replay.frame_compression applies to the host replay only "
              "(learner.device_replay=false)"),
-            (l.data_parallel == 1,
-             f"learner.data_parallel={l.data_parallel}: the multi-GPU learner "
-             "(parallel/dp.py, replay/device_dp.py, replay/device_dedup_dp.py) "
-             "is not part of the port yet (ROADMAP item 8)"),
+            (l.data_parallel >= 1, "learner.data_parallel must be >= 1"),
+            (l.replay_sample_size % l.data_parallel == 0,
+             "learner.replay_sample_size must be divisible by data_parallel"),
+            (not (l.device_replay and l.data_parallel > 1)
+             or l.ingest_block % l.data_parallel == 0,
+             "learner.ingest_block must be divisible by data_parallel "
+             "when device_replay=True"),
+            # Fused + DP (replay/device_dp.py): each slot owns an equal ring
+            # shard, so capacity must split evenly.
+            (not (l.device_replay and l.data_parallel > 1)
+             or r.capacity % l.data_parallel == 0,
+             "replay.capacity must be divisible by learner.data_parallel "
+             "when device_replay=True (per-device HBM ring shards)"),
+            # Sharded dedup rings route whole sources (per-fleet dedup
+            # streams) to shards; every fleet splits into data_parallel
+            # groups, so it needs at least that many actors.
+            (not (r.dedup and l.device_replay and l.data_parallel > 1)
+             or (a.num_actors if a.mode == "thread"
+                 else a.num_actors // a.num_workers) >= l.data_parallel,
+             "replay.dedup with device_replay needs >= data_parallel "
+             "actors per fleet (per worker in process mode) — each fleet "
+             "splits into one dedup stream per ring shard"),
             (not r.dedup or a.flush_every >= a.num_steps,
              "replay.dedup requires actor.flush_every >= actor.num_steps "
              "(carry refs reach at most one chunk back)"),
@@ -877,9 +895,7 @@ def _coerce(current: Any, raw: str, field: str = "") -> Any:
 
 # Keys of the JAX package's config whose feature the port does not run yet,
 # refused by name with their ROADMAP item (any other unknown key is refused
-# as unknown).  Every key of the JAX config now loads: the multi-GPU learner
-# (item 8) is refused by value, in ``ApexConfig.validate``
-# (``learner.data_parallel`` other than 1).
+# as unknown).  Every key of the JAX config now loads and runs.
 _NOT_PORTED: dict = {}
 
 

@@ -32,7 +32,7 @@ The JAX package's low-precision knobs (``train_step.py:52-134,174-210``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,22 +85,39 @@ class Optimizer:
     @torch.no_grad()
     def update_(self, params: Params, grads: Params, state: dict) -> None:
         """One step: clip, transform, and add the update to ``params``."""
+        self.apply_(params, self.clip(grads), state)
+
+    @torch.no_grad()
+    def clip(self, grads: Params) -> Params:
+        """The gradients as ``apply_`` takes them: float32 under the master
+        copy, then scaled by max/‖g‖ when the global norm ‖g‖ over all of
+        them reaches ``max_grad_norm``.  A caller that steps parts of the
+        params apart (the model axis's chunks, ``parallel/dp.py``) clips the
+        whole gradient here first, so the norm stays global."""
+        if self.float32_master:
+            grads = {k: g.to(torch.float32) for k, g in grads.items()}
+        if self.max_grad_norm is None:
+            return grads
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = g_norm < self.max_grad_norm
+        return {k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+                for k, g in grads.items()}
+
+    @torch.no_grad()
+    def apply_(self, params: Params, grads: Params, state: dict) -> None:
+        """Transform clipped gradients (``clip``) and add the update to
+        ``params``: every key of ``grads`` is stepped, so a slice of the
+        params with the matching slice of the state steps alone."""
         if not self.float32_master:
             self._update(params, grads, state)
             return
         master = state["master"]
-        self._update(master, {k: g.to(torch.float32) for k, g in grads.items()}, state)
-        for k, p in params.items():
+        self._update(master, grads, state)
+        for k in grads:
+            p = params[k]
             p.add_(master[k].to(p.dtype) - p)
 
     def _update(self, params: Params, grads: Params, state: dict) -> None:
-        if self.max_grad_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-            keep = g_norm < self.max_grad_norm
-            grads = {
-                k: torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
-                for k, g in grads.items()
-            }
         lr = self.learning_rate
         if self.kind == "rmsprop":
             rho = self.rmsprop_decay
@@ -179,6 +196,7 @@ def build_train_step(
     loss_kind: str = "huber",
     target_sync_freq: int = 2500,
     sync_in_step: bool = True,
+    grad_reduce_axis: Optional[str] = None,
 ) -> Callable[[TrainState, PrioritizedBatch], Tuple[TrainState, StepMetrics]]:
     """Build ``train_step(state, batch) -> (state, metrics)``; ``state`` is
     updated in place and returned.
@@ -186,33 +204,58 @@ def build_train_step(
     ``sync_in_step=False`` leaves the target net alone, for callers that
     sync at their own cadence (the fused K-step loop syncs after the loop).
 
+    ``grad_reduce_axis`` (JAX ``train_step.py:259-290``): ``"data"`` builds
+    the mesh step, ``train_step(sharded, batches) -> (sharded, metrics)``
+    over a ``parallel/mesh.ShardedTrainState`` and one batch per local data
+    slot (``parallel/dp.place_batch``).  Each slot takes the gradient of
+    its own rows' local-mean loss on its replica, the model-sharded leaves
+    gathered for the forward; the gradients are averaged over the slots
+    (``slot_mean``: every slot, and across processes when a process group
+    is up) and clipped once on the whole mean; each slot (d, m) then steps
+    its replica, its chunk of a model-sharded leaf with that chunk of the
+    gradient, so the replicas stay bit-identical and a model-sharded step
+    equals the model = 1 step.  The loss, mean |δ| and mean Q reported are
+    the slots' means, max |δ| their max; priorities are each slot's rows,
+    concatenated in slot order.
+
     ``train_step.update(state, batch) -> metrics`` is the device work of
     one step alone: it reads no host value that changes between steps and
     leaves ``state.step`` and the target net to the caller, so a CUDA graph
     can capture it (the fused call advances ``step`` by K after its
-    replays).
+    replays).  ``train_step.local_grads(state, batch) -> (grads, metrics)``
+    is its first half, before the optimizer, for callers that reduce the
+    gradients over slots themselves; ``params``/``target`` override the
+    state's (the model axis gathers its chunks into them).
+    ``train_step.apply_(state, grads)`` is the second half: the optimizer
+    on (reduced) gradients.
     """
     if loss_kind not in ("huber", "squared"):
         raise ValueError(f"unknown loss kind: {loss_kind}")
+    if grad_reduce_axis not in (None, "data"):
+        raise ValueError(f"gradients reduce over the mesh's 'data' axis, "
+                         f"not {grad_reduce_axis!r}")
 
-    def update(state: TrainState, batch: PrioritizedBatch) -> StepMetrics:
+    def local_grads(state: TrainState, batch: PrioritizedBatch,
+                    params: Optional[Params] = None,
+                    target: Optional[Params] = None) -> Tuple[Params, StepMetrics]:
         t = batch.transition
         B = t.action.shape[0]
-        live = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        params = state.params if params is None else params
+        target = state.target_params if target is None else target
+        live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         # One online forward over [obs; next_obs] (2B rows), one target forward.
         q_both = network.apply_params(live, torch.cat([t.obs, t.next_obs], 0)).q
         q_values, q_next_online = q_both[:B], q_both[B:]
         with torch.no_grad():
-            q_next_target = network.apply_params(state.target_params, t.next_obs).q
+            q_next_target = network.apply_params(target, t.next_obs).q
         targets = losses.double_q_target(
             q_next_online, q_next_target, t.reward, t.discount
         )
         delta = losses.td_error(q_values, t.action, targets)
         loss = losses.td_loss(delta, batch.is_weights, kind=loss_kind)
         grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
-        optimizer.update_(state.params, grads, state.opt_state)
         delta = delta.detach()
-        return StepMetrics(
+        return grads, StepMetrics(
             loss=loss.detach(),
             mean_abs_td=delta.abs().mean(),
             max_abs_td=delta.abs().max(),
@@ -220,12 +263,80 @@ def build_train_step(
             mean_q=q_values.detach().mean(),
         )
 
-    def train_step(state: TrainState, batch: PrioritizedBatch):
-        metrics = update(state, batch)
+    def update(state: TrainState, batch: PrioritizedBatch) -> StepMetrics:
+        grads, metrics = local_grads(state, batch)
+        optimizer.update_(state.params, grads, state.opt_state)
+        return metrics
+
+    def advance(state: TrainState) -> None:
         state.step += 1
         if sync_in_step and state.step % target_sync_freq == 0:
             sync_target_(state)
+
+    def train_step(state: TrainState, batch: PrioritizedBatch):
+        metrics = update(state, batch)
+        advance(state)
         return state, metrics
 
-    train_step.update = update
-    return train_step
+    def sharded_step(state, batches: List[PrioritizedBatch]):
+        mesh = state.mesh
+        if len(batches) != mesh.local_data:
+            raise ValueError(f"{len(batches)} batches for {mesh.local_data} data slots")
+        outs = [local_grads(row[0], batch, params=state.gather(d),
+                            target=state.gather(d, "target_params"))
+                for d, (row, batch) in enumerate(zip(state.replicas, batches))]
+        mean = slot_mean([g for g, _ in outs])
+        m = mesh.shape["model"]
+        for row, devs in zip(state.replicas, mesh.devices):
+            g = optimizer.clip({k: v.to(devs[0], copy=True) for k, v in mean.items()})
+            for j, (rep, dev) in enumerate(zip(row, devs)):
+                part = {k: (v.chunk(m, 0)[j] if k in state.sharded else v).to(dev)
+                        for k, v in g.items()}
+                optimizer.apply_(rep.params, part, rep.opt_state)
+                advance(rep)
+        return state, reduce_slot_metrics([mt for _, mt in outs])
+
+    step = train_step if grad_reduce_axis is None else sharded_step
+    step.update = update
+    step.local_grads = local_grads
+    step.apply_ = lambda state, grads: optimizer.update_(state.params, grads, state.opt_state)
+    return step
+
+
+def slot_mean(grads: List[Params]) -> Params:
+    """The all-reduce of the data axis: the mean over slots of each slot's
+    gradient dict, on the first slot's device.  The sum runs in slot order
+    and is divided by the slot count (as JAX's psum/n); with a process
+    group up it is then averaged across the processes
+    (``parallel/multihost.all_reduce_mean_``).  Nothing here asks whether
+    two slots share a device: each slot is reduced."""
+    from ape_x_dqn_tpu_torch.parallel import multihost
+
+    mean = {}
+    for k, g0 in grads[0].items():
+        acc = g0.clone()
+        for g in grads[1:]:
+            acc.add_(g[k].to(acc.device))
+        mean[k] = acc.div_(len(grads))
+    multihost.all_reduce_mean_(mean)
+    return mean
+
+
+def reduce_slot_metrics(metrics: List[StepMetrics]) -> StepMetrics:
+    """One step's metrics over the data slots (and processes): the means of
+    loss, mean |δ| and mean Q, the max of max |δ| (JAX's pmean/pmax), and
+    the slots' priorities concatenated in slot order (this process's rows,
+    the inverse of ``multihost.local_shard``), on the first slot's device."""
+    from ape_x_dqn_tpu_torch.parallel import multihost
+
+    dev = metrics[0].loss.device
+
+    def col(f):
+        return torch.stack([getattr(m, f).to(dev) for m in metrics])
+
+    means = torch.stack([col(f).mean(0) for f in ("loss", "mean_abs_td", "mean_q")])
+    peak = col("max_abs_td").amax(0)
+    means, peak = multihost.all_reduce_metrics_(means, peak)
+    return StepMetrics(loss=means[0], mean_abs_td=means[1], max_abs_td=peak,
+                       priorities=torch.cat([m.priorities.to(dev) for m in metrics], -1),
+                       mean_q=means[2])

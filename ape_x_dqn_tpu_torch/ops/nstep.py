@@ -1,8 +1,8 @@
 """Vectorized n-step return construction.
 
-Port of ``ape_x_dqn_tpu/ops/nstep.py``: ``nstep_returns`` (torch, :31) and
-its numpy twin ``nstep_returns_np`` (:101) that the actor fleet runs on the
-host.  For per-step reward r_t and discount d_t = γ·(1−done_t):
+Port of ``ape_x_dqn_tpu/ops/nstep.py``: ``nstep_returns`` (torch, :31),
+``build_nstep_transitions`` (:59) and the numpy twin ``nstep_returns_np``
+(:101) that the actor fleet runs on the host.  For per-step reward r_t and discount d_t = γ·(1−done_t):
 
     R^{(n)}_t = Σ_{k=0}^{n-1} (Π_{j<k} d_{t+j}) · r_{t+k}
     D^{(n)}_t = Π_{j=0}^{n-1} d_{t+j}              (0 if any step terminated)
@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ape_x_dqn_tpu_torch.types import NStepTransition
 
 
 def nstep_returns(rewards: torch.Tensor, discounts: torch.Tensor, n: int):
@@ -38,6 +40,28 @@ def nstep_returns(rewards: torch.Tensor, discounts: torch.Tensor, n: int):
         acc = acc + cumdisc * rewards[k:k + out_len]
         cumdisc = cumdisc * discounts[k:k + out_len]
     return acc, cumdisc
+
+
+def build_nstep_transitions(
+    obs: torch.Tensor,
+    actions: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    bootstrap_obs: torch.Tensor,
+    n: int,
+    stride: int = 1,
+) -> NStepTransition:
+    """n-step transitions from a rollout segment S_0..S_{T-1} (obs [T, ...],
+    actions, rewards, discounts γ·(1−done) [T]) and the one observation S_T
+    after it (``bootstrap_obs``): start indices 0, stride, ... ≤ T − n, each
+    with its n-step return, bootstrap discount and S_{t+n}.  ``stride`` 1
+    overlaps the windows (Ape-X); ``n`` is the reference's non-overlapping
+    emission."""
+    returns, boot = nstep_returns(rewards, discounts, n)
+    all_obs = torch.cat([obs, bootstrap_obs[None]], 0)
+    starts = torch.arange(0, returns.shape[0], stride, device=obs.device)
+    return NStepTransition(obs=obs[starts], action=actions[starts], reward=returns[starts],
+                           discount=boot[starts], next_obs=all_obs[starts + n])
 
 
 def nstep_returns_np(rewards: np.ndarray, discounts: np.ndarray, n: int):

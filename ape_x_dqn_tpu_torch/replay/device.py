@@ -102,6 +102,9 @@ def sample_slots(
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     size: Optional[torch.Tensor] = None,
+    n_shards: int = 1,
+    size_global=None,
+    normalize: bool = True,
 ):
     """The sampling law every device layout shares: K stratified batches of
     slots from ``mass`` in one sampler launch, and their β-annealed IS
@@ -111,7 +114,16 @@ def sample_slots(
     ``beta`` is a float or a float32 device scalar.  ``size``, an int64
     device scalar, stands in for the host's max(min(count, C), 1) when
     given: a captured call reads both from buffers written before each
-    replay instead of baking them in."""
+    replay instead of baking them in.
+
+    The sharded law (JAX ``device.py:120-150``, ``axis_name`` mode): this
+    ring is one of ``n_shards`` shards that each draw B rows, so row i is
+    drawn with q_i = (m_i / M_s) / n and its weight is
+    (``size_global`` · q_i)^−β, ``size_global`` being the shards' summed
+    sizes (an int or a device scalar).  The max that normalises the batch
+    is then the max over every shard's batch: ``normalize=False`` returns
+    the raw weights for the caller to divide by it
+    (``replay/device_dp.normalize_weights_``)."""
     K, B = num_batches, batch_size
     dev = mass.device
     total = torch.sum(mass)
@@ -126,7 +138,14 @@ def sample_slots(
         size = max(min(count, mass.shape[0]), 1)
     idx = torch.clamp(idx.long(), max=size - 1)  # zero-mass guard
     probs = mass[idx] / torch.clamp(total, min=1e-12)
-    weights = torch.pow(torch.clamp(size * probs, min=1e-12), -beta).reshape(K, B)
+    if size_global is None:
+        size_global = size
+    q = size_global * probs
+    if n_shards != 1:
+        q = q / n_shards
+    weights = torch.pow(torch.clamp(q, min=1e-12), -beta).reshape(K, B)
+    if not normalize:
+        return idx, weights
     return idx, weights / weights.max(dim=1, keepdim=True).values
 
 
@@ -138,12 +157,14 @@ def device_replay_sample_many(
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     size: Optional[torch.Tensor] = None,
+    **law,
 ) -> PrioritizedBatch:
     """K stratified batches from the current priorities in one sampler
-    launch plus one row gather; leaves get leading [K, B].  ``beta`` and
-    ``size`` as in ``sample_slots``."""
+    launch plus one row gather; leaves get leading [K, B].  ``beta``,
+    ``size`` and the sharded law's ``law`` keywords as in
+    ``sample_slots``."""
     idx, weights = sample_slots(state.mass, state.count, num_batches, batch_size,
-                                beta, u, generator, size)
+                                beta, u, generator, size, **law)
     idx2 = idx.reshape(num_batches, batch_size)
     return PrioritizedBatch(
         transition=NStepTransition(

@@ -161,12 +161,14 @@ def dedup_sample_many(
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     size: Optional[torch.Tensor] = None,
+    **law,
 ) -> PrioritizedBatch:
     """K stratified batches over the dedup layout: ``device.sample_slots``'s
-    law and IS weights (``beta`` and ``size`` as there); the frames are
-    gathered through the refs."""
+    law and IS weights (``beta``, ``size`` and the sharded law's ``law``
+    keywords as there); the frames are gathered through the refs."""
     K, B = num_batches, batch_size
-    idx, weights = sample_slots(state.mass, state.count, K, B, beta, u, generator, size)
+    idx, weights = sample_slots(state.mass, state.count, K, B, beta, u, generator, size,
+                                **law)
     idx2 = idx.reshape(K, B)
     Cf = state.frame_capacity
     obs = state.frames[torch.remainder(state.obs_ref[idx2].long(), Cf)]

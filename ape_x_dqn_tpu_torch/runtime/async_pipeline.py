@@ -124,6 +124,7 @@ host-replay path only.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import List, Optional
@@ -140,10 +141,12 @@ from ape_x_dqn_tpu_torch.obs import (
     MetricsRegistry,
 )
 from ape_x_dqn_tpu_torch.ops import sampling
+from ape_x_dqn_tpu_torch.parallel.multihost import process_count, process_index
 from ape_x_dqn_tpu_torch.runtime.components import build_components
 from ape_x_dqn_tpu_torch.runtime.infeed import (
     DevicePlacer,
     DispatchPipeline,
+    MeshPlacer,
     PrefetchQueue,
     loss_probe,
 )
@@ -429,6 +432,28 @@ class AsyncPipeline:
         # with the learner's calls.  Process actors never touch the device:
         # let 8 calls queue and read them all back in one burst.
         self._fused_inflight = 8 if process else FUSED_INFLIGHT
+        self.mesh = None
+        # Process identity in a process group (1 / 0 without one): every
+        # seed, sample size and checkpoint path below is process-aware.
+        self._n_proc = process_count()
+        self._proc_idx = process_index()
+        if self._n_proc > 1:
+            # Multi-process sanity (JAX :395-420): each process would train a
+            # divergent model on a fractional batch without a mesh over every
+            # process, and the device ring has no multi-process story.
+            if self.cfg.learner.device_replay:
+                raise ValueError(
+                    "learner.device_replay=True is single-process only — "
+                    "multi-process runs use the host-replay path with "
+                    "learner.data_parallel spanning every process's devices")
+            if self.cfg.learner.data_parallel <= 1:
+                raise ValueError(
+                    f"process_count()={self._n_proc} requires learner.data_parallel "
+                    "> 1: the mesh must span every process's devices, or each "
+                    "process trains an independent model on a fractional batch")
+            if self.cfg.learner.replay_sample_size % self._n_proc:
+                raise ValueError("learner.replay_sample_size must divide by "
+                                 f"process_count()={self._n_proc}")
         if self.cfg.learner.device_replay:
             self.fused = self.comps.make_fused_learner()
             if self.comps.restored_path is not None:
@@ -443,9 +468,22 @@ class AsyncPipeline:
                     return add(prio, trans, trace_id=trace_id)
 
                 sink.takes_trace = True
-            self.train_step = self.comps.make_train_step()
-            self._sample = self.comps.make_sampler(lambda: self._learner_step)
-            self._place = DevicePlacer(self.comps.device)
+            if self.cfg.learner.data_parallel > 1:
+                # The data-parallel learner (JAX :447-460): the same loop with
+                # the mesh step, batches split over the slots, and replica 0's
+                # params published as they are.  In a process group each
+                # process samples its B / process_count rows from its own
+                # replay and writes back only those.
+                self.train_step, sharded, self.mesh = self.comps.make_sharded_train_step()
+                self.comps.state = sharded
+                self._place = MeshPlacer(self.mesh, local=self._n_proc > 1)
+            else:
+                self.train_step = self.comps.make_train_step()
+                self._place = DevicePlacer(self.comps.device)
+            self._sample = self.comps.make_sampler(
+                lambda: self._learner_step,
+                sample_size=self.cfg.learner.replay_sample_size // self._n_proc,
+                rng_salt=self._proc_idx * 7919)
         central = self.cfg.actor.inference == "central"
         self._jsonl_sections: dict = {}
         self._build_obs()
@@ -494,11 +532,14 @@ class AsyncPipeline:
         self._ckpt_inc = None
         lc = self.cfg.learner
         if lc.checkpoint_every and lc.checkpoint_incremental:
+            from ape_x_dqn_tpu_torch.utils.checkpoint import replay_shard_suffix
             from ape_x_dqn_tpu_torch.utils.checkpoint_inc import IncrementalCheckpointer
 
+            # One chain per process, under this process's shard suffix.
             self._ckpt_inc = IncrementalCheckpointer(
                 lc.checkpoint_dir, self.fused if self.fused is not None else self.comps.replay,
-                base_every=lc.checkpoint_base_every, compress=lc.checkpoint_compress)
+                suffix=replay_shard_suffix(), base_every=lc.checkpoint_base_every,
+                compress=lc.checkpoint_compress)
             self.register_jsonl_section("ckpt", self._ckpt_inc.stats)
             self.obs_registry.register_provider("ckpt", self._ckpt_inc.stats)
             # Saves are sparse, so the writer's liveness is structural: its
@@ -1169,7 +1210,12 @@ class AsyncPipeline:
         learner's staged rows are drained into the ring first, so a restore
         from this checkpoint loses none of them; the host loop's deferred
         priority write-backs stay deferred, as in JAX."""
-        from ape_x_dqn_tpu_torch.utils.checkpoint import save_checkpoint
+        from ape_x_dqn_tpu_torch.parallel.multihost import barrier
+        from ape_x_dqn_tpu_torch.utils.checkpoint import (
+            replay_shard_suffix,
+            save_checkpoint,
+            save_replay_snapshot,
+        )
 
         fused = self.fused
         if fused is not None:
@@ -1177,14 +1223,27 @@ class AsyncPipeline:
             state, replay, generator = fused.state, fused, fused.generator
         else:
             state, replay, generator = self.comps.state, self.comps.replay, None
+            if self.mesh is not None:
+                state = state.host_state()
             if self._remote_replay is not None:
                 replay = None   # the shards own their chains
+        sfx = replay_shard_suffix()
         t0 = time.perf_counter()
         if self._ckpt_inc is not None:
+            # Each process's chain commits on its own manifest: no barrier.
             self._ckpt_inc.save(int(state.step))
             replay = None
+        elif self._n_proc > 1:
+            # Every process's replay leg on disk before process 0 commits the
+            # state leg that marks the step restorable (JAX :1662-1685).
+            if self._proc_idx != 0 and replay is not None:
+                save_replay_snapshot(self.cfg.learner.checkpoint_dir, int(state.step),
+                                     replay, replay_suffix=sfx)
+            barrier("replay-shards-before-state-commit")
+        if self._proc_idx != 0:
+            return os.path.join(self.cfg.learner.checkpoint_dir, f"step_{state.step}")
         path = save_checkpoint(self.cfg.learner.checkpoint_dir, state, replay=replay,
-                               generator=generator)
+                               generator=generator, replay_suffix=sfx)
         stall_ms = (time.perf_counter() - t0) * 1e3
         self.logger.log("ckpt/learner_stall_ms", stall_ms)
         self.recorder.record("checkpoint", step=self._learner_step, stall_ms=round(stall_ms, 1))

@@ -77,15 +77,48 @@ class Components:
             target_sync_freq=self.cfg.learner.q_target_sync_freq,
         )
 
-    def make_sampler(self, learner_step_fn: Callable[[], int]):
+    def make_mesh(self):
+        """The ``learner.data_parallel`` mesh (JAX ``components.py:121-130``)
+        over the visible cards, or, on the CPU, over that many CPU slots (this
+        process's share of them in a process group).  A card run asking for
+        more devices than are visible raises ``make_mesh``'s error."""
+        from ape_x_dqn_tpu_torch.parallel import make_mesh
+        from ape_x_dqn_tpu_torch.parallel.multihost import process_count
+
+        n = self.cfg.learner.data_parallel
+        devices = None
+        if self.device.type == "cpu":
+            devices = [self.device] * max(1, n // process_count())
+        return make_mesh(num_devices=n, devices=devices)
+
+    def make_sharded_train_step(self):
+        """The host path's learner step over a ``data_parallel`` mesh
+        (``parallel/dp.py``, JAX :55-90): one replica per data slot, each
+        batch split over the slots, the gradient averaged over them.
+        Returns ``(step_fn, sharded_state, mesh)``; the caller adopts the
+        sharded state and places batches with ``parallel.place_batch`` (or
+        ``place_local_batch`` in a process group)."""
+        from ape_x_dqn_tpu_torch.parallel import build_sharded_train_step
+
+        mesh = self.make_mesh()
+        step_fn, sharded_state = build_sharded_train_step(
+            self.network, self.optimizer, mesh, self.state,
+            loss_kind=self.cfg.learner.loss,
+            target_sync_freq=self.cfg.learner.q_target_sync_freq)
+        return step_fn, sharded_state, mesh
+
+    def make_sampler(self, learner_step_fn: Callable[[], int],
+                     sample_size: Optional[int] = None, rng_salt: int = 0):
         """Host replay sampler with the β-annealed IS schedule, β read at
         sample time from ``learner_step_fn()``.  The numpy generator is
-        seeded as the JAX package's on one host (seed + 7; its multi-host
-        salt is 0 there), so the same seed draws the same slots in both
-        packages."""
-        rng = np.random.default_rng(self.cfg.seed + 7)
+        seeded as the JAX package's (seed + 7 + ``rng_salt``), so the same
+        seed draws the same slots in both packages.  ``sample_size``
+        overrides the config batch (in a process group each process samples
+        its B / process_count rows), ``rng_salt`` decorrelates the
+        processes' streams."""
+        rng = np.random.default_rng(self.cfg.seed + 7 + rng_salt)
         cfg = self.cfg
-        size = cfg.learner.replay_sample_size
+        size = sample_size or cfg.learner.replay_sample_size
 
         def sample():
             beta = beta_schedule(
@@ -97,8 +130,12 @@ class Components:
 
     def make_fused_learner(self):
         """The device-resident fused learner (device ring + K-step loop):
-        the frame-dedup ring with ``replay.dedup``, else the double-store."""
+        the frame-dedup ring with ``replay.dedup``, else the double-store.
+        With ``learner.data_parallel`` > 1 the ring shards over a mesh of
+        that many slots (``make_mesh``) and every step reduces the gradient
+        over them (``replay/device_dp.py``)."""
         cfg = self.cfg
+        mesh = self.make_mesh() if cfg.learner.data_parallel > 1 else None
         # The fused loop syncs targets at call boundaries, exact only when
         # freq % K == 0 — round the freq down to a multiple of K (never
         # below K), as the JAX package does (components.py:134-136).
@@ -114,6 +151,7 @@ class Components:
             target_sync_freq=freq,
             loss_kind=cfg.learner.loss,
             sample_ahead=cfg.learner.sample_ahead,
+            mesh=mesh,
             device=self.device,
         )
         if cfg.replay.dedup:
@@ -148,9 +186,9 @@ class Components:
 
 
 def dedup_groups(cfg: ApexConfig) -> int:
-    """Independent dedup streams per fleet (JAX ``components.py:183-189``):
-    one per ring shard.  The port's ring has one shard (data_parallel is
-    1), so one stream per fleet."""
+    """Independent dedup streams per fleet (JAX ``components.py:181-188``):
+    the sharded dedup ring routes whole sources to shards, so every fleet
+    presents one source per ring shard."""
     if cfg.replay.dedup and cfg.learner.device_replay:
         return max(1, cfg.learner.data_parallel)
     return 1
@@ -297,7 +335,7 @@ def _restore(cfg: ApexConfig, state: TrainState, replay) -> Optional[str]:
     """The resume gate: the path restored from, or None."""
     if not cfg.learner.restore_from:
         return None
-    from ape_x_dqn_tpu_torch.utils.checkpoint import restore_checkpoint
+    from ape_x_dqn_tpu_torch.utils.checkpoint import replay_shard_suffix, restore_checkpoint
 
     path = (cfg.learner.checkpoint_dir if cfg.learner.restore_from is True
             else str(cfg.learner.restore_from))
@@ -305,7 +343,8 @@ def _restore(cfg: ApexConfig, state: TrainState, replay) -> Optional[str]:
         # A service-attached replay: the shards own their chains, so only
         # the train-state leg restores here.
         _, step = restore_checkpoint(
-            path, state, replay=None if getattr(replay, "remote", False) else replay)
+            path, state, replay=None if getattr(replay, "remote", False) else replay,
+            replay_suffix=replay_shard_suffix())
     except FileNotFoundError:
         print(f"WARNING: no checkpoint at {path}; starting from scratch", file=sys.stderr)
         return None

@@ -1,7 +1,7 @@
 """Host driver for the device-resident fused learner.
 
-Port of ``ape_x_dqn_tpu/runtime/fused_learner.FusedDeviceLearner``,
-single-device branch (:68-103 of the JAX module).  The replay ring and the
+Port of ``ape_x_dqn_tpu/runtime/fused_learner.FusedDeviceLearner``, with
+its mesh branch (:107-150 of the JAX module).  The replay ring and the
 train state live on the device; each ``train()`` call runs K ×
 [prioritized sample → double-Q train → priority restamp] through
 ``runtime/graphed_call.GraphedCall``: CUDA-graph replays on a card
@@ -22,6 +22,15 @@ or set to the state's ``rng_state`` when a checkpoint restored one;
 ``train(beta, u=...)`` takes the K×B uniforms instead, which is how tests
 feed it JAX's draws.
 
+With a ``mesh`` (``parallel/mesh.py``) the ring shards over its data slots
+(``replay/device_dp.py``): one train-state replica and one ring shard per
+slot, each block's rows split contiguously over the shards, the call a
+``ShardedGraphedCall`` whose steps reduce the gradient over the slots; each
+shard samples from its own generator (``shard_generators``; one state in
+a checkpoint, ``GeneratorGroup``), and ``u`` is [n, K, B / n].  ``state``
+and ``params_for_publish`` are slot 0's replica (every replica is the
+same).  Ingest folding is single-device only, as in JAX.
+
 Snapshots (JAX :319-393): ``state_dict`` copies the ring to host numpy in
 the JAX package's keys and dtypes, with the staged and prepared rows as
 ``staged_*``; ``load_state_dict`` copies a snapshot into the existing
@@ -38,7 +47,14 @@ import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.learner.train_step import build_train_step
+from ape_x_dqn_tpu_torch.parallel.mesh import place_state, shard_train_state
 from ape_x_dqn_tpu_torch.replay.device import device_replay_add, init_device_replay
+from ape_x_dqn_tpu_torch.replay.device_dp import (
+    GeneratorGroup,
+    build_sharded_fused_learn_step,
+    init_sharded_device_replay,
+    shard_generators,
+)
 from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
@@ -62,25 +78,47 @@ class FusedDeviceLearner:
         target_sync_freq: int = 2500,
         loss_kind: str = "huber",
         sample_ahead: bool = False,
+        mesh=None,
         device: str | torch.device = "cuda",
     ):
         self._capacity = int(capacity)
         self.steps_per_call = int(steps_per_call)
         self._ingest_block = int(ingest_block)
         self._priority_exponent = float(priority_exponent)
-        self.device = torch.device(device)
-        self._state = state
-        self._replay = init_device_replay(capacity, obs_shape, self.device)
-        step_fn = build_train_step(network, optimizer, loss_kind=loss_kind,
-                                   sync_in_step=False)
-        self._call = GraphedCall(step_fn, batch_size=batch_size,
-                                 steps_per_call=self.steps_per_call,
-                                 priority_exponent=priority_exponent,
-                                 target_sync_freq=target_sync_freq,
-                                 sample_ahead=sample_ahead)
-        self._call.bind(state, self._replay)   # a card: warm up and capture now
-        self._h2d = HostToDevice(self.device)
-        self._generator = sampling_generator(state, self.device)
+        self._mesh = mesh
+        knobs = dict(batch_size=batch_size, steps_per_call=self.steps_per_call,
+                     priority_exponent=priority_exponent,
+                     target_sync_freq=target_sync_freq, sample_ahead=sample_ahead)
+        if mesh is None:
+            self.device = torch.device(device)
+            self._add_granularity = 1
+            self._states = [state]
+            self._replay = init_device_replay(capacity, obs_shape, self.device)
+            step_fn = build_train_step(network, optimizer, loss_kind=loss_kind,
+                                       sync_in_step=False)
+            self._call = GraphedCall(step_fn, **knobs)
+            self._call.bind(state, self._replay)   # a card: warm up and capture now
+            self._h2d = [HostToDevice(self.device)]
+            self._generator = sampling_generator(state, self.device)
+        else:
+            devs = mesh.data_devices
+            n = len(devs)
+            if self._ingest_block % n:
+                raise ValueError(f"ingest_block {ingest_block} must divide by the "
+                                 f"data-axis extent {n}")
+            self.device = devs[0]
+            # Every ingest must split evenly across the shards.
+            self._add_granularity = n
+            # The state replicated over the mesh, one replica per data slot.
+            self._states = place_state(state, shard_train_state(state, mesh)).rows
+            self._replay = init_sharded_device_replay(capacity, obs_shape, mesh)
+            step_fn = build_train_step(network, optimizer, loss_kind=loss_kind,
+                                       sync_in_step=False)
+            self._call = build_sharded_fused_learn_step(step_fn, mesh, **knobs)
+            self._call.bind(self._states, self._replay)
+            self._h2d = [HostToDevice(dev) for dev in devs]
+            self._generator = shard_generator_group(state, devs)
+        self._state = self._states[0]
         self._lock = threading.Lock()
         self._staged: list = []
         self._staged_rows = 0
@@ -133,8 +171,8 @@ class FusedDeviceLearner:
     @property
     def supports_ingest_fold(self) -> bool:
         """A full ``ingest_block`` can ride with the fused call
-        (``train_with_ingest``)."""
-        return True
+        (``train_with_ingest``): single-device only, as in JAX."""
+        return self._mesh is None
 
     # ------------------------------------------------------------- learner
 
@@ -158,17 +196,22 @@ class FusedDeviceLearner:
             blocks.append((prio[sl], cat.map(lambda a: a[sl])))
             off += m
         rem = len(prio) - off
-        while rem and drain:
-            sub = 1 << (rem.bit_length() - 1)  # largest 2^k <= rem
-            sl = slice(off, off + sub)
-            blocks.append((prio[sl], cat.map(lambda a: a[sl])))
-            off += sub
-            rem -= sub
+        if rem and drain:
+            # The tail in g·2^k sub-blocks, g the shard count: every add
+            # splits evenly over the shards.
+            g = self._add_granularity
+            while rem >= g:
+                sub = g << ((rem // g).bit_length() - 1)  # largest g·2^k <= rem
+                sl = slice(off, off + sub)
+                blocks.append((prio[sl], cat.map(lambda a: a[sl])))
+                off += sub
+                rem -= sub
         with self._lock:
             self._prepared.extend(blocks)
             self._prepared_rows += off
             if rem:
-                # The partial tail goes back to the front of staging.
+                # The partial tail (or a remainder under the shard count)
+                # goes back to the front of staging.
                 tail = slice(len(prio) - rem, None)
                 self._staged.insert(0, (prio[tail], cat.map(lambda a: a[tail])))
                 self._staged_rows += rem
@@ -182,13 +225,19 @@ class FusedDeviceLearner:
         return blocks
 
     def add_block(self, priorities: np.ndarray, transitions) -> int:
-        """Move one prepared block to the device ring (learner thread)."""
-        *fields, prio = self._h2d([*(getattr(transitions, f) for f in _FIELDS),
-                                   np.asarray(priorities, np.float32)])
-        device_replay_add(self._replay, NStepTransition(*fields), prio,
-                          self._priority_exponent)
-        self._size += len(priorities)
-        return len(priorities)
+        """Move one prepared block to the device ring (learner thread); over
+        a mesh, row block d of the block to shard d."""
+        rows = len(priorities)
+        per = rows // len(self._h2d)
+        shards = self._replay.shards if self._mesh is not None else [self._replay]
+        for d, (h2d, shard) in enumerate(zip(self._h2d, shards)):
+            sl = slice(d * per, (d + 1) * per)
+            *fields, prio = h2d([*(np.asarray(getattr(transitions, f))[sl] for f in _FIELDS),
+                                 np.asarray(priorities, np.float32)[sl]])
+            device_replay_add(shard, NStepTransition(*fields), prio,
+                              self._priority_exponent)
+        self._size += rows
+        return rows
 
     def ingest_staged(self, drain: bool = False) -> int:
         """Assemble and add staged rows inline (learner thread).  Returns
@@ -202,6 +251,11 @@ class FusedDeviceLearner:
         call's metrics [K, ...], still on the device (read them lazily).
         ``on_replay(step)`` runs between the call's graph replays
         (``GraphedCall``)."""
+        if self._mesh is not None:
+            _, _, metrics = self._call(self._states, self._replay, beta, u=u,
+                                       generators=self._generator.generators,
+                                       on_replay=on_replay)
+            return metrics
         self._state, self._replay, metrics = self._call(
             self._state, self._replay, beta, u=u, generator=self._generator,
             on_replay=on_replay)
@@ -219,6 +273,8 @@ class FusedDeviceLearner:
                 f"train_with_ingest requires a full ingest_block "
                 f"({self._ingest_block} rows), got {len(priorities)}"
             )
+        if self._mesh is not None:
+            raise RuntimeError("ingest folding is single-device only")
         self.add_block(priorities, transitions)
         return self.train(beta, u, on_replay)
 
@@ -231,9 +287,12 @@ class FusedDeviceLearner:
         prepared blocks first, in ring order.  The copies wait for the
         learner's queued work (a full synchronous snapshot)."""
         r = self._replay
-        # A copy on the CPU too: the snapshot may be written on another
-        # thread while the ring goes on changing.
-        out = {f: getattr(r, f).to("cpu", copy=True).numpy() for f in _RING_FIELDS}
+        if self._mesh is not None:
+            out = {f: r.column(f) for f in _RING_FIELDS}
+        else:
+            # A copy on the CPU too: the snapshot may be written on another
+            # thread while the ring goes on changing.
+            out = {f: getattr(r, f).to("cpu", copy=True).numpy() for f in _RING_FIELDS}
         out["cursor"] = np.asarray(r.cursor, np.int32)
         out["count"] = np.asarray(r.count, np.int32)
         with self._lock:
@@ -249,23 +308,42 @@ class FusedDeviceLearner:
         """Restore the ring from a snapshot of the same capacity and
         observation shape (a resize is a config error), copying into the
         existing device tensors.  Staged rows re-enter staging."""
-        want, got = tuple(self._replay.obs.shape), tuple(np.shape(state["obs"]))
+        shards = self._replay.shards if self._mesh is not None else [self._replay]
+        want = (sum(s.capacity for s in shards), *shards[0].obs.shape[1:])
+        got = tuple(np.shape(state["obs"]))
         if want != got:
             raise ValueError(f"replay snapshot shape {got} != configured ring {want}")
-        if np.shape(state["cursor"]) != ():
+        want_layout = np.shape(np.asarray(self._replay.cursor))
+        if np.shape(state["cursor"]) != want_layout:
             raise ValueError(f"replay snapshot shard layout {np.shape(state['cursor'])} "
-                             "!= the port's single ring (the sharded ring is ROADMAP "
-                             "item 8)")
+                             f"!= configured {want_layout} — the data_parallel extent "
+                             "must match the snapshot's")
         r = self._replay
-        with torch.no_grad():
+        if self._mesh is not None:
             for f in _RING_FIELDS:
-                getattr(r, f).copy_(torch.from_numpy(np.asarray(state[f])))
-        r.cursor = int(state["cursor"])
-        r.count = int(np.sum(state["count"]))
-        self._size = r.count
+                r.load_column_(f, state[f])
+            for shard, c, k in zip(r.shards, np.asarray(state["cursor"]),
+                                   np.asarray(state["count"])):
+                shard.cursor, shard.count = int(c), int(k)
+        else:
+            with torch.no_grad():
+                for f in _RING_FIELDS:
+                    getattr(r, f).copy_(torch.from_numpy(np.asarray(state[f])))
+            r.cursor = int(state["cursor"])
+            r.count = int(np.sum(state["count"]))
+        self._size = int(np.sum(state["count"]))
         if "staged_prio" in state and len(state["staged_prio"]):
             self.add_chunk(state["staged_prio"], NStepTransition(
                 *(np.asarray(state[f"staged_{f}"]) for f in _FIELDS)))
+
+
+def shard_generator_group(state: TrainState, devices) -> GeneratorGroup:
+    """The shards' sampling generators (``shard_generators``), set to the
+    state's ``rng_state`` when a checkpoint restored one."""
+    group = GeneratorGroup(shard_generators(state.seed, devices))
+    if state.rng_state is not None:
+        adopt_rng_state(group, state.rng_state)
+    return group
 
 
 def sampling_generator(state: TrainState, device: torch.device) -> torch.Generator:

@@ -72,6 +72,7 @@ How it meets the traps of capturing a training step:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, List, Optional, Tuple
 
@@ -134,6 +135,64 @@ def _written(body: FusedBody) -> List[torch.Tensor]:
             if not name.startswith("ring.") or name == "ring.mass"]
 
 
+def _warm_up(bodies: list, run: Callable[[], None]) -> None:
+    """``run()`` on each device's warm-up stream, joined both ways with
+    the current stream; then every tensor the bodies' pieces write is put
+    back as it was, so the warm-up trains nothing."""
+    saved = [(t, t.clone()) for b in bodies for t in _written(b)]
+    devices = list(dict.fromkeys(b.device for b in bodies))
+    mains = [torch.cuda.current_stream(d) for d in devices]
+    sides = [_warmup_stream(d) for d in devices]
+    for main, side in zip(mains, sides):
+        side.wait_stream(main)
+    with contextlib.ExitStack() as stack:
+        for side in sides:
+            stack.enter_context(torch.cuda.stream(side))
+        run()
+    for main, side in zip(mains, sides):
+        main.wait_stream(side)
+    for t, copy in saved:
+        t.copy_(copy)
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def _capture_graph(fn: Callable[[], None], device: torch.device, pool) -> tuple:
+    """(graph, sampler launches it holds): ``fn`` captured on ``device``."""
+    graph = torch.cuda.CUDAGraph()
+    before = sampling.sample_indices.launches
+    with torch.cuda.device(device):
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            fn()
+    return graph, sampling.sample_indices.launches - before
+
+
+class _Pacer:
+    """At most ``MAX_REPLAYS_AHEAD`` ticks in flight: a tick waits for the
+    event of the tick that many back (a blocking event: the learner thread
+    sleeps instead of spinning a core the actors need), issues its work,
+    and records its own event on ``device``'s current stream."""
+
+    def __init__(self):
+        self._events: list = []
+        self._ticks = 0
+
+    def tick(self, device: torch.device, issue: Callable[[], None]) -> None:
+        ahead = MAX_REPLAYS_AHEAD
+        if not ahead:
+            issue()
+            return
+        if len(self._events) != ahead:
+            self._events = [torch.cuda.Event(blocking=True) for _ in range(ahead)]
+            self._ticks = 0
+        ev = self._events[self._ticks % ahead]
+        if self._ticks >= ahead:
+            ev.synchronize()
+        issue()
+        ev.record(torch.cuda.current_stream(device))
+        self._ticks += 1
+
+
 class GraphedCall:
     """``fn(train_state, replay_state, beta, u=None, generator=None) ->
     (train_state, replay_state, metrics)``: one fused K-step call of either
@@ -159,11 +218,7 @@ class GraphedCall:
         self._graphs: list = []
         self._signature: Optional[tuple] = None
         self.captures = 0
-        # Pacing: one event per replay slot (blocking: the learner thread
-        # sleeps instead of spinning a core the actors need) and the count
-        # of replays issued.
-        self._paced: list = []
-        self._replayed = 0
+        self._pacer = _Pacer()
         self.replays = 0
 
     def bind(self, train_state, replay_state) -> FusedBody:
@@ -200,27 +255,11 @@ class GraphedCall:
                 on_replay: Optional[Callable[[int], None]]) -> None:
         """Every graph of one call, in order, paced (see the module
         docstring); ``on_replay`` at each replay boundary."""
-        ahead = MAX_REPLAYS_AHEAD
-        stream = None
-        if ahead:
-            stream = torch.cuda.current_stream(device)
-            if len(self._paced) != ahead:
-                self._paced = [torch.cuda.Event(blocking=True) for _ in range(ahead)]
-                self._replayed = 0
         for graph, launches, steps, replays in self._graphs:
             for _ in range(replays):
                 if on_replay is not None:
                     on_replay(step)
-                if ahead:
-                    # The ring's slot holds the event of the replay
-                    # ``ahead`` back: wait for it, then reuse it.
-                    ev = self._paced[self._replayed % ahead]
-                    if self._replayed >= ahead:
-                        ev.synchronize()
-                graph.replay()
-                if ahead:
-                    ev.record(stream)
-                    self._replayed += 1
+                self._pacer.tick(device, graph.replay)
                 self.replays += 1
                 sampling.sample_indices.launches += launches
                 step += steps
@@ -232,21 +271,15 @@ class GraphedCall:
         K = self.steps_per_call
         self._graphs, self._signature = [], None   # release the old pool first
         launches = sampling.sample_indices.launches
-        saved = [(t, t.clone()) for t in _written(body)]
-        main = torch.cuda.current_stream(dev)
-        side = _warmup_stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+
+        def warm():
             body.load(0.0, torch.zeros_like(body.u))
             body.prologue()
             for _ in range(min(WARMUP_STEPS, K)):
                 body.step()
             body.epilogue()
-        main.wait_stream(side)
-        for t, copy in saved:
-            t.copy_(copy)
-        torch.cuda.synchronize(dev)
-        del saved
+
+        _warm_up([body], warm)
         body.batches = None
 
         def steps(n):
@@ -263,14 +296,126 @@ class GraphedCall:
         if body.sample_ahead:
             pieces.append((body.epilogue, 0, 1))
         pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        for fn, n, replays in pieces:
-            graph = torch.cuda.CUDAGraph()
-            before = sampling.sample_indices.launches
-            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-                fn()
-            graphs.append((graph, sampling.sample_indices.launches - before, n, replays))
+        self._graphs = [(*_capture_graph(fn, dev, pool), n, replays)
+                        for fn, n, replays in pieces]
+        sampling.sample_indices.launches = launches
+        self._signature = _signature(body)
+        self.captures += 1
+
+
+class ShardedGraphedCall:
+    """``fn(train_states, replay, beta, u=None, generators=None) ->
+    (train_states, replay, metrics)``: one sharded fused K-step call
+    (``replay/device_dp.ShardedFusedBody``).
+
+    On the CPU the body runs eagerly (``run_sharded_eager``).  On a card
+    each slot's pieces (prologue, sample, grads, apply, epilogue) are
+    captured as CUDA graphs on that slot's device, and a call replays them
+    in ``run_sharded``'s order with the cross-slot steps (the weights' max,
+    the gradient reduce) run eagerly between them: a graph holds one
+    device's work, so the steps that read several slots stay outside.  The
+    warm-up with the restore of what it wrote, the capture's launch count,
+    the recapture on a rebound tensor and the pacing (one tick per step,
+    at its apply) are ``GraphedCall``'s.
+    """
+
+    def __init__(self, train_step_fn, *, steps_per_call: int, batch_size: int,
+                 priority_exponent: float, target_sync_freq: Optional[int],
+                 sample_ahead: bool, sample_many_fn: Callable):
+        self._step_fn = train_step_fn
+        self._knobs = dict(steps_per_call=steps_per_call, batch_size=batch_size,
+                           priority_exponent=priority_exponent, sample_ahead=sample_ahead,
+                           sample_many_fn=sample_many_fn)
+        self.steps_per_call = steps_per_call
+        self.target_sync_freq = target_sync_freq
+        self.body = None
+        self._graphs: list = []         # per slot: {piece: (graph, launches)}
+        self._signature: Optional[tuple] = None
+        self.captures = 0
+        self._pacer = _Pacer()
+        self.replays = 0
+
+    def bind(self, train_states: list, replay):
+        from ape_x_dqn_tpu_torch.replay.device_dp import ShardedFusedBody
+
+        body = self.body
+        if body is None or body.replay is not replay or any(
+                a is not b for a, b in zip(body.train_states, train_states)):
+            self._graphs, self._signature = [], None
+            body = self.body = ShardedFusedBody(self._step_fn, list(train_states), replay,
+                                                **self._knobs)
+        types = {b.device.type for b in body.slots}
+        if types == {"cuda"}:
+            if self._sharded_signature(body) != self._signature:
+                self._capture(body)
+        elif types != {"cpu"}:
+            raise ValueError(f"no sharded fused call over devices {sorted(types)}")
+        return body
+
+    @staticmethod
+    def _sharded_signature(body) -> tuple:
+        return tuple(_signature(b) for b in body.slots)
+
+    def __call__(self, train_states: list, replay, beta: float,
+                 u: Optional[torch.Tensor] = None, generators: Optional[list] = None,
+                 on_replay: Optional[Callable[[int], None]] = None):
+        from ape_x_dqn_tpu_torch.replay.device_dp import run_sharded, run_sharded_eager
+
+        body = self.bind(train_states, replay)
+        step = train_states[0].step
+        if body.slots[0].device.type == "cuda":
+            body.load(beta, u, generators)
+            run_sharded(body, self._replay_piece, on_replay, step)
+            metrics = body.read_metrics()
+        else:
+            metrics = run_sharded_eager(body, beta, u, generators, on_replay, step)
+        for st in train_states:
+            finish_call(st, self.steps_per_call, self.target_sync_freq)
+        return train_states, replay, metrics
+
+    def _replay_piece(self, name: str) -> None:
+        def issue():
+            for slot in self._graphs:
+                graph, launches = slot[name]
+                if graph is None:
+                    continue
+                graph.replay()
+                self.replays += 1
+                sampling.sample_indices.launches += launches
+
+        if name == "apply":     # one tick per step
+            self._pacer.tick(self.body.slots[0].device, issue)
+        else:
+            issue()
+
+    def _capture(self, body) -> None:
+        from ape_x_dqn_tpu_torch.replay.device_dp import run_sharded
+
+        self._graphs, self._signature = [], None   # release the old pools first
+        launches = sampling.sample_indices.launches
+
+        def warm():
+            body.load(0.0, torch.zeros((body.n, *body.slots[0].u.shape),
+                                       device=body.slots[0].device))
+            K, body.steps_per_call = body.steps_per_call, min(WARMUP_STEPS, body.steps_per_call)
+            try:
+                run_sharded(body, lambda name: [getattr(b, name)() for b in body.slots])
+            finally:
+                body.steps_per_call = K
+
+        _warm_up(body.slots, warm)
+        pools = {d: torch.cuda.graph_pool_handle()
+                 for d in dict.fromkeys(b.device for b in body.slots)}
+        wanted = ["grads", "apply"]
+        wanted = (["prologue"] + wanted + ["epilogue"] if body.sample_ahead
+                  else ["sample"] + wanted)
+        graphs = [{name: (None, 0) for name in body.PIECES} for _ in body.slots]
+        for name in wanted:          # capture order: a piece's inputs exist first
+            for s, b in enumerate(body.slots):
+                graphs[s][name] = _capture_graph(getattr(b, name), b.device, pools[b.device])
+        for b in body.slots:
+            b.k.zero_()
         sampling.sample_indices.launches = launches
         self._graphs = graphs
-        self._signature = _signature(body)
+        self._signature = self._sharded_signature(body)
         self.captures += 1

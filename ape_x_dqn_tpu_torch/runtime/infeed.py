@@ -122,6 +122,24 @@ class DevicePlacer:
         return Placed(indices, batch, ready)
 
 
+class MeshPlacer:
+    """``place_fn`` of the ``PrefetchQueue`` for the data-parallel learner:
+    host batch → ``Placed`` holding one batch per data slot of ``mesh``
+    (``parallel/dp.place_batch``; ``local=True``: the batch is this
+    process's own rows, ``place_local_batch``).  The copies run on the
+    prefetch thread's current stream; ``ready`` is None."""
+
+    def __init__(self, mesh, local: bool = False):
+        self.mesh = mesh
+        self.local = local
+
+    def __call__(self, host_batch: PrioritizedBatch) -> Placed:
+        from ape_x_dqn_tpu_torch.parallel.dp import place_batch, place_local_batch
+
+        place = place_local_batch if self.local else place_batch
+        return Placed(np.asarray(host_batch.indices), place(host_batch, self.mesh), None)
+
+
 class HostToDevice:
     """Ingest placement for the fused learners: numpy arrays → tensors on
     ``device``, without a host synchronisation.

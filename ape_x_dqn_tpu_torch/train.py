@@ -5,7 +5,8 @@ Port of ``ape_x_dqn_tpu/train.py``:
     python -m ape_x_dqn_tpu_torch.train [--params-file F] \\
         [--set section.field=value ...] [--mode async|sync] [--steps N] \\
         [--metrics-file F] [--eval-every N] [--eval-episodes N] \\
-        [--tensorboard-dir D] [--profile-dir D] [--log-every N] [--device cuda|cpu]
+        [--tensorboard-dir D] [--profile-dir D] [--log-every N] [--device cuda|cpu] \\
+        [--coordinator HOST:PORT --num-processes N --process-id I]
 
 ``--mode async`` (the default) runs the actor ∥ replay ∥ learner pipeline:
 the host-replay learner by default, the fused device-replay learner with
@@ -23,7 +24,11 @@ its exporter's ``/varz?trace=1`` (``--set obs.export_port=0``).  The JAX
 CLI's ``--profile-port`` (``jax.profiler``'s live server) has no torch
 counterpart and raises ``NotPortedError`` by name.  ``--device`` defaults
 to ``cuda`` and a missing card raises; pass ``--device cpu`` to run on
-the CPU.
+the CPU.  ``--set learner.data_parallel=N`` runs the learner over a mesh of
+N slots (``parallel/``): the visible cards (fewer than N raises), or N CPU
+slots with ``--device cpu``.  ``--coordinator`` joins a process group of
+``--num-processes`` (this one ``--process-id``) before the learner is
+built, so ``data_parallel`` spans every process's slots.
 """
 
 from __future__ import annotations
@@ -66,6 +71,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile-port", type=int, default=None,
                    help="not part of the port: torch.profiler has no live server")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process data parallelism: the process group's "
+                   "address; run the SAME command in every process with its own "
+                   "--process-id (parallel/multihost.py: nccl on a card, gloo on "
+                   "the CPU)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -76,6 +88,15 @@ def main(argv=None) -> int:
                              "torch.profiler counterpart; trace a live learner through "
                              "/varz?trace=1 (obs.export_port) or the whole run with "
                              "--profile-dir")
+    if args.coordinator:
+        # Before the learner is built: learner.data_parallel then spans every
+        # process's slots (parallel/mesh.make_mesh).
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit("--coordinator requires --num-processes and --process-id")
+        from ape_x_dqn_tpu_torch.parallel.multihost import initialize_multihost
+
+        initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                             device=args.device)
     cfg = load_config(args.params_file, overrides=args.overrides)
     print("config:", to_dict(cfg), file=sys.stderr)
     logger = MetricLogger(stream=sys.stdout, path=args.metrics_file,

@@ -142,6 +142,15 @@ def save_checkpoint(
     return path
 
 
+def replay_shard_suffix() -> str:
+    """This process's replay-leg filename suffix, shared by the save (the
+    runtime) and the restore (components): ``replay_h<i>.npz`` in a process
+    group, plain ``replay.npz`` in one process (JAX :38)."""
+    from ape_x_dqn_tpu_torch.parallel.multihost import process_count, process_index
+
+    return f"_h{process_index()}" if process_count() > 1 else ""
+
+
 def save_replay_snapshot(root: str, step: int, replay, replay_suffix: str = "") -> str:
     """Replay-only save into ``step_<step>/`` (the step counts only once
     its state leg lands)."""

@@ -45,7 +45,7 @@ import sys
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 
 class StageTimer:
@@ -73,6 +73,12 @@ class StageTimer:
         with self._lock:
             self._total_s[name] += seconds
             self._count[name] += 1
+
+    def totals(self) -> Tuple[Dict[str, float], Dict[str, int]]:
+        """Copies of the seconds and the call counts per stage, so a reader
+        can take the means of a window between two snapshots."""
+        with self._lock:
+            return dict(self._total_s), dict(self._count)
 
     def us_per_call(self) -> Dict[str, float]:
         with self._lock:

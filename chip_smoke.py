@@ -321,6 +321,25 @@ Phases, each printing one JSON line:
                 version 3; ``serve --param-tail`` over a
                 ``ParamTailWriter`` chain (a full, a delta) serves the same
                 versions with the same q;
+ 24a. dp_parity — the sharded dedup ring (``replay/device_dedup_dp.py``)
+                on the card: a 1-slot mesh against the unsharded learner, and
+                a 4-slot mesh of the card (``[cuda:0] * 4``) against the same
+                mesh on the CPU, at the same uniforms: rings identical after
+                every ingest, identical sampled indices, updates within 1e-3,
+                the 4 replicas bit-identical; one sampler launch per shard;
+ 24b. dp_train — config4's learner (config3's with ``learner.data_parallel``
+                4) through ``train.main``: the 2M dedup ring in 4 shards of
+                500 000 slots, one replica per shard, the gradient averaged
+                over the slots each step, all four slots on the one card;
+                the config path alone raises there (checked); the sampler
+                launched 4 times per call (gated), steps/s and peak memory
+                beside dedup_train; no speed claim about 4 cards;
+ 24c. dp_multihost — ``train.main --coordinator 127.0.0.1:<port>
+                --num-processes 1 --process-id 0``: a world-size-1 NCCL
+                group, the host-replay learner at ``data_parallel`` 2 over
+                two slots of the card; ``all_reduce`` counted (> 0), 0
+                sampler launches; the mesh step inside the group equal to
+                the same steps outside it;
  25. kernels  — one JSON object per ported kernel with its launches on
                 atari_train (the sampler's main path) and on each path (the
                 host paths' 0 each), error, times and bound at that path's
@@ -403,9 +422,11 @@ def phase_kernel(sampling):
     # (C, B, share of slots zeroed at random positions): the earlier slices'
     # shapes, then the dedup path's sample-ahead launch (K = 2048 × B = 32
     # targets over a 2M ring), plain and with scattered dead slots as the
-    # liveness sweep leaves them.
+    # liveness sweep leaves them, then dp_train's per-shard launch (K = 2048
+    # × 8 targets over a 500 000-slot shard of the 2M ring).
     cases = [(100_000, 32, 0.0), (100_000, 4096, 0.0), (2_000_000, 32, 0.0),
-             (2_000_000, 4096, 0.0), (2_000_000, 65_536, 0.0), (2_000_000, 65_536, 0.2)]
+             (2_000_000, 4096, 0.0), (2_000_000, 65_536, 0.0), (2_000_000, 65_536, 0.2),
+             (500_000, 16_384, 0.0)]
     for C, B, dead in cases:
         # Integer priorities whose total stays below 2^24: every prefix sum
         # is exact in float32, in any order, so indices must be identical.
@@ -732,6 +753,54 @@ def capture_pipelines():
         yield seen
     finally:
         AsyncPipeline.run = run
+
+
+@contextlib.contextmanager
+def steady_clock(warmup: int):
+    """Time the host-replay learner of the ``train.main`` run inside from
+    its step ``warmup`` on: at each learner step's end (the on-demand
+    tracer's tick) the host clock and the stage timers' totals are read,
+    so the rate and the stage split of the steps after ``warmup`` leave
+    the first steps' set-up (NCCL's communicator at the first
+    ``all_reduce``, first-use work) out."""
+    from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
+
+    out, run = {}, AsyncPipeline.run
+
+    def observed(self, *args, **kwargs):
+        tick = self.trace_on_demand.tick
+
+        def timed(step):
+            now, totals = time.monotonic(), self.timers.totals()
+            if step == warmup:
+                out["warm"] = (now, totals)
+            out["last"] = (now, totals, step)
+            tick(step)
+
+        self.trace_on_demand.tick = timed
+        return run(self, *args, **kwargs)
+
+    AsyncPipeline.run = observed
+    try:
+        yield out
+    finally:
+        AsyncPipeline.run = run
+
+
+def steady_rate(clock: dict, warmup: int) -> dict:
+    """``steady_clock``'s window: steps/s and µs per stage call after
+    step ``warmup``, and the stages' means over the first ``warmup``."""
+    (t0, (s0, n0)), (t1, (s1, n1), last) = clock["warm"], clock["last"]
+
+    def per_call(tot, cnt, base=({}, {})):
+        return {k: round((tot[k] - base[0].get(k, 0.0)) * 1e6
+                         / (cnt[k] - base[1].get(k, 0)), 1)
+                for k in tot if cnt[k] > base[1].get(k, 0)}
+
+    return {"from_step": warmup, "to_step": last,
+            "learner_steps_per_s": (last - warmup) / (t1 - t0),
+            "stage_us": per_call(s1, n1, (s0, n0)),
+            "first_steps_stage_us": per_call(s0, n0)}
 
 
 def run_train(argv, records: list | None = None):
@@ -1414,6 +1483,399 @@ def phase_dedup_train(sampling, card: str, calls: int = 2, overlap: bool = False
                 "staged_rows_left", "learner_steps_per_s", "learner_steps_per_s_second_call",
                 "fused_call_ms", "peak_mem_bytes", "workers")}
     emit({k: v for k, v in result.items() if not k.startswith("_")})
+    return result
+
+
+# The data-parallel phases (ROADMAP item 8): config4's data_parallel 4 as
+# four slots of the one card.
+DP_N = 4
+DP_WARMUP = 2_048              # dp_train's learner.min_replay_mem_size (a cut, listed)
+DP_MH_STEPS = 48               # dp_multihost's learner steps
+DP_MH_WARMUP = 8               # of which the first, left out of its steady rate
+DP_MH_TIMED = 20               # steps timed on a fixed batch per layout
+
+
+@contextlib.contextmanager
+def card_slots(n: int):
+    """``Components.make_mesh`` over ``n`` slots of card 0, the explicit
+    ``devices=[cuda:0] * n`` list: the config path alone takes the visible
+    cards and raises for more than there are (``dp_train`` checks it)."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.parallel import make_mesh
+    from ape_x_dqn_tpu_torch.runtime.components import Components
+
+    config_mesh = Components.make_mesh
+
+    def mesh(self):
+        return make_mesh(num_devices=self.cfg.learner.data_parallel,
+                         devices=[torch.device("cuda", 0)] * n)
+
+    Components.make_mesh = mesh
+    try:
+        yield
+    finally:
+        Components.make_mesh = config_mesh
+
+
+def _replicas_identical(states) -> bool:
+    import torch
+
+    def leaves(st):
+        out = [*st.params.values(), *st.target_params.values()]
+        for v in st.opt_state.values():
+            out += list(v.values()) if isinstance(v, dict) else [v]
+        return out
+
+    ref = leaves(states[0])
+    return all(all(torch.equal(a, b) for a, b in zip(ref, leaves(st))) for st in states[1:])
+
+
+def phase_dp_parity(sampling):
+    """The sharded dedup ring (``replay/device_dedup_dp.py``) on the card:
+    C = 4 096 slots, Cf = 5 120 frames, catch:84 frames from a seeded fleet
+    whose 8 actors form 4 dedup sources, integer priorities (α = 1, exact
+    masses), one sample-ahead call of K = 4, B = 32 at full width, float32
+    compute, TF32 off.  (1) A 1-slot mesh on the card against the unsharded
+    learner on the card at the same uniforms; (2) a 4-slot mesh of the card
+    (``[cuda:0] * 4``) against the same 4-slot mesh on the CPU at the same
+    [4, K, 8] uniforms: rings identical after every ingest, identical
+    sampled indices, parameter updates within 1e-3 of the largest, masses
+    within 1e-4; (3) the card's 4 replicas bit-identical after the call.
+    The sampler launches once per shard per call: 1 + 1 + 4."""
+    import torch
+
+    from ape_x_dqn_tpu_torch.actors.pool import ActorFleet, LocalParamSource
+    from ape_x_dqn_tpu_torch.envs import make_env
+    from ape_x_dqn_tpu_torch.learner.train_step import init_train_state, make_optimizer
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.parallel import make_mesh
+    from ape_x_dqn_tpu_torch.runtime.fused_dedup import FusedDedupLearner
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED)
+    C, obs_shape, A, K, B, n = 4096, (84, 84, 1), 3, 4, 32, DP_N
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        actor_net = build_network("mlp", A, obs_shape, hidden_sizes=(16,))
+        net = build_network("conv", A, obs_shape, compute_dtype=torch.float32)
+    fleet = ActorFleet([lambda i=i: make_env("catch:84", seed=SEED + i) for i in range(8)],
+                       actor_net, seed=SEED, device="cpu", emit_dedup=True,
+                       emit_dedup_groups=n)
+    fleet.sync_params(LocalParamSource(dict(actor_net.state_dict())))
+    chunks, _ = fleet.collect(700)
+
+    def learner(dev, mesh):
+        opt = make_optimizer("rmsprop")
+        return FusedDedupLearner(
+            net, opt, init_train_state(net, opt, seed=SEED, device=dev), obs_shape,
+            capacity=C, batch_size=B, steps_per_call=K, ingest_block=512,
+            priority_exponent=1.0, target_sync_freq=K, sample_ahead=True,
+            frame_ratio=1.25, mesh=mesh, device=dev)
+
+    sampling.sample_indices.launches = 0
+    with float32_math():
+        lrn = {"plain": learner(cuda0, None),
+               "one_slot": learner(cuda0, make_mesh(devices=[cuda0])),
+               "card": learner(cuda0, make_mesh(devices=[cuda0] * n)),
+               "cpu": learner(cpu, make_mesh(devices=[cpu] * n))}
+        pairs = (("plain", "one_slot"), ("card", "cpu"))
+        ingests = 0
+        for i, c in enumerate(chunks):
+            prio = rng.integers(1, 20, len(c.priorities)).astype(np.float32)
+            rows = {k: (f.add_chunk(prio, c.transitions),
+                        f.ingest_staged(drain=i == len(chunks) - 1))[1] for k, f in lrn.items()}
+            if len(set(rows.values())) != 1:
+                raise AssertionError(f"chunk {i}: rows ingested {rows}")
+            if rows["plain"]:
+                ingests += 1
+                for a, b in pairs:
+                    sa, sb = lrn[a].state_dict(), lrn[b].state_dict()
+                    for f in ("frames", "obs_ref", "next_ref", "mass", "cursor", "count",
+                              "fcount"):
+                        if not np.array_equal(np.reshape(sa[f], -1), np.reshape(sb[f], -1)):
+                            raise AssertionError(f"{a} vs {b}: ring {f} differs after "
+                                                 f"ingest {ingests}")
+        sizes = [int(sh.count) for sh in lrn["card"].replay.shards]
+        if min(sizes) == 0:
+            raise AssertionError(f"a shard of the 4-slot ring is empty: {sizes}")
+        u = torch.as_tensor(rng.random((K, B), dtype=np.float32))
+        u4 = torch.as_tensor(rng.random((n, K, B // n), dtype=np.float32))
+        init = {k: v.cpu() for k, v in net.state_dict().items()}
+        lrn["plain"].train(0.4, u=u)
+        lrn["one_slot"].train(0.4, u=u[None])
+        lrn["card"].train(0.4, u=u4)
+        lrn["cpu"].train(0.4, u=u4)
+    torch.cuda.synchronize()
+    launches = sampling.sample_indices.launches
+    out = {"phase": "dp_parity", "C": C, "K": K, "B": B, "slots": n, "ingests_compared": ingests,
+           "shard_counts": sizes, "sampler_launches": launches,
+           "tolerance": {"param_update_err_rel": 1e-3, "mass_max_abs_err": 1e-4}}
+    for a, b in pairs:
+        ia = lrn[a].graphed_call.body.sampled_indices().cpu()
+        ib = lrn[b].graphed_call.body.sampled_indices().cpu()
+        if not torch.equal(ia, ib):
+            raise AssertionError(f"{a} vs {b}: {int((ia != ib).sum())} sampled indices differ")
+        worst = 0.0
+        for k in init:
+            da = lrn[a].state.params[k].cpu() - init[k]
+            db = lrn[b].state.params[k].cpu() - init[k]
+            worst = max(worst, float((da - db).abs().max()) / (float(db.abs().max()) + 1e-12))
+        mass_err = float(np.abs(lrn[a].state_dict()["mass"]
+                                - lrn[b].state_dict()["mass"]).max())
+        if worst > 1e-3 or mass_err > 1e-4:
+            raise AssertionError(f"{a} vs {b}: update error {worst:.3g} of the largest, "
+                                 f"mass error {mass_err:.3g}")
+        out[f"{a}_vs_{b}"] = {"indices_identical": True, "param_update_err_rel": worst,
+                              "mass_max_abs_err": mass_err}
+    if not _replicas_identical(lrn["card"]._states):
+        raise AssertionError("the card's 4 replicas differ after the call")
+    if launches != 1 + 1 + n:
+        raise AssertionError(f"{launches} sampler launches on the card, want {2 + n} "
+                             "(one per shard per sample-ahead call)")
+    out.update(replicas_bit_identical=True, seconds=time.monotonic() - t0)
+    emit(out)
+    return out
+
+
+def phase_dp_train(sampling, card: str, beside: dict, calls: int = 2):
+    """``train.main`` with config4's learner (``configs/config4_dp_v4_8_
+    512actors.json``: config3's plus ``learner.data_parallel`` 4) on one
+    card: the 2M frame-dedup ring in 4 shards of 500 000 slots, one replica
+    per shard, each step's gradient averaged over the 4 slots, sample-ahead
+    K = 2048 with B = 32 (8 rows per shard), bf16 ν and target, process
+    actors.  The four slots sit on the one card (``card_slots``); the
+    config path alone raises there, as JAX's ``make_mesh`` does (checked
+    first).  Gates: the sampler launched 4 times per fused call (once per
+    shard), steps and calls reached, one capture, all shards fed, the
+    replicas bit-identical at the end.  Reported beside ``dedup_train``:
+    steps/s and peak memory.  Cuts in ``cuts``; no speed claim about 4
+    GPUs: the shards share one card."""
+    import types
+
+    import torch
+
+    from ape_x_dqn_tpu_torch.config import ApexConfig, apply_overrides
+    from ape_x_dqn_tpu_torch.runtime.components import Components
+
+    K, n = DEDUP_K, DP_N
+    steps = calls * K
+    argv = config3_argv(steps, warmup=DP_WARMUP) + ["--set", f"learner.data_parallel={n}"]
+    overrides = [argv[i + 1] for i, a in enumerate(argv) if a == "--set"]
+    cfg = apply_overrides(ApexConfig(), overrides)
+    try:
+        Components.make_mesh(types.SimpleNamespace(cfg=cfg, device=torch.device("cuda")))
+    except ValueError as e:
+        config_error = str(e)
+    else:
+        raise AssertionError(f"data_parallel {n} through the config with "
+                             f"{torch.cuda.device_count()} visible card built a mesh")
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sampling.sample_indices.launches = 0
+    with card_slots(n), capture_pipelines() as seen, compute_apps() as apps, \
+            timed_fused_calls() as spans:
+        final, wall = run_train(argv)
+    launches = sampling.sample_indices.launches
+    torch.cuda.synchronize()
+    pipe = seen[0]
+    fused, pool = pipe.fused, pipe.worker.pool
+    if type(fused).__name__ != "FusedDedupLearner" or fused._mesh is None:
+        raise AssertionError(f"dp_train ran {type(fused).__name__} without a mesh")
+    ring = fused.replay
+    if ring.n != n or ring.capacity != DEDUP_SLOTS:
+        raise AssertionError(f"dp_train: {ring.n} shards of {ring.capacity} slots, want "
+                             f"{n} of {DEDUP_SLOTS}")
+    if final["step"] < steps or len(spans) != calls:
+        raise AssertionError(f"dp_train: {final['step']} steps in {len(spans)} fused calls, "
+                             f"want {steps} in {calls}")
+    if launches != n * calls:
+        raise AssertionError(f"dp_train: {launches} sampler launches in {calls} sample-ahead "
+                             f"calls of {n} shards, want {n * calls}")
+    if fused.graphed_call.captures != 1:
+        raise AssertionError(f"dp_train: {fused.graphed_call.captures} captures, want 1")
+    counts = [int(sh.count) for sh in ring.shards]
+    if min(counts) == 0:
+        raise AssertionError(f"dp_train: a shard was never fed: {counts}")
+    if not _replicas_identical(fused._states):
+        raise AssertionError("dp_train: the replicas differ after the run")
+    peak = torch.cuda.max_memory_allocated()
+    obs_bytes = int(np.prod(ring.shards[0].frames.shape[1:]))
+    double_frames = 2 * ring.capacity * obs_bytes
+    if peak >= double_frames:
+        raise AssertionError(f"peak device memory {peak} is not below the double-store's "
+                             f"frame bytes {double_frames}")
+    reports, pids = check_workers("dp_train", pool, apps)
+    call_ms = [s.elapsed_time(e) for s, e, *_ in spans]
+    result = {
+        "phase": "dp_train", "card": card, "slots": n, "devices": [str(d) for d in
+                                                                   fused._mesh.data_devices],
+        "shards_share_one_card": True, "config_path_error": config_error,
+        "learner_steps": final["step"], "fused_calls": len(spans), "steps_per_call": K,
+        "rows_per_shard_per_step": 32 // n, "loss": final["learner/loss"],
+        "sampler_launches": launches,
+        "learner_steps_per_s": final["step"] / final["train_s"], "train_s": final["train_s"],
+        "learner_steps_per_s_second_call": K / (call_ms[-1] / 1e3), "fused_call_ms": call_ms,
+        "peak_mem_bytes": peak, "mem_at_start_bytes": mem_at_start,
+        "shard_capacity": ring.shards[0].capacity,
+        "shard_frame_capacity": ring.shards[0].frame_capacity, "shard_counts": counts,
+        "replicas_bit_identical": True, "replay_size": fused.size,
+        "frame_per_transition": fused.stager.fseq / max(fused.stager.rows_in, 1),
+        "dropped_carry": fused.stager.dropped_carry, "stage_us": final["stage_us"],
+        "actor_fps": final["actor_fps"], "smi_compute_pids": sorted(pids),
+        "workers": {w: {"threads": r["threads"], "cuda_initialized": r["cuda_initialized"]}
+                    for w, r in sorted(reports.items())},
+        "beside_dedup_train": {k: beside[k] for k in (
+            "learner_steps_per_s", "learner_steps_per_s_second_call", "peak_mem_bytes")},
+        "cuts": {"env": "catch:84 for SeaquestNoFrameskip-v4 (no Atari on the machine, A11)",
+                 "actors": "2 workers x 8 actors for 16 x 32",
+                 "min_replay_mem_size": f"{DP_WARMUP} for 50000",
+                 "steps": f"{calls} fused calls ({steps} steps) for 2000000",
+                 "devices": f"{n} slots on one H100 for 4 v4 chips: no speed claim about "
+                            f"{n} cards"},
+        "wall_s": wall, "seconds": time.monotonic() - t0,
+    }
+    emit(result)
+    return result
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp_multihost(sampling, card: str, steps: int = DP_MH_STEPS):
+    """The multi-process path on the card with NCCL: ``train.main
+    --coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0`` (a
+    process group of world size 1, ``nccl``), the host-replay learner at
+    ``data_parallel`` 2 over two slots of the card, ``steps`` steps at
+    phase 5's width.  Gates: ``all_reduce`` ran (counted), 0 sampler
+    launches (host replay).  The steady rate and stage split are those of
+    the steps after ``DP_MH_WARMUP`` (``steady_clock``).  Then the mesh
+    step itself, 3 steps on fixed batches (float32, TF32 off) inside the
+    group and again after leaving it: the same params and loss within
+    1e-6 of their scale (an all-reduce over one rank is the identity; the
+    bound leaves room for cuBLAS).
+    Last, ``DP_MH_TIMED`` steps on one fixed batch timed each way: the
+    2-slot mesh step in the group and out of it, and the plain step."""
+    import torch
+    import torch.distributed as dist
+
+    from ape_x_dqn_tpu_torch.learner.train_step import (
+        build_train_step,
+        init_train_state,
+        make_optimizer,
+    )
+    from ape_x_dqn_tpu_torch.models.dueling import build_network
+    from ape_x_dqn_tpu_torch.parallel import build_sharded_train_step, make_mesh, place_batch
+    from ape_x_dqn_tpu_torch.parallel import multihost
+    from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
+
+    t0 = time.monotonic()
+    argv = ["--device", "cuda", "--steps", str(steps), "--log-every", "100000", *FULL_WIDTH,
+            "--set", "learner.data_parallel=2", "--coordinator", f"127.0.0.1:{_free_port()}",
+            "--num-processes", "1", "--process-id", "0"]
+    sampling.sample_indices.launches = 0
+    multihost.ALL_REDUCE_CALLS[0] = 0
+    try:
+        with card_slots(2), capture_pipelines() as seen, steady_clock(DP_MH_WARMUP) as clock:
+            final, wall = run_train(argv)
+        launches = sampling.sample_indices.launches
+        pipe_calls = multihost.ALL_REDUCE_CALLS[0]
+        steady = steady_rate(clock, DP_MH_WARMUP)
+        backend = dist.get_backend()
+        pipe = seen[0]
+        if final["step"] < steps or pipe.mesh is None or pipe.mesh.local_data != 2:
+            raise AssertionError(f"dp_multihost: {final['step']} steps, mesh {pipe.mesh}")
+        if backend != "nccl" or pipe_calls == 0:
+            raise AssertionError(f"dp_multihost: backend {backend}, {pipe_calls} all_reduce "
+                                 "calls")
+        if launches != 0:
+            raise AssertionError(f"dp_multihost: {launches} sampler launches on host replay")
+        if not _replicas_identical(pipe.comps.state.rows):
+            raise AssertionError("dp_multihost: the replicas differ after the run")
+        rng = np.random.default_rng(SEED)
+        obs_shape, B = (84, 84, 1), 32
+        batches = [PrioritizedBatch(
+            transition=NStepTransition(
+                obs=rng.integers(0, 256, (B, *obs_shape), dtype=np.uint8),
+                action=rng.integers(0, 3, B).astype(np.int32),
+                reward=rng.normal(size=B).astype(np.float32),
+                discount=np.full(B, 0.97, np.float32),
+                next_obs=rng.integers(0, 256, (B, *obs_shape), dtype=np.uint8)),
+            indices=np.arange(B, dtype=np.int32), is_weights=np.ones(B, np.float32))
+            for _ in range(3)]
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            net = build_network("conv", 3, obs_shape, compute_dtype=torch.float32)
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+
+        def three_steps():
+            opt = make_optimizer("rmsprop")
+            step, sharded = build_sharded_train_step(
+                net, opt, mesh, init_train_state(net, opt, seed=SEED, device="cuda"))
+            for b in batches:
+                sharded, metrics = step(sharded, place_batch(b, mesh))
+            return {k: v.cpu() for k, v in sharded.params.items()}, float(metrics.loss)
+
+        def step_ms(m, n=DP_MH_TIMED):
+            """ms per step of ``n`` steps on one placed batch after 3
+            unmeasured ones: the mesh step over ``m``, or the plain step."""
+            opt = make_optimizer("rmsprop")
+            state = init_train_state(net, opt, seed=SEED, device="cuda")
+            if m is None:
+                step = build_train_step(net, opt)
+                batch = place_batch(batches[0], make_mesh(devices=[torch.device("cuda", 0)]))[0]
+            else:
+                step, state = build_sharded_train_step(net, opt, m, state)
+                batch = place_batch(batches[0], m)
+            for i in range(n + 3):
+                if i == 3:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n * 1e3
+
+        with float32_math():
+            before = multihost.ALL_REDUCE_CALLS[0]
+            in_group, loss_group = three_steps()
+            step_calls = multihost.ALL_REDUCE_CALLS[0] - before
+        timed = {"mesh_2_slots_in_group": step_ms(mesh)}
+        multihost.shutdown_multihost()
+        with float32_math():
+            alone, loss_alone = three_steps()
+        timed["mesh_2_slots_alone"] = step_ms(mesh)
+        timed["no_mesh"] = step_ms(None)
+    finally:
+        multihost.shutdown_multihost()
+    diff = max(float((in_group[k] - alone[k]).abs().max()) for k in alone)
+    scale = max(float(v.abs().max()) for v in alone.values())
+    if step_calls != 3 * 3 or diff > 1e-6 * scale or \
+            abs(loss_group - loss_alone) > 1e-6 * abs(loss_alone):
+        raise AssertionError(f"dp_multihost: {step_calls} all_reduce calls in 3 steps (want "
+                             f"9), params differ by {diff} in and out of the group, loss "
+                             f"{loss_group} / {loss_alone}")
+    result = {"phase": "dp_multihost", "card": card, "backend": backend, "world_size": 1,
+              "slots": 2, "learner_steps": final["step"], "loss": final["learner/loss"],
+              "all_reduce_calls": pipe_calls, "sampler_launches": launches,
+              "learner_steps_per_s": final["step"] / final["train_s"],
+              "stage_us": final["stage_us"], "steady": steady,
+              "step_ms_fixed_batch": timed,
+              "replicas_bit_identical": True,
+              "group_vs_alone": {"all_reduce_calls_in_3_steps": step_calls,
+                                 "param_max_abs_diff": diff, "loss": loss_group,
+                                 "loss_alone": loss_alone, "tolerance_rel": 1e-6},
+              "wall_s": wall, "seconds": time.monotonic() - t0}
+    emit(result)
     return result
 
 
@@ -5649,6 +6111,7 @@ def main() -> int:
     phase_host_parity()
     host = phase_host_train(sampling, card=smi)
     host_sync = phase_host_sync(sampling)
+    dp_multihost = phase_dp_multihost(sampling, card=smi)
     proc = phase_process(sampling, card=smi, device_replay=True)
     proc_host = phase_process(sampling, card=smi, device_replay=False)
     host_dedup_parity = phase_host_dedup_parity(sampling)
@@ -5657,7 +6120,9 @@ def main() -> int:
     phase_host_dedup_2m(sampling)
     dedup_parity = phase_dedup_parity(sampling)
     graph_parity = phase_graph_parity(sampling)
+    dp_parity = phase_dp_parity(sampling)
     dedup = phase_dedup_train(sampling, card=smi)
+    dp_train = phase_dp_train(sampling, card=smi, beside=dedup)
     obs = phase_obs_train(sampling, card=smi, beside=dedup)
     obs_host = phase_obs_host(sampling, card=smi)
     tcp = phase_dedup_train(sampling, card=smi, tcp=True, beside=dedup, phase="tcp_train")
@@ -5694,6 +6159,7 @@ def main() -> int:
     # The sampler's main path stays atari_train (one sample-ahead launch per
     # call); this slice's host paths launch it 0 times, gated in each phase.
     main_row = next(r for r in rows if r["B"] == 65_536 and r["dead_share"] == 0.0)
+    shard_row = next(r for r in rows if r["C"] == 500_000)
     emit({"kernels": [{
         "name": "sampling",
         "route": "cuda",
@@ -5730,7 +6196,10 @@ def main() -> int:
                              "ckpt_parity": ckpt_parity["sampler_launches"],
                              "ckpt_train": ckpt_train["sampler_launches"],
                              "process_device_dedup_atari_chaos": atari["sampler_launches"],
-                             "chaos_restore": chaos_restore["sampler_launches"]},
+                             "chaos_restore": chaos_restore["sampler_launches"],
+                             "dp_parity": dp_parity["sampler_launches"],
+                             "process_device_dedup_dp4": dp_train["sampler_launches"],
+                             "dp_multihost": dp_multihost["sampler_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["cold_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5742,6 +6211,9 @@ def main() -> int:
         "roofline_share": main_row["roofline_share"],
         "grid": main_row["grid"],
         "at": {"C": 2_000_000, "B": 65_536},
+        "per_shard": {k: shard_row[k] for k in ("C", "B", "cold_ms", "warm_ms", "plain_ms",
+                                                "plain_warm_ms", "bound_ms",
+                                                "roofline_share")},
         "shapes": rows,
     }]})
     print(smi, flush=True)

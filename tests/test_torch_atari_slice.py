@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_harness import pinned_cores
 import torch
 
 from ape_x_dqn_tpu.actors import pool as jpool
@@ -162,12 +163,8 @@ def _segments():
 def two_cores():
     """Two usable cores: spawned workers inherit them and take one intra-op
     thread each (process_actors.worker_threads)."""
-    cores = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(cores)[:2])
-    try:
+    with pinned_cores(2):   # this xdist worker's own pair (_torch_harness)
         yield
-    finally:
-        os.sched_setaffinity(0, cores)
 
 
 def test_pipeline_on_fake_atari_under_forced_chaos(two_cores):

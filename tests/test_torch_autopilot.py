@@ -28,6 +28,7 @@ import time
 
 import numpy as np
 import pytest
+from _torch_harness import bounded_teardown, pinned_cores
 
 import ape_x_dqn_tpu.autopilot as japilot
 import ape_x_dqn_tpu_torch.autopilot as tapilot
@@ -568,12 +569,8 @@ def test_native_json_loads_the_sections_like_jax(tmp_path):
 def two_cores():
     """Two usable cores: spawned children inherit them and take one
     intra-op thread each."""
-    cores = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(cores)[:2])
-    try:
+    with pinned_cores(2):   # this xdist worker's own pair (_torch_harness)
         yield
-    finally:
-        os.sched_setaffinity(0, cores)
 
 
 def _pool_cfg(num_workers=1, max_workers=3, num_actors=6):
@@ -670,7 +667,7 @@ def test_actor_pool_actuator_grows_and_retires_real_workers(two_cores):
         assert pool.transport_stats()["torn_records"] == 0
         assert [n for n, _ in events] == ["autopilot_action"] * 5
     finally:
-        pool.stop()
+        bounded_teardown(("pool.stop", pool.stop))
 
 
 def test_serving_fleet_actuator_spawns_and_retires_a_cpu_replica(two_cores):
@@ -727,9 +724,8 @@ def test_serving_fleet_actuator_spawns_and_retires_a_cpu_replica(two_cores):
         # The surviving replica still serves.
         assert client.act(np.zeros(comps.obs_shape, np.uint8), timeout=60.0) is not None
     finally:
-        if client is not None:
-            client.close()
-        fleet.stop()
+        bounded_teardown(("client.close", client.close if client is not None else lambda: None),
+                         ("fleet.stop", fleet.stop))
     assert all(not rep.alive() for rep in fleet.replicas.values())
 
 
@@ -820,11 +816,9 @@ def test_replay_fleet_actuator_reshards_2_3_2_through_the_rollup(tmp_path):
         assert rollup["replay"]["shards_alive"] == 2 and "replay_shard2" not in agg._eps
         assert ctl.state()["fleets"]["replay"]["size"] == 2
     finally:
-        if cl is not None:
-            cl.close()
-        agg.close()
-        fleet.stop()
-        reg.close()
+        bounded_teardown(("client.close", cl.close if cl is not None else lambda: None),
+                         ("agg.close", agg.close), ("fleet.stop", fleet.stop),
+                         ("reg.close", reg.close))
 
 
 # -- the slice: the autopilot drill on a CPU AsyncPipeline ---------------------------

@@ -207,7 +207,8 @@ def test_fleet_dedup_arguments_checked(kw, message):
     # accepted key, and attaching to it keeps replay.dedup learner-local.
     ("replay.service_dedup=true,replay.service_mode=attach,"
      "replay.service_endpoints=e.json,replay.dedup=true", "stay learner-local features"),
-    ("learner.data_parallel=4", "multi-GPU learner.*ROADMAP item 8"),
+    # The data-parallel learner is ported: its split rules are JAX's.
+    ("learner.data_parallel=3", "replay_sample_size must be divisible by data_parallel"),
     ("replay.frame_ratio=0", "frame_ratio must be positive"),
     ("learner.target_dtype=float16", "unknown target_dtype"),
 ])
@@ -272,11 +273,10 @@ def test_config3_learner_and_replay_keys_load_except_data_parallel(tmp_path):
         data = json.load(f)
     path = tmp_path / "config3.json"
     path.write_text(json.dumps(data))
-    with pytest.raises(ValueError, match="data_parallel=4.*ROADMAP item 8"):
-        load_config(str(path))
-    data["learner"].pop("data_parallel")
-    path.write_text(json.dumps(data))
+    # The data-parallel learner is ported: config3 loads whole, at its own
+    # data_parallel 4.
     cfg = load_config(str(path))
+    assert cfg.learner.data_parallel == 4
     assert cfg.replay.dedup and cfg.replay.frame_ratio == 1.25
     assert cfg.learner.second_moment_dtype == cfg.learner.target_dtype == "bfloat16"
     assert cfg.learner.sample_ahead and cfg.learner.steps_per_call == 2048

@@ -39,6 +39,7 @@ from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
+from _torch_harness import pinned_cores
 
 from ape_x_dqn_tpu import config as jconfig
 from ape_x_dqn_tpu.runtime import process_actors as jpa
@@ -57,12 +58,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def two_cores():
     """Two usable cores: spawned workers inherit them and take one intra-op
     thread each (process_actors.worker_threads)."""
-    cores = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(cores)[:2])
-    try:
+    with pinned_cores(2):   # this xdist worker's own pair (_torch_harness)
         yield
-    finally:
-        os.sched_setaffinity(0, cores)
 
 
 def _cfg(mod=tconfig, num_workers=1, max_workers=0, num_actors=4, **actor):

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_harness import pinned_cores
 import torch
 
 from ape_x_dqn_tpu.learner import train_step as jtrain
@@ -35,7 +36,7 @@ from ape_x_dqn_tpu_torch.config import ApexConfig
 from ape_x_dqn_tpu_torch.envs import make_env as tmake_env
 from ape_x_dqn_tpu_torch.learner import train_step as ttrain
 from ape_x_dqn_tpu_torch.models import dueling as tdueling
-from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
+from ape_x_dqn_tpu_torch.parallel import make_mesh
 from ape_x_dqn_tpu_torch.runtime.async_pipeline import AsyncPipeline
 from ape_x_dqn_tpu_torch.runtime.fused_dedup import DedupStager, FusedDedupLearner
 from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner
@@ -80,15 +81,15 @@ def test_txn_blocks_gate_on_shipped_frames():
     # 5 frames staged, 4 transitions staged, nothing shipped yet.
     assert st.frame_blocks_available(4) == jst.frame_blocks_available(4) == 1
     assert st.txn_blocks_available(4) == jst.txn_blocks_available(4) == 0
-    np.testing.assert_array_equal(st.take_frame_block(4), jst.take_frame_block(4)[0])
+    np.testing.assert_array_equal(st.take_frame_block(4), jst.take_frame_block(4))
     assert st.txn_blocks_available(4) == 0       # the transitions need frame 4
-    np.testing.assert_array_equal(st.take_frame_block(1), jst.take_frame_block(1)[0])
+    np.testing.assert_array_equal(st.take_frame_block(1), jst.take_frame_block(1))
     assert st.txn_blocks_available(4) == jst.txn_blocks_available(4) == 1
     blk, jblk = st.take_txn_block(4), jst.take_txn_block(4)
     for f in TXN:
-        np.testing.assert_array_equal(blk[f], jblk[f][0], err_msg=f)
-    np.testing.assert_array_equal(blk["obs_seq"], [0, 1, 2, 3])
-    np.testing.assert_array_equal(blk["next_seq"], [1, 2, 3, 4])
+        np.testing.assert_array_equal(blk[f], jblk[f], err_msg=f)
+    np.testing.assert_array_equal(blk["obs_seq"], [[0, 1, 2, 3]])
+    np.testing.assert_array_equal(blk["next_seq"], [[1, 2, 3, 4]])
 
 
 def test_carry_gap_drops_only_carried_rows():
@@ -129,12 +130,12 @@ def test_stager_blocks_match_jax_on_a_fleet_stream(block):
     while b >= 1:
         while st.frame_blocks_available(b):
             assert jst.frame_blocks_available(b)
-            np.testing.assert_array_equal(st.take_frame_block(b), jst.take_frame_block(b)[0])
+            np.testing.assert_array_equal(st.take_frame_block(b), jst.take_frame_block(b))
         while st.txn_blocks_available(b):
             assert jst.txn_blocks_available(b)
             got, want = st.take_txn_block(b), jst.take_txn_block(b)
             for f in TXN:
-                np.testing.assert_array_equal(got[f], want[f][0], err_msg=f)
+                np.testing.assert_array_equal(got[f], want[f], err_msg=f)
         assert jst.txn_blocks_available(b) == 0
         b >>= 1
     assert st.staged_rows == jst.staged_rows == 0
@@ -178,15 +179,16 @@ def test_learner_refuses_dense_chunks_a_mesh_and_snapshots():
     dense = _fleet_chunks(24, dedup=False)
     with pytest.raises(TypeError, match="DedupChunk"):
         learner.add_chunk(dense[0].priorities, dense[0].transitions)
-    with pytest.raises(NotPortedError, match="ROADMAP item 8"):
-        _learner(mesh=object())
+    # A mesh whose data extent does not divide the ring is refused.
+    with pytest.raises(ValueError, match="must divide by the data-axis extent 3"):
+        _learner(mesh=make_mesh(devices=["cpu"] * 3))
     # Snapshots are ported; a snapshot of another layout is refused.
     with pytest.raises(ValueError, match="not a dedup-ring snapshot"):
         learner.load_state_dict({})
     with pytest.raises(ValueError, match="not a delta snapshot"):
         learner.apply_delta_state_dict(learner.state_dict())
     stage = learner.stager.state_dict()
-    with pytest.raises(ValueError, match="ROADMAP item 8"):
+    with pytest.raises(ValueError, match="stager snapshot has 2 shards, configured 1"):
         learner.stager.load_state_dict({**stage, "n_shards": 2})
 
 
@@ -281,14 +283,11 @@ def test_async_pipeline_runs_the_dedup_ring(mode):
     pipe = AsyncPipeline(cfg, logger=MetricLogger(stream=io.StringIO()), log_every=1000,
                          device="cpu")
     assert isinstance(pipe.fused, FusedDedupLearner)
-    # Two usable cores for the run: the spawned workers inherit them and
-    # take one intra-op thread each (process_actors.worker_threads).
-    cores = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(cores)[:2])
-    try:
+    # Two usable cores for the run, this xdist worker's own pair: the
+    # spawned workers inherit them and take one intra-op thread each
+    # (process_actors.worker_threads).
+    with pinned_cores(2):
         final = pipe.run(learner_steps=64)
-    finally:
-        os.sched_setaffinity(0, cores)
     assert final["final"] and final["step"] >= 64 and np.isfinite(final["learner/loss"])
     fused = pipe.fused
     assert fused.size >= 256 and fused.stager.rows_in > 0

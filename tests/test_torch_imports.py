@@ -71,6 +71,12 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.autopilot",
                  "ape_x_dqn_tpu_torch.autopilot.controller",
                  "ape_x_dqn_tpu_torch.autopilot.actuators",
+                 "ape_x_dqn_tpu_torch.parallel",
+                 "ape_x_dqn_tpu_torch.parallel.mesh",
+                 "ape_x_dqn_tpu_torch.parallel.dp",
+                 "ape_x_dqn_tpu_torch.parallel.multihost",
+                 "ape_x_dqn_tpu_torch.replay.device_dp",
+                 "ape_x_dqn_tpu_torch.replay.device_dedup_dp",
                  "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
@@ -252,6 +258,29 @@ def test_host_dedup_replays_load_no_jax():
         "import ape_x_dqn_tpu_torch.replay.native_dedup as nd\n"
         "from ape_x_dqn_tpu_torch.replay import DedupReplay\n"
         "assert nd.SOURCE.parent.parent.name == 'ape_x_dqn_tpu_torch'\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_data_parallel_modules_load_no_jax():
+    """The mesh, the data-parallel step, the process group and the sharded
+    rings load no jax and nothing of the JAX package, and lay a ring out
+    over a CPU mesh without them."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.parallel as par\n"
+        "import ape_x_dqn_tpu_torch.parallel.multihost\n"
+        "import ape_x_dqn_tpu_torch.replay.device_dp as ddp\n"
+        "import ape_x_dqn_tpu_torch.replay.device_dedup_dp as dddp\n"
+        "mesh = par.make_mesh(devices=['cpu'] * 2)\n"
+        "assert ddp.init_sharded_device_replay(8, (4,), mesh).n == 2\n"
+        "assert dddp.init_sharded_dedup_replay(8, (4,), mesh).n == 2\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n"

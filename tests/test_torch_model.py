@@ -109,3 +109,62 @@ def test_init_matches_flax_scale():
     assert abs(float(w.std()) * np.sqrt(fan_in) - 1.0) < 0.05
     assert float(w.abs().max()) <= 2.0 / 0.87962566103423978 / np.sqrt(fan_in) + 1e-6
     assert float(net.convs[0].bias.detach().abs().max()) == 0.0
+
+
+# -- twins of tests/test_model.py's structural oracles ------------------------
+
+
+def test_conv_output_shapes():
+    """Value [B, 1], advantage and Q [B, A] in float32, as JAX's, at 84×84×1."""
+    jnet, jparams, tnet, tparams = _pair("conv", A=6, obs=(84, 84, 1))
+    x = np.zeros((2, 84, 84, 1), np.uint8)
+    jv, ja, jq = jnet.apply(jparams, jnp.asarray(x))
+    v, a, q = tnet.apply_params(tparams, torch.from_numpy(x))
+    assert tuple(v.shape) == jv.shape == (2, 1)
+    assert tuple(a.shape) == ja.shape == (2, 6)
+    assert tuple(q.shape) == jq.shape == (2, 6)
+    assert q.dtype == torch.float32 and jq.dtype == jnp.float32
+
+
+def _mlp_pair(obs=(8,)):
+    return _pair("mlp", A=3, obs=obs)
+
+
+def test_dueling_aggregation_per_row_mean():
+    """Q = V + A − mean_a(A) per row, so mean_a Q = V per row (float32,
+    rtol 1e-5 as JAX's test), and the port's Q equals JAX's (atol 1e-5)."""
+    jnet, jparams, tnet, tparams = _mlp_pair()
+    x = np.random.default_rng(1).normal(size=(4, 8)).astype(np.float32)
+    v, a, q = (t.detach().numpy() for t in tnet.apply_params(tparams, torch.from_numpy(x)))
+    np.testing.assert_allclose(q, v + a - a.mean(axis=1, keepdims=True), rtol=1e-5)
+    np.testing.assert_allclose(q.mean(axis=1), v[:, 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(q, np.asarray(jnet.apply(jparams, jnp.asarray(x))[2]), atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,obs,kw", [
+    ("mlp", (8,), {}),
+    ("conv", OBS, dict(channels=(8, 16, 8), hidden=32)),
+])
+def test_aggregation_independent_across_batch(kind, obs, kw):
+    """Row 0's Q does not change with the other rows of the batch (the
+    reference's batch-mean bug guard), for either network."""
+    _, _, tnet, tparams = _pair(kind, A=3, obs=obs, **kw)
+    r = np.random.default_rng(2)
+    x = torch.from_numpy(r.normal(size=(2, *obs)).astype(np.float32) if kind == "mlp"
+                         else _frames(2, obs=obs, seed=2))
+    q_full = tnet.apply_params(tparams, x).q
+    q_row0 = tnet.apply_params(tparams, x[:1]).q
+    np.testing.assert_allclose(q_full[:1].detach().numpy(), q_row0.detach().numpy(), rtol=1e-5)
+
+
+def test_uint8_and_float_inputs_agree():
+    """uint8 frames are scaled by 1/255 inside; the same frames given as
+    float32 in [0, 1] give the same Q (rtol 1e-5, as JAX's test), and both
+    equal JAX's."""
+    jnet, jparams, tnet, tparams = _pair("conv", A=4, obs=(84, 84, 1))
+    x = _frames(1, obs=(84, 84, 1), seed=3)
+    q_u8 = tnet.apply_params(tparams, torch.from_numpy(x)).q.detach().numpy()
+    q_f = tnet.apply_params(tparams, torch.from_numpy(x.astype(np.float32) / 255.0)).q
+    np.testing.assert_allclose(q_u8, q_f.detach().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(q_u8, np.asarray(jnet.apply(jparams, jnp.asarray(x))[2]),
+                               atol=1e-5)

@@ -43,6 +43,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+from _torch_harness import pinned_cores
 
 from ape_x_dqn_tpu import config as jconfig
 from ape_x_dqn_tpu.analysis.metrics_doc import doc_section_keys
@@ -842,12 +843,8 @@ def test_thread_run_lineage_spans_and_ages(tiny_thread_run):
 def two_cores():
     """Two usable cores: spawned workers inherit them and take one intra-op
     thread each (process_actors.worker_threads)."""
-    cores = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(cores)[:2])
-    try:
+    with pinned_cores(2):   # this xdist worker's own pair (_torch_harness)
         yield
-    finally:
-        os.sched_setaffinity(0, cores)
 
 
 def test_process_run_sigkill_postmortem_and_respawn(tmp_path, two_cores):

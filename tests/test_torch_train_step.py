@@ -203,3 +203,49 @@ def test_exploration_matches_jax():
     g = torch.Generator().manual_seed(0)
     explored = texpl.epsilon_greedy(q, 1.0, generator=g)
     assert explored.dtype == torch.int32 and int(explored.max()) < 5
+
+
+# -- twins of tests/test_nstep.py's oracles ----------------------------------
+
+
+def test_terminal_masks_bootstrap():
+    """A terminal inside the window zeroes the bootstrap discount and
+    truncates the return, as JAX's (float32, rtol 1e-6)."""
+    n, gamma = 3, 0.9
+    rewards = np.asarray([1.0, 1.0, 1.0, 7.0], np.float32)
+    discounts = np.asarray([gamma, 0.0, gamma, gamma], np.float32)   # step 1 terminates
+    rets, boot = tnstep.nstep_returns(torch.from_numpy(rewards), torch.from_numpy(discounts), n)
+    jrets, jboot = jnstep.nstep_returns(jnp.asarray(rewards), jnp.asarray(discounts), n)
+    np.testing.assert_allclose(float(rets[0]), 1.0 + gamma, rtol=1e-6)
+    assert float(boot[0]) == 0.0
+    np.testing.assert_allclose(rets.numpy(), np.asarray(jrets), rtol=1e-6)
+    np.testing.assert_array_equal(boot.numpy(), np.asarray(jboot))
+
+
+@pytest.mark.parametrize("stride", [1, 3])
+def test_build_nstep_transitions_shapes_and_alignment(stride):
+    """Start indices 0, stride, ... ≤ T − n with next_obs = S_{t+n}; the
+    port's transitions equal JAX's field for field (returns rtol 1e-6)."""
+    T, n = 12, 3
+    r = np.random.default_rng(0)
+    obs = r.integers(0, 255, size=(T, 4, 4, 1)).astype(np.uint8)
+    tail = r.integers(0, 255, size=(4, 4, 1)).astype(np.uint8)   # S_T only
+    actions = r.integers(0, 4, size=T).astype(np.int32)
+    rewards = r.normal(size=T).astype(np.float32)
+    discounts = np.full(T, 0.99, np.float32)
+    tr = tnstep.build_nstep_transitions(*(torch.from_numpy(a) for a in
+                                          (obs, actions, rewards, discounts, tail)),
+                                        n=n, stride=stride)
+    jtr = jnstep.build_nstep_transitions(*(jnp.asarray(a) for a in
+                                           (obs, actions, rewards, discounts, tail)),
+                                         n=n, stride=stride)
+    starts = np.arange(0, T - n + 1, stride)
+    assert tuple(tr.action.shape) == (len(starts),)
+    np.testing.assert_array_equal(tr.obs.numpy(), obs[starts])
+    np.testing.assert_array_equal(tr.action.numpy(), actions[starts])
+    np.testing.assert_array_equal(tr.next_obs.numpy(),
+                                  np.concatenate([obs, tail[None]])[starts + n])
+    for f in ("obs", "action", "next_obs", "discount"):
+        np.testing.assert_array_equal(getattr(tr, f).numpy(), np.asarray(getattr(jtr, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(tr.reward.numpy(), np.asarray(jtr.reward), rtol=1e-6)
