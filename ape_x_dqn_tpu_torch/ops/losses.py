@@ -24,6 +24,14 @@ def double_q_target(
     return (rewards + discounts * bootstrap).detach()
 
 
+def max_q_target(q_next: torch.Tensor, rewards: torch.Tensor,
+                 discounts: torch.Tensor) -> torch.Tensor:
+    """Plain max-Q bootstrap, float [B], detached — the actor-side
+    initial-priority rule (reference actor.py:138-142 uses max-Q, not
+    double-Q)."""
+    return (rewards + discounts * torch.amax(q_next, dim=-1)).detach()
+
+
 def td_error(q_values: torch.Tensor, actions: torch.Tensor,
              targets: torch.Tensor) -> torch.Tensor:
     """δ = Q(S_t, A_t) − G_t, float [B]."""

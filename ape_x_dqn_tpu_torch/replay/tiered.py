@@ -228,6 +228,10 @@ class TieredFrameRing:
             raise ValueError("tiered ring needs a spill_path")
         self.store = ColdSpanStore(spill_path, self.n_spans, self.span_bytes)
         self._hot: dict = {}                  # sid -> ndarray block
+        # Bytes the hot blocks hold, kept beside ``_hot``: the evictor
+        # polls it without the owner's lock, and a sum over ``_hot`` there
+        # would iterate a dict the drain thread is inserting into.
+        self._hot_nbytes = 0
         self._touch = np.zeros(self.n_spans, np.int64)
         self._clock = 0
         # Per-span cold record state: valid flag, which A/B slot holds the
@@ -270,6 +274,17 @@ class TieredFrameRing:
             blk = self._fault(sid)
         return blk
 
+    def _install(self, sid: int, blk: np.ndarray) -> None:
+        old = self._hot.get(sid)
+        self._hot[sid] = blk
+        self._hot_nbytes += blk.nbytes - (0 if old is None else old.nbytes)
+
+    def _release(self, sid: int) -> Optional[np.ndarray]:
+        blk = self._hot.pop(sid, None)
+        if blk is not None:
+            self._hot_nbytes -= blk.nbytes
+        return blk
+
     def _fault(self, sid: int) -> np.ndarray:
         n = self._span_len(sid)
         if self._cold_valid[sid]:
@@ -288,7 +303,7 @@ class TieredFrameRing:
         else:
             blk = np.zeros((n, *self.frame_shape), self.dtype)
             self._dirty[sid] = True    # nothing on disk yet
-        self._hot[sid] = blk
+        self._install(sid, blk)
         return blk
 
     # -- flat-index access (sample gather / scattered put) ---------------
@@ -340,7 +355,7 @@ class TieredFrameRing:
                 # Full-span overwrite of a non-resident span: no fault —
                 # the old content is dead, allocate fresh.
                 blk = np.empty((take, *self.frame_shape), self.dtype)
-                self._hot[sid] = blk
+                self._install(sid, blk)
             else:
                 blk = self._block(sid)
             if write:
@@ -355,7 +370,7 @@ class TieredFrameRing:
 
     @property
     def hot_bytes(self) -> int:
-        return sum(b.nbytes for b in self._hot.values())
+        return self._hot_nbytes
 
     @property
     def cold_bytes(self) -> int:
@@ -415,7 +430,7 @@ class TieredFrameRing:
         return wrote
 
     def _evict_one(self, sid: int) -> int:
-        blk = self._hot.pop(sid)
+        blk = self._release(sid)
         if not self._dirty[sid] and self._cold_valid[sid]:
             return 0  # disk copy current — eviction is free
         ab = self._next_ab(sid)
@@ -501,7 +516,7 @@ class TieredFrameRing:
             # Verify, then reference in place.
             src.read(offset, sid=sid, want_crc=crc)
             ab = (int(offset) // self.store.record_size) & 1
-            self._hot.pop(sid, None)
+            self._release(sid)
             self._cold_valid[sid] = True
             self._cold_ab[sid] = ab
             self._cold_crc[sid] = np.uint32(int(crc) & 0xFFFFFFFF)
@@ -515,7 +530,7 @@ class TieredFrameRing:
         payload = src.read(offset, sid=sid, want_crc=crc)
         blk = np.frombuffer(payload, self.dtype).reshape(
             int(length), *self.frame_shape).copy()
-        self._hot[sid] = blk
+        self._install(sid, blk)
         self._cold_valid[sid] = False
         self._dirty[sid] = True
         self._tick(sid)
@@ -524,6 +539,7 @@ class TieredFrameRing:
         """Full-restore preamble: forget every tier state (the snapshot
         about to load defines the new contents)."""
         self._hot.clear()
+        self._hot_nbytes = 0
         self._cold_valid[:] = False
         self._dirty[:] = False
         self._pinned_ab[:] = -1

@@ -272,7 +272,7 @@ def _note_fallback(on_event, **fields) -> dict:
     if on_event is not None:
         try:
             on_event(event)
-        except Exception:  # noqa: BLE001
+        except Exception:  # noqa: BLE001 — a sick observer must not stop the restore
             pass
     return event
 

@@ -10,6 +10,16 @@ Phases, each printing one JSON line:
                 the checkout with nvcc, and the host replays' C++ cores
                 (``_native/sum_tree.cc``, ``_native/replay_core.cc``) with
                 g++, timed;
+  2a. lint    — the port's apexlint on this checkout: ``python -m
+                ape_x_dqn_tpu_torch.lint --json`` in a subprocess (the six
+                checkers over ``ape_x_dqn_tpu_torch`` with the committed,
+                empty baseline), then every module of its import-light
+                contract imported in a fresh interpreter each, all at once:
+                torch, jax and the JAX package must not be in its
+                ``sys.modules`` (torch with CUDA is installed here, so a
+                stray import would really load it).  Any finding or heavy
+                import fails the run; prints the checker ids, findings,
+                modules checked and seconds.  No device work;
   3. kernel   — hold the kernel against its plain PyTorch version at
                 C = 100 000 and 2 000 000, B = 32 and 4096, and at the dedup
                 path's C = 2 000 000, B = 65 536 (plain, and with 20 % of
@@ -407,6 +417,60 @@ def check_brackets(p, t, idx) -> float:
         raise AssertionError(f"kernel index outside its inverse-CDF bracket by "
                              f"{worst:.3g}·total")
     return worst
+
+
+LINT_HEAVY = ("torch", "jax", "jaxlib", "flax", "optax", "ape_x_dqn_tpu")
+
+
+def phase_lint() -> dict:
+    """The port's static invariant checkers and its import-light contract,
+    proven again in fresh interpreters on this machine."""
+    from ape_x_dqn_tpu_torch.analysis.core import IMPORT_LIGHT_CONTRACT
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "ape_x_dqn_tpu_torch.lint", "--json"],
+                          cwd=here, capture_output=True, text=True, timeout=120)
+    lint_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lint: exit {proc.returncode}\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    if not report["ok"] or report["new"]:
+        raise AssertionError(f"lint: findings {report['new']}")
+    code = ("import importlib, json, sys\n"
+            "importlib.import_module(sys.argv[1])\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            f"                         if m.split('.')[0] in {LINT_HEAVY!r})))\n")
+    t1 = time.monotonic()
+    children = {m: subprocess.Popen([sys.executable, "-c", code, m], cwd=here,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for m in IMPORT_LIGHT_CONTRACT}
+    heavy = {}
+    try:
+        for module, child in children.items():
+            out, err = child.communicate(timeout=120)
+            if child.returncode != 0:
+                raise AssertionError(f"lint: importing {module} failed\n{err[-2000:]}")
+            loaded = json.loads(out.strip().splitlines()[-1])
+            if loaded:
+                heavy[module] = loaded
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=10)
+    if heavy:
+        raise AssertionError(f"lint: contracted modules load heavy imports: {heavy}")
+    out = {"phase": "lint", "checkers": report["checkers"], "findings": len(report["new"]),
+           "suppressed": len(report["suppressed"]),
+           "stale_baseline": len(report["stale_baseline"]),
+           "files_scanned": report["files_scanned"], "lint_s": lint_s,
+           "checker_ms": report["elapsed_ms"], "light_modules": list(IMPORT_LIGHT_CONTRACT),
+           "heavy_imports": 0, "imports_s": time.monotonic() - t1,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
 
 
 def phase_kernel(sampling):
@@ -5087,9 +5151,11 @@ def phase_tier_train(sampling, card: str, beside: dict, steps: int = TIER_STEPS)
                                  f"{stats['fault_reads']} fault reads; want both > 0")
         with_evictor = [(c, b) for c, b in health if "tier_evictor" in b.get("components", {})]
         if not with_evictor or any(c != 200 for c, _ in health):
+            stale = [{n: v for n, v in b.get("components", {}).items() if not v.get("ok")}
+                     for c, b in health if c != 200]
             raise AssertionError(f"tier_train: /healthz {[c for c, _ in health]}, "
                                  f"{len(with_evictor)} with tier_evictor; want 200 at every "
-                                 "scrape and the heartbeat registered")
+                                 f"scrape and the heartbeat registered; stale: {stale}")
         # The run is stopped (workers joined): commit the quiescent replay's
         # last delta onto the chain, and keep what a restore must give back.
         last = IncrementalCheckpointer(root, replay, sync=True)
@@ -5319,7 +5385,13 @@ def phase_host_dedup_2m(sampling) -> dict:
 SVC_ROOT = os.path.join(REPO_DIR, "build", "replay_svc_smoke")
 SVC_SLOTS = 2_000_000          # config3's replay.capacity, 1 000 000 per shard
 SVC_KILL_AT = 120              # learner A's step at which one shard is SIGKILLed
-SVC_STEPS = 400                # each learner's step budget
+# Each learner's step budget.  Both learners train on through the outage,
+# and one that reaches its budget before the respawned shard is up plus 20
+# steps fails the phase ("training past the outage"): at 400 learner B did.
+# The most a learner can reach by then is the kill step plus the outage
+# (kill to up ~10-15 s, then the parked write-backs' flush) at up to ~33
+# steps/s during it: ~130 + 15 x 33 + 50 = ~680.
+SVC_STEPS = 800
 SVC_WARMUP = 1_024             # learner.min_replay_mem_size; was DEDUP_WARMUP (smoke time)
 SVC_AGG_SCRAPE_S = 0.5         # the smoke's aggregator over the fleet and both learners
 SVC_AGG_WINDOW_S = 4.0
@@ -6104,6 +6176,7 @@ def main() -> int:
     emit({"phase": "build", "library": core_lib.name, "compiler": native_dedup.CXX,
           "seconds": time.monotonic() - t0, "log": core_log.strip()})
 
+    phase_lint()
     rows = phase_kernel(sampling)
     phase_atari_golden(card=smi)
     phase_parity()

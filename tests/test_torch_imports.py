@@ -77,6 +77,15 @@ def test_port_modules_are_found():
                  "ape_x_dqn_tpu_torch.parallel.multihost",
                  "ape_x_dqn_tpu_torch.replay.device_dp",
                  "ape_x_dqn_tpu_torch.replay.device_dedup_dp",
+                 "ape_x_dqn_tpu_torch.analysis",
+                 "ape_x_dqn_tpu_torch.analysis.core",
+                 "ape_x_dqn_tpu_torch.analysis.import_light",
+                 "ape_x_dqn_tpu_torch.analysis.wire_registry",
+                 "ape_x_dqn_tpu_torch.analysis.config_coverage",
+                 "ape_x_dqn_tpu_torch.analysis.metrics_doc",
+                 "ape_x_dqn_tpu_torch.analysis.shm_discipline",
+                 "ape_x_dqn_tpu_torch.analysis.typed_errors",
+                 "ape_x_dqn_tpu_torch.lint",
                  "ape_x_dqn_tpu_torch.__main__"):
         assert want in mods
 
@@ -283,6 +292,26 @@ def test_data_parallel_modules_load_no_jax():
         "assert dddp.init_sharded_dedup_replay(8, (4,), mesh).n == 2\n"
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_analysis_and_lint_load_the_standard_library_only():
+    """The port's apexlint is stdlib only, as its JAX twin: importing the
+    checkers and the CLI, and linting the port, load no torch, no numpy and
+    nothing of JAX or of the JAX package."""
+    code = (
+        "import json, sys\n"
+        "import ape_x_dqn_tpu_torch.analysis as analysis\n"
+        "import ape_x_dqn_tpu_torch.lint\n"
+        "findings = analysis.run_all(analysis.Repo('.'), only=['typed-errors'])\n"
+        "assert findings == [], findings\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {(*FORBIDDEN, 'torch', 'numpy')!r})\n"
         "print(json.dumps(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

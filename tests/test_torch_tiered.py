@@ -245,6 +245,37 @@ class TestTieredFrameRing:
         assert ring.spill()[1] == 0
         assert ring.fault_reads == 1
 
+    def test_hot_bytes_are_the_resident_blocks_bytes(self, tmp_path):
+        """``hot_bytes`` is a running count (the evictor reads it without
+        the owner's lock); every path that installs or drops a block keeps
+        it equal to the blocks' bytes."""
+        rng = np.random.default_rng(3)
+        cap = 64
+        ring, _ = self._rings(tmp_path, cap=cap, budget=8 * 4 * int(np.prod(OBS)))
+        for _ in range(80):
+            op = rng.integers(0, 6)
+            if op == 0:
+                idx = rng.choice(cap, size=rng.integers(1, 9), replace=False)
+                ring.put(idx, rng.integers(0, 255, (len(idx), *OBS), np.uint8))
+            elif op == 1:
+                start, n = int(rng.integers(0, cap)), int(rng.integers(1, 20))
+                ring.put_span(start, n, rng.integers(0, 255, (n, *OBS), np.uint8))
+            elif op == 2:
+                ring.spill(max_spans=int(rng.integers(0, 4)))
+            elif op == 3:
+                ring.get(rng.choice(cap, size=8, replace=False))
+            elif op == 4:
+                ring.flush_dirty()
+                for sid in [s for s in list(ring._hot) if ring._cold_valid[s]][:2]:
+                    ring.adopt_cold_ref(sid, ring.store.offset(sid, int(ring._cold_ab[sid])),
+                                        ring._span_len(sid), int(ring._cold_crc[sid]),
+                                        ring.store)
+            elif rng.integers(0, 4) == 0:
+                ring.drop_all()
+            assert ring.hot_bytes == sum(b.nbytes for b in ring._hot.values())
+        assert ring.spill_writes > 0 and ring.fault_reads > 0
+        ring.close()
+
     def test_torn_cold_span_fault_is_typed(self, tmp_path):
         ring, _ = self._rings(tmp_path, budget=1)
         ring.put_span(0, 4, np.full((4, *OBS), 7, np.uint8))
@@ -566,6 +597,25 @@ class TestTierEvictor:
             add(dense, k)
         assert_same_batch(dense.sample(8, rng=np.random.default_rng(9)),
                           rep.sample(8, rng=np.random.default_rng(9)))
+
+    def test_evictor_survives_a_writer_between_its_polls(self, tmp_path):
+        """The evictor polls the watermark without the replay's lock while
+        the drain thread adds chunks (new hot spans) under it: the poll must
+        never see the hot set mid-change."""
+        rep = DedupReplay(4096, OBS, hot_frame_budget_bytes=64 * int(np.prod(OBS)),
+                          spill_dir=str(tmp_path / "s"), spill_span_frames=1)
+        ev = TierEvictor(rep, poll_s=0.0)
+        ev.start()
+        try:
+            deadline, k = time.monotonic() + 2.0, 0
+            while time.monotonic() < deadline and ev.error is None:
+                add(rep, k)
+                k += 1
+        finally:
+            ev.stop()
+        assert ev.error is None, repr(ev.error)
+        assert k > 0 and rep.tier.spill_writes > 0
+        assert rep.tier.hot_bytes == sum(b.nbytes for b in rep.tier._hot.values())
 
     def test_evictor_error_is_kept_for_the_owner(self, tmp_path):
         class Broken:
