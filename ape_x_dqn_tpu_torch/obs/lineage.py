@@ -189,7 +189,9 @@ class LineageTracker:
         with self._lock:
             for s in idx[self._traced[idx]]:
                 rec = self._open.get(self._slot_trace.get(int(s), -1))
-                if rec is not None and "t_first_sample" not in rec:
+                # A chunk ingested after ``now`` (between the stamp and the
+                # lock) overwrote the slot this batch sampled: not its sample.
+                if rec is not None and "t_first_sample" not in rec and rec["t_ingest"] <= now:
                     rec["t_first_sample"] = now
 
     def on_trained(self, indices) -> None:

@@ -107,6 +107,7 @@ def checkpoint_mode(ckpt_dir, incremental):
     the restored replay to the last recorded state: every column equal,
     and one sample from a fixed generator equal."""
     import io
+    import time
 
     import numpy as np
 
@@ -143,7 +144,12 @@ def checkpoint_mode(ckpt_dir, incremental):
 
         replay.state_dict = recording_snapshot
     result = pipe.run(learner_steps=60)
-    assert latest_step(ckpt_dir) == 60
+    # Process 0 commits a step after the barrier that every replay leg
+    # passed: another process can return from its run before that commit.
+    deadline = time.monotonic() + 120.0
+    while latest_step(ckpt_dir) != 60:
+        assert time.monotonic() < deadline, f"step 60 never committed: {latest_step(ckpt_dir)}"
+        time.sleep(0.05)
     assert len(saved) >= 2 and saved[-1]["count"] > 0
 
     cfg2 = pipeline_config()

@@ -39,6 +39,8 @@ from ape_x_dqn_tpu.analysis import core as jax_core
 from ape_x_dqn_tpu_torch import analysis
 from ape_x_dqn_tpu_torch.analysis import core, metrics_doc
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "lint")
 PACKAGES = ("ape_x_dqn_tpu", "ape_x_dqn_tpu_torch")

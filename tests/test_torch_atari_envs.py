@@ -21,6 +21,8 @@ import os
 import numpy as np
 import pytest
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "atari_golden.npz")
 PKGS = ("ape_x_dqn_tpu", "ape_x_dqn_tpu_torch")

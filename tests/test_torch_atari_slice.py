@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_harness import pinned_cores
+from _torch_harness import pinned_cores, port_deadline  # noqa: F401 — port_deadline is autouse
 import torch
 
 from ape_x_dqn_tpu.actors import pool as jpool

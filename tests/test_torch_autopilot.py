@@ -28,7 +28,7 @@ import time
 
 import numpy as np
 import pytest
-from _torch_harness import bounded_teardown, pinned_cores
+from _torch_harness import bounded_teardown, pinned_cores, port_deadline  # noqa: F401 — port_deadline is autouse
 
 import ape_x_dqn_tpu.autopilot as japilot
 import ape_x_dqn_tpu_torch.autopilot as tapilot

@@ -62,6 +62,8 @@ from ape_x_dqn_tpu_torch.serving.central import (
 from ape_x_dqn_tpu_torch.serving.net_server import ServingNetServer
 from ape_x_dqn_tpu_torch.utils.metrics import LatencyHistogram, MetricLogger
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -195,7 +197,7 @@ class TestServerInference:
             assert actions.shape == (4,)
             assert cl.shed_seen >= 1 and cl.torn_replies == 0
         finally:
-            t.join()
+            joined(t, 10.0, "the timer that ends the shed")
             cl.close()
 
     def test_bad_body_typed_not_torn(self, net_server):
@@ -240,6 +242,7 @@ class _FlippingProxy:
         self._lsock = socket.socket()
         self._lsock.bind(("127.0.0.1", 0))
         self._lsock.listen(8)
+        self._lsock.settimeout(0.2)   # polls _stop: a close does not wake accept()
         self.port = self._lsock.getsockname()[1]
         threading.Thread(target=self._accept, daemon=True).start()
 
@@ -247,9 +250,13 @@ class _FlippingProxy:
         while not self._stop:
             try:
                 c, _ = self._lsock.accept()
+            except TimeoutError:
+                continue
             except OSError:
                 return
+            c.settimeout(30.0)
             u = socket.create_connection(("127.0.0.1", self._dst), 5.0)
+            u.settimeout(30.0)
             for src, dst, flip in ((c, u, False), (u, c, True)):
                 threading.Thread(target=self._pump, args=(src, dst, flip), daemon=True).start()
 
@@ -480,7 +487,7 @@ class TestSelector:
             with pytest.raises(InferenceUnavailable):
                 sel.select(_obs(2), 0)
         finally:
-            timer.join()
+            joined(timer, 10.0, "the timer that sets stop")
             sel.close()
         assert time.monotonic() - t0 >= 0.9
         assert sel.outages >= 1 and cl.stall_s > 0

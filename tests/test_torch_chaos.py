@@ -37,6 +37,8 @@ from ape_x_dqn_tpu.obs import chaos as jchaos
 from ape_x_dqn_tpu_torch.config import ApexConfig, ChaosConfig, apply_overrides, load_config
 from ape_x_dqn_tpu_torch.obs import chaos as tchaos
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 KINDS_CFG = ("kill_interval_s", "sigstop_interval_s", "torn_record_interval_s",
              "corrupt_chunk_interval_s", "stuck_stager_interval_s", "shm_fill_interval_s")
 
@@ -475,10 +477,12 @@ def test_stuck_stager_turns_healthz_503_naming_only_the_stager():
         stall = threading.Thread(target=monkey.execute, args=("stuck_stager",))
         stall.start()
         during = []
+        deadline = time.monotonic() + 30   # the stall holds 2.5 s
         while stall.is_alive():
+            assert time.monotonic() < deadline, "the stuck_stager fault never released"
             during.append(_health(url))
             time.sleep(0.1)
-        stall.join()
+        joined(stall, 10.0, "the stuck_stager fault")
         after = None
         deadline = time.monotonic() + 10
         while time.monotonic() < deadline:

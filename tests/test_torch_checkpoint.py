@@ -51,6 +51,8 @@ from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 from ape_x_dqn_tpu_torch.weights import train_state_from_jax, train_state_to_jax
 from test_torch_train_step import _jbatch, _np_batches, _tbatch
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 BF16_RTOL = 2e-2
 
 
@@ -390,7 +392,7 @@ def test_periodic_fused_checkpoint_includes_staged_rows(tmp_path):
                                 device="cpu")
     assert load_replay_snapshot(path, fused2)
     assert fused2.size == 40
-    pipe.worker.join()
+    pipe.worker.join(timeout=10.0)   # never started: returns at once
     pipe._publisher.close()
 
 
@@ -654,7 +656,7 @@ def test_checkpoint_serve_hot_reloads_over_the_socket(tmp_path):
     rc, recs = _serve(["--checkpoint", str(tmp_path), "--listen", "0", "--clients", "2",
                        "--duration", "3", "--metrics-every", "0.5",
                        "--set", "serving.reload_poll_s=0.05"])
-    t.join()
+    joined(t, 10.0, "the mid-run commit")
     assert rc == 0
     assert [r for r in recs if r.get("event") == "serving_listen"][0]["port"] > 0
     final = [r for r in recs if "serve/served_total" in r][-1]

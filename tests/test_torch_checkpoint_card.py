@@ -33,6 +33,8 @@ from ape_x_dqn_tpu_torch.utils.checkpoint import (
 from ape_x_dqn_tpu_torch.utils.checkpoint_inc import IncrementalCheckpointer
 from test_torch_graphed_call import cuda_device, float32_on_card  # noqa: F401 — fixtures
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (36, 36, 1)
 
 

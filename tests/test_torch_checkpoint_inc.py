@@ -57,6 +57,8 @@ from ape_x_dqn_tpu_torch.utils.checkpoint_inc import (
     write_chunk,
 )
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6, 6, 1)
 
 
@@ -286,12 +288,14 @@ class TestManifestCommit:
 
 
 def _kill_victim(root: str) -> None:
-    """Barrage child: add, churn and save as fast as it can until killed."""
+    """Barrage child: add, churn and save as fast as it can until killed
+    (or, orphaned, for at most 300 s)."""
     torch.set_num_threads(1)
     rep = PrioritizedReplay(512, OBS)
     ck = IncrementalCheckpointer(root, rep, sync=True, base_every=3)
     step = 0
-    while True:
+    stop_at = time.monotonic() + 300.0
+    while time.monotonic() < stop_at:
         rep.add(prio(seed=step), np_chunk(seed=step))
         if step % 2:
             churn(rep, seed=step)

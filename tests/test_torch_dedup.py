@@ -38,6 +38,8 @@ from ape_x_dqn_tpu_torch.replay.dedup import CarryResolver
 from ape_x_dqn_tpu_torch.types import DedupChunk, materialize_dedup
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("frames", "obs_ref", "next_ref", "action", "reward", "discount")
 

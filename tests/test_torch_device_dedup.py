@@ -27,6 +27,8 @@ from ape_x_dqn_tpu_torch.types import NStepTransition
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 from test_torch_device_replay import _jax_uniforms, _learners
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6,)
 
 

@@ -26,6 +26,8 @@ from ape_x_dqn_tpu_torch.replay import device as tdev
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6,)
 
 

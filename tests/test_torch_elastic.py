@@ -39,7 +39,7 @@ from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
-from _torch_harness import pinned_cores
+from _torch_harness import pinned_cores, port_deadline  # noqa: F401 — port_deadline is autouse
 
 from ape_x_dqn_tpu import config as jconfig
 from ape_x_dqn_tpu.runtime import process_actors as jpa

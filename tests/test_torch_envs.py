@@ -14,6 +14,8 @@ import importlib
 import numpy as np
 import pytest
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 @pytest.fixture(params=["ape_x_dqn_tpu", "ape_x_dqn_tpu_torch"])
 def m(request):

@@ -20,6 +20,8 @@ from ape_x_dqn_tpu.ops.exploration import epsilon_greedy as jax_greedy
 from ape_x_dqn_tpu.ops.exploration import epsilon_ladder as jax_ladder
 from ape_x_dqn_tpu_torch.ops.exploration import epsilon_greedy, epsilon_ladder
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 def _gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)

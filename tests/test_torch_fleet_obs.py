@@ -36,6 +36,8 @@ from ape_x_dqn_tpu_torch.obs.fleet import (
 )
 from ape_x_dqn_tpu_torch.utils.metrics import LatencyHistogram
 
+from _torch_harness import port_deadline, readline_within  # noqa: F401 — port_deadline is autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBS = (6,)
 PKGS = {"jax": jfleet, "torch": tfleet}
@@ -545,7 +547,9 @@ class TestTraceWire:
             s.settimeout(5.0)
             ack = b""
             while len(ack) < RSVC_ACK.size:
-                ack += s.recv(RSVC_ACK.size - len(ack))
+                got = s.recv(RSVC_ACK.size - len(ack))
+                assert got, "the shard closed before its ack"
+                ack += got
             s.sendall(frame_bytes(F_RREQ, 1, [_RPC.pack(1, OP_DIGEST)]))
             parser = FrameParser()
             deadline = time.monotonic() + 5.0
@@ -663,7 +667,7 @@ class TestCrossTierTraceE2E:
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
         cl = inf = None
         try:
-            announce = json.loads(shard_proc.stdout.readline())
+            announce = json.loads(readline_within(shard_proc.stdout, 60.0, "the shard child"))
             assert announce["event"] == "replay_shard_listen"
             shard_pid, shard_port = announce["pid"], announce["port"]
             cl = ShardedReplayClient(
@@ -678,12 +682,13 @@ class TestCrossTierTraceE2E:
             sc = ShardClient(0, "127.0.0.1", shard_port, token=5, client_id=42, codec="off")
             shard_stats = sc.shard_stats(timeout=10.0)
             sc.close()
-            serving = json.loads(serve_proc.stdout.readline())
+            serving = json.loads(readline_within(serve_proc.stdout, 60.0, "the serving child"))
             inf = CentralInferenceClient("127.0.0.1", serving["port"], wid=1, trace=True)
             inf.select(np.zeros((2, 6), np.uint8), timeout_s=20.0, trace_id=tid)
             serve_proc.stdin.write(b"dump\n")
             serve_proc.stdin.flush()
-            replica_spans = json.loads(serve_proc.stdout.readline())
+            replica_spans = json.loads(readline_within(serve_proc.stdout, 60.0,
+                                                       "the serving child's span dump"))
             spans = (cl.spans.snapshot()["spans"] + inf.spans.snapshot()["spans"]
                      + shard_stats["trace_spans"]["spans"] + replica_spans["spans"])
             ours = [s for s in spans if s["trace_id"] == tid]

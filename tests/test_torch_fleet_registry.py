@@ -52,6 +52,8 @@ from ape_x_dqn_tpu_torch.runtime.net import (
     frame_bytes,
 )
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 TOKEN = 4242
 
 
@@ -270,12 +272,16 @@ class _Recorder:
         self._sock = socket.socket()
         self._sock.bind(("127.0.0.1", 0))
         self._sock.listen(4)
+        self._sock.settimeout(30.0)
         self.port = self._sock.getsockname()[1]
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
 
     def _serve(self):
-        conn, _ = self._sock.accept()
+        try:
+            conn, _ = self._sock.accept()
+        except OSError:   # no client within 30 s: close() fails the test
+            return
         conn.settimeout(5.0)
         try:
             hello = conn.recv(FLEET_HELLO.size)
@@ -299,8 +305,10 @@ class _Recorder:
             conn.close()
 
     def close(self):
-        self._thread.join(timeout=5.0)
-        self._sock.close()
+        try:
+            joined(self._thread, 10.0, "the recorder's connection")
+        finally:
+            self._sock.close()
 
 
 @pytest.mark.parametrize("client_mod", ["port", "jax"])

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_harness import pinned_cores
+from _torch_harness import learner_waits_for_workers, pinned_cores, port_deadline  # noqa: F401 — port_deadline is autouse
 import torch
 
 from ape_x_dqn_tpu.learner import train_step as jtrain
@@ -286,6 +286,8 @@ def test_async_pipeline_runs_the_dedup_ring(mode):
     # Two usable cores for the run, this xdist worker's own pair: the
     # spawned workers inherit them and take one intra-op thread each
     # (process_actors.worker_threads).
+    if mode == "process":
+        learner_waits_for_workers(pipe, 2)
     with pinned_cores(2):
         final = pipe.run(learner_steps=64)
     assert final["final"] and final["step"] >= 64 and np.isfinite(final["learner/loss"])

@@ -38,6 +38,8 @@ from ape_x_dqn_tpu_torch.replay import device_dedup as tdd
 from ape_x_dqn_tpu_torch.runtime import graphed_call
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6,)
 K, B = 4, 8
 BF16_RTOL = 2e-2

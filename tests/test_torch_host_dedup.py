@@ -27,6 +27,8 @@ from ape_x_dqn_tpu_torch.replay.dedup import DedupReplay
 from ape_x_dqn_tpu_torch.replay.sum_tree import SumTree
 from ape_x_dqn_tpu_torch.types import DedupChunk, materialize_dedup
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (3, 3, 1)
 COLUMNS = ("obs", "action", "reward", "discount", "next_obs")
 

@@ -45,6 +45,8 @@ from ape_x_dqn_tpu_torch.runtime.single_process import SingleProcessDriver
 from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 @pytest.fixture(autouse=True)
 def one_torch_thread():

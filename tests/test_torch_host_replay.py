@@ -23,6 +23,8 @@ from ape_x_dqn_tpu_torch.replay import sum_tree as tsum
 from ape_x_dqn_tpu_torch.replay.buffer import NotPortedError
 from ape_x_dqn_tpu_torch.types import NStepTransition
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS, A, CAP = (6, 6, 1), 4, 200
 TREES = {"numpy": (jsum.SumTree, tsum.SumTree),
          "native": (jnative.NativeSumTree, tnative.NativeSumTree)}

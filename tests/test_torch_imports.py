@@ -11,6 +11,8 @@ import sys
 
 import ape_x_dqn_tpu_torch
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "cv2", "ape_x_dqn_tpu")
 

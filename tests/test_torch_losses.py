@@ -18,6 +18,8 @@ import torch
 from ape_x_dqn_tpu.ops import losses as jlosses
 from ape_x_dqn_tpu_torch.ops import losses as tlosses
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 RTOL = ATOL = 1e-6
 
 

@@ -35,6 +35,8 @@ from ape_x_dqn_tpu_torch.types import TrainState
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 from test_torch_train_step import A, OBS, _jbatch, _np_batches, _tbatch
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 BF16_RTOL = 2e-2
 
 

@@ -20,6 +20,8 @@ from ape_x_dqn_tpu.models import dueling as jdueling
 from ape_x_dqn_tpu_torch.models import dueling as tdueling
 from ape_x_dqn_tpu_torch.weights import params_from_jax, params_to_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (52, 52, 2)  # torso output 3×3×C: the flatten permutation matters
 
 

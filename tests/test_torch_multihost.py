@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 CHILD = Path(__file__).parent / "_torch_multihost_child.py"
 REPO = str(Path(__file__).parent.parent)
 DEADLINE_S = 240.0

@@ -30,6 +30,8 @@ from ape_x_dqn_tpu_torch.replay.native_dedup import NativeDedupReplay
 from ape_x_dqn_tpu_torch.replay.sum_tree import SumTree
 from ape_x_dqn_tpu_torch.types import DedupChunk
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 OBS = (5, 5, 1)
 COLUMNS = ("obs", "action", "reward", "discount", "next_obs")
 
@@ -278,7 +280,7 @@ class TestStripedLaw:
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            joined(t, 120.0, f"{t.name} of the concurrent sample/add run")
         assert not errs
         assert nat.total_added == (6 + 9 * 8) + 2 * (6 + 29 * 8)
         assert nat.stats["dropped_carry"] == 0

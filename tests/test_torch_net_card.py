@@ -31,6 +31,8 @@ from ape_x_dqn_tpu_torch.runtime.transport import connect_channel
 from ape_x_dqn_tpu_torch.types import DedupChunk
 from test_torch_graphed_call import cuda_device, float32_on_card  # noqa: F401 — fixtures
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (36, 36, 1)
 
 

@@ -60,6 +60,8 @@ from ape_x_dqn_tpu_torch.runtime.net import (
 )
 from ape_x_dqn_tpu_torch.runtime.shm_ring import XP, decode_chunk, encode_chunk_parts
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 DEADLINE_S = 10.0
 _FRAME_SIZE = tnet.FRAME.size
 
@@ -529,13 +531,12 @@ def _raw_wire(writer_cls, wire, payloads):
         closer = threading.Thread(target=w.close)   # a port writer waits for our EOF
         closer.start()
         raw = b""
-        while True:
-            data = conn.recv(1 << 16)
-            if not data:
-                break
+        deadline = time.monotonic() + DEADLINE_S
+        while data := conn.recv(1 << 16):
+            assert time.monotonic() < deadline, "the writer never closed"
             raw += data
         conn.close()
-        closer.join(DEADLINE_S)
+        joined(closer, DEADLINE_S, "the writer's close")
         return raw
     finally:
         w.close()
@@ -591,10 +592,9 @@ def test_close_delivers_every_written_byte_never_a_reset(writer):
         w.close()
         conn.settimeout(DEADLINE_S)
         got = 0
-        while True:
-            data = conn.recv(1 << 16)            # a reset would raise here
-            if not data:
-                break
+        deadline = time.monotonic() + DEADLINE_S
+        while data := conn.recv(1 << 16):        # a reset would raise here
+            assert time.monotonic() < deadline, "the writer never closed"
             got += len(data)
         conn.close()
         assert got == want

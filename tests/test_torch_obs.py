@@ -43,7 +43,7 @@ import urllib.request
 
 import numpy as np
 import pytest
-from _torch_harness import pinned_cores
+from _torch_harness import pinned_cores, port_deadline, readline_within  # noqa: F401 — port_deadline is autouse
 
 from ape_x_dqn_tpu import config as jconfig
 from ape_x_dqn_tpu.analysis.metrics_doc import doc_section_keys
@@ -332,7 +332,8 @@ sys.path.insert(0, {REPO!r})
 from {PACKAGES[writer]}.obs.shm_stats import WorkerStatsBlock
 w = WorkerStatsBlock(name={blk.name!r}, create=False)
 i = 0
-while True:
+stop_at = time.monotonic() + 300.0   # until SIGKILLed, or orphaned for 300 s
+while time.monotonic() < stop_at:
     i += 1
     w.update(env_steps=i, chunks=i * 2)
     w.record_event({{"kind": "tick", "i": i}})
@@ -442,7 +443,7 @@ print("ready", flush=True)
 time.sleep(60)
 """], stdout=subprocess.PIPE)
     try:
-        assert child.stdout.readline().strip() == b"ready"
+        assert readline_within(child.stdout, 60.0, "the recorder child").strip() == b"ready"
         child.terminate()
         assert child.wait(timeout=15.0) != 0   # died of the chained SIGTERM
         files = [f for f in os.listdir(tmp_path) if "sigterm" in f and f.endswith(".json")]
@@ -489,6 +490,44 @@ def test_lineage_tracker_equal_to_jax(monkeypatch):
         assert name == "lineage_span"
         ts = [span[k] for k in tlineage.SPAN_ORDER]
         assert ts == sorted(ts)
+
+
+def test_a_sample_stamped_before_an_overwriting_ingest_is_not_its_first_sample(monkeypatch):
+    """The learner stamps a sampled batch, then an actor's chunk overwrites
+    the sampled slots before the learner takes the lock (a preemption that a
+    loaded machine shows: test_thread_run_lineage_spans_and_ages failed so
+    under `taskset -c 0-2`).  The port does not count that batch as the new
+    trace's first sample, so its span stays monotone; the reference does,
+    and stamps its first sample before its ingest (not edited)."""
+    clock = itertools.count(100.0, 1.0)
+    monkeypatch.setattr(time, "monotonic", lambda: next(clock))
+    spans = {}
+    for name, mod in (("torch", tlineage), ("jax", jlineage)):
+        events = []
+        tr = mod.LineageTracker(8, emit=lambda _n, **kw: events.append(kw))
+        tr.on_ingest(np.arange(4), trace_id=1)
+        real = tr._lock
+        overwrite = [lambda tr=tr: tr.on_ingest(np.arange(4), trace_id=2)]
+
+        class IngestFirst:
+            def __enter__(self):
+                if overwrite:
+                    overwrite.pop()()
+                return real.__enter__()
+
+            def __exit__(self, *exc):
+                return real.__exit__(*exc)
+
+        tr._lock = IngestFirst()
+        tr.on_sample(np.arange(4))   # stamped before trace 2's ingest, locked after it
+        tr._lock = real
+        tr.on_sample(np.arange(4))
+        tr.on_trained(np.arange(4))
+        assert [e["trace_id"] for e in events] == [2] and tr.abandoned_count == 1
+        spans[name] = [events[0][k] for k in tlineage.SPAN_ORDER]
+    assert spans["torch"] == sorted(spans["torch"])
+    t_act, t_ingest, t_first_sample, _ = spans["jax"]
+    assert t_first_sample < t_ingest
 
 
 def test_lineage_age_counts_untraced_samples_and_recycling_abandons():

@@ -23,6 +23,8 @@ from ape_x_dqn_tpu_torch.replay import device_dedup as tdd
 from ape_x_dqn_tpu_torch.runtime import graphed_call
 from ape_x_dqn_tpu_torch.utils.profiling import EDGE_MARGIN_S, LEAD_KERNELS, trace
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 K = 16
 CAPTURES = 30
 

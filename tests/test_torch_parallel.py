@@ -49,6 +49,8 @@ from ape_x_dqn_tpu_torch.parallel import (
 from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch, TrainState
 from ape_x_dqn_tpu_torch.weights import _layer_map, params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS, A = (12,), 3
 
 

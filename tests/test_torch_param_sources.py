@@ -45,6 +45,8 @@ from ape_x_dqn_tpu_torch.serving.sources import (
 )
 from ape_x_dqn_tpu_torch.utils.serialization import tree_to_bytes
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 DEADLINE_S = 10.0
 
 

@@ -42,6 +42,8 @@ from ape_x_dqn_tpu_torch.runtime.infeed import DispatchPipeline, HostProbe, loss
 from ape_x_dqn_tpu_torch.types import NStepTransition
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (8, 8, 1)
 A = 3
 

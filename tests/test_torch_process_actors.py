@@ -54,6 +54,8 @@ from ape_x_dqn_tpu_torch.runtime.supervisor import (
 )
 from ape_x_dqn_tpu_torch.utils.metrics import MetricLogger
 
+from _torch_harness import learner_waits_for_workers, port_deadline  # noqa: F401 — port_deadline is autouse
+
 
 def _cfg(num_workers=2, num_actors=4, T=100_000, **actor):
     cfg = ApexConfig()
@@ -335,6 +337,7 @@ def test_async_pipeline_with_process_actors(device_replay):
     pipe = AsyncPipeline(cfg, logger=MetricLogger(stream=io.StringIO()), log_every=100,
                          device="cpu")
     names = _segments(pipe.worker.pool)
+    learner_waits_for_workers(pipe, 2)
     final = pipe.run(learner_steps=200)
     pool = pipe.worker.pool
     assert final["final"] and final["step"] >= 200

@@ -67,6 +67,8 @@ from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch, TrainSt
 from ape_x_dqn_tpu_torch.utils import checkpoint_inc as tinc
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBS = (6,)
 PKGS = {"jax": (jsvc, JReplay), "torch": (tsvc, PrioritizedReplay)}
@@ -334,14 +336,13 @@ def test_bitflipped_reply_frame_torn_client_side(shard):
     lsock = socket.socket()
     lsock.bind(("127.0.0.1", 0))
     lsock.listen(4)
+    lsock.settimeout(60.0)   # the proxy's accept gives up with the test
     flipped = threading.Event()
 
     def pump(src, dst, corrupt):
+        src.settimeout(60.0)
         try:
-            while True:
-                d = src.recv(1 << 16)
-                if not d:
-                    break
+            while d := src.recv(1 << 16):
                 if corrupt and not flipped.is_set() and len(d) > tsvc.RSVC_ACK.size + 40:
                     d = bytearray(d)
                     d[tsvc.RSVC_ACK.size + 30] ^= 0x40
@@ -357,7 +358,7 @@ def test_bitflipped_reply_frame_torn_client_side(shard):
                 pass
 
     def proxy():
-        while True:
+        while True:   # ends when the accept times out or the socket closes
             try:
                 a, _ = lsock.accept()
             except OSError:

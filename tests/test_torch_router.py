@@ -44,6 +44,8 @@ from ape_x_dqn_tpu_torch.serving.batcher import ServedAction
 from ape_x_dqn_tpu_torch.serving.net_server import ServingClient, ServingNetServer
 from ape_x_dqn_tpu_torch.serving.router import ServingFleet, ServingRouter
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 DEADLINE_S = 30.0
 # The replicas' config: a float32 mlp over chain:6 (2 actions, 6 inputs).
 FLEET_CFG = ["network=mlp", "env.name=chain:6", "serving.max_wait_ms=1.0",

@@ -31,6 +31,8 @@ from ape_x_dqn_tpu_torch.runtime.process_actors import network_and_template
 from ape_x_dqn_tpu_torch.serving.net_server import ServingClient
 from ape_x_dqn_tpu_torch.serving.router import ServingFleet
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 CFG = ["network=mlp", "env.name=chain:6", "serving.max_wait_ms=1.0",
        "serving.reload_poll_s=0.05"]
 DEADLINE_S = 60.0

@@ -29,6 +29,8 @@ import torch
 
 from ape_x_dqn_tpu_torch.ops import sampling
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 @pytest.fixture
 def jax_sampling():

@@ -20,6 +20,8 @@ from ape_x_dqn_tpu_torch.models import dueling as tdueling
 from ape_x_dqn_tpu_torch.utils import serialization as tser
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 def _trees(seed=0):
     """(numpy tree for the JAX package, the same tree with CPU tensors and

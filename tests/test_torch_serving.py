@@ -48,6 +48,8 @@ from ape_x_dqn_tpu_torch.serving import (
 from ape_x_dqn_tpu_torch.utils import metrics as tmetrics
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6,)
 A = 3
 CONV_OBS = (36, 36, 1)

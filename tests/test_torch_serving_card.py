@@ -27,6 +27,8 @@ from ape_x_dqn_tpu_torch.models import dueling as tdueling
 from ape_x_dqn_tpu_torch.runtime.param_store import ParamStore
 from ape_x_dqn_tpu_torch.serving.server import PolicyServer
 
+from _torch_harness import joined, port_deadline  # noqa: F401 — port_deadline is autouse
+
 CONV_OBS = (36, 36, 1)
 
 
@@ -146,14 +148,16 @@ def test_forward_beside_a_graphed_fused_call_on_card(cuda_device):
     try:
         learner.start()
         time.sleep(0.05)
+        deadline = time.monotonic() + 120.0
         while learner.is_alive() or not done.query():
+            assert time.monotonic() < deadline, "the learner's call never finished"
             t0 = time.monotonic()
             for f in [server.submit(o) for o in obs]:
                 f.result(timeout=60.0)
             rtts.append((time.monotonic() - t0) * 1e3)
             # ``done`` is recorded when the call's last replay is issued.
             running.append(learner.is_alive() or not done.query())
-        learner.join()
+        joined(learner, 60.0, "the learner's call")
         done.synchronize()
         call_ms = start.elapsed_time(done)
     finally:

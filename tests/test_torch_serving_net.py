@@ -50,6 +50,8 @@ from ape_x_dqn_tpu_torch.runtime.net import (
 from ape_x_dqn_tpu_torch.serving.batcher import ServedAction, ServerOverloaded
 from ape_x_dqn_tpu_torch.serving.net_server import ServingClient, ServingNetServer
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 class StubPolicy:
     """PolicyServer stand-in: instant completed futures."""
@@ -358,7 +360,9 @@ class TestServerAdversarial:
         p = FrameParser()
         s.settimeout(5.0)
         while (got := p.next()) is None:
-            p.feed(s.recv(4096))
+            data = s.recv(4096)
+            assert data, "the server closed before its typed error"
+            p.feed(data)
         kind, payload = got
         assert kind == F_SERR
         assert decode_error(payload)[1] == E_BAD_REQUEST

@@ -58,6 +58,8 @@ from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner
 from ape_x_dqn_tpu_torch.types import DedupChunk, NStepTransition, PrioritizedBatch, TrainState
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (8,)
 
 

@@ -27,6 +27,8 @@ from ape_x_dqn_tpu_torch.runtime import process_actors as tpa
 from ape_x_dqn_tpu_torch.runtime import shm_ring as tring
 from ape_x_dqn_tpu_torch.utils import serialization as tser
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 
 def _join(parts) -> bytes:
     return b"".join(p if isinstance(p, bytes) else bytes(memoryview(p).cast("B"))
@@ -345,6 +347,7 @@ def test_owner_segment_is_unlinked_when_collected():
 # chunks whose version field is its chunk sequence until it is killed.
 _PRODUCER = """
 import sys
+import time
 from multiprocessing import resource_tracker
 import numpy as np
 from ape_x_dqn_tpu_torch.runtime.shm_ring import XP, ShmRing, encode_chunk_parts
@@ -358,7 +361,8 @@ arrays = {"prio": r.random(rows).astype(np.float32),
           "discount": np.ones(rows, np.float32),
           "next_obs": r.integers(0, 255, (rows, 16, 16, 1), dtype=np.uint8)}
 seq = 0
-while True:
+stop_at = time.monotonic() + 300.0   # until SIGKILLed, or orphaned for 300 s
+while time.monotonic() < stop_at:
     if ring.write(encode_chunk_parts(XP, seq, rows, arrays), timeout=1.0):
         seq += 1
 """

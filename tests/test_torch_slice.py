@@ -41,6 +41,8 @@ from ape_x_dqn_tpu_torch.runtime.fused_learner import FusedDeviceLearner as TLea
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBS, A, C, B, K = (36, 36, 1), 3, 1000, 8, 4
 

@@ -19,6 +19,8 @@ from ape_x_dqn_tpu_torch.replay import native as tnative
 from ape_x_dqn_tpu_torch.replay import sum_tree as tsum
 from ape_x_dqn_tpu_torch.replay.buffer import PrioritizedReplay
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 TREES = {
     "jax_numpy": jsum.SumTree,
     "jax_native": jnative.NativeSumTree,

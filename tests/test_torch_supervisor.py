@@ -33,6 +33,8 @@ from ape_x_dqn_tpu_torch.runtime.supervisor import (
 from ape_x_dqn_tpu_torch.serving.batcher import ServerOverloaded
 from ape_x_dqn_tpu_torch.serving.server import PolicyServer
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 # (now, progress token) — each script is replayed against both packages.
 SCRIPTS = {
     "degrade_then_wedge": [(0.0, 0), (9.0, 0), (11.0, 0), (30.0, 0), (32.0, 0), (40.0, 0)],
@@ -242,5 +244,5 @@ def test_pipeline_watchdog_degrades_the_overlapped_pipeline():
         section = pipe._sections_extra()["supervisor"]
         assert section["degradations"] == 1 and section["watchdog"] == "degraded"
     finally:
-        pipe.worker.join()
+        pipe.worker.join(timeout=10.0)   # never started: returns at once
         pipe._publisher.close()

@@ -53,6 +53,8 @@ from ape_x_dqn_tpu_torch.utils.checkpoint_inc import (
     read_manifest,
 )
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6, 6, 1)
 
 
@@ -630,12 +632,14 @@ class TestTierEvictor:
 
 def _spill_victim(root: str, mode: str) -> None:
     """Kill-barrage child: ingest + spill (+ fault, in ``fault`` mode) + sync
-    checkpoint saves as fast as it can until SIGKILLed."""
+    checkpoint saves as fast as it can until SIGKILLed (or, orphaned, for at
+    most 300 s)."""
     rep = DedupReplay(64, OBS, hot_frame_budget_bytes=1024,
                       spill_dir=os.path.join(root, "spill"), spill_span_frames=4)
     ck = IncrementalCheckpointer(root, rep, sync=True, base_every=2)
     step = 0
-    while True:
+    stop_at = time.monotonic() + 300.0
+    while time.monotonic() < stop_at:
         add(rep, step)
         rep.spill_cold()
         if mode == "fault":

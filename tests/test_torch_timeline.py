@@ -37,6 +37,8 @@ from ape_x_dqn_tpu_torch.obs.timeline import TimelineStore, read_segment, read_t
 from ape_x_dqn_tpu_torch.runtime.net import TIMELINE_MAGIC
 from ape_x_dqn_tpu_torch.utils.metrics import bucket_percentile
 
+from _torch_harness import port_deadline, readline_within  # noqa: F401 — port_deadline is autouse
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {"jax": (jtl, jfleet), "torch": (ttl, tfleet)}
 
@@ -293,8 +295,8 @@ def test_sigkilled_writer_leaves_a_tail_both_packages_adopt(writer, tmp_path):
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
-        line = proc.stdout.readline()
-        assert line.strip() == "torn", proc.stderr.read()
+        line = readline_within(proc.stdout, 60.0, "the timeline writer")
+        assert line.strip() == "torn", line
     finally:
         proc.send_signal(signal.SIGKILL)
         proc.wait(timeout=30)
@@ -303,7 +305,7 @@ def test_sigkilled_writer_leaves_a_tail_both_packages_adopt(writer, tmp_path):
     adopted = {}
     for name, (mod, _f) in PKGS.items():
         copy = tmp_path / f"copy_{name}"
-        subprocess.run(["cp", "-r", root, str(copy)], check=True)
+        subprocess.run(["cp", "-r", root, str(copy)], check=True, timeout=60)
         st = mod.TimelineStore(str(copy))
         recs = st.records()
         adopted[name] = (st.adopted_records, st.torn_records, _no_wall(recs))

@@ -37,6 +37,8 @@ from ape_x_dqn_tpu_torch.replay import device as tdev
 from ape_x_dqn_tpu_torch.runtime import graphed_call
 from ape_x_dqn_tpu_torch.types import NStepTransition
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS = (6,)
 K, B = 16, 8
 

@@ -35,6 +35,8 @@ from ape_x_dqn_tpu_torch.ops import nstep as tnstep
 from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch, TrainState
 from ape_x_dqn_tpu_torch.weights import params_from_jax
 
+from _torch_harness import port_deadline  # noqa: F401 — the per-test deadline, autouse
+
 OBS, A, B = (36, 36, 1), 3, 8
 
 
