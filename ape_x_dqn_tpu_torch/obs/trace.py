@@ -47,7 +47,20 @@ time:
     ``utils/profiling.EDGE_MARGIN_S`` must exceed), ``device_clock_lead``
     the record that sets it (its name, category, stream, correlation id and
     start) and the launch it was matched to (name, thread, start, length),
-    and ``device_records_before_launch`` how many correlations lead at all.
+    and ``device_records_before_launch`` how many correlations lead at all;
+  * ``calls`` — for each fused call whose ``apex.call`` range the trace
+    holds (``utils/profiling.StageTimer`` opens one per call while a
+    profiler runs), the host ms of the range and the device span of the
+    records whose CUDA call the range's own thread made inside it (first
+    start to last end: the learner's kernels, copies and fills, not the
+    actors' forwards).
+
+A fused learner's capture also gets ``clock_check``: the device span of
+each call that ran wholly inside the capture on the trace's clock, beside
+the span its CUDA events timed on the learner's stream
+(``runtime/graphed_call.StreamClock``, first piece's start to last piece's
+end), paired in order, and their ratio: kernels that read shorter in the
+trace than their own events allow say which clock is wrong.
 
 CUPTI's device records cover the whole process, the CPU operators only the
 learner thread, so the summary reads the device timeline.  Starting and
@@ -71,6 +84,7 @@ the summary counts what the trace holds.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import subprocess
@@ -79,6 +93,8 @@ import tempfile
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
 # The sampler's kernel name in ops/csrc/sampling.cu.
 SAMPLER_KERNEL = "sample_kernel"
@@ -89,6 +105,8 @@ LAUNCHES = ("cudaGraphLaunch", "cudaLaunch", "cuLaunch", "cuGraphLaunch")
 # Chrome-trace categories of device work, and of the host's launch calls.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_API_CATS = ("cuda_runtime", "cuda_driver")
+# The range a fused call's span opens while a profiler runs.
+CALL_RANGE = "apex.call"
 TOP_OPS = 20
 SUMMARY_NICE = 10
 # The package's parent directory, for the summary's child process.
@@ -114,17 +132,19 @@ def summarize_events(events) -> dict:
     """The device timeline of a Chrome trace's ``traceEvents`` (times in
     µs): see the module docstring."""
     by_name: Dict[str, list] = {}
-    spans = []
     sampler_corr = []
     first_record: Dict[object, dict] = {}   # correlation → its earliest device record
     launches: Dict[object, dict] = {}
+    api_calls: Dict[object, dict] = {}      # correlation → the CUDA call that issued it
+    records = []                            # (start, end, correlation)
+    call_ranges = []
     graph_replays = 0
     for e in events:
         cat, name = e.get("cat"), e.get("name", "")
         corr = e.get("args", {}).get("correlation")
         if cat in DEVICE_CATS:
             s, dur = float(e["ts"]), float(e.get("dur", 0.0))
-            spans.append((s, s + dur))
+            records.append((s, s + dur, corr))
             acc = by_name.setdefault(name, [0.0, 0])
             acc[0] += dur
             acc[1] += 1
@@ -132,11 +152,17 @@ def summarize_events(events) -> dict:
                 first_record[corr] = e
             if SAMPLER_KERNEL in name:
                 sampler_corr.append(corr)
-        elif cat in HOST_API_CATS and name.startswith(LAUNCHES):
-            launches[corr] = e
-            graph_replays += name.startswith(GRAPH_LAUNCH)
+        elif cat in HOST_API_CATS:
+            api_calls[corr] = e
+            if name.startswith(LAUNCHES):
+                launches[corr] = e
+                graph_replays += name.startswith(GRAPH_LAUNCH)
+        elif cat == "user_annotation" and name == CALL_RANGE:
+            call_ranges.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                                e.get("tid")))
     leads = [(float(launches[c]["ts"]) - float(r["ts"]), c)
              for c, r in first_record.items() if c in launches]
+    spans = [(s, e) for s, e, _ in records]
     busy = union_of_spans(spans)
     span = (max(e for _, e in spans) - min(s for s, _ in spans)) if spans else 0.0
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:TOP_OPS]
@@ -154,7 +180,43 @@ def summarize_events(events) -> dict:
         "device_clock_lead": _lead_record(first_record[lead_corr], launches[lead_corr],
                                           lead_us) if leads else None,
         "device_records_before_launch": sum(lead > 0 for lead, _ in leads),
+        "calls": _call_spans(sorted(call_ranges), records, api_calls),
     }
+
+
+def _call_spans(ranges: list, records: list, api_calls: dict) -> list:
+    """Per ``apex.call`` range (start, end, thread), in order: its host ms
+    and the device span (ms) of the records whose CUDA call its thread made
+    inside it; ranges with no such record are left out."""
+    starts = [a for a, _, _ in ranges]
+    first: Dict[int, float] = {}
+    last: Dict[int, float] = {}
+    for s, e, corr in records:
+        call = api_calls.get(corr)
+        if call is None:
+            continue
+        t = float(call["ts"])
+        i = bisect.bisect_right(starts, t) - 1
+        if i < 0 or t > ranges[i][1] or call.get("tid") != ranges[i][2]:
+            continue
+        first[i] = min(first.get(i, s), s)
+        last[i] = max(last.get(i, e), e)
+    return [{"host_ms": (ranges[i][1] - ranges[i][0]) / 1e3,
+             "device_span_ms": (last[i] - first[i]) / 1e3} for i in sorted(first)]
+
+
+def clock_check(trace_calls: list, timed_calls: list) -> list:
+    """The trace's calls (``summarize_events``' ``calls``) beside the
+    calls the capture annotated (``StageTimer`` records, in order), each
+    call's device span by the stream's events and by the trace, and their
+    ratio (events over trace)."""
+    out = []
+    for tr, rec in zip(trace_calls, timed_calls):
+        ev = rec["replay_ms"] + rec["eager_ms"] + rec["gap_ms"]
+        out.append({"step": rec["step"], "event_span_ms": round(ev, 4),
+                    "trace_span_ms": round(tr["device_span_ms"], 4),
+                    "ratio": round(ev / tr["device_span_ms"], 4) if tr["device_span_ms"] else None})
+    return out
 
 
 def _lead_record(record: dict, launch: dict, lead_us: float) -> dict:
@@ -273,7 +335,7 @@ class TraceOnDemand:
 
         self._job = None
         self._beat()
-        t0 = time.monotonic()
+        t0 = job["t_stop"] = time.monotonic()
         stopped = stop_trace(job["prof"])
         t1 = time.monotonic()
         self._beat()
@@ -303,6 +365,12 @@ class TraceOnDemand:
             cost["trace_bytes"] = os.path.getsize(path)
             rec["summary"] = summarize_in_child(path)
             cost["summary_ms"] = round((time.monotonic() - t1) * 1e3, 3)
+            # The calls wholly inside the capture: the trace holds the others
+            # in part only.
+            timed = [c for c in current_timer().finished_calls()
+                     if c["annotated"] and c["replays"] and c["t1"] <= job["t_stop"]]
+            if timed:
+                rec["clock_check"] = clock_check(rec["summary"].get("calls", []), timed)
             with open(os.path.join(rec["logdir"], "summary.json"), "w") as f:
                 json.dump(rec, f, default=str)
             self._finish(job, "done")

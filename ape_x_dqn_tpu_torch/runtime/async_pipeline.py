@@ -414,8 +414,10 @@ class AsyncPipeline:
         self.stop_event = threading.Event()
         self._fps = RateCounter(window_s=30.0)
         self._steps_rate = RateCounter(window_s=30.0)
-        # Per-stage host wall clock, exported as stage_us in every emit.
-        self.timers = StageTimer()
+        # Per-stage host wall clock, exported as stage_us in every emit; the
+        # process's current timer, so the fused learners, the graph runner
+        # and the serving tier record their spans into it.
+        self.timers = StageTimer().make_current()
         self._learner_step = self.comps.learner_step
         self.train_seconds = 0.0  # wall time of the learner loop, after warmup
         # Host path: write-back batching.  Device path: depth > 1 or a sync
@@ -525,6 +527,9 @@ class AsyncPipeline:
         self.obs_registry.register_provider("learner", self._learner_varz)
         self.obs_registry.register_provider("trace_spans", self._trace_spans)
         self.obs_registry.register_provider("stage_us", self.timers.us_per_call)
+        if self.fused is not None:
+            self.register_jsonl_section("learner_timeline", self.timers.timeline)
+            self.obs_registry.register_provider("learner_timeline", self.timers.timeline)
         self.health.register("ingest", lambda: time.monotonic() - self.worker.heartbeat)
         self._publisher = _AsyncPublisher(self.store)
         # Built after the restore, so that its first save continues a
@@ -1345,33 +1350,36 @@ class AsyncPipeline:
             next_log = self._learner_step + self.log_every
             next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
-                self.health.beat("learner")
-                fused.ingest_staged(drain=self.worker.finished)
-                beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
-                                     cfg.replay.is_exponent)
-                # The tracer ticks between the call's replays: a capture
-                # starts and stops inside a call.
-                last_metrics = fused.train(beta, on_replay=self.trace_on_demand.tick)
-                inflight.append(last_metrics)
-                if len(inflight) >= self._fused_inflight:
-                    self._force_fused(inflight.pop(0))
-                    while drain_all and inflight:
-                        self._force_fused(inflight.pop(0))
-                self._learner_step += fused.steps_per_call
-                # Publish at most once per fused call.
-                if self._learner_step % max(
-                    cfg.learner.publish_every, fused.steps_per_call
-                ) < fused.steps_per_call:
-                    with self.timers.stage("publish"):
-                        self._publish(fused.params_for_publish())
-                if next_ckpt is not None and self._learner_step >= next_ckpt:
-                    with self.timers.stage("checkpoint"):
-                        self._save_checkpoint()
-                    next_ckpt += cfg.learner.checkpoint_every
-                self._maybe_eval()
-                if self._learner_step >= next_log:
-                    self._emit(last_metrics)
-                    next_log += self.log_every
+                with self.timers.stage("call"):
+                    self.health.beat("learner")
+                    fused.ingest_staged(drain=self.worker.finished)
+                    beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
+                                         cfg.replay.is_exponent)
+                    # The tracer ticks between the call's replays: a capture
+                    # starts and stops inside a call.
+                    last_metrics = fused.train(beta, on_replay=self.trace_on_demand.tick)
+                    inflight.append(last_metrics)
+                    if len(inflight) >= self._fused_inflight:
+                        with self.timers.stage("drain"):
+                            self._force_fused(inflight.pop(0))
+                            while drain_all and inflight:
+                                self._force_fused(inflight.pop(0))
+                    self._learner_step += fused.steps_per_call
+                    # Publish at most once per fused call.
+                    if self._learner_step % max(
+                        cfg.learner.publish_every, fused.steps_per_call
+                    ) < fused.steps_per_call:
+                        with self.timers.stage("publish"):
+                            self._publish(fused.params_for_publish())
+                    if next_ckpt is not None and self._learner_step >= next_ckpt:
+                        with self.timers.stage("checkpoint"):
+                            self._save_checkpoint()
+                        next_ckpt += cfg.learner.checkpoint_every
+                    self._maybe_eval()
+                    if self._learner_step >= next_log:
+                        with self.timers.stage("emit"):
+                            self._emit(last_metrics)
+                        next_log += self.log_every
             while inflight:
                 self._force_fused(inflight.pop(0))
             self._finish_publishes()
@@ -1432,55 +1440,59 @@ class AsyncPipeline:
                          if self._sync_every else None)
             next_ckpt = self._next_checkpoint()
             while self._learner_step < target and not self.stop_event.is_set():
-                self.health.beat("learner")
-                if stager.error is not None:
-                    raise RuntimeError("ingest stager failed") from stager.error
-                with self.timers.stage("ingest"):
-                    # Device half only: the stager carved the blocks.  The
-                    # last full block rides with the call where it can.
-                    blocks = fused.pop_prepared()
-                    fold = None
-                    if blocks and fused.supports_ingest_fold \
-                            and len(blocks[-1][0]) == cfg.learner.ingest_block:
-                        fold = blocks.pop()
-                    for blk in blocks:
-                        fused.add_block(*blk)
-                beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
-                                     cfg.replay.is_exponent)
-                tick = self.trace_on_demand.tick   # between the call's replays
-                with self.timers.stage("fused_dispatch"):
-                    if fold is not None:
-                        last_metrics = pipeline.dispatch(
-                            lambda: fused.train_with_ingest(beta, *fold, on_replay=tick),
-                            fused.steps_per_call)
-                    else:
-                        last_metrics = pipeline.dispatch(
-                            lambda: fused.train(beta, on_replay=tick), fused.steps_per_call)
-                self._learner_step += fused.steps_per_call
-                if next_sync is not None and self._learner_step >= next_sync:
-                    # Cadence: bound how far the host-visible metrics and
-                    # flow control trail the dispatch edge.
-                    with self.timers.stage("pipeline_sync"):
+                with self.timers.stage("call"):
+                    self.health.beat("learner")
+                    if stager.error is not None:
+                        raise RuntimeError("ingest stager failed") from stager.error
+                    with self.timers.stage("ingest") as span:
+                        # Device half only: the stager carved the blocks.  The
+                        # last full block rides with the call where it can.
+                        blocks = fused.pop_prepared()
+                        fold = None
+                        if blocks and fused.supports_ingest_fold \
+                                and len(blocks[-1][0]) == cfg.learner.ingest_block:
+                            fold = blocks.pop()
+                        if blocks:
+                            with fused.graphed_call.stream_piece():
+                                span.rows = sum(fused.add_block(*blk) for blk in blocks)
+                            span.blocks = len(blocks)
+                    beta = beta_schedule(self._learner_step, cfg.learner.total_steps,
+                                         cfg.replay.is_exponent)
+                    tick = self.trace_on_demand.tick   # between the call's replays
+                    with self.timers.stage("fused_dispatch"):
+                        if fold is not None:
+                            last_metrics = pipeline.dispatch(
+                                lambda: fused.train_with_ingest(beta, *fold, on_replay=tick),
+                                fused.steps_per_call)
+                        else:
+                            last_metrics = pipeline.dispatch(
+                                lambda: fused.train(beta, on_replay=tick), fused.steps_per_call)
+                    self._learner_step += fused.steps_per_call
+                    if next_sync is not None and self._learner_step >= next_sync:
+                        # Cadence: bound how far the host-visible metrics and
+                        # flow control trail the dispatch edge.
+                        with self.timers.stage("pipeline_sync"):
+                            pipeline.sync()
+                        while next_sync <= self._learner_step:
+                            next_sync += self._sync_every
+                    if self._learner_step % max(
+                        cfg.learner.publish_every, fused.steps_per_call
+                    ) < fused.steps_per_call:
+                        with self.timers.stage("publish"):
+                            self._publish(fused.params_for_publish())
+                    if next_ckpt is not None and self._learner_step >= next_ckpt:
+                        # Graph replays update the state in place: every call
+                        # dispatched must have landed before the snapshot.
                         pipeline.sync()
-                    while next_sync <= self._learner_step:
-                        next_sync += self._sync_every
-                if self._learner_step % max(
-                    cfg.learner.publish_every, fused.steps_per_call
-                ) < fused.steps_per_call:
-                    with self.timers.stage("publish"):
-                        self._publish(fused.params_for_publish())
-                if next_ckpt is not None and self._learner_step >= next_ckpt:
-                    # Graph replays update the state in place: every call
-                    # dispatched must have landed before the snapshot.
-                    pipeline.sync()
-                    with self.timers.stage("checkpoint"):
-                        self._save_checkpoint()
-                    next_ckpt += cfg.learner.checkpoint_every
-                self._maybe_eval()
-                if self._learner_step >= next_log:
-                    pipeline.sync()  # the emit reads last_metrics on the host
-                    self._emit(last_metrics)
-                    next_log += self.log_every
+                        with self.timers.stage("checkpoint"):
+                            self._save_checkpoint()
+                        next_ckpt += cfg.learner.checkpoint_every
+                    self._maybe_eval()
+                    if self._learner_step >= next_log:
+                        with self.timers.stage("emit"):
+                            pipeline.sync()  # the emit reads last_metrics on the host
+                            self._emit(last_metrics)
+                        next_log += self.log_every
             pipeline.sync()
             self._finish_publishes()
             self._finish_checkpoints()

@@ -66,6 +66,7 @@ from ape_x_dqn_tpu_torch.runtime.fused_learner import sampling_generator, shard_
 from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import DedupChunk, TrainState
+from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
 _TXN_FIELDS = ("obs_seq", "next_seq", "action", "reward", "discount", "prio")
 
@@ -481,10 +482,18 @@ class FusedDedupLearner:
         return n
 
     def ingest_staged(self, drain: bool = False) -> int:
-        """Carve and add staged blocks inline (learner thread).  Returns the
-        transition rows ingested."""
-        self.prepare_staged(drain=drain)
-        return sum(self.add_block(k, b) for k, b in self.pop_prepared())
+        """Carve and add staged blocks inline (learner thread), as the span
+        ``ingest`` with the rows and blocks it moved; the adds are one piece
+        of the learner stream's clock.  Returns the transition rows
+        ingested."""
+        with current_timer().stage("ingest") as span:
+            self.prepare_staged(drain=drain)
+            blocks = self.pop_prepared()
+            if blocks:
+                with self._call.stream_piece():
+                    span.rows = sum(self.add_block(k, b) for k, b in blocks)
+                span.blocks = len(blocks)
+        return span.rows
 
     @property
     def supports_ingest_fold(self) -> bool:

@@ -59,6 +59,7 @@ from ape_x_dqn_tpu_torch.runtime.graphed_call import GraphedCall
 from ape_x_dqn_tpu_torch.runtime.infeed import HostToDevice
 from ape_x_dqn_tpu_torch.types import NStepTransition, TrainState
 from ape_x_dqn_tpu_torch.utils.checkpoint import adopt_rng_state
+from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
 
 class FusedDeviceLearner:
@@ -240,10 +241,17 @@ class FusedDeviceLearner:
         return rows
 
     def ingest_staged(self, drain: bool = False) -> int:
-        """Assemble and add staged rows inline (learner thread).  Returns
-        rows ingested."""
-        self.prepare_staged(drain=drain)
-        return sum(self.add_block(p, t) for p, t in self.pop_prepared())
+        """Assemble and add staged rows inline (learner thread), as the
+        span ``ingest`` with the rows and blocks it moved; the adds are one
+        piece of the learner stream's clock.  Returns rows ingested."""
+        with current_timer().stage("ingest") as span:
+            self.prepare_staged(drain=drain)
+            blocks = self.pop_prepared()
+            if blocks:
+                with self._call.stream_piece():
+                    span.rows = sum(self.add_block(p, t) for p, t in blocks)
+                span.blocks = len(blocks)
+        return span.rows
 
     def train(self, beta: float, u: Optional[torch.Tensor] = None,
               on_replay: Optional[Callable[[int], None]] = None):
@@ -275,7 +283,8 @@ class FusedDeviceLearner:
             )
         if self._mesh is not None:
             raise RuntimeError("ingest folding is single-device only")
-        self.add_block(priorities, transitions)
+        with self._call.stream_piece():
+            self.add_block(priorities, transitions)
         return self.train(beta, u, on_replay)
 
 

@@ -55,6 +55,19 @@ How it meets the traps of capturing a training step:
   unpaced and ~3 ms paced (``profile_serving``).
   So the runner keeps at most ``MAX_REPLAYS_AHEAD`` replays in flight,
   waiting (GIL released) on the event of the replay that many back.
+* **The stream's clock.**  Every piece of a call's device work on the
+  learner's stream is bracketed by two timing events (``StreamClock``):
+  each replay (a start event before it, the pacer's event after it), the
+  eager load of the call's inputs, the metrics copy with the target sync
+  after the replays, and the fused learners' ingest adds.  They are read
+  only once the pacer has synchronized past them, so the clock adds no
+  sync and no host read of the device: consecutive events give a piece's
+  device ms (start to end) or the stream's idle gap before a piece (end
+  to start), and ``utils/profiling.StageTimer`` charges each gap to the
+  learner thread's spans over the host time it lasted, right before the
+  late piece was issued.  The host spans ``load``, ``tick``, ``pace_wait``,
+  ``replay`` and ``read_metrics`` go to the process's current timer.
+  ``ShardedGraphedCall`` keeps untimed events.
 * **Launch counting.**  ``sample_indices.launches`` counts on the host
   when a launch is issued; a capture issues none and a replay issues one
   per captured launch.  So the runner undoes the counts of its warm-up and
@@ -74,12 +87,15 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
+from collections import deque
 from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from ape_x_dqn_tpu_torch.ops import sampling
 from ape_x_dqn_tpu_torch.replay.device import FusedBody, finish_call, run_eager
+from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
 # Steps captured in one step graph (G).  Not a config key.  On an NVIDIA
 # H100 80GB HBM3 at 700 W (profile_fused, double-store ring of 100 000
@@ -91,7 +107,7 @@ STEPS_PER_GRAPH = 1
 WARMUP_STEPS = 2
 # Replays in flight at most (the pacing above): ~19 ms of step graphs at
 # 1.2 ms per step, so the host's wake-ups never starve the card.  0 turns
-# the pacing off (``profile_serving`` measures both).
+# the pacing off (``profile_serving`` measures both), and the clock with it.
 MAX_REPLAYS_AHEAD = 16
 
 
@@ -167,30 +183,106 @@ def _capture_graph(fn: Callable[[], None], device: torch.device, pool) -> tuple:
     return graph, sampling.sample_indices.launches - before
 
 
+class StreamClock:
+    """Timing events on the learner's stream (see the module docstring).
+
+    ``mark`` records one event after the work issued so far and notes the
+    open call record of the current ``StageTimer``; ``read_through(ev)``,
+    once ``ev`` is synchronized, reads every mark up to it, each against
+    the one before, into that record (``StageTimer.device_reading``), and
+    recycles the events.
+    """
+
+    def __init__(self):
+        self._free: list = []
+        self._marks: deque = deque()
+        self._prev: Optional[tuple] = None
+
+    def mark(self, stream, start: bool, replay: bool, steps: int = 0) -> "torch.cuda.Event":
+        ev = self._free.pop() if self._free else torch.cuda.Event(enable_timing=True,
+                                                                     blocking=True)
+        timer = current_timer()
+        t = timer.now()
+        ev.record(stream)
+        rec = timer.call
+        if rec is not None:
+            rec["marks"] += 1
+        self._marks.append((ev, start, replay, steps, rec, t, threading.get_ident(), timer))
+        return ev
+
+    @contextlib.contextmanager
+    def piece(self, stream):
+        """Eager work on ``stream`` between a start and an end mark, inside
+        a call only: a call's replays come after it, and the pacer's wait
+        on them reads it (outside one, as in a warm-up's ingest polls,
+        nothing would, and the marks would pile up)."""
+        timed = current_timer().call is not None
+        if timed:
+            self.mark(stream, True, False)
+        yield
+        if timed:
+            self.mark(stream, False, False)
+
+    def read_through(self, event) -> None:
+        """Read every mark up to ``event``, which the caller synchronized."""
+        while self._marks:
+            m = self._marks.popleft()
+            ev, start, replay, steps, rec, t, tid, timer = m
+            prev, self._prev = self._prev, m
+            ms = 0.0
+            if prev is not None:
+                ms = prev[0].elapsed_time(ev)
+                self._free.append(prev[0])
+            timer.device_reading(rec, start, replay, steps, ms, t, tid)
+            if ev is event:
+                return
+
+
 class _Pacer:
     """At most ``MAX_REPLAYS_AHEAD`` ticks in flight: a tick waits for the
     event of the tick that many back (a blocking event: the learner thread
     sleeps instead of spinning a core the actors need), issues its work,
-    and records its own event on ``device``'s current stream."""
+    and records its own event on ``device``'s current stream.  With a
+    ``clock`` those events are its end marks, read once waited for, and a
+    start mark goes before each tick's work."""
 
-    def __init__(self):
-        self._events: list = []
-        self._ticks = 0
+    def __init__(self, clock: Optional[StreamClock] = None):
+        self.clock = clock
+        self._inflight: deque = deque()
+        self._free: list = []
 
-    def tick(self, device: torch.device, issue: Callable[[], None]) -> None:
+    def tick(self, device: torch.device, issue: Callable[[], None], steps: int = 0,
+             spans: tuple = ()) -> None:
+        """``spans``: the caller's spans of this tick so far (name, t0, t1),
+        recorded with the tick's ``pace_wait`` and ``replay``."""
         ahead = MAX_REPLAYS_AHEAD
         if not ahead:
             issue()
             return
-        if len(self._events) != ahead:
-            self._events = [torch.cuda.Event(blocking=True) for _ in range(ahead)]
-            self._ticks = 0
-        ev = self._events[self._ticks % ahead]
-        if self._ticks >= ahead:
+        timer, clock = current_timer(), self.clock
+        now = timer.now
+        t0 = now()
+        while len(self._inflight) >= ahead:
+            ev = self._inflight.popleft()
             ev.synchronize()
+            if clock is not None:
+                clock.read_through(ev)
+            else:
+                self._free.append(ev)
+        t1 = now()
+        stream = torch.cuda.current_stream(device)
+        if clock is not None:
+            clock.mark(stream, True, True, steps)
+        t2 = now()
         issue()
-        ev.record(torch.cuda.current_stream(device))
-        self._ticks += 1
+        t3 = now()
+        if clock is not None:
+            ev = clock.mark(stream, False, True, steps)
+        else:
+            ev = self._free.pop() if self._free else torch.cuda.Event(blocking=True)
+            ev.record(stream)
+        self._inflight.append(ev)
+        timer.closed((*spans, ("pace_wait", t0, t1), ("replay", t2, t3)))
 
 
 class GraphedCall:
@@ -218,7 +310,8 @@ class GraphedCall:
         self._graphs: list = []
         self._signature: Optional[tuple] = None
         self.captures = 0
-        self._pacer = _Pacer()
+        self._clock = StreamClock()
+        self._pacer = _Pacer(self._clock)
         self.replays = 0
 
     def bind(self, train_state, replay_state) -> FusedBody:
@@ -242,29 +335,48 @@ class GraphedCall:
                  generator: Optional[torch.Generator] = None,
                  on_replay: Optional[Callable[[int], None]] = None):
         body = self.bind(train_state, replay_state)
+        timer = current_timer()
+        timer.call_step(train_state.step)
         if body.device.type == "cuda":
-            body.load(beta, u, generator)
+            with timer.stage("load"), self.stream_piece():
+                body.load(beta, u, generator)
             self._replay(body.device, train_state.step, on_replay)
-            metrics = body.read_metrics()
+            with timer.stage("read_metrics"), self.stream_piece():
+                metrics = body.read_metrics()
+                finish_call(train_state, self.steps_per_call, self.target_sync_freq)
         else:
             metrics = run_eager(body, beta, u, generator, on_replay, train_state.step)
-        finish_call(train_state, self.steps_per_call, self.target_sync_freq)
+            finish_call(train_state, self.steps_per_call, self.target_sync_freq)
         return train_state, replay_state, metrics
+
+    def stream_piece(self):
+        """Eager work the caller issues on the learner's stream, as one
+        piece of the stream's clock (the fused learners' ingest adds)."""
+        body = self.body
+        if body is None or body.device.type != "cuda" or not MAX_REPLAYS_AHEAD:
+            return contextlib.nullcontext()
+        return self._clock.piece(torch.cuda.current_stream(body.device))
 
     def _replay(self, device: torch.device, step: int,
                 on_replay: Optional[Callable[[int], None]]) -> None:
         """Every graph of one call, in order, paced (see the module
         docstring); ``on_replay`` at each replay boundary."""
+        timer = current_timer()
+        now = timer.now
         for graph, launches, steps, replays in self._graphs:
             for _ in range(replays):
+                spans = ()
                 if on_replay is not None:
+                    t0 = now()
                     on_replay(step)
-                self._pacer.tick(device, graph.replay)
+                    spans = (("tick", t0, now()),)
+                self._pacer.tick(device, graph.replay, steps, spans)
                 self.replays += 1
                 sampling.sample_indices.launches += launches
                 step += steps
         if on_replay is not None:
-            on_replay(step)
+            with timer.stage("tick"):
+                on_replay(step)
 
     def _capture(self, body: FusedBody) -> None:
         dev = body.device
@@ -351,6 +463,10 @@ class ShardedGraphedCall:
         elif types != {"cpu"}:
             raise ValueError(f"no sharded fused call over devices {sorted(types)}")
         return body
+
+    def stream_piece(self):
+        """Untimed (see the module docstring)."""
+        return contextlib.nullcontext()
 
     @staticmethod
     def _sharded_signature(body) -> tuple:

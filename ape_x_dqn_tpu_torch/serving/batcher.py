@@ -32,6 +32,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from ape_x_dqn_tpu_torch.utils.metrics import LatencyHistogram, RateCounter
+from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
 
 class ServingError(Exception):
@@ -239,6 +240,10 @@ class MicroBatcher:
             # argmax keeps padding inert regardless of content.
             pad = np.broadcast_to(obs[:1], (bucket - n, *obs.shape[1:]))
             obs = np.concatenate([obs, pad], axis=0)
+        # Each request's queue wait, enqueue to the start of its batch's
+        # forward, into the process's timeline (serve_queue_wait_p95_ms).
+        start = time.monotonic()
+        current_timer().queue_wait(start, [start - r.t_enqueue for r in batch])
         try:
             actions, q_values, version = self._run_batch(obs)
         except Exception as e:  # noqa: BLE001 — delivered to each waiter

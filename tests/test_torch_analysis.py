@@ -512,8 +512,9 @@ def test_declared_metric_names_equal_jax():
         jax_repo, ("ape_x_dqn_tpu/obs/registry.py", "ape_x_dqn_tpu/utils/metrics.py"))}
     port_names = {(k, n) for k, n, _, _ in metrics_doc._declared_names(
         core.Repo(REPO), core.METRICS_EXCLUDED_PATHS)}
-    assert port_names == jax_names
-    assert len(port_names) == 37
+    # The port's one name of its own: the fused learner's timeline section.
+    assert port_names == jax_names | {("section", "learner_timeline")}
+    assert len(port_names) == 38
     assert {k for k, _ in port_names} == {"instrument", "section"}
 
 
