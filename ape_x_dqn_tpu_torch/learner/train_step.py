@@ -15,7 +15,10 @@ The optimizer is written by hand to match optax, not taken from
     Its step ``count`` is an int32 tensor on the params' device and the
     bias corrections 1 − b^count are computed from it in float32, as optax
     does, so a step captured in a CUDA graph corrects right on every replay.
-Parameters, optimizer state and the target net update in place.
+Parameters, optimizer state and the target net update in place.  On the
+card, RMSProp's clip and update run as one hand-written kernel pair over
+every leaf (``ops/rmsprop.py``, dispatched in ``Optimizer.update_``); the
+op-by-op code here is its plain version and runs every other case.
 
 The JAX package's low-precision knobs (``train_step.py:52-134,174-210``):
   * ``second_moment_dtype`` (RMSProp only) stores ν in that dtype: ν is
@@ -36,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ape_x_dqn_tpu_torch.ops import losses
+from ape_x_dqn_tpu_torch.ops import losses, rmsprop
 from ape_x_dqn_tpu_torch.types import PrioritizedBatch, TrainState
 
 Params = Dict[str, torch.Tensor]
@@ -84,7 +87,19 @@ class Optimizer:
 
     @torch.no_grad()
     def update_(self, params: Params, grads: Params, state: dict) -> None:
-        """One step: clip, transform, and add the update to ``params``."""
+        """One step: clip, transform, and add the update to ``params``.
+
+        RMSProp without a master copy on the card (any param or gradient a
+        CUDA tensor, ``rmsprop.on_card``) always runs as the fused kernel
+        pair of ``ops/rmsprop``, which raises for tensors it cannot take;
+        every other case runs ``clip`` then ``apply_``, the plain version of
+        the same arithmetic."""
+        if self.kind == "rmsprop" and not self.float32_master \
+                and rmsprop.on_card(params, grads):
+            rmsprop.update_(params, grads, state["nu"], learning_rate=self.learning_rate,
+                            decay=self.rmsprop_decay, eps=self.rmsprop_eps,
+                            max_grad_norm=self.max_grad_norm)
+            return
         self.apply_(params, self.clip(grads), state)
 
     @torch.no_grad()

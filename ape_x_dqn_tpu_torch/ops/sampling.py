@@ -58,33 +58,40 @@ def sample_indices_reference(priorities: torch.Tensor,
     return torch.clamp(idx, 0, priorities.shape[0] - 1).to(torch.int32)
 
 
-def build_library(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
-    """Compile ``csrc/sampling.cu`` unless this source's library exists.
+def build_cuda_library(source: Path, stem: str,
+                       extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``source`` (a ``csrc/*.cu`` with a plain C interface) into
+    ``BUILD_DIR/<stem>_<hash of source and flags>.so`` unless it exists.
     Returns the library path and the compiler's output ("" when cached).
     Raises if ``nvcc`` fails."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    src = _SOURCE.read_bytes()
+    src = source.read_bytes()
     flags = (*NVCC_FLAGS, *extra_flags)
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libapex_sampling_{tag}.so"
+    lib = BUILD_DIR / f"{stem}_{tag}.so"
     if lib.exists():
         return lib, ""
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
-                           f"{_SOURCE.name}")
+                           f"{source.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *flags,
-           "-o", str(tmp), str(_SOURCE)]
+           "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SOURCE.name}:\n"
+            f"nvcc failed ({res.returncode}) building {source.name}:\n"
             f"{res.stdout}{res.stderr}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
     return lib, res.stdout + res.stderr
+
+
+def build_library(extra_flags: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """``csrc/sampling.cu``'s library (``build_cuda_library``)."""
+    return build_cuda_library(_SOURCE, "libapex_sampling", extra_flags)
 
 
 def plan(C: int, num_sms: int) -> tuple[int, int, int]:

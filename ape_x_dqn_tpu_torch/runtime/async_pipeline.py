@@ -140,7 +140,7 @@ from ape_x_dqn_tpu_torch.obs import (
     LineageTracker,
     MetricsRegistry,
 )
-from ape_x_dqn_tpu_torch.ops import sampling
+from ape_x_dqn_tpu_torch.ops import rmsprop, sampling
 from ape_x_dqn_tpu_torch.parallel.multihost import process_count, process_index
 from ape_x_dqn_tpu_torch.runtime.components import build_components
 from ape_x_dqn_tpu_torch.runtime.infeed import (
@@ -760,11 +760,13 @@ class AsyncPipeline:
 
     def _trace_counters(self) -> dict:
         """What a capture's record holds as ``counters`` (deltas over its
-        window): the sampler's launches and, on the fused path, the graph
-        runner's replays; on the host path the learner's steps (the fused
-        path's ``_learner_step`` moves only after a call, and its window
-        starts and stops inside one: its steps are ``steps_traced``)."""
-        out = {"sampler_launches": sampling.sample_indices.launches}
+        window): the sampler's and the RMSProp kernel's launches and, on the
+        fused path, the graph runner's replays; on the host path the
+        learner's steps (the fused path's ``_learner_step`` moves only after
+        a call, and its window starts and stops inside one: its steps are
+        ``steps_traced``)."""
+        out = {"sampler_launches": sampling.sample_indices.launches,
+               "rmsprop_launches": rmsprop.update_.launches}
         if self.fused is None:
             out["learner_steps"] = self._learner_step
         else:
@@ -1548,10 +1550,11 @@ class AsyncPipeline:
             self.logger.log("learner/loss", float(metrics.loss.reshape(-1)[-1]))
             self.logger.log("learner/mean_q", float(metrics.mean_q.reshape(-1)[-1]))
         # The sampler kernel's launches in this process (0 on the host path,
-        # which samples on the CPU): a learner run as its own process
-        # reports them here.
+        # which samples on the CPU) and the RMSProp kernel's (two a step on
+        # the card): a learner run as its own process reports them here.
         path = {"stage_us": self.timers.us_per_call(),
-                "sampler_launches": sampling.sample_indices.launches}
+                "sampler_launches": sampling.sample_indices.launches,
+                "rmsprop_launches": rmsprop.update_.launches}
         if self.fused is not None:
             path["staged_rows"] = self.fused.staged_rows
         if self._dispatch_pipeline is not None:

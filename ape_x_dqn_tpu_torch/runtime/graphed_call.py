@@ -68,12 +68,14 @@ How it meets the traps of capturing a training step:
   late piece was issued.  The host spans ``load``, ``tick``, ``pace_wait``,
   ``replay`` and ``read_metrics`` go to the process's current timer.
   ``ShardedGraphedCall`` keeps untimed events.
-* **Launch counting.**  ``sample_indices.launches`` counts on the host
-  when a launch is issued; a capture issues none and a replay issues one
-  per captured launch.  So the runner undoes the counts of its warm-up and
-  capture (set-up, rolled back with the state they touched) and adds a
-  graph's captured launches right after each of its replays; ``replays``
-  counts the replays issued.  A count read between two replays is exact.
+* **Launch counting.**  The hand-written kernels' wrappers count on the
+  host when a launch is issued (``sampling.sample_indices.launches``,
+  ``rmsprop.update_.launches``); a capture issues none and a replay issues
+  one per captured launch.  So the runner undoes the counts of its warm-up
+  and capture (set-up, rolled back with the state they touched) and adds a
+  graph's captured launches of each kernel right after each of its
+  replays; ``replays`` counts the replays issued.  A count read between
+  two replays is exact.
 * **Replay boundaries.**  ``on_replay(step)``, where given, is called on
   the calling thread before each replay and once after the last, with the
   learner step reached so far: the call's first step (``train_state.step``)
@@ -93,7 +95,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from ape_x_dqn_tpu_torch.ops import sampling
+from ape_x_dqn_tpu_torch.ops import rmsprop, sampling
 from ape_x_dqn_tpu_torch.replay.device import FusedBody, finish_call, run_eager
 from ape_x_dqn_tpu_torch.utils.profiling import current_timer
 
@@ -109,6 +111,24 @@ WARMUP_STEPS = 2
 # 1.2 ms per step, so the host's wake-ups never starve the card.  0 turns
 # the pacing off (``profile_serving`` measures both), and the clock with it.
 MAX_REPLAYS_AHEAD = 16
+
+
+# The kernels whose launches the runner counts (see "Launch counting").
+_COUNTED = (sampling.sample_indices, rmsprop.update_)
+
+
+def _launch_counts() -> tuple:
+    return tuple(k.launches for k in _COUNTED)
+
+
+def _set_launch_counts(counts: tuple) -> None:
+    for k, n in zip(_COUNTED, counts):
+        k.launches = n
+
+
+def _add_launches(counts: tuple) -> None:
+    for k, n in zip(_COUNTED, counts):
+        k.launches += n
 
 
 def _state_tensors(body: FusedBody) -> List[Tuple[str, torch.Tensor]]:
@@ -174,13 +194,14 @@ def _warm_up(bodies: list, run: Callable[[], None]) -> None:
 
 
 def _capture_graph(fn: Callable[[], None], device: torch.device, pool) -> tuple:
-    """(graph, sampler launches it holds): ``fn`` captured on ``device``."""
+    """(graph, launches it holds of each kernel of ``_COUNTED``): ``fn``
+    captured on ``device``."""
     graph = torch.cuda.CUDAGraph()
-    before = sampling.sample_indices.launches
+    before = _launch_counts()
     with torch.cuda.device(device):
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             fn()
-    return graph, sampling.sample_indices.launches - before
+    return graph, tuple(a - b for a, b in zip(_launch_counts(), before))
 
 
 class StreamClock:
@@ -306,7 +327,7 @@ class GraphedCall:
         self.steps_per_call = steps_per_call
         self.target_sync_freq = target_sync_freq
         self.body: Optional[FusedBody] = None
-        # (graph, sampler launches captured, steps per replay, replays per call)
+        # (graph, launches captured per kernel, steps per replay, replays per call)
         self._graphs: list = []
         self._signature: Optional[tuple] = None
         self.captures = 0
@@ -372,7 +393,7 @@ class GraphedCall:
                     spans = (("tick", t0, now()),)
                 self._pacer.tick(device, graph.replay, steps, spans)
                 self.replays += 1
-                sampling.sample_indices.launches += launches
+                _add_launches(launches)
                 step += steps
         if on_replay is not None:
             with timer.stage("tick"):
@@ -382,7 +403,7 @@ class GraphedCall:
         dev = body.device
         K = self.steps_per_call
         self._graphs, self._signature = [], None   # release the old pool first
-        launches = sampling.sample_indices.launches
+        launches = _launch_counts()
 
         def warm():
             body.load(0.0, torch.zeros_like(body.u))
@@ -410,7 +431,7 @@ class GraphedCall:
         pool = torch.cuda.graph_pool_handle()
         self._graphs = [(*_capture_graph(fn, dev, pool), n, replays)
                         for fn, n, replays in pieces]
-        sampling.sample_indices.launches = launches
+        _set_launch_counts(launches)
         self._signature = _signature(body)
         self.captures += 1
 
@@ -497,7 +518,7 @@ class ShardedGraphedCall:
                     continue
                 graph.replay()
                 self.replays += 1
-                sampling.sample_indices.launches += launches
+                _add_launches(launches)
 
         if name == "apply":     # one tick per step
             self._pacer.tick(self.body.slots[0].device, issue)
@@ -508,7 +529,7 @@ class ShardedGraphedCall:
         from ape_x_dqn_tpu_torch.replay.device_dp import run_sharded
 
         self._graphs, self._signature = [], None   # release the old pools first
-        launches = sampling.sample_indices.launches
+        launches = _launch_counts()
 
         def warm():
             body.load(0.0, torch.zeros((body.n, *body.slots[0].u.shape),
@@ -525,13 +546,13 @@ class ShardedGraphedCall:
         wanted = ["grads", "apply"]
         wanted = (["prologue"] + wanted + ["epilogue"] if body.sample_ahead
                   else ["sample"] + wanted)
-        graphs = [{name: (None, 0) for name in body.PIECES} for _ in body.slots]
+        graphs = [{name: (None, ()) for name in body.PIECES} for _ in body.slots]
         for name in wanted:          # capture order: a piece's inputs exist first
             for s, b in enumerate(body.slots):
                 graphs[s][name] = _capture_graph(getattr(b, name), b.device, pools[b.device])
         for b in body.slots:
             b.k.zero_()
-        sampling.sample_indices.launches = launches
+        _set_launch_counts(launches)
         self._graphs = graphs
         self._signature = self._sharded_signature(body)
         self.captures += 1

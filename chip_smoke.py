@@ -6,8 +6,9 @@
 Phases, each printing one JSON line:
   1. device   — the card's name and count, and nvidia-smi's name and
                 power limit;
-  2. build    — compile the sampling kernel (``ops/csrc/sampling.cu``) from
-                the checkout with nvcc, and the host replays' C++ cores
+  2. build    — compile the sampling kernel (``ops/csrc/sampling.cu``) and
+                the clip and RMSProp kernel pair (``ops/csrc/rmsprop.cu``)
+                from the checkout with nvcc, and the host replays' C++ cores
                 (``_native/sum_tree.cc``, ``_native/replay_core.cc``) with
                 g++, timed;
   2a. lint    — the port's apexlint on this checkout: ``python -m
@@ -35,6 +36,19 @@ Phases, each printing one JSON line:
                 the plain version (``bench_sampler``: warm = CUDA-graph
                 replay, cold = profiler spans after an L2 flush) and the
                 host time of one wrapper call;
+  3b. kernel (rmsprop) — the clip and RMSProp pair at config3's 14 leaves
+                (bfloat16 ν, ``max_grad_norm`` 40) on the main path's
+                gradients (one ``local_grads`` pass on a batch of 32, the
+                conv weights' channels-last as cuDNN hands them back):
+                params and ν equal to the plain version's bit for bit over
+                8 steps whose clip does not engage, two device kernels a
+                step (profiler); device ms
+                cold (L2 flushed) and warm (CUDA-graph replay) beside the
+                byte bound (16 B a param at 3.35 TB/s), the plain version's
+                launches and times, and ``library_ms`` null (no single
+                PyTorch call computes this update).  ``python3 chip_smoke.py
+                --rmsprop-kernel`` runs the device line, the build and this
+                phase alone;
   3a. atari_golden — the port's numpy ``ObsPreprocess`` (cv2's fixed-point
                 luminance and area resize, no cv2) against
                 ``tests/fixtures/atari_golden.npz``, byte for byte; host µs
@@ -194,7 +208,8 @@ Phases, each printing one JSON line:
                 increasing across calls; ``chaos/<kind>`` on ``/metrics``
                 equal to the monkey's counts; ``/healthz`` answering at
                 every scrape, 503 only for ``ingest_stager`` in a stall;
-                one sampler launch per call; no /dev/shm segment left.
+                one sampler launch per call and two RMSProp kernel launches
+                per step; no /dev/shm segment left.
                 Learner steps/s per call and actor fps beside phase 14's;
  15. serve_parity — the card's ``PolicyServer`` (its forwards on a
                 high-priority stream of their own) against the port's plain
@@ -397,7 +412,23 @@ DEDUP_WARMUP = 4_096
 ATARI_WARMUP = 16_384
 
 
+# The clip and RMSProp pair's launches and learner steps of each train.main
+# or serve.main run since the last phase line (``counted_rmsprop``), and
+# by phase once that line is out.
+_RMSPROP_PENDING: list = []
+RMSPROP_BY_PATH: dict = {}
+
+
 def emit(obj) -> None:
+    """Prints one JSON line; a phase line takes the RMSProp pair's count of
+    the learner runs since the last one (``rmsprop_launches``,
+    ``rmsprop_steps``), and ``RMSPROP_BY_PATH`` keeps it by phase."""
+    if _RMSPROP_PENDING and isinstance(obj, dict) and "phase" in obj:
+        count = {"rmsprop_launches": sum(c["launches"] for c in _RMSPROP_PENDING),
+                 "rmsprop_steps": sum(c["steps"] for c in _RMSPROP_PENDING)}
+        _RMSPROP_PENDING.clear()
+        obj = {**obj, **count}
+        RMSPROP_BY_PATH[obj["phase"]] = count
     print(json.dumps(obj), flush=True)
 
 
@@ -647,8 +678,6 @@ def phase_parity():
 def phase_train(sampling, card: str, steps: int = 512):
     import torch
 
-    from ape_x_dqn_tpu_torch import train
-
     argv = [
         "--device", "cuda", "--steps", str(steps), "--log-every", "128",
         "--set", "learner.device_replay=true",
@@ -665,17 +694,8 @@ def phase_train(sampling, card: str, steps: int = 512):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sampling.sample_indices.launches = 0
-    out = io.StringIO()
-    t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
-        rc = train.main(argv)
-    wall = time.monotonic() - t0
+    final, wall = run_train(argv)
     launches = sampling.sample_indices.launches
-    records = [json.loads(line) for line in out.getvalue().splitlines()
-               if line.startswith("{")]
-    final = records[-1]
-    if rc != 0 or not final.get("final"):
-        raise AssertionError(f"train.main returned {rc} without a final record")
     if final["step"] < steps:
         raise AssertionError(f"reached {final['step']} of {steps} learner steps")
     loss = final.get("learner/loss")
@@ -809,6 +829,7 @@ def capture_pipelines():
     seen, run = [], AsyncPipeline.run
 
     def observed(self, *args, **kwargs):
+        self.smoke_first_step = self._learner_step   # the restored step, or 0
         seen.append(self)
         return run(self, *args, **kwargs)
 
@@ -867,14 +888,57 @@ def steady_rate(clock: dict, warmup: int) -> dict:
             "first_steps_stage_us": per_call(s0, n0)}
 
 
+def rmsprop_per_step(pipe) -> int:
+    """The clip and RMSProp pair's launches a learner step of ``pipe``: 2
+    (1 without a clip) for each update of RMSProp without a float32 master
+    copy on the card, and 0 otherwise.  A step is one update, or under
+    ``data_parallel`` n one per replica on the fused path (each steps whole
+    on the reduced gradient, ``replay/device_dp``) and none on the host
+    path (its mesh step clips and applies apart, ``parallel/dp``)."""
+    opt = pipe.comps.optimizer
+    on_card = next(iter(pipe.comps.state.params.values())).is_cuda
+    if opt.kind != "rmsprop" or opt.float32_master or not on_card:
+        return 0
+    n = pipe.cfg.learner.data_parallel
+    updates = 1 if n == 1 else (n if pipe.fused is not None else 0)
+    return updates * (1 if opt.max_grad_norm is None else 2)
+
+
+@contextlib.contextmanager
+def counted_rmsprop():
+    """Counts the clip and RMSProp pair's launches over the ``train.main``
+    or ``serve.main`` run inside, into the dict it yields (``launches``,
+    ``steps``), and gates them: each ``AsyncPipeline`` run adds
+    ``rmsprop_per_step`` × the steps its learner took in this process (from
+    its first step, a restored one included), so a learner step on the card
+    that went past the kernel fails the phase.  A run with no pipeline
+    (``--mode sync``) is counted, and its phase gates it."""
+    from ape_x_dqn_tpu_torch.ops import rmsprop
+
+    count = {"launches": 0, "steps": 0}
+    before = rmsprop.update_.launches
+    with capture_pipelines() as seen:
+        yield count
+    count["launches"] = rmsprop.update_.launches - before
+    if seen:
+        count["steps"] = sum(p._learner_step - p.smoke_first_step for p in seen)
+        want = sum(rmsprop_per_step(p) * (p._learner_step - p.smoke_first_step) for p in seen)
+        if count["launches"] != want:
+            raise AssertionError(f"{count['launches']} RMSProp kernel launches in "
+                                 f"{count['steps']} learner steps, want {want}")
+    _RMSPROP_PENDING.append(count)
+
+
 def run_train(argv, records: list | None = None):
     """``train.main(argv)`` with its stdout captured: (final record, wall s).
-    ``records``, when given, receives every JSONL record of the run."""
+    ``records``, when given, receives every JSONL record of the run.  The
+    clip and RMSProp pair's count is gated (``counted_rmsprop``) and goes in
+    the final record as ``smoke_rmsprop``."""
     from ape_x_dqn_tpu_torch import train
 
     out = io.StringIO()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
+    with counted_rmsprop() as count, contextlib.redirect_stdout(out):
         rc = train.main(argv)
     wall = time.monotonic() - t0
     records = records if records is not None else []
@@ -886,6 +950,7 @@ def run_train(argv, records: list | None = None):
     loss = final.get("learner/loss")
     if loss is None or not np.isfinite(loss):
         raise AssertionError(f"loss not finite: {loss}")
+    final["smoke_rmsprop"] = count
     return final, wall
 
 
@@ -951,6 +1016,11 @@ def phase_host_sync(sampling, steps: int = 64):
         raise AssertionError(f"reached {final['step']} of {steps} learner steps")
     if launches != 0:
         raise AssertionError(f"{launches} sampler kernel launches in --mode sync")
+    fused = final["smoke_rmsprop"]["launches"]
+    if fused != 2 * final["step"]:
+        raise AssertionError(f"{fused} RMSProp kernel launches in {final['step']} steps of "
+                             "--mode sync, want two a step")
+    final["smoke_rmsprop"]["steps"] = final["step"]
     result = {"phase": "host_sync", "learner_steps": final["step"],
               "loss": final["learner/loss"], "sampler_launches": launches,
               "actor_steps": final["actor_steps"], "wall_s": wall}
@@ -2287,19 +2357,12 @@ def phase_obs_host(sampling, card: str, steps: int = OBS_HOST_STEPS) -> dict:
             "--set", "obs.trace_sample_rate=1.0", *FULL_WIDTH]
     torch.cuda.synchronize()
     sampling.sample_indices.launches = 0
-    out = io.StringIO()
-    from ape_x_dqn_tpu_torch import train
-
-    t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
-        rc = train.main(argv)
-    wall = time.monotonic() - t0
+    records = []
+    final, wall = run_train(argv, records)
     launches = sampling.sample_indices.launches
-    records = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
-    final = records[-1]
     spans = [r for r in records if r.get("event") == "lineage_span"]
-    if rc != 0 or not final.get("final") or final["step"] != steps or launches:
-        raise AssertionError(f"obs_train_host: rc {rc}, {final.get('step')} steps, "
+    if final["step"] != steps or launches:
+        raise AssertionError(f"obs_train_host: {final['step']} steps, "
                              f"{launches} sampler launches")
     bad = [s for s in spans if not (s["t_act"] <= s["t_ingest"] <= s["t_first_sample"]
                                     <= s["t_trained"])]
@@ -2646,7 +2709,7 @@ def phase_serve_attach(sampling, card: str, duration: float = SERVE_DURATION_S):
     sampling.sample_indices.launches = 0
     out = io.StringIO()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
+    with counted_rmsprop(), contextlib.redirect_stdout(out):
         rc = serve.main(argv)
     wall = time.monotonic() - t0
     recs = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
@@ -6118,10 +6181,11 @@ def phase_autopilot_train(sampling, card: str, calibrate: bool = False) -> dict:
                  "learner.replay_sample_size=32", "learner.second_moment_dtype=bfloat16",
                  "learner.target_dtype=bfloat16", "actor.num_steps=3",
                  "actor.flush_every=8", "actor.sync_every=100"]
-    result = autopilot_drill("cuda", overrides, age_bound_ms=1e9 if calibrate
-                             else AP_AGE_BOUND_MS, window_s=AP_WINDOW_S,
-                             scrape_s=AP_SCRAPE_S, root=AP_ROOT, calibrate=calibrate,
-                             contexts_fn=card_contexts)
+    with counted_rmsprop():
+        result = autopilot_drill("cuda", overrides, age_bound_ms=1e9 if calibrate
+                                 else AP_AGE_BOUND_MS, window_s=AP_WINDOW_S,
+                                 scrape_s=AP_SCRAPE_S, root=AP_ROOT, calibrate=calibrate,
+                                 contexts_fn=card_contexts)
     result = {"phase": "autopilot_calibrate" if calibrate else "autopilot_train",
               "card": card, **result,
               "cuts": {"env": "fake-atari for SeaquestNoFrameskip-v4 (no Atari on the "
@@ -6167,6 +6231,7 @@ def main() -> int:
     emit({"phase": "build", "library": lib.name, "seconds": time.monotonic() - t0,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
+    rmsprop = build_rmsprop()
     t0 = time.monotonic()
     tree_lib, tree_log = native.build_library()
     emit({"phase": "build", "library": tree_lib.name, "compiler": native.CXX,
@@ -6180,6 +6245,7 @@ def main() -> int:
 
     phase_lint()
     rows = phase_kernel(sampling)
+    fused_row = phase_rmsprop_kernel(rmsprop)
     phase_atari_golden(card=smi)
     phase_parity()
     trained = phase_train(sampling, card=smi)
@@ -6290,9 +6356,143 @@ def main() -> int:
                                                 "plain_warm_ms", "bound_ms",
                                                 "roofline_share")},
         "shapes": rows,
+    }, {
+        "name": "rmsprop",
+        "route": "cuda",
+        "source": "ape_x_dqn_tpu_torch/ops/csrc/rmsprop.cu",
+        "replaces": None,
+        # Every learner phase's count, each gated at the launches a step ×
+        # its steps (counted_rmsprop, rmsprop_per_step): 2 on the card, 2 a
+        # replica on the fused data-parallel path, 0 where the optimizer is
+        # Adam, keeps a float32 master or is the host path's mesh step.  Not
+        # counted: replay_svc_train's learners, processes of their own.
+        "launches": RMSPROP_BY_PATH["atari_train"]["rmsprop_launches"],
+        "steps": RMSPROP_BY_PATH["atari_train"]["rmsprop_steps"],
+        "launches_by_path": {k: v["rmsprop_launches"] for k, v in RMSPROP_BY_PATH.items()},
+        "steps_by_path": {k: v["rmsprop_steps"] for k, v in RMSPROP_BY_PATH.items()},
+        **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "cold_ms", "warm_ms", "plain_warm_ms", "roofline_share",
+                                     "plain_kernels", "params", "leaves")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
+    return 0
+
+
+def build_rmsprop():
+    """Builds the clip and RMSProp kernel pair and prints the build line;
+    returns ``ops.rmsprop``."""
+    from ape_x_dqn_tpu_torch.ops import rmsprop
+
+    t0 = time.monotonic()
+    lib, log = rmsprop.build_library()
+    emit({"phase": "build", "library": lib.name, "seconds": time.monotonic() - t0,
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "Compiling entry" in ln or "stack" in ln]})
+    return rmsprop
+
+
+def phase_rmsprop_kernel(rmsprop) -> dict:
+    """The clip and RMSProp kernel pair at config3's leaves (see phase 3b)."""
+    import torch
+
+    from ape_x_dqn_tpu_torch import bench_sampler as bench
+    from ape_x_dqn_tpu_torch.learner.train_step import (
+        build_train_step,
+        init_train_state,
+        make_optimizer,
+    )
+    from ape_x_dqn_tpu_torch.models.dueling import DuelingDQN
+    from ape_x_dqn_tpu_torch.types import NStepTransition, PrioritizedBatch
+
+    dev = torch.device("cuda")
+    # The main path's gradients: one local_grads pass of config3's network
+    # on a batch of 32, in the layouts cuDNN hands them back in (the conv
+    # weights' channels-last, read through their strides).
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = DuelingDQN(4, (84, 84, 1))
+    opt = make_optimizer("rmsprop", second_moment_dtype=torch.bfloat16)
+    train_state = init_train_state(net, opt, seed=SEED, device=dev)
+    r = np.random.default_rng(SEED)
+    B = 32
+    frames = [torch.from_numpy(r.integers(0, 256, (B, 84, 84, 1), dtype=np.uint8)).to(dev)
+              for _ in range(2)]
+    batch = PrioritizedBatch(
+        transition=NStepTransition(
+            obs=frames[0], next_obs=frames[1],
+            action=torch.from_numpy(r.integers(0, 4, B).astype(np.int32)).to(dev),
+            reward=torch.from_numpy(r.normal(size=B).astype(np.float32)).to(dev),
+            discount=torch.full((B,), 0.97, device=dev)),
+        indices=torch.arange(B, dtype=torch.int32, device=dev),
+        is_weights=torch.ones(B, device=dev))
+    grads, _ = build_train_step(net, opt, sync_in_step=False).local_grads(train_state, batch)
+    relaid = sorted(k for k, g in grads.items() if not g.is_contiguous())
+    params, state = train_state.params, train_state.opt_state
+    plain = {k: v.clone() for k, v in params.items()}
+    plain_state = {"nu": {k: v.clone() for k, v in state["nu"].items()}}
+    n = sum(v.numel() for v in params.values())
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads.values())))
+    if not norm < opt.max_grad_norm:
+        raise AssertionError(f"rmsprop kernel: gradient norm {norm} engages the clip")
+    before = rmsprop.update_.launches
+    for _ in range(8):
+        opt.update_(params, grads, state)
+        opt.apply_(plain, opt.clip(grads), plain_state)
+    torch.cuda.synchronize()
+    if rmsprop.update_.launches - before != 16:
+        raise AssertionError(f"rmsprop kernel: {rmsprop.update_.launches - before} "
+                             "launches in 8 steps")
+    differ = [k for k in params if not (torch.equal(params[k], plain[k]) and torch.equal(
+        state["nu"][k], plain_state["nu"][k]))]
+    if differ:
+        raise AssertionError(f"rmsprop kernel: leaves {differ} differ from the plain version")
+
+    def kernel():
+        opt.update_(params, grads, state)
+
+    def plain_step():
+        opt.apply_(plain, opt.clip(grads), plain_state)
+
+    flush = torch.empty(bench.FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    calls = bench.device_calls(kernel, 3, flush)
+    if any(len(c) != 2 for c in calls):
+        raise AssertionError(f"rmsprop kernel: device activities per step "
+                             f"{[[a[0] for a in c] for c in calls]}, want two kernels")
+    plain_calls = bench.device_calls(plain_step, 1, flush)
+    cold, warm = bench.cold_ms(kernel, 50, flush), bench.warm_ms(kernel, 100)
+    plain_cold, plain_warm = bench.cold_ms(plain_step, 20, flush), bench.warm_ms(plain_step, 20)
+    bound = 16 * n / bench.HBM_BYTES_PER_S * 1e3
+    row = {"phase": "kernel", "kernel": "rmsprop", "params": n, "leaves": len(params),
+           "grads": "local_grads of DuelingDQN(4, (84, 84, 1)), B = 32",
+           "grads_relaid": relaid, "grad_norm": norm,
+           "nu": "bfloat16", "max_grad_norm": opt.max_grad_norm, "identical_steps": 8,
+           "kernels": [a[0][:60] for a in calls[0]],
+           "ms": cold, "cold_ms": cold, "warm_ms": warm,
+           "bound_ms": bound, "bound_by": "bytes", "roofline_share": bound / cold,
+           "warm_roofline_share": bound / warm,
+           "plain_ms": plain_cold, "plain_warm_ms": plain_warm,
+           "plain_kernels": len(plain_calls[0]), "library_ms": None,
+           "host_us": bench.host_us(kernel), "plain_host_us": bench.host_us(plain_step)}
+    emit(row)
+    return row
+
+
+def rmsprop_kernel_only() -> int:
+    """``python3 chip_smoke.py --rmsprop-kernel``: the device line, the clip
+    and RMSProp pair's build and its kernel phase (3b) alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    phase_rmsprop_kernel(build_rmsprop())
     return 0
 
 
@@ -6321,6 +6521,8 @@ def autopilot_calibrate() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--autopilot-calibrate"]:
         raise SystemExit(autopilot_calibrate())
+    if sys.argv[1:2] == ["--rmsprop-kernel"]:
+        raise SystemExit(rmsprop_kernel_only())
     if sys.argv[1:2] == ["--ckpt-child"]:
         raise SystemExit(ckpt_child(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-child"]:

@@ -32,7 +32,7 @@ from ape_x_dqn_tpu_torch import config as tconfig
 from ape_x_dqn_tpu_torch.learner import train_step as ttrain
 from ape_x_dqn_tpu_torch.models import dueling as tdueling
 from ape_x_dqn_tpu_torch.obs.trace import TraceOnDemand, summarize_events
-from ape_x_dqn_tpu_torch.ops import sampling
+from ape_x_dqn_tpu_torch.ops import rmsprop, sampling
 from ape_x_dqn_tpu_torch.replay import device as tdev
 from ape_x_dqn_tpu_torch.runtime import graphed_call
 from ape_x_dqn_tpu_torch.types import NStepTransition
@@ -134,26 +134,32 @@ class _FakeGraph:
 
 def test_sampler_launches_are_counted_per_replay(monkeypatch):
     """Fake graphs in the runner (no pacing): at every boundary the
-    sampler's count and the runner's replays cover exactly the replays
-    issued, so a window that ends inside a call counts its own."""
+    sampler's count, the RMSProp kernel's count (two a step graph) and the
+    runner's replays cover exactly the replays issued, so a window that
+    ends inside a call counts its own."""
     monkeypatch.setattr(graphed_call, "MAX_REPLAYS_AHEAD", 0)
     call = graphed_call.GraphedCall(types.SimpleNamespace(update=None), steps_per_call=4,
                                     batch_size=B, priority_exponent=0.6,
                                     target_sync_freq=None, sample_ahead=True)
     log: list = []
-    call._graphs = [(_FakeGraph("prologue", log), 1, 0, 1), (_FakeGraph("step", log), 0, 1, 4),
-                    (_FakeGraph("epilogue", log), 0, 0, 1)]
+    call._graphs = [(_FakeGraph("prologue", log), (1, 0), 0, 1),
+                    (_FakeGraph("step", log), (0, 2), 1, 4),
+                    (_FakeGraph("epilogue", log), (0, 0), 0, 1)]
     seen = []
     launches0 = sampling.sample_indices.launches
     monkeypatch.setattr(sampling.sample_indices, "launches", launches0)
+    fused0 = rmsprop.update_.launches
+    monkeypatch.setattr(rmsprop.update_, "launches", fused0)
     call._replay(torch.device("cpu"), 100, lambda step: seen.append(
-        (step, sampling.sample_indices.launches - launches0, call.replays, len(log))))
+        (step, sampling.sample_indices.launches - launches0,
+         rmsprop.update_.launches - fused0, call.replays, len(log))))
     assert log == ["prologue"] + ["step"] * 4 + ["epilogue"]
-    assert seen == [(100, 0, 0, 0), (100, 1, 1, 1), (101, 1, 2, 2), (102, 1, 3, 3),
-                    (103, 1, 4, 4), (104, 1, 5, 5), (104, 1, 6, 6)]
+    assert seen == [(100, 0, 0, 0, 0), (100, 1, 0, 1, 1), (101, 1, 2, 2, 2), (102, 1, 4, 3, 3),
+                    (103, 1, 6, 4, 4), (104, 1, 8, 5, 5), (104, 1, 8, 6, 6)]
     # A second call: the counts go on from where the first left them.
     call._replay(torch.device("cpu"), 104, None)
     assert sampling.sample_indices.launches - launches0 == 2 and call.replays == 12
+    assert rmsprop.update_.launches - fused0 == 2 * 8
 
 
 def _fused_cfg(**over):
@@ -200,9 +206,10 @@ def test_fused_runtime_traces_the_window_inside_a_call(tmp_path, pipelined):
     rec = _finished(pipe.trace_on_demand)
     assert rec["steps_traced"] == 8
     # The fused path's counters: the runner's replays (none on the CPU) and
-    # the sampler's launches (its plain version on the CPU); no step count
-    # that moves only after a call.
-    assert rec["counters"] == {"sampler_launches": 0, "graph_replays": 0}
+    # the sampler's and the RMSProp kernel's launches (their plain versions
+    # on the CPU); no step count that moves only after a call.
+    assert rec["counters"] == {"sampler_launches": 0, "rmsprop_launches": 0,
+                               "graph_replays": 0}
 
 
 def _kernel(name, ts, corr, stream=7):
